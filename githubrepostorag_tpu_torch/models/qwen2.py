@@ -1,0 +1,258 @@
+"""Qwen2-family decoder in PyTorch; port of ``githubrepostorag_tpu/models/qwen2.py``.
+
+Architecture (HF ``Qwen2ForCausalLM``): token embedding, N blocks of
+[RMSNorm -> GQA attention with QKV bias + RoPE -> residual, RMSNorm ->
+SwiGLU MLP -> residual], final RMSNorm, (optionally tied) LM head.
+
+Parameters are a plain dict with the JAX package's layout: per-layer leaves
+stacked on a leading L axis (``params["layers"]["wq"]`` is [L, d, n_q*hd]),
+linear weights stored [in, out] so the forward is ``x @ w``.  The fused
+single-chip serving layout (``wqkv``/``bqkv``/``wgu``, models/quant.py) is
+accepted wherever the unfused one is.
+
+Where the JAX functions return fresh caches and donate the old ones, these
+update the KV caches and page pools IN PLACE and return the same tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from githubrepostorag_tpu_torch.device import resolve_device
+from githubrepostorag_tpu_torch.models.quant import embedding_lookup
+from githubrepostorag_tpu_torch.ops.attention import dense_attention
+from githubrepostorag_tpu_torch.ops.fused_decode import fused_paged_attention
+from githubrepostorag_tpu_torch.ops.norms import rms_norm
+from githubrepostorag_tpu_torch.ops.paged_attention import paged_attention_ref
+from githubrepostorag_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+
+
+@dataclass(frozen=True)
+class Qwen2Config:
+    vocab_size: int = 151936
+    hidden_size: int = 896
+    intermediate_size: int = 4864
+    num_layers: int = 24
+    num_heads: int = 14
+    num_kv_heads: int = 2
+    head_dim: int = 64
+    rope_theta: float = 1_000_000.0
+    rms_norm_eps: float = 1e-6
+    tie_word_embeddings: bool = True
+    max_position_embeddings: int = 32768
+
+    # ---- presets (HF config.json values; MoE presets are not ported) ----
+
+    @classmethod
+    def tiny(cls) -> "Qwen2Config":
+        """Test-scale config (CI / parity tests)."""
+        return cls(
+            vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=2,
+            num_heads=4, num_kv_heads=2, head_dim=16, rope_theta=10_000.0,
+            tie_word_embeddings=True, max_position_embeddings=512,
+        )
+
+    @classmethod
+    def qwen2_0_5b(cls) -> "Qwen2Config":
+        return cls(
+            hidden_size=896, intermediate_size=4864, num_layers=24,
+            num_heads=14, num_kv_heads=2, head_dim=64, tie_word_embeddings=True,
+        )
+
+    @classmethod
+    def qwen2_1_5b(cls) -> "Qwen2Config":
+        return cls(
+            hidden_size=1536, intermediate_size=8960, num_layers=28,
+            num_heads=12, num_kv_heads=2, head_dim=128, tie_word_embeddings=True,
+        )
+
+    @classmethod
+    def qwen2_7b(cls) -> "Qwen2Config":
+        return cls(
+            hidden_size=3584, intermediate_size=18944, num_layers=28,
+            num_heads=28, num_kv_heads=4, head_dim=128, tie_word_embeddings=False,
+            vocab_size=152064,
+        )
+
+
+def init_params(cfg: Qwen2Config, generator: torch.Generator, device=None,
+                dtype=torch.float32) -> dict:
+    """Random init (normal 0.02, the HF default) with stacked layer leaves,
+    drawn on ``device`` from ``generator`` (which must live there)."""
+    dev = resolve_device(device)
+    d, nq, nkv, hd = cfg.hidden_size, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    inter, L = cfg.intermediate_size, cfg.num_layers
+
+    def norm(*shape):
+        return torch.randn(shape, generator=generator, device=dev, dtype=dtype).mul_(0.02)
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=dev, dtype=dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, device=dev, dtype=dtype)
+
+    params = {
+        "embed": norm(cfg.vocab_size, d),
+        "layers": {
+            "ln1": ones(L, d), "ln2": ones(L, d),
+            "wq": norm(L, d, nq * hd), "bq": zeros(L, nq * hd),
+            "wk": norm(L, d, nkv * hd), "bk": zeros(L, nkv * hd),
+            "wv": norm(L, d, nkv * hd), "bv": zeros(L, nkv * hd),
+            "wo": norm(L, nq * hd, d),
+            "wg": norm(L, d, inter), "wu": norm(L, d, inter), "wd": norm(L, inter, d),
+        },
+        "norm": ones(d),
+    }
+    if not cfg.tie_word_embeddings:
+        params["lm_head"] = norm(d, cfg.vocab_size)
+    return params
+
+
+def layer_params(layers: dict, li: int) -> dict:
+    """One layer's leaves (views into the stacked tensors)."""
+    return {name: leaf[li] for name, leaf in layers.items()}
+
+
+def _block(cfg: Qwen2Config, h, p, cos, sin, attend):
+    """One transformer block.  ``attend(q, k, v) -> attn_out`` commits this
+    step's K/V into whatever cache the caller uses and returns the
+    attention output, so the dense and paged paths share this body."""
+    b, s, _ = h.shape
+    nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    hn = rms_norm(h, p["ln1"], cfg.rms_norm_eps)
+    if "wqkv" in p:  # fused single-chip serving layout
+        q, k, v = torch.split(hn @ p["wqkv"] + p["bqkv"],
+                              [nq * hd, nkv * hd, nkv * hd], dim=-1)
+    else:
+        q = hn @ p["wq"] + p["bq"]
+        k = hn @ p["wk"] + p["bk"]
+        v = hn @ p["wv"] + p["bv"]
+    q = q.reshape(b, s, nq, hd)
+    k = k.reshape(b, s, nkv, hd)
+    v = v.reshape(b, s, nkv, hd)
+    q, k = apply_rope(q, k, cos, sin)
+
+    attn = attend(q, k, v)
+    h = h + attn.reshape(b, s, nq * hd) @ p["wo"]
+
+    hn = rms_norm(h, p["ln2"], cfg.rms_norm_eps)
+    if "wgu" in p:
+        g, u = torch.chunk(hn @ p["wgu"], 2, dim=-1)
+    else:
+        g, u = hn @ p["wg"], hn @ p["wu"]
+    return h + (F.silu(g) * u) @ p["wd"]
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with a float32 result from operands in their stored dtype
+    (the JAX ``preferred_element_type=float32`` contraction): a bf16 result
+    would flip the argmax of near-tied logits, and upcasting the weight
+    would copy the whole matrix every call."""
+    if x.dtype == torch.float32 and w.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[-1])
+    return x.float() @ w.float()
+
+
+def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
+    """Final projection -> float32 logits (tied embedding or lm_head)."""
+    lm_head = params.get("lm_head")
+    return matmul_f32(h, params["embed"].t() if lm_head is None else lm_head)
+
+
+def forward(params: dict, cfg: Qwen2Config, input_ids, positions, cache_k=None,
+            cache_v=None, kv_lengths=None):
+    """Full forward -> (logits [B, S, V] float32, (cache_k, cache_v) or None).
+
+    Without a cache: causal attention over the input.  With a dense cache
+    ([L, B, S_cache, n_kv, hd]): new K/V are written in place at each row's
+    ``kv_lengths`` offset and attention covers the cache.  The JAX version's
+    ``dynamic_update_slice`` clamps out-of-range starts; here
+    ``kv_lengths + S`` beyond the cache raises instead."""
+    h = embedding_lookup(params["embed"], input_ids)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    b, s = input_ids.shape
+    use_cache = cache_k is not None
+    if use_cache:
+        if int((kv_lengths + s).max()) > cache_k.shape[2]:
+            raise ValueError("kv_lengths + S exceeds the cache length")
+        rows = torch.arange(b, device=h.device)[:, None]
+        slots = kv_lengths.long()[:, None] + torch.arange(s, device=h.device)
+
+    for li in range(cfg.num_layers):
+        p = layer_params(params["layers"], li)
+        if use_cache:
+            ck, cv = cache_k[li], cache_v[li]
+
+            def attend(q, k, v):
+                ck[rows, slots] = k.to(ck.dtype)
+                cv[rows, slots] = v.to(cv.dtype)
+                return dense_attention(q, ck, cv, causal=True, q_offset=kv_lengths,
+                                       kv_lengths=kv_lengths + s)
+        else:
+            def attend(q, k, v):
+                return dense_attention(q, k, v, causal=True, q_offset=0)
+        h = _block(cfg, h, p, cos, sin, attend)
+
+    h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
+    logits = _logits(params, h)
+    return logits, ((cache_k, cache_v) if use_cache else None)
+
+
+def forward_paged(
+    params: dict,
+    cfg: Qwen2Config,
+    input_ids: torch.Tensor,  # [B, S] int, right-padded per row
+    positions: torch.Tensor,  # [B, S] int absolute positions
+    k_pages: torch.Tensor,  # [L, n_kv, P, page_size, hd], updated in place
+    v_pages: torch.Tensor,
+    slot_mapping: torch.Tensor,  # [B, S] int flat pool slots, -1 for padding
+    block_tables: torch.Tensor,  # [B, max_pages] int32
+    cached_lens: torch.Tensor,  # [B] int32 tokens in cache before this step
+    new_lens: torch.Tensor,  # [B] int32 valid new tokens this step
+    use_kernels: bool = True,
+    logits_at: torch.Tensor | None = None,  # [B] per-row chunk index
+):
+    """Prefill-chunk step over the paged KV cache (the JAX
+    ``forward_paged`` and its unjitted body ``forward_paged_impl`` in one:
+    nothing here is traced).
+
+    Each layer's new K/V are committed into the pools at ``slot_mapping``
+    (padding slots are dropped), then attention runs over each row's block
+    table: through kernel A (``ops/fused_decode.py``) with ``use_kernels``,
+    else through the plain ``paged_attention_ref``.  ``logits_at`` projects
+    logits at one chunk position per row ([B, 1, V]) instead of every
+    position.  Returns (logits float32, k_pages, v_pages)."""
+    from githubrepostorag_tpu_torch.serving.kv_cache import commit_paged
+
+    attn_fn = fused_paged_attention if use_kernels else paged_attention_ref
+    b, _ = input_ids.shape
+    nkv, hd = cfg.num_kv_heads, cfg.head_dim
+    page_size = k_pages.shape[3]
+
+    h = embedding_lookup(params["embed"], input_ids)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    flat_slots = slot_mapping.reshape(-1)
+
+    for li in range(cfg.num_layers):
+        p = layer_params(params["layers"], li)
+        kp, vp = k_pages[li], v_pages[li]
+
+        def attend(q, k, v):
+            commit_paged(kp, k.reshape(-1, nkv, hd).transpose(0, 1), flat_slots, page_size)
+            commit_paged(vp, v.reshape(-1, nkv, hd).transpose(0, 1), flat_slots, page_size)
+            return attn_fn(q, kp, vp, block_tables, cached_lens, new_lens)
+
+        h = _block(cfg, h, p, cos, sin, attend)
+
+    h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
+    if logits_at is not None:
+        h = h[torch.arange(b, device=h.device), logits_at.long()][:, None, :]
+    return _logits(params, h), k_pages, v_pages

@@ -1,0 +1,114 @@
+"""Decode-burst paged attention (kernel B); port of
+``githubrepostorag_tpu/ops/pallas_paged.py::paged_attention_decode_staged``
+(:281), full-precision rank-5 pools.
+
+One decode query per row attends to the frozen pool prefix (``pool_lens[b]``
+tokens through its block table) and then to the burst's staged K/V tail
+(entries ``< staged_len``).  Pools are the whole ``[L, n_kv, P, ps, hd]``
+tensors plus an integer layer index, so no per-layer copy is made.  Masked
+scores are -1e30, a row with no valid KV outputs 0, and scores and
+accumulators are float32.
+
+``paged_attention_decode_staged`` launches the hand-written Hopper kernel
+``csrc/paged_decode_staged.cu`` for CUDA tensors and runs
+``paged_attention_decode_staged_ref``, the plain PyTorch version, for CPU
+tensors.  The int8 pool branch of the TPU kernel is not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from githubrepostorag_tpu_torch import kernels
+from githubrepostorag_tpu_torch.ops.paged_attention import gather_kv
+
+NEG_INF = -1e30
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+_MAX_GROUP = 8
+
+
+def paged_attention_decode_staged_ref(q, k_pages, v_pages, block_tables, pool_lens,
+                                      staged_k, staged_v, staged_len: int, layer: int):
+    """Plain PyTorch version of kernel B: gather the layer's pages, append
+    the staged tail, mask, softmax in float32."""
+    b, _, n_q, hd = q.shape
+    dev = q.device
+    pk, pv = gather_kv(k_pages[layer], v_pages[layer], block_tables)  # [B, T, n_kv, hd]
+    t, n_kv = pk.shape[1], pk.shape[2]
+    n_steps = staged_k.shape[2]
+    group = n_q // n_kv
+    k_all = torch.cat([pk, staged_k.transpose(1, 2)], dim=1).float()
+    v_all = torch.cat([pv, staged_v.transpose(1, 2)], dim=1).float()
+    valid = torch.cat([
+        torch.arange(t, device=dev)[None, :] < pool_lens.to(dev)[:, None],
+        (torch.arange(n_steps, device=dev) < staged_len)[None, :].expand(b, n_steps),
+    ], dim=1)[:, None, None, :]  # [B, 1, 1, T + n_steps]
+
+    qg = q.reshape(b, n_kv, group, hd).float()
+    scores = torch.einsum("bngh,btnh->bngt", qg, k_all) * (1.0 / hd ** 0.5)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    p = torch.where(valid, torch.exp(scores - scores.amax(dim=-1, keepdim=True)), 0.0)
+    denom = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bngt,btnh->bngh", p / torch.where(denom == 0, 1.0, denom), v_all)
+    return out.reshape(b, 1, n_q, hd).to(q.dtype)
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"paged_attention_decode_staged: {msg}")
+
+
+def paged_attention_decode_staged(q, k_pages, v_pages, block_tables, pool_lens,
+                                  staged_k, staged_v, staged_len: int, layer: int):
+    """q [B, 1, n_q, hd]; k_pages/v_pages [L, n_kv, P, ps, hd]; block_tables
+    [B, max_pages] int32; pool_lens [B] int32 (valid pool-prefix tokens);
+    staged_k/v [B, n_kv, n_steps, hd]; ``staged_len`` staged entries valid
+    this step; ``layer`` the pool's layer.  Returns [B, 1, n_q, hd] in
+    q.dtype.  CPU tensors take the plain version; CUDA tensors launch the
+    kernel or raise."""
+    if q.device.type == "cpu":
+        return paged_attention_decode_staged_ref(q, k_pages, v_pages, block_tables,
+                                                 pool_lens, staged_k, staged_v,
+                                                 staged_len, layer)
+    _require(q.device.type == "cuda", f"unsupported device {q.device}")
+    tensors = (q, k_pages, v_pages, block_tables, pool_lens, staged_k, staged_v)
+    _require(all(x.device == q.device for x in tensors), "all operands must be on one device")
+    _require(all(x.is_contiguous() for x in tensors), "operands must be contiguous")
+    _require(q.dim() == 4 and q.shape[1] == 1, "q must be [B, 1, n_q, hd]")
+    _require(k_pages.dim() == 5 and v_pages.shape == k_pages.shape,
+             "pools must be rank-5 [L, n_kv, P, ps, hd] and alike")
+    b, _, n_q, hd = q.shape
+    n_layers, n_kv, num_pages, page_size, hd_pool = k_pages.shape
+    _require(0 <= layer < n_layers, f"layer {layer} outside [0, {n_layers})")
+    _require(hd_pool == hd and hd in _HEAD_DIMS, f"head_dim {hd} (pool {hd_pool}) not in {_HEAD_DIMS}")
+    _require(n_q % n_kv == 0 and n_q // n_kv <= _MAX_GROUP,
+             f"GQA group {n_q}/{n_kv} must divide evenly and be <= {_MAX_GROUP}")
+    dtype = q.dtype
+    _require(dtype in _DTYPES and all(x.dtype == dtype for x in (k_pages, v_pages, staged_k, staged_v)),
+             "q, pools and staged tail must share one dtype: bf16 or f32")
+    _require(staged_k.dim() == 4 and staged_k.shape[:2] == (b, n_kv) and staged_k.shape[3] == hd
+             and staged_v.shape == staged_k.shape, "staged k/v must be [B, n_kv, n_steps, hd]")
+    n_steps = staged_k.shape[2]
+    _require(1 <= staged_len <= n_steps, f"staged_len {staged_len} outside [1, {n_steps}]")
+    _require(block_tables.dim() == 2 and block_tables.shape[0] == b
+             and block_tables.dtype == torch.int32, "block_tables must be [B, max_pages] int32")
+    _require(pool_lens.shape == (b,) and pool_lens.dtype == torch.int32,
+             "pool_lens must be [B] int32")
+    _require(all(x.data_ptr() % 16 == 0 for x in (q, k_pages, v_pages, staged_k, staged_v)),
+             "q, pools and staged tail must be 16-byte aligned")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = kernels.launcher("paged_decode_staged")(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), staged_k.data_ptr(),
+        staged_v.data_ptr(), out.data_ptr(), block_tables.data_ptr(), pool_lens.data_ptr(),
+        b, n_q, n_kv, num_pages, page_size, hd, block_tables.shape[1], n_steps,
+        int(staged_len), int(layer), _DTYPES[dtype], 1.0 / hd ** 0.5, stream,
+    )
+    kernels.check_launch("paged_attention_decode_staged", err)
+    paged_attention_decode_staged.launches += 1
+    return out
+
+
+paged_attention_decode_staged.launches = 0  # kernel launches (CUDA path only)

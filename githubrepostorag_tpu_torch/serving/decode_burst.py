@@ -1,0 +1,118 @@
+"""Multi-step decode burst; port of ``githubrepostorag_tpu/serving/decode_burst.py``.
+
+``decode_burst`` runs ``n_steps`` decode iterations for every active row
+with no host sync inside: sampled tokens feed the next step's embedding
+lookup on the device, the repetition-penalty presence mask updates in
+place, and the host reads only the final [B, n_steps] token block.
+
+The page pools stay frozen during the burst.  Each step's new K/V go to a
+small staged buffer [L, B, n_kv, n_steps, hd]; attention covers (pool
+prefix) + (staged tail so far); the staged tokens are committed into the
+pools once, at burst end, with ``commit_paged``.  Attention runs kernel B
+(``ops/paged_decode.py``) on the whole rank-5 pools; on CPU tensors its
+wrapper runs the plain version.
+
+Rows self-deactivate when they reach ``row_limits`` (their allocated page
+capacity), so a burst never writes beyond a row's pages.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config, _block, _logits, layer_params
+from githubrepostorag_tpu_torch.models.quant import embedding_lookup
+from githubrepostorag_tpu_torch.ops.paged_decode import paged_attention_decode_staged
+from githubrepostorag_tpu_torch.ops.rope import rope_cos_sin
+from githubrepostorag_tpu_torch.ops.sampling import sample_tokens_capped, sample_tokens_nofilter
+from githubrepostorag_tpu_torch.serving.kv_cache import commit_paged
+
+
+def decode_burst(
+    params: dict,
+    cfg: Qwen2Config,
+    last_tokens: torch.Tensor,  # [B] int32, last committed token (may be -1)
+    seq_lens: torch.Tensor,  # [B] int32 tokens already cached per row
+    k_pages: torch.Tensor,  # [L, n_kv, P, ps, hd], updated in place
+    v_pages: torch.Tensor,
+    presence: torch.Tensor,  # [B, >= V] bool, updated in place
+    active: torch.Tensor,  # [B] bool
+    row_limits: torch.Tensor,  # [B] int32 max cacheable tokens per row
+    block_tables: torch.Tensor,  # [B, max_pages] int32
+    generator: torch.Generator,
+    temperature: torch.Tensor,  # [B] float32
+    top_p: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B] int32
+    repetition_penalty: torch.Tensor,  # [B]
+    n_steps: int,
+    filter_sampling: bool = True,  # False: no running row filters (top_p >= 1,
+    # top_k <= 0), so sampling takes the sort-free path
+):
+    """Returns (tokens [B, n_steps] int32, valid [B, n_steps] bool, k_pages,
+    v_pages, presence, seq_lens).  ``tokens`` is packed: -1 where the row was
+    inactive, so the host learns tokens and validity from one transfer.
+    Presence columns past the vocab are never read or written here (the
+    engine keeps one extra column as its drop sentinel)."""
+    b = last_tokens.shape[0]
+    L, n_kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    page_size = k_pages.shape[3]
+    dev = last_tokens.device
+    rows = torch.arange(b, device=dev)
+    vocab = cfg.vocab_size
+    start_lens = seq_lens  # pool validity is frozen for the whole burst
+
+    staged_k = torch.zeros((L, b, n_kv, n_steps, hd), dtype=k_pages.dtype, device=dev)
+    staged_v = torch.zeros_like(staged_k)
+    staged_idx = torch.arange(n_steps, device=dev)
+
+    last, lens, act = last_tokens, seq_lens, active
+    toks_out, valid_out = [], []
+    for step in range(n_steps):
+        act = act & (lens < row_limits)
+        # last may carry the -1 inactive sentinel (packed tokens chained
+        # across bursts): clamp so inactive rows look up a real embedding
+        h = embedding_lookup(params["embed"], torch.clamp(last, min=0)[:, None])
+        cos, sin = rope_cos_sin(lens[:, None], hd, cfg.rope_theta)
+
+        for li in range(L):
+            p = layer_params(params["layers"], li)
+
+            def attend(q, k_new, v_new):
+                staged_k[li, :, :, step] = k_new[:, 0].to(staged_k.dtype)
+                staged_v[li, :, :, step] = v_new[:, 0].to(staged_v.dtype)
+                return paged_attention_decode_staged(
+                    q, k_pages, v_pages, block_tables, start_lens,
+                    staged_k[li], staged_v[li], step + 1, li)
+
+            h = _block(cfg, h, p, cos, sin, attend)
+        logits = _logits(params, h)[:, 0]
+
+        pres = presence[:, :vocab]
+        if filter_sampling:
+            toks = sample_tokens_capped(logits, generator, temperature, top_p, top_k,
+                                        repetition_penalty, pres)
+        else:
+            toks = sample_tokens_nofilter(logits, generator, temperature,
+                                          repetition_penalty, pres)
+        toks = torch.where(act, toks, last)
+        tok_idx = toks.long()
+        presence[rows, tok_idx] = presence[rows, tok_idx] | act
+        lens = lens + act.to(lens.dtype)
+        last = toks
+        toks_out.append(toks)
+        valid_out.append(act)
+
+    toks = torch.stack(toks_out, dim=1)
+    valid = torch.stack(valid_out, dim=1)
+    packed = torch.where(valid, toks, -1).to(torch.int32)
+
+    # one scatter commits the whole burst's staged K/V into the pools
+    pos = start_lens[:, None].long() + staged_idx[None, :]  # [B, n_steps]
+    page_idx = torch.clamp(pos // page_size, 0, block_tables.shape[1] - 1)
+    slots = torch.gather(block_tables.long(), 1, page_idx) * page_size + pos % page_size
+    flat_slots = torch.where(valid, slots, -1).reshape(-1)  # -1 is dropped
+    for pools, staged in ((k_pages, staged_k), (v_pages, staged_v)):
+        # [L, B, n_kv, n, hd] -> [L, n_kv, B*n, hd] in flat_slots order
+        vals = staged.transpose(1, 2).reshape(L, n_kv, b * n_steps, hd)
+        commit_paged(pools, vals, flat_slots, page_size)
+    return packed, valid, k_pages, v_pages, presence, lens

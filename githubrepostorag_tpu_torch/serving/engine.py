@@ -1,0 +1,742 @@
+"""The generation engine: chunked prefill + pipelined decode bursts over the
+paged KV cache, with continuous batching; port of the default serving path
+of ``githubrepostorag_tpu/serving/engine.py``.
+
+What it runs: bf16 (or f32) weights and KV pages, padded chunked prefill
+(``forward_paged`` -> kernel A), prefix caching, and pipelined decode
+bursts (``decode_burst`` -> kernel B).  Scheduling -- admission, page
+allocation, who prefills and who decodes -- is host-side Python; compute
+stays on the device.
+
+Pipelining: while only decoding, burst k+1 is dispatched before burst k's
+tokens are read, so the device->host read overlaps the next burst's
+compute.  A prefill wave that completes prompts while other rows run keeps
+its first tokens on the device (``_pending_first``); they are overlaid into
+the next burst's chained last-token/length state and committed with that
+burst's read.  The first host read (``.tolist()`` / ``.cpu()``) of a
+result is the sync point, at the same places the JAX engine fetches.
+
+Every other mode of the JAX engine (packed prefill, sequence-parallel ring
+prefill, n-gram / draft / fused-step speculation, quantized KV pages or
+weights, the host KV tier, preemption, meshes) is rejected at
+construction: it is not ported yet.
+"""
+
+from __future__ import annotations
+
+import itertools
+import logging
+import time
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from githubrepostorag_tpu_torch.device import resolve_device
+from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config, forward_paged
+from githubrepostorag_tpu_torch.models.quant import fuse_projections
+from githubrepostorag_tpu_torch.ops.sampling import sample_tokens
+from githubrepostorag_tpu_torch.serving.decode_burst import decode_burst
+from githubrepostorag_tpu_torch.serving.kv_cache import (
+    OutOfPages,
+    PageAllocator,
+    PrefixCachingAllocator,
+    make_page_pools,
+    page_hashes,
+    pages_needed,
+    slot_mapping,
+)
+from githubrepostorag_tpu_torch.serving.sampling_params import SamplingParams
+
+logger = logging.getLogger(__name__)
+
+TokenCallback = Callable[[str, int], None]  # (request_id, token_id)
+
+def _bucket(n: int, cap: int, minimum: int = 16) -> int:
+    """Smallest power-of-two >= n (floored at ``minimum``, capped at
+    ``cap``): the JAX package's ``utils.next_bucket``, so both engines pad
+    prefill waves to the same row counts."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+# JAX Engine options whose modes are not ported, with the value that means
+# "off".  Passing any other value raises at construction.
+_UNPORTED_OPTIONS = {
+    "prefill_widths": 1,
+    "prefill_token_budget": None,
+    "kv_quant": False,
+    "layer_unroll": 1,
+    "mesh": None,
+    "kv_tier": "off",
+    "kv_host_pool_pages": 0,
+    "prefill_priority": False,
+    "sp_prefill_threshold": None,
+    "spec_ngram_k": 0,
+    "spec_burst_iters": 0,
+    "fused_step": False,
+    "draft_params": None,
+    "draft_cfg": None,
+    "preempt": "off",
+    "preempt_headroom_pages": 0,
+}
+# values the JAX engine also reads as "off" for these options
+_ALSO_OFF = {"kv_tier": ("auto",), "preempt": ("auto",), "kv_quant": (0, None)}
+
+
+@dataclass
+class GenerationResult:
+    request_id: str
+    prompt_tokens: list[int]
+    output_tokens: list[int]
+    finish_reason: str  # "stop" | "length" | "cancelled" | "deadline" | "error"
+    ttft_s: float | None = None
+    decode_time_s: float = 0.0
+    error: str | None = None
+    # monotonic phase stamps: submit_t / prefill_start_t / first_token_t / done_t
+    timings: dict | None = None
+
+
+@dataclass
+class _Request:
+    request_id: str
+    prompt: list[int]
+    sampling: SamplingParams
+    on_token: TokenCallback | None
+    state: str = "waiting"  # waiting -> prefilling -> running -> done
+    row: int = -1
+    pages: list[int] = field(default_factory=list)
+    seq_len: int = 0  # tokens in the KV cache
+    prefill_pos: int = 0
+    page_hashes: list[bytes] = field(default_factory=list)
+    pages_registered: int = 0
+    cached_tokens: int = 0  # prompt tokens served from the prefix cache
+    output: list[int] = field(default_factory=list)
+    cancelled: bool = False
+    error: str | None = None
+    submit_t: float = field(default_factory=time.monotonic)
+    prefill_start_t: float | None = None
+    first_token_t: float | None = None
+    deadline_ts: float | None = None  # absolute time.monotonic() budget
+    deadline_expired: bool = False
+
+
+class Engine:
+    def __init__(
+        self,
+        params: dict,
+        cfg: Qwen2Config,
+        *,
+        max_num_seqs: int = 8,
+        num_pages: int = 512,
+        page_size: int = 16,
+        max_seq_len: int = 2048,
+        prefill_chunk: int = 512,
+        kv_dtype: torch.dtype = torch.bfloat16,
+        rng_seed: int = 0,
+        decode_burst: int = 8,
+        prefix_caching: bool = True,
+        device: str | torch.device | None = None,
+        **unported,
+    ) -> None:
+        for name, value in unported.items():
+            if name not in _UNPORTED_OPTIONS:
+                raise TypeError(f"Engine() got an unexpected keyword argument {name!r}")
+            default = _UNPORTED_OPTIONS[name]
+            if not (value is default or value == default or value in _ALSO_OFF.get(name, ())):
+                raise NotImplementedError(
+                    f"Engine option {name}={value!r} selects a mode the torch port "
+                    "does not run yet; it serves the default path only (padded "
+                    "chunked prefill, bf16/f32 KV pages, prefix caching, pipelined "
+                    "decode bursts)"
+                )
+        self.device = resolve_device(device)
+        _check_params(params, self.device)
+        # single-chip serving layout: 4 projection matmuls per layer, not 7
+        self.params = fuse_projections(params)
+        self.cfg = cfg
+        self.max_num_seqs = max_num_seqs
+        self.page_size = page_size
+        self.max_seq_len = max_seq_len
+        self.max_pages_per_seq = pages_needed(max_seq_len, page_size)
+        self.prefill_chunk = prefill_chunk
+        self.decode_burst = max(1, decode_burst)
+
+        pools = make_page_pools(cfg, num_pages, page_size, dtype=kv_dtype, device=self.device)
+        self._k_pages, self._v_pages = pools.k, pools.v
+        self.prefix_caching = prefix_caching
+        self._allocator = (PrefixCachingAllocator(num_pages) if prefix_caching
+                           else PageAllocator(num_pages))
+
+        self.requests_admitted = 0
+        self.deadline_reaps = 0
+        self.committed_tokens = 0
+        self.prefill_tokens = 0
+        self.step_dispatches_total = 0
+        self.prefill_seconds_total = 0.0
+        self.decode_seconds_total = 0.0
+
+        # host-side batch state
+        self._block_tables = np.zeros((max_num_seqs, self.max_pages_per_seq), dtype=np.int32)
+        self._seq_lens = np.zeros((max_num_seqs,), dtype=np.int32)
+        self._row_limits = np.zeros((max_num_seqs,), dtype=np.int32)
+        self._free_rows = list(range(max_num_seqs - 1, -1, -1))
+        self._row_req: dict[int, _Request] = {}
+
+        # per-row sampling params (host mirror; pushed to the device when dirty)
+        self._temp = np.full((max_num_seqs,), 1.0, dtype=np.float32)
+        self._top_p = np.ones((max_num_seqs,), dtype=np.float32)
+        self._top_k = np.zeros((max_num_seqs,), dtype=np.int32)
+        self._rep_pen = np.ones((max_num_seqs,), dtype=np.float32)
+        self._sampling_dirty = True
+        self._temp_d = self._top_p_d = self._top_k_d = self._rep_pen_d = None
+
+        # token-presence mask for the repetition penalty; column V is the
+        # drop sentinel that padding positions are written to
+        self._presence = torch.zeros((max_num_seqs, cfg.vocab_size + 1), dtype=torch.bool,
+                                     device=self.device)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(rng_seed)
+        self._waiting: list[_Request] = []
+        self._rejected: list[_Request] = []
+        self._requests: dict[str, _Request] = {}
+        self._ids = itertools.count()
+
+        # pipelined decode state (see module docstring): the in-flight burst,
+        # finished rows whose pages it may still read, and first-token waves
+        self._chain: dict | None = None
+        self._deferred: list[tuple[int, list[int]]] = []
+        self._pending_first: list[tuple[torch.Tensor, list[tuple[_Request, int]]]] = []
+
+    # ------------------------------------------------------------- intake --
+
+    def _tensor(self, array: np.ndarray) -> torch.Tensor:
+        """Copy a host array to the engine's device.  On the card the copy
+        goes through pinned memory without blocking, so building the next
+        dispatch never waits for the burst in flight."""
+        host = torch.from_numpy(np.ascontiguousarray(array))
+        if self.device.type == "cpu":
+            return host.clone()
+        return host.pin_memory().to(self.device, non_blocking=True)
+
+    def add_request(
+        self,
+        prompt_ids: list[int],
+        sampling: SamplingParams | None = None,
+        on_token: TokenCallback | None = None,
+        request_id: str | None = None,
+        deadline_s: float | None = None,
+    ) -> str:
+        rid = request_id or f"req-{next(self._ids)}"
+        sampling = sampling or SamplingParams()
+        req = _Request(request_id=rid, prompt=list(prompt_ids), sampling=sampling,
+                       on_token=on_token, deadline_ts=deadline_s)
+        if len(req.prompt) + sampling.max_tokens > self.max_seq_len:
+            req.sampling = sampling.clamped(self.max_seq_len - len(req.prompt))
+        self._requests[rid] = req
+        self.requests_admitted += 1
+        error = None
+        if not req.prompt or len(req.prompt) >= self.max_seq_len:
+            error = "prompt empty or exceeds max_seq_len"
+        elif any(not 0 <= t < self.cfg.vocab_size for t in req.prompt):
+            error = "prompt token id outside the vocabulary"
+        else:
+            need = pages_needed(
+                min(len(req.prompt) + req.sampling.max_tokens, self.max_seq_len), self.page_size)
+            if need > self._allocator.num_pages:
+                error = (f"request needs {need} KV pages but the pool has only "
+                         f"{self._allocator.num_pages}; raise num_pages or shorten the request")
+        if error is not None:
+            # surfaced through the next step() like any completion
+            req.state = "done"
+            req.error = error
+            self._rejected.append(req)
+            return rid
+        self._waiting.append(req)
+        return rid
+
+    def cancel(self, request_id: str) -> None:
+        req = self._requests.get(request_id)
+        if req is not None:
+            req.cancelled = True
+
+    def has_work(self) -> bool:
+        return bool(self._waiting or self._row_req or self._rejected)
+
+    @property
+    def num_running(self) -> int:
+        return len(self._row_req)
+
+    @property
+    def num_waiting(self) -> int:
+        return len(self._waiting)
+
+    # --------------------------------------------------------- scheduling --
+
+    def step(self) -> list[GenerationResult]:
+        """One engine iteration: admit + prefill one chunk AND decode every
+        running row, both dispatched with no host sync in between.  Returns
+        the requests finished this step."""
+        finished: list[GenerationResult] = []
+        for req in self._rejected:
+            res = self._result(req, "error")
+            res.error = req.error
+            finished.append(res)
+        self._rejected.clear()
+        self._reap_expired()
+        self._reap_cancelled(finished)
+
+        t_pf = time.monotonic()
+        self._try_prefill(finished)
+        self.prefill_seconds_total += time.monotonic() - t_pf
+        if any(r.state == "running" for r in self._row_req.values()):
+            t_run = time.monotonic()
+            self._decode_step(finished)
+            self.decode_seconds_total += time.monotonic() - t_run
+        if not self._row_req:
+            # nothing left running: land any in-flight burst and recycle
+            self._drain_chain(finished)
+        return finished
+
+    def _reap_expired(self) -> None:
+        """Mark past-deadline requests cancelled so the reap below frees
+        their pages this step."""
+        now = time.monotonic()
+        for req in itertools.chain(self._waiting, self._row_req.values()):
+            if req.deadline_ts is not None and not req.cancelled and now >= req.deadline_ts:
+                req.cancelled = True
+                req.deadline_expired = True
+                self.deadline_reaps += 1
+
+    def _reap_cancelled(self, finished: list[GenerationResult]) -> None:
+        for req in [r for r in self._waiting if r.cancelled]:
+            self._waiting.remove(req)
+            req.state = "done"
+            finished.append(self._result(req, "deadline" if req.deadline_expired else "cancelled"))
+        for req in [r for r in self._row_req.values() if r.cancelled]:
+            self._release(req)
+            finished.append(self._result(req, "deadline" if req.deadline_expired else "cancelled"))
+
+    def _register_full_pages(self, req: _Request) -> None:
+        """Publish every prompt page prefill has completed so far: its KV is
+        final, so identical prefixes admitted from now on skip it."""
+        if not self.prefix_caching:
+            return
+        if not req.page_hashes:
+            req.page_hashes = page_hashes(req.prompt, self.page_size)
+        full = min(req.prefill_pos // self.page_size, len(req.page_hashes))
+        while req.pages_registered < full:
+            j = req.pages_registered
+            self._allocator.register(req.page_hashes[j], req.pages[j])
+            req.pages_registered = j + 1
+
+    def _head_need_hashes(self, req: _Request) -> tuple[int, list[bytes]]:
+        """Total page need for ``req`` and the chain hashes of the prefix
+        pages its admission may share (capped so at least one prompt token
+        still runs through prefill)."""
+        need = pages_needed(
+            min(len(req.prompt) + req.sampling.max_tokens, self.max_seq_len), self.page_size)
+        hashes: list[bytes] = []
+        if self.prefix_caching:
+            if not req.page_hashes:
+                req.page_hashes = page_hashes(req.prompt, self.page_size)
+            shareable = min(len(req.page_hashes), (len(req.prompt) - 1) // self.page_size)
+            hashes = req.page_hashes[:shareable]
+        return need, hashes
+
+    def _admission_feasible(self) -> bool:
+        """True when the head-of-queue request could be admitted counting
+        rows/pages a chain drain would recycle (draining the pipeline is
+        not worth it for an admission the allocator would refuse)."""
+        if not self._waiting:
+            return False
+        need, hashes = self._head_need_hashes(self._waiting[0])
+        rows_avail = bool(self._free_rows) or bool(self._deferred)
+        extra = sum(self._allocator.releasable_count(pages) for _, pages in self._deferred)
+        return rows_avail and self._allocator.can_admit(hashes, need, extra_free=extra)
+
+    def _try_prefill(self, finished: list[GenerationResult]) -> bool:
+        """Admit every waiting request the pool can back, then run ONE
+        batched prefill chunk over all prefilling rows.  Returns True if a
+        chunk ran.  Free rows/pages are never referenced by an in-flight
+        burst (finished rows wait in ``_deferred``), so the chain is drained
+        only when the head of the queue needs those deferred resources."""
+        if self._waiting:
+            need0, hashes0 = self._head_need_hashes(self._waiting[0])
+            can_free = bool(self._free_rows) and self._allocator.can_admit(hashes0, need0)
+            if not can_free and self._admission_feasible():
+                self._drain_chain(finished)
+        cached_admits: list[_Request] = []
+        while self._waiting and self._free_rows:
+            req = self._waiting[0]
+            need, hashes = self._head_need_hashes(req)
+            if need > self.max_pages_per_seq:
+                raise RuntimeError("intake clamp must bound the page need")
+            if not self._allocator.can_admit(hashes, need):
+                break
+            shared = self._allocator.share(hashes) if hashes else []
+            try:
+                pages = shared + self._allocator.allocate(need - len(shared))
+            except OutOfPages:
+                self._allocator.release(shared)
+                break  # wait for running requests to finish
+            self._waiting.pop(0)
+            row = self._free_rows.pop()
+            req.row, req.pages, req.state = row, pages, "prefilling"
+            req.prefill_start_t = time.monotonic()
+            # cache hit: prefill resumes after the shared pages' tokens
+            req.cached_tokens = len(shared) * self.page_size
+            req.prefill_pos = req.seq_len = req.cached_tokens
+            req.pages_registered = len(shared)
+            if shared:
+                self._allocator.hit_tokens += req.cached_tokens
+            self._row_req[row] = req
+            self._block_tables[row, : len(pages)] = pages
+            self._seq_lens[row] = req.cached_tokens
+            # a burst may never write past this row's pages nor the length cap
+            self._row_limits[row] = min(len(pages) * self.page_size, self.max_seq_len - 1)
+            self._set_row_sampling(row, req.sampling)
+            if req.cached_tokens:
+                cached_admits.append(req)
+        if cached_admits:
+            # skipped prefixes still count for the repetition penalty
+            nr = _bucket(len(cached_admits), self.max_num_seqs, minimum=1)
+            ids = np.zeros((nr, self.max_seq_len), dtype=np.int32)
+            rows = np.zeros((nr,), dtype=np.int32)
+            lens = np.zeros((nr,), dtype=np.int32)
+            for i, req in enumerate(cached_admits):
+                ids[i, : req.cached_tokens] = req.prompt[: req.cached_tokens]
+                rows[i] = req.row
+                lens[i] = req.cached_tokens
+            self._mark_presence_chunks(self._tensor(rows), self._tensor(ids), self._tensor(lens))
+        prefilling = [r for r in self._row_req.values() if r.state == "prefilling"]
+        if not prefilling:
+            return False
+        self._prefill_batch(prefilling, finished)
+        return True
+
+    # ------------------------------------------------------------ compute --
+
+    def _prefill_batch(self, reqs: list[_Request], finished: list[GenerationResult]) -> None:
+        """One prefill dispatch covering a chunk of EVERY prefilling row.
+        Rows whose prompt completes this chunk sample their first token in
+        one batched call; while decode is running those tokens stay on the
+        device and commit with the next burst."""
+        others_running = any(r.state == "running" for r in self._row_req.values())
+        n = len(reqs)
+        rb = _bucket(n, self.max_num_seqs, minimum=1)
+        width = self.prefill_chunk
+
+        ids = np.zeros((rb, width), dtype=np.int32)
+        pos = np.zeros((rb, width), dtype=np.int32)
+        slots = np.full((rb, width), -1, dtype=np.int32)
+        bt = np.zeros((rb, self.max_pages_per_seq), dtype=np.int32)
+        cached = np.zeros((rb,), dtype=np.int32)
+        new_lens = np.zeros((rb,), dtype=np.int32)
+        last_idx = np.zeros((rb,), dtype=np.int32)
+        valids = []
+        for i, req in enumerate(reqs):
+            start = req.prefill_pos
+            valid = min(len(req.prompt) - start, self.prefill_chunk)
+            valids.append(valid)
+            ids[i, :valid] = req.prompt[start : start + valid]
+            pos[i] = np.arange(start, start + width)
+            slots[i] = slot_mapping(self._block_tables[req.row], start, valid, self.page_size, width)
+            bt[i] = self._block_tables[req.row]
+            cached[i] = start
+            new_lens[i] = valid
+            last_idx[i] = valid - 1
+
+        ids_d = self._tensor(ids)
+        new_lens_d = self._tensor(new_lens)
+        self.step_dispatches_total += 1
+        logits, self._k_pages, self._v_pages = forward_paged(
+            self.params, self.cfg, ids_d, self._tensor(pos),
+            self._k_pages, self._v_pages, self._tensor(slots), self._tensor(bt),
+            self._tensor(cached), new_lens_d, logits_at=self._tensor(last_idx),
+        )
+
+        # mark the chunk's prompt tokens (padding rows have lens 0)
+        row_idx = np.zeros((rb,), dtype=np.int32)
+        row_idx[:n] = [r.row for r in reqs]
+        row_d = self._tensor(row_idx)
+        self._mark_presence_chunks(row_d, ids_d, new_lens_d)
+
+        done_idx: list[int] = []
+        for i, req in enumerate(reqs):
+            req.prefill_pos += valids[i]
+            self.prefill_tokens += int(valids[i])
+            req.seq_len = req.prefill_pos
+            self._seq_lens[req.row] = req.seq_len
+            self._register_full_pages(req)
+            if req.prefill_pos >= len(req.prompt):
+                done_idx.append(i)
+        if not done_idx:
+            return
+
+        # sample first tokens over the whole padded wave; rows that are not
+        # done sample too but their tokens are discarded
+        done_mask = np.zeros((rb,), dtype=bool)
+        done_mask[done_idx] = True
+        self._push_sampling()
+        rows_l = row_d.long()
+        vocab = self.cfg.vocab_size
+        tokens_d = sample_tokens(
+            logits[:, 0], self._gen, self._temp_d[rows_l], self._top_p_d[rows_l],
+            self._top_k_d[rows_l], self._rep_pen_d[rows_l], self._presence[rows_l, :vocab],
+        )
+        safe = torch.where(self._tensor(done_mask), tokens_d, vocab)
+        self._presence[rows_l, safe.long()] = True  # column V drops the rest
+        wave = [(reqs[i], i) for i in done_idx]
+        for req, _ in wave:
+            req.state = "running"
+        if self._chain is None and not others_running:
+            # engine otherwise idle: commit now (best TTFT)
+            tokens = tokens_d.tolist()
+            for req, i in wave:
+                self._commit_token(req, tokens[i], finished)
+        else:
+            self._pending_first.append((tokens_d, wave))
+
+    def _decode_step(self, finished: list[GenerationResult]) -> None:
+        """One decode dispatch: a burst of ``decode_burst`` iterations.
+        Bursts are pipelined: this dispatch reuses the in-flight burst's
+        device-side last-token / length state and only then reads the
+        previous burst's tokens."""
+        b = self.max_num_seqs
+        active = np.zeros((b,), dtype=bool)
+        remaining = 1
+        for row, req in self._row_req.items():
+            active[row] = req.state == "running"  # mid-prefill rows sit out
+            if req.state == "running":
+                remaining = max(remaining, req.sampling.max_tokens - len(req.output))
+        n_steps = self.decode_burst
+
+        if self._chain is not None and remaining <= self._chain["pending"].shape[1]:
+            # the in-flight burst already covers every row's token budget:
+            # land it instead of dispatching a burst that would be discarded
+            self._drain_chain(finished)
+            return
+
+        if self._chain is None:
+            last = np.zeros((b,), dtype=np.int32)
+            for row, req in self._row_req.items():
+                last[row] = req.output[-1] if req.output else req.prompt[-1]
+            last_d = self._tensor(last)
+            lens_d = self._tensor(self._seq_lens)
+        else:
+            last_d = self._chain["last"].clone()
+            lens_d = self._chain["lens"].clone()
+
+        # overlay freshly-prefilled rows: first token on the device, cache
+        # length known on the host
+        first_waves = self._pending_first
+        self._pending_first = []
+        for tokens_d, wave in first_waves:
+            # skip requests released since their wave was queued: their row
+            # is -1 (or reassigned), and -1 would index the last row
+            live = [(req, i) for req, i in wave if req.state == "running" and req.row >= 0]
+            if not live:
+                continue
+            rows = self._tensor(np.asarray([req.row for req, _ in live], dtype=np.int64))
+            idxs = self._tensor(np.asarray([i for _, i in live], dtype=np.int64))
+            lens = self._tensor(np.asarray([self._seq_lens[req.row] for req, _ in live],
+                                           dtype=np.int32))
+            last_d[rows] = tokens_d[idxs]
+            lens_d[rows] = lens
+
+        self._push_sampling()
+        self.step_dispatches_total += 1
+        toks, _, self._k_pages, self._v_pages, self._presence, out_lens = decode_burst(
+            self.params, self.cfg, last_d, lens_d, self._k_pages, self._v_pages,
+            self._presence, self._tensor(active), self._tensor(self._row_limits),
+            self._tensor(self._block_tables), self._gen,
+            self._temp_d, self._top_p_d, self._top_k_d, self._rep_pen_d,
+            n_steps=n_steps,
+            # sort-free sampling whenever no sampling row filters
+            filter_sampling=bool(np.any((self._temp > 0.0)
+                                        & ((self._top_p < 1.0) | (self._top_k > 0)))),
+        )
+        prev = self._chain
+        self._chain = {"last": toks[:, -1], "lens": out_lens, "pending": toks,
+                       "first": first_waves}
+        if prev is not None:
+            self._commit_burst(prev, finished)
+
+    def _commit_first_tokens(self, waves, finished: list[GenerationResult]) -> None:
+        """Read + commit deferred prefill first-token waves."""
+        for tokens_d, wave in waves:
+            tokens = None
+            for req, i in wave:
+                if req.state != "running" or req.output:
+                    continue  # released, or already committed
+                if tokens is None:
+                    tokens = tokens_d.tolist()
+                self._commit_token(req, tokens[i], finished)
+
+    def _commit_burst(self, entry: dict, finished: list[GenerationResult]) -> None:
+        """Read a burst's packed tokens -- ONE [B, n_steps] transfer -- and
+        apply stop/length bookkeeping.  First-token waves attached to this
+        burst commit before its tokens; -1 marks inactive steps."""
+        self._commit_first_tokens(entry.get("first", []), finished)
+        toks = entry["pending"].cpu().numpy()
+        for i in range(toks.shape[1]):
+            for row in sorted(self._row_req):
+                req = self._row_req.get(row)
+                if req is None or req.state != "running" or toks[row, i] < 0:
+                    continue
+                req.seq_len += 1
+                self._seq_lens[row] = req.seq_len
+                self._commit_token(req, int(toks[row, i]), finished)
+
+    def _drain_chain(self, finished: list[GenerationResult]) -> None:
+        """Land the in-flight burst (if any), commit its tokens and any
+        deferred first-token waves, and recycle every deferred row/page now
+        that nothing on the device reads them."""
+        if self._chain is not None:
+            entry = self._chain
+            self._chain = None  # releases during this commit recycle directly
+            self._commit_burst(entry, finished)
+        if self._pending_first:
+            waves, self._pending_first = self._pending_first, []
+            self._commit_first_tokens(waves, finished)
+        for row, pages in self._deferred:
+            self._allocator.release(pages)
+            self._free_rows.append(row)
+        self._deferred.clear()
+
+    def _push_sampling(self) -> None:
+        """Mirror host sampling params to device tensors when dirty."""
+        if self._sampling_dirty:
+            self._temp_d = self._tensor(self._temp)
+            self._top_p_d = self._tensor(self._top_p)
+            self._top_k_d = self._tensor(self._top_k)
+            self._rep_pen_d = self._tensor(self._rep_pen)
+            self._sampling_dirty = False
+
+    # ---------------------------------------------------------- lifecycle --
+
+    def _commit_token(self, req: _Request, token: int, finished: list[GenerationResult]) -> None:
+        if req.first_token_t is None:
+            req.first_token_t = time.monotonic()
+        req.output.append(token)
+        self.committed_tokens += 1
+        if req.on_token is not None:
+            try:
+                req.on_token(req.request_id, token)
+            except Exception:  # noqa: BLE001 - a callback must not kill the engine
+                logger.exception("on_token callback failed for %s", req.request_id)
+        if token in req.sampling.stop_token_ids:
+            self._release(req)
+            finished.append(self._result(req, "stop"))
+        elif len(req.output) >= req.sampling.max_tokens or req.seq_len + 1 >= self.max_seq_len:
+            self._release(req)
+            finished.append(self._result(req, "length"))
+
+    def _release(self, req: _Request) -> None:
+        if req.row >= 0:
+            if self._chain is not None:
+                # an in-flight burst still reads this row's pages
+                self._deferred.append((req.row, req.pages))
+            else:
+                self._allocator.release(req.pages)
+                self._free_rows.append(req.row)
+            self._row_req.pop(req.row, None)
+            self._seq_lens[req.row] = 0
+            self._block_tables[req.row] = 0
+            self._row_limits[req.row] = 0
+            # reset the host mirrors to the no-filter defaults so a free row
+            # never pins bursts onto the filtered sampler (the device copy
+            # of a free row is never read; reassignment re-dirties)
+            self._temp[req.row] = 1.0
+            self._top_p[req.row] = 1.0
+            self._top_k[req.row] = 0
+            self._rep_pen[req.row] = 1.0
+            req.row = -1
+        req.state = "done"
+
+    def _set_row_sampling(self, row: int, sp: SamplingParams) -> None:
+        self._temp[row] = sp.temperature
+        self._top_p[row] = sp.top_p
+        self._top_k[row] = sp.top_k
+        self._rep_pen[row] = sp.repetition_penalty
+        self._sampling_dirty = True
+        self._presence[row] = False  # fresh presence row for the new occupant
+
+    def _result(self, req: _Request, reason: str) -> GenerationResult:
+        self._requests.pop(req.request_id, None)
+        ttft = (req.first_token_t - req.submit_t) if req.first_token_t else None
+        done_t = time.monotonic()
+        return GenerationResult(
+            request_id=req.request_id,
+            prompt_tokens=req.prompt,
+            output_tokens=req.output,
+            finish_reason=reason,
+            ttft_s=ttft,
+            decode_time_s=(done_t - req.first_token_t) if req.first_token_t else 0.0,
+            timings={
+                "submit_t": req.submit_t,
+                "prefill_start_t": req.prefill_start_t,
+                "first_token_t": req.first_token_t,
+                "done_t": done_t,
+            },
+        )
+
+    # ----------------------------------------------------- presence helpers --
+
+    def _mark_presence_chunks(self, row_idx: torch.Tensor, ids: torch.Tensor,
+                              lens: torch.Tensor) -> None:
+        """Batched prompt-token presence marking: padding positions go to
+        the drop column V."""
+        vocab = self.cfg.vocab_size
+        valid = torch.arange(ids.shape[1], device=ids.device)[None, :] < lens[:, None]
+        safe_ids = torch.where(valid, ids, vocab).long()
+        self._presence[row_idx.long()[:, None], safe_ids] = True
+
+    # --------------------------------------------------------- convenience --
+
+    def warmup(self) -> None:
+        """Build the kernels and touch every path live traffic takes --
+        prefill at full chunk width, a greedy and a sampled decode burst --
+        through the public step loop, leaving the engine state clean."""
+        if self.device.type == "cuda":
+            from githubrepostorag_tpu_torch import kernels
+
+            kernels.build()
+        plen = max(1, min(self.prefill_chunk, self.max_seq_len - 3))
+        self.generate([[2] * plen], SamplingParams(max_tokens=2, temperature=0.0))
+        self.generate([[3] * 3], SamplingParams(max_tokens=2, temperature=0.7, top_p=0.9))
+        logger.info("engine warmup complete")
+
+    def generate(self, prompts: list[list[int]],
+                 sampling: SamplingParams | list[SamplingParams] | None = None,
+                 ) -> list[GenerationResult]:
+        """Synchronous batch generation (tests, scripts)."""
+        if isinstance(sampling, list):
+            sps = sampling
+        else:
+            sps = [sampling or SamplingParams()] * len(prompts)
+        order = [self.add_request(p, sp) for p, sp in zip(prompts, sps)]
+        done: dict[str, GenerationResult] = {}
+        while self.has_work():
+            for res in self.step():
+                done[res.request_id] = res
+        return [done[rid] for rid in order]
+
+
+def _check_params(params: dict, device: torch.device) -> None:
+    """Plain float tensors on the engine's device; quantized or misplaced
+    weights raise."""
+    leaves = [params["embed"], params["norm"], *params["layers"].values()]
+    if "lm_head" in params:
+        leaves.append(params["lm_head"])
+    for leaf in leaves:
+        if not isinstance(leaf, torch.Tensor) or not leaf.is_floating_point():
+            raise NotImplementedError(
+                "quantized weights are not supported by the torch port yet; "
+                "pass plain bf16 or f32 tensors")
+        if leaf.device.type != device.type:
+            raise ValueError(f"params live on {leaf.device}, the engine on {device}")

@@ -1,0 +1,111 @@
+"""The plain versions of the two ported attention kernels against the Pallas
+TPU kernels they replace, run in interpret mode on the CPU:
+
+  fused_window_attention_ref        vs ops/fused_decode.fused_window_attention
+  paged_attention_decode_staged_ref vs ops/pallas_paged.paged_attention_decode_staged
+
+Same numpy inputs, float32, tolerance 1e-5 absolute (the same f32
+arithmetic in another summation order).  Cases: GQA groups 2 and 7,
+windows of 1 token and longer than a page, rows with no valid KV, shuffled
+block tables, rank-5 pools with a layer index.  On CPU tensors the kernel
+wrappers run these plain versions and launch nothing."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from githubrepostorag_tpu.ops.fused_decode import fused_window_attention as j_window
+from githubrepostorag_tpu.ops.pallas_paged import paged_attention_decode_staged as j_staged
+from githubrepostorag_tpu_torch.ops.fused_decode import (
+    fused_window_attention,
+    fused_window_attention_ref,
+)
+from githubrepostorag_tpu_torch.ops.paged_decode import (
+    paged_attention_decode_staged,
+    paged_attention_decode_staged_ref,
+)
+
+ATOL = 1e-5
+PS, HD, MAX_PAGES = 4, 16, 5
+
+
+def _tables(rng, b, num_pages, lens):
+    """Disjoint shuffled pages per row (holes between a row's pages)."""
+    perm = rng.permutation(num_pages)
+    bt = np.zeros((b, MAX_PAGES), dtype=np.int32)
+    at = 0
+    for i, n in enumerate(lens):
+        need = -(-int(n) // PS)
+        bt[i, :need] = perm[at:at + need]
+        at += need
+    return bt
+
+
+@pytest.mark.parametrize("group,s_w,cached,new", [
+    (2, 1, [7, 0, 12], [1, 0, 1]),      # decode-shaped window, a padding row
+    (7, 1, [3, 9], [1, 1]),
+    (2, 6, [0, 5, 13], [6, 4, 0]),      # window longer than a page
+    (7, 9, [2, 0], [9, 7]),
+])
+def test_window_ref_matches_pallas_interpret(group, s_w, cached, new):
+    rng = np.random.default_rng(group * 100 + s_w)
+    n_kv, num_pages = 2, 24
+    b = len(cached)
+    total = [c + n for c, n in zip(cached, new)]
+    q = rng.normal(size=(b, s_w, n_kv * group, HD)).astype(np.float32)
+    kp = rng.normal(size=(n_kv, num_pages, PS, HD)).astype(np.float32)
+    vp = rng.normal(size=(n_kv, num_pages, PS, HD)).astype(np.float32)
+    bt = _tables(rng, b, num_pages, total)
+    cl, nl = np.asarray(cached, np.int32), np.asarray(new, np.int32)
+    j_out = np.asarray(j_window(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+                                jnp.asarray(cl), jnp.asarray(nl), interpret=True))
+    args = [torch.from_numpy(x) for x in (q, kp, vp, bt, cl, nl)]
+    t_out = fused_window_attention_ref(*args)
+    np.testing.assert_allclose(t_out.numpy(), j_out, atol=ATOL, rtol=0)
+    for i, t in enumerate(total):
+        if t == 0:  # no valid KV: exactly zero, never NaN
+            assert not t_out[i].any()
+    before = fused_window_attention.launches
+    assert torch.equal(fused_window_attention(*args), t_out)  # CPU -> plain version
+    assert fused_window_attention.launches == before
+
+
+@pytest.mark.parametrize("group,pool_lens,staged_len", [
+    (2, [13, 0, 20], 3),   # a row with an empty pool prefix
+    (7, [5, 17], 1),
+    (7, [20, 8], 4),
+])
+def test_staged_ref_matches_pallas_interpret(group, pool_lens, staged_len):
+    rng = np.random.default_rng(group * 10 + staged_len)
+    L, n_kv, num_pages, n_steps, layer = 3, 2, 16, 4, 1
+    b = len(pool_lens)
+    q = rng.normal(size=(b, 1, n_kv * group, HD)).astype(np.float32)
+    kp = rng.normal(size=(L, n_kv, num_pages, PS, HD)).astype(np.float32)
+    vp = rng.normal(size=(L, n_kv, num_pages, PS, HD)).astype(np.float32)
+    sk = rng.normal(size=(b, n_kv, n_steps, HD)).astype(np.float32)
+    sv = rng.normal(size=(b, n_kv, n_steps, HD)).astype(np.float32)
+    bt = _tables(rng, b, num_pages, pool_lens)
+    pl = np.asarray(pool_lens, np.int32)
+    j_out = np.asarray(j_staged(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt), jnp.asarray(pl),
+        jnp.asarray(sk), jnp.asarray(sv), jnp.asarray([staged_len], jnp.int32),
+        jnp.asarray([layer], jnp.int32), interpret=True))
+    args = [torch.from_numpy(x) for x in (q, kp, vp, bt, pl, sk, sv)]
+    t_out = paged_attention_decode_staged_ref(*args, staged_len, layer)
+    np.testing.assert_allclose(t_out.numpy(), j_out, atol=ATOL, rtol=0)
+    before = paged_attention_decode_staged.launches
+    assert torch.equal(paged_attention_decode_staged(*args, staged_len, layer), t_out)
+    assert paged_attention_decode_staged.launches == before
+
+
+def test_staged_ref_with_no_valid_kv_is_zero():
+    q = torch.ones(1, 1, 4, HD)
+    kp = torch.ones(1, 2, 2, PS, HD)
+    st = torch.ones(1, 2, 2, HD)
+    out = paged_attention_decode_staged_ref(q, kp, kp, torch.zeros(1, 1, dtype=torch.int32),
+                                            torch.zeros(1, dtype=torch.int32), st, st, 0, 0)
+    assert not out.any()

@@ -1,0 +1,180 @@
+"""The port's decode burst and engine against the JAX package on identical
+weights (CPU, float32, tiny config): greedy tokens must be identical.
+
+Weights are the JAX ``init_params`` draw scaled x4, so greedy decoding of
+the tiny random model walks varied tokens instead of repeating one."""
+
+from __future__ import annotations
+
+import asyncio
+import time
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from githubrepostorag_tpu.models.qwen2 import Qwen2Config as JConfig, init_params as j_init
+from githubrepostorag_tpu.models.quant import fuse_projections as j_fuse
+from githubrepostorag_tpu.serving import Engine as JEngine, SamplingParams as JSamplingParams
+from githubrepostorag_tpu.serving.decode_burst import decode_burst as j_decode_burst
+from githubrepostorag_tpu_torch.models.convert import params_from_jax
+from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config, init_params
+from githubrepostorag_tpu_torch.serving import AsyncEngine, Engine, SamplingParams
+from githubrepostorag_tpu_torch.serving.decode_burst import decode_burst
+
+ENGINE_KW = dict(max_num_seqs=4, num_pages=48, page_size=8, max_seq_len=128, prefill_chunk=32)
+
+
+@pytest.fixture(scope="module")
+def weights():
+    jcfg, cfg = JConfig.tiny(), Qwen2Config.tiny()
+    jp = jax.tree.map(lambda x: x * 4 if x.ndim >= 2 else x, j_init(jcfg, jax.random.PRNGKey(0)))
+    return jcfg, cfg, jp, params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+
+
+def _torch_engine(cfg, params, **kw):
+    return Engine(params, cfg, kv_dtype=torch.float32, device="cpu", **{**ENGINE_KW, **kw})
+
+
+def test_decode_burst_matches_jax(weights):
+    jcfg, cfg, jp, tp = weights
+    rng = np.random.default_rng(0)
+    b, n_steps, ps, num_pages, max_pages = 3, 4, 8, 16, 4
+    shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, ps, cfg.head_dim)
+    kp = rng.normal(size=shape).astype(np.float32)
+    vp = rng.normal(size=shape).astype(np.float32)
+    bt = np.asarray([[3, 9, 15, 0], [7, 1, 0, 0], [0, 0, 0, 0]], dtype=np.int32)
+    last = np.asarray([11, 200, -1], dtype=np.int32)
+    lens = np.asarray([13, 6, 0], dtype=np.int32)
+    active = np.asarray([True, True, False])
+    row_limits = np.asarray([24, 8, 0], dtype=np.int32)  # row 1 stops after 2 steps
+    presence = rng.random((b, cfg.vocab_size)) < 0.05
+    temp = np.zeros(b, np.float32)
+    top_p = np.ones(b, np.float32)
+    top_k = np.zeros(b, np.int32)
+    pen = np.asarray([1.0, 1.3, 1.0], np.float32)
+
+    j_out = j_decode_burst(
+        j_fuse(jp), jcfg, *(jnp.asarray(x) for x in (last, lens, kp, vp, presence, active,
+                                                      row_limits, bt)),
+        jax.random.PRNGKey(0), *(jnp.asarray(x) for x in (temp, top_p, top_k, pen)),
+        n_steps=n_steps, use_pallas=False, filter_sampling=False)
+    j_packed, j_valid, j_k, j_v, j_pres, j_lens = (np.asarray(x) for x in j_out)
+    assert (j_packed[1, 2:] == -1).all() and (j_packed[2] == -1).all()
+
+    # the port's pools carry one extra page, the drop page of commit_paged
+    drop = np.zeros(shape[:2] + (1,) + shape[3:], np.float32)
+    tkp = torch.from_numpy(np.concatenate([kp, drop], axis=2))
+    tvp = torch.from_numpy(np.concatenate([vp, drop], axis=2))
+    pres = torch.from_numpy(presence.copy())
+    packed, valid, _, _, _, out_lens = decode_burst(
+        tp, cfg, *(torch.from_numpy(x) for x in (last, lens)), tkp, tvp, pres,
+        *(torch.from_numpy(x) for x in (active, row_limits, bt)), torch.Generator(),
+        *(torch.from_numpy(x) for x in (temp, top_p, top_k, pen)),
+        n_steps=n_steps, filter_sampling=False)
+    np.testing.assert_array_equal(packed.numpy(), j_packed)
+    np.testing.assert_array_equal(valid.numpy(), j_valid)
+    np.testing.assert_array_equal(out_lens.numpy(), j_lens)
+    np.testing.assert_array_equal(pres.numpy(), j_pres)
+    np.testing.assert_allclose(tkp[:, :, :num_pages].numpy(), j_k, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(tvp[:, :, :num_pages].numpy(), j_v, atol=1e-5, rtol=0)
+
+
+def test_engine_greedy_tokens_match_jax(weights):
+    jcfg, cfg, jp, tp = weights
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, 24).tolist()
+    # mixed lengths, one longer than prefill_chunk, one carrying a prefix
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 17, 45)]
+    prompts.append(prefix + rng.integers(0, cfg.vocab_size, 5).tolist())
+    later = [prefix + rng.integers(0, cfg.vocab_size, 7).tolist()]  # hits the cache
+    je = JEngine(jp, jcfg, kv_dtype=jnp.float32, **ENGINE_KW)
+    te = _torch_engine(cfg, tp)
+    j_sp = JSamplingParams(temperature=0.0, max_tokens=10)
+    t_sp = SamplingParams(temperature=0.0, max_tokens=10)
+    for batch in (prompts, later):
+        j_res = je.generate(batch, j_sp)
+        t_res = te.generate(batch, t_sp)
+        for j, t in zip(j_res, t_res):
+            assert t.finish_reason == j.finish_reason == "length"
+            assert t.output_tokens == j.output_tokens
+    assert te._allocator.hit_tokens == je._allocator.hit_tokens >= 24
+    assert te._allocator.free_count == te._allocator.num_pages
+    assert sorted(te._free_rows) == list(range(ENGINE_KW["max_num_seqs"]))
+
+
+def test_engine_stops_cancels_and_reaps(weights):
+    _, cfg, _, tp = weights
+    te = _torch_engine(cfg, tp)
+    first = te.generate([[1, 2, 3]], SamplingParams(temperature=0.0, max_tokens=6))[0]
+    stop = first.output_tokens[2]
+    res = te.generate([[1, 2, 3]], SamplingParams(temperature=0.0, max_tokens=6,
+                                                  stop_token_ids=(stop,)))[0]
+    assert res.finish_reason == "stop" and res.output_tokens == first.output_tokens[:3]
+    rid = te.add_request([4, 5, 6], SamplingParams(max_tokens=50), deadline_s=time.monotonic() - 1)
+    bad = te.add_request([], SamplingParams())
+    oov = te.add_request([1, cfg.vocab_size], SamplingParams())
+    done = {}
+    while te.has_work():
+        done.update({r.request_id: r for r in te.step()})
+    assert done[rid].finish_reason == "deadline"
+    assert done[bad].finish_reason == done[oov].finish_reason == "error"
+    assert te._allocator.free_count == te._allocator.num_pages
+
+
+def test_async_engine_streams_tokens(weights):
+    _, cfg, _, tp = weights
+    prompts = [[7, 8, 9, 10], [3] * 40]
+    sp = SamplingParams(temperature=0.0, max_tokens=9)
+    expect = [r.output_tokens for r in _torch_engine(cfg, tp).generate(prompts, sp)]
+
+    async def run():
+        aeng = AsyncEngine(_torch_engine(cfg, tp))
+        try:
+            streamed = []
+
+            async def consume():
+                async for ev in aeng.stream(prompts[0], sp):
+                    if ev.type == "token":
+                        streamed.append(ev.token_id)
+                    else:
+                        return ev.result
+
+            return streamed, await asyncio.wait_for(
+                asyncio.gather(consume(), aeng.generate(prompts[1], sp)), timeout=60)
+        finally:
+            await aeng.stop()
+
+    streamed, (r0, r1) = asyncio.run(run())
+    assert streamed == r0.output_tokens == expect[0]
+    assert r1.output_tokens == expect[1]
+
+
+def test_engine_defaults_to_the_card(weights):
+    _, cfg, _, tp = weights
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Engine(tp, cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_params(cfg, torch.Generator())
+
+
+@pytest.mark.parametrize("option", [
+    {"prefill_token_budget": 64}, {"kv_quant": 8}, {"spec_ngram_k": 4}, {"fused_step": True},
+    {"kv_tier": "on"}, {"preempt": "on"}, {"sp_prefill_threshold": 64}, {"mesh": object()},
+])
+def test_engine_rejects_unported_modes(weights, option):
+    _, cfg, _, tp = weights
+    with pytest.raises(NotImplementedError):
+        _torch_engine(cfg, tp, **option)
+
+
+def test_engine_accepts_off_values_and_rejects_unknown_options(weights):
+    _, cfg, _, tp = weights
+    _torch_engine(cfg, tp, kv_tier="auto", preempt="off", kv_quant=False, mesh=None)
+    with pytest.raises(TypeError):
+        _torch_engine(cfg, tp, use_pallas=True)
