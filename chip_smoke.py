@@ -12,17 +12,25 @@ Phases, each raising on failure:
 3. kernels -- hold each kernel against its plain PyTorch version, element
               by element, at the shapes the serving path gives it, in
               float32 and bf16; time in bf16 the kernel, the plain
-              version, and one PyTorch call computing the same function (scaled_dot_product_attention over pre-gathered
-              K/V, a yardstick the port never calls); compute the least
-              time the card could take for the same work.
+              version, and PyTorch calls computing the same function
+              (scaled_dot_product_attention over pre-gathered K/V for A
+              and B; for the int4 GEMMs D and E, torch.matmul against the
+              dequantized bf16 weight and torch._weight_int4pack_mm where
+              the card's torch has it): yardsticks the port never calls;
+              compute the least time the card could take for the same work.
 4. model   -- Qwen2-7B at its published widths and depth, random bf16
               weights from a seeded generator on the card: forward_paged
               prefill logits with the kernels against the plain path.
 5. engine  -- AsyncEngine(Engine(...)) at 7B serves a few requests
               (chunked prefill, a prefix-cache hit, one sampled row) after
               every kernel's launch count is set to 0; afterwards each
-              kernel must have launched.
-6. summary -- one JSON line per kernel list, then the result line.
+              kernel of the path must have launched.
+6. int4    -- the same 7B tree quantized to group-wise int4 (group 64) on
+              the card, layer by layer; the model checks again (prefill
+              logits through kernel D, decode logits through kernel E),
+              then the engine phase again with the int4 weights (A, B, D
+              and E must all launch).
+7. summary -- one JSON line per kernel list, then the result line.
 
 There is no CPU fallback: without a card the script exits non-zero.
 """
@@ -31,6 +39,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import gc
 import json
 import subprocess
 import sys
@@ -40,6 +49,7 @@ import numpy as np
 
 # published peaks of one H100 SXM (NVIDIA data sheet, dense, at 700 W)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES_PER_S = 3.35e12
 # kernel vs plain version, element-wise |out - ref| <= atol + rtol * |ref|,
 # by output dtype.  Both accumulate in float32 and round the output once: in
@@ -48,6 +58,15 @@ PEAK_BYTES_PER_S = 3.35e12
 # elements near 0, where the f32 summation order itself shows.  In float32
 # only the summation order differs.
 KERNEL_TOL = {"torch.bfloat16": (1e-5, 2 ** -7), "torch.float32": (1e-5, 0.0)}
+# The int4 GEMMs sum K = 3584..18944 products, and a fixed 1e-5 cannot
+# describe how far two f32 summation orders of such a sum drift apart: the
+# drift scales with the magnitudes summed.  Their element-wise limit is
+# GEMM_ATOL * T + rtol * |ref|, with T[m, o] the sum over k of |x[m, k]| *
+# |w[k, o]| (for W4A8, over the group terms it adds) and rtol as above.
+# 2**-20 is 16 units of f32 roundoff of T; a wrong group scale or nibble
+# moves an output by about 1e-2 * T.
+GEMM_ATOL = 2 ** -20
+GROUP = 64  # int4 group size (the JAX package's default)
 # 7B logits in float32, kernels vs plain path: the same f32 arithmetic
 # summed in another order, through 28 layers
 LOGITS_RTOL_F32 = 1e-3
@@ -87,8 +106,8 @@ def agreement(out, ref) -> dict:
     return {"max_abs_err": diff.max().item(), "limit_share": share.max().item()}
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
 
 
@@ -320,6 +339,222 @@ def phase_kernels() -> dict:
     return results
 
 
+# ------------------------------------------------------- int4 GEMMs (D, E) --
+
+# (name, K, N) of the Qwen2-7B int4 projections in the fused serving layout
+Q7B_SHAPES = {"wqkv": (3584, 4608), "wo": (3584, 3584), "wgu": (3584, 37888),
+              "wd": (18944, 3584), "lm_head": (3584, 152064)}
+
+
+def int4_case(gen, k, n, layers=None):
+    """A QuantizedLinear4 from quantize_weight4 of a random normal matrix
+    (so every group and column has its own scales), as a contiguous
+    per-layer tensor and, with ``layers``, also as the LAST layer's view of
+    a stack whose other layers hold other bytes: a kernel that reads the
+    wrong layer or offset disagrees with the plain version."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models.quant import QuantizedLinear4, quantize_weight4
+
+    w = quantize_weight4(torch.randn((k, n), generator=gen, device="cuda") * 0.02, GROUP)
+    if not layers:
+        return w, w
+    stack = QuantizedLinear4(
+        q=torch.randint(0, 256, (layers, k // 2, n), generator=gen, device="cuda",
+                        dtype=torch.uint8),
+        s=(torch.rand((layers, k // GROUP, n), generator=gen, device="cuda") * 0.01).bfloat16(),
+        zs=(torch.rand((layers, k // GROUP, n), generator=gen, device="cuda") * 0.05).bfloat16())
+    for dst, src in zip(stack, w):
+        dst[-1].copy_(src)
+    return w, QuantizedLinear4(*(f[-1] for f in stack))
+
+
+def gemm_agreement(out, ref, scale) -> dict:
+    """Max |out - ref| and the largest share of the GEMM limit
+    GEMM_ATOL * scale + rtol * |ref| any element uses (over 1 fails);
+    ``err_per_roundoff`` is max |out - ref| / (2**-24 * scale)."""
+    rtol = KERNEL_TOL[str(out.dtype)][1]
+    diff = (out.float() - ref.float()).abs()
+    share = diff / (GEMM_ATOL * scale + rtol * ref.float().abs() + 1e-30)
+    return {"max_abs_err": diff.max().item(), "limit_share": share.max().item(),
+            "err_per_roundoff": (diff / (2 ** -24 * scale + 1e-30)).max().item()}
+
+
+def int4pack_yardstick(x, w):
+    """torch._weight_int4pack_mm on the same nibbles (repacked, zero point
+    8*s - zs), or None where the card's torch lacks it or refuses."""
+    import torch
+
+    from githubrepostorag_tpu_torch.ops.int4_matmul import dequant4
+
+    try:
+        k, n = w.q.shape[0] * 2, w.q.shape[1]
+        gsz = k // w.s.shape[0]
+        nib = dequant4(w.q, torch.ones_like(w.s), torch.zeros_like(w.zs), torch.float32)
+        nib = nib.to(torch.int32).t().contiguous()  # [N, K] values 0..15
+        packed = torch._convert_weight_to_int4pack(
+            (nib[:, ::2] << 4 | nib[:, 1::2]).to(torch.uint8), 8)
+        sz = torch.stack([w.s, (8 * w.s.float() - w.zs.float()).bfloat16()], dim=2).contiguous()
+        x2 = x.reshape(-1, k)
+        torch._weight_int4pack_mm(x2, packed, gsz, sz)
+        return lambda: torch._weight_int4pack_mm(x2, packed, gsz, sz)
+    except Exception as exc:  # noqa: BLE001 - a yardstick, not a check
+        log(f"  torch._weight_int4pack_mm unavailable: {type(exc).__name__}: {str(exc)[:120]}")
+        return None
+
+
+def measure_int4(x, w, w_view, out_dtype, timed: bool) -> dict:
+    """Kernel D (int4_matmul, w4a8=False) on ``w_view`` and ``w`` against
+    int4_matmul_ref."""
+    import torch
+
+    from githubrepostorag_tpu_torch.ops.int4_matmul import dequant4, int4_matmul, int4_matmul_ref
+
+    out = int4_matmul(x, *w_view, out_dtype=out_dtype, w4a8=False)
+    out_own = int4_matmul(x, *w, out_dtype=out_dtype, w4a8=False)
+    ref = int4_matmul_ref(x, *w, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise RuntimeError("int4_matmul produced non-finite values")
+    if not torch.equal(out, out_own):
+        raise RuntimeError("int4_matmul differs between a stacked layer's view and its own copy")
+    wq = dequant4(*w, x.dtype).float()
+    res = gemm_agreement(out, ref, x.float().abs() @ wq.abs())
+    if not timed:
+        return res
+    m, k = x.numel() // x.shape[-1], x.shape[-1]
+    n, n_g = w.q.shape[1], w.s.shape[0]
+    res["ms"] = time_ms(lambda: int4_matmul(x, *w_view, out_dtype=out_dtype, w4a8=False), 10)
+    res["plain_ms"] = time_ms(lambda: int4_matmul_ref(x, *w_view, out_dtype=out_dtype), 3, warmup=1)
+    wb = wq.bfloat16()
+    del wq
+    res["library_ms"] = time_ms(lambda: torch.matmul(x, wb), 10)
+    pack = int4pack_yardstick(x, w)
+    res["library_int4pack_ms"] = time_ms(pack, 10) if pack else None
+    out_bytes = 4 if out_dtype == torch.float32 else 2
+    res["bound_ms"], res["bound_by"] = bound(
+        2.0 * m * k * n, m * k * x.element_size() + k * n / 2 + 2 * n_g * n * 2 + m * n * out_bytes)
+    return res
+
+
+def w4a8_scale(x, w):
+    """T of the W4A8 route: sxn[m] * sum_g |s[g, o] * p[g, m, o]|, the
+    magnitudes of the group terms kernel E adds."""
+    import torch
+
+    from githubrepostorag_tpu_torch.ops.int4_matmul import quantize_rows
+
+    m, k = x.numel() // x.shape[-1], x.shape[-1]
+    n, n_g = w.q.shape[1], w.s.shape[0]
+    gsz = k // n_g
+    xq, sxn = quantize_rows(x.reshape(m, k))
+    xg = xq.reshape(m, n_g, gsz).transpose(0, 1).float()
+    pg = w.q.reshape(n_g, gsz // 2, n)
+    nib = torch.cat([pg & 0xF, pg >> 4], dim=1).float()
+    return (sxn * (torch.bmm(xg, nib).abs() * w.s.float()[:, None, :]).sum(dim=0)).reshape(
+        *x.shape[:-1], n)
+
+
+def measure_w4a8(x, w, w_view, out_dtype, timed: bool) -> dict:
+    """Kernel E's route (w4a8_matmul) on ``w_view`` against the same route
+    through w4a8_matmul_ref on ``w``; timed: kernel E alone on prepared
+    activations, its plain version, the whole route, and the yardsticks."""
+    import torch
+
+    from githubrepostorag_tpu_torch.ops import int4_matmul as ops
+
+    out = ops.w4a8_matmul(x, *w_view, out_dtype)
+    ref = ops._w4a8(x, *w, out_dtype, ops.w4a8_matmul_ref)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise RuntimeError("w4a8_matmul produced non-finite values")
+    res = gemm_agreement(out, ref, w4a8_scale(x, w))
+    if not timed:
+        return res
+    m, k = x.numel() // x.shape[-1], x.shape[-1]
+    n, n_g = w.q.shape[1], w.s.shape[0]
+    xq, _ = ops.quantize_rows(x.reshape(m, k))
+    xg = xq.reshape(m, n_g, k // n_g).transpose(0, 1).contiguous()
+    res["ms"] = time_ms(lambda: ops._w4a8_acc(xg, w_view.q, w_view.s), 50)
+    res["plain_ms"] = time_ms(lambda: ops.w4a8_matmul_ref(xg, w_view.q, w_view.s), 5, warmup=1)
+    res["route_ms"] = time_ms(lambda: ops.w4a8_matmul(x, *w_view, out_dtype), 50)
+    wb = ops.dequant4(*w, x.dtype)
+    res["library_ms"] = time_ms(lambda: torch.matmul(x, wb), 50)
+    del wb
+    pack = int4pack_yardstick(x, w)
+    res["library_int4pack_ms"] = time_ms(pack, 50) if pack else None
+    res["bound_ms"], res["bound_by"] = bound(
+        2.0 * m * k * n, m * k + k * n / 2 + n_g * n * 2 + m * n * 4, peak=PEAK_INT8_OPS)
+    return res
+
+
+def phase_int4_kernels(rng) -> dict:
+    """Kernels D and E against their plain versions at the 7B shapes, on
+    the last layer of a 28-layer stack and on their own copy."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(1 << 30)))
+    checks, results = [], {}
+
+    def check(label, res):
+        checks.append((label, res))
+        log(f"{label}: {json.dumps(res)}")
+        return res
+
+    def randx(m, k, dtype):
+        return torch.randn((m, k), generator=gen, device="cuda").to(dtype)
+
+    # ragged small cases first: rows and columns off the tiles, group 128
+    from githubrepostorag_tpu_torch.models.quant import quantize_weight4
+
+    for k, n, m, gsz in ((256, 200, 5, 64), (512, 136, 3, 128)):
+        w = quantize_weight4(torch.randn((k, n), generator=gen, device="cuda") * 0.02, gsz)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = randx(m, k, dtype)
+            check(f"kernel D small K={k} N={n} M={m} group {gsz} {str(dtype)[6:]}",
+                  measure_int4(x, w, w, dtype, False))
+            check(f"kernel E small K={k} N={n} M={m} group {gsz} {str(dtype)[6:]}",
+                  measure_w4a8(x, w, w, dtype, False))
+
+    layers = 28
+    for name in ("wqkv", "wgu", "wd", "lm_head"):
+        k, n = Q7B_SHAPES[name]
+        w, view = int4_case(gen, k, n, None if name == "lm_head" else layers)
+        out_dtype = torch.float32 if name == "lm_head" else None
+        for m in (8, 64):
+            for dtype in (torch.float32, torch.bfloat16):
+                timed = dtype == torch.bfloat16
+                res = check(f"kernel E {name} M={m} {str(dtype)[6:]}",
+                            measure_w4a8(randx(m, k, dtype), w, view, out_dtype or dtype, timed))
+                if timed:
+                    results[f"w4a8_matmul@{name}@M{m}"] = res
+        if name in ("wgu", "wd", "lm_head"):
+            m = 8 if name == "lm_head" else 4096
+            for dtype in (torch.float32, torch.bfloat16):
+                timed = dtype == torch.bfloat16
+                res = check(f"kernel D {name} M={m} {str(dtype)[6:]}",
+                            measure_int4(randx(m, k, dtype), w, view, out_dtype or dtype, timed))
+                if timed:
+                    results[f"int4_matmul@{name}@M{m}"] = res
+        del w, view
+        torch.cuda.empty_cache()
+
+    bad = [label for label, r in checks if not r["limit_share"] <= 1.0]
+    worst = max(r["err_per_roundoff"] for _, r in checks)
+    if bad:
+        raise RuntimeError(f"int4 kernels and plain versions disagree beyond {GEMM_ATOL:g} * T + "
+                           f"rtol |ref| (worst {worst:.3g} roundoff units of T): {bad}")
+    log(f"kernels D and E agree with their plain versions element-wise within {GEMM_ATOL:g} * T "
+        f"+ rtol |ref| (worst {worst:.3g} f32 roundoff units of T)")
+    main = {"int4_matmul": results["int4_matmul@wgu@M4096"],
+            "w4a8_matmul": results["w4a8_matmul@wgu@M8"]}
+    for name, key in (("int4_matmul", "int4_matmul@"), ("w4a8_matmul", "w4a8_matmul@")):
+        main[name] = dict(main[name], max_abs_err=max(
+            r["max_abs_err"] for k, r in results.items() if k.startswith(key)))
+    return {**main, **results}
+
+
 def make_7b_params():
     import torch
 
@@ -339,13 +574,41 @@ def make_7b_params():
     return cfg, params
 
 
-def phase_model(cfg, params) -> None:
+def upcast(params: dict) -> dict:
+    """The tree with every plain float leaf in float32 (activations follow
+    the final norm's dtype); quantized leaves stay as they are."""
+    return {k: upcast(v) if isinstance(v, dict) else (v if isinstance(v, tuple) else v.float())
+            for k, v in params.items()}
+
+
+def rel(a, ref) -> float:
+    return ((a - ref).norm() / ref.norm()).item()
+
+
+def check_f32_logits(label, kern, plain) -> None:
+    """Float32 logits, kernels vs plain path: relative error within
+    LOGITS_RTOL_F32 and argmax equal wherever the top-2 margin exceeds the
+    same share of the logits' rms."""
+    err32 = rel(kern, plain)
+    atol = LOGITS_RTOL_F32 * plain.pow(2).mean().sqrt().item()
+    top2 = plain.topk(2, dim=-1).values
+    decided = (top2[:, 0] - top2[:, 1]) > atol
+    agree = (kern.argmax(-1) == plain.argmax(-1))[decided]
+    log(f"{label} f32 logits kernels vs plain: rel err {err32:.3g} (limit {LOGITS_RTOL_F32}); "
+        f"argmax agrees at {int(agree.sum())}/{int(decided.sum())} positions whose top-2 margin "
+        f"> {atol:.3g}")
+    if err32 > LOGITS_RTOL_F32 or not bool(agree.all()):
+        raise RuntimeError(f"{label} float32 logits with kernels disagree with the plain path")
+
+
+def phase_model(cfg, params, label: str = "7B") -> None:
     """forward_paged prefill logits, kernels against the plain path, at
-    Qwen2-7B width and depth.  In float32 (weights upcast) the two paths do
-    the same arithmetic in another order, so they must agree tightly.  In
-    bf16 both round at other places, and a random-weight 28-layer model
-    amplifies that; there the kernel path must be no less accurate than
-    the plain path, both measured against the float32 plain logits."""
+    Qwen2-7B width and depth.  In float32 (plain float leaves upcast; int4
+    leaves stay int4 and dequantize in f32) the two paths do the same
+    arithmetic in another order, so they must agree tightly.  In bf16 both
+    round at other places, and a random-weight 28-layer model amplifies
+    that; there the kernel path must be no less accurate than the plain
+    path, both measured against the float32 plain logits."""
     import torch
 
     from githubrepostorag_tpu_torch.models.qwen2 import forward_paged
@@ -377,53 +640,120 @@ def phase_model(cfg, params) -> None:
         logits, _, _ = forward_paged(p, cfg, *args, pools.k, pools.v, *rest,
                                      use_kernels=use_kernels)
         torch.cuda.synchronize()
-        log(f"forward_paged 7B [2, 512] {str(dtype)[6:]} use_kernels={use_kernels}: "
+        log(f"forward_paged {label} [2, 512] {str(dtype)[6:]} use_kernels={use_kernels}: "
             f"{(time.monotonic() - t0) * 1e3:.1f} ms host wall")
         out = logits[valid]  # [valid positions, V]
         if not torch.isfinite(out).all():
-            raise RuntimeError("non-finite 7B logits")
+            raise RuntimeError(f"non-finite {label} logits")
         return out
-
-    def rel(a, ref):
-        return ((a - ref).norm() / ref.norm()).item()
 
     bf_kern = run(params, torch.bfloat16, True)
     bf_plain = run(params, torch.bfloat16, False)
-    p32 = {k: (v.float() if torch.is_tensor(v) else {n: w.float() for n, w in v.items()})
-           for k, v in params.items()}
+    p32 = upcast(params)
     f_kern = run(p32, torch.float32, True)
     f_plain = run(p32, torch.float32, False)
     del p32
 
-    err32 = rel(f_kern, f_plain)
-    atol = LOGITS_RTOL_F32 * f_plain.pow(2).mean().sqrt().item()
-    top2 = f_plain.topk(2, dim=-1).values
-    decided = (top2[:, 0] - top2[:, 1]) > atol
-    agree = (f_kern.argmax(-1) == f_plain.argmax(-1))[decided]
-    log(f"7B f32 logits kernels vs plain: rel err {err32:.3g} (limit {LOGITS_RTOL_F32}); argmax "
-        f"agrees at {int(agree.sum())}/{int(decided.sum())} positions whose top-2 margin > {atol:.3g}")
-    if err32 > LOGITS_RTOL_F32 or not bool(agree.all()):
-        raise RuntimeError("7B float32 forward_paged with kernels disagrees with the plain path")
+    check_f32_logits(f"{label} forward_paged", f_kern, f_plain)
     e_kern, e_plain = rel(bf_kern, f_plain), rel(bf_plain, f_plain)
-    log(f"7B bf16 logits vs f32 plain: kernels {e_kern:.3g}, plain {e_plain:.3g}; "
+    log(f"{label} bf16 logits vs f32 plain: kernels {e_kern:.3g}, plain {e_plain:.3g}; "
         f"kernels vs plain {rel(bf_kern, bf_plain):.3g}")
     if e_kern > LOGITS_BF16_SLACK * e_plain:
-        raise RuntimeError("7B bf16 forward_paged with kernels is less accurate than the plain path")
+        raise RuntimeError(f"{label} bf16 forward_paged with kernels is less accurate than the "
+                           "plain path")
 
 
-def phase_engine(cfg, params) -> dict:
+def quantize_7b(params) -> dict:
+    """The bf16 7B tree quantized to group-wise int4 on the card, one layer
+    at a time (varied scales, unlike init_params_quantized's constant
+    ones); the embedding table goes per-row int8."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models.quant import params_nbytes, quantize_qwen2_params
+
+    t0 = time.monotonic()
+    qparams = quantize_qwen2_params(params, bits=4, group_size=GROUP)
+    torch.cuda.synchronize()
+    log(f"Qwen2-7B int4 (group {GROUP}) weights: {params_nbytes(qparams) / 1e9:.2f} GB "
+        f"(bf16 tree {params_nbytes(params) / 1e9:.2f} GB), quantized in "
+        f"{time.monotonic() - t0:.1f} s")
+    return qparams
+
+
+def phase_decode_logits(cfg, params) -> None:
+    """Kernel E's model-level gate: one decode step (8 rows of one token,
+    the automatic int4 route, so every projection and the lm_head run
+    W4A8) in float32 through the plain versions, with kernel E's route run
+    beside every one of its 113 matmuls on the same activations and held to
+    the element-wise GEMM limit.  The two paths are not compared free
+    running: the per-row int8 activation quantization is discontinuous, so
+    an f32 summation-order difference that moves an activation across a
+    rounding boundary changes it by a whole int8 step, and 28 random layers
+    amplify that (2e-2 relative in the logits on an H100); that drift is
+    printed, not gated."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models import quant
+    from githubrepostorag_tpu_torch.models.qwen2 import forward
+    from githubrepostorag_tpu_torch.ops.int4_matmul import int4_matmul
+
+    rng = np.random.default_rng(SEED + 4)
+    ids = torch.from_numpy(rng.integers(0, cfg.vocab_size, (8, 1)).astype(np.int32)).cuda()
+    pos = torch.from_numpy(rng.integers(0, 4096, (8, 1)).astype(np.int32)).cuda()
+    p32 = upcast(params)
+    plain_fn, checks = quant.int4_matmul_plain, []
+
+    def checked(x, q, s, zs, out_dtype=None, w4a8=None):
+        ref = plain_fn(x, q, s, zs, out_dtype=out_dtype, w4a8=w4a8)
+        out = int4_matmul(x, q, s, zs, out_dtype=out_dtype, w4a8=w4a8)
+        checks.append(gemm_agreement(out, ref, w4a8_scale(x, quant.QuantizedLinear4(q, s, zs))))
+        return ref
+
+    launches = int4_matmul.launches
+    quant.int4_matmul_plain = checked
+    try:
+        plain, _ = forward(p32, cfg, ids, pos, use_kernels=False)
+    finally:
+        quant.int4_matmul_plain = plain_fn
+    kern, _ = forward(p32, cfg, ids, pos)
+    torch.cuda.synchronize()
+    if not (torch.isfinite(kern).all() and torch.isfinite(plain).all()):
+        raise RuntimeError("non-finite decode logits")
+    want = 4 * cfg.num_layers + 1
+    worst = max(c["limit_share"] for c in checks)
+    log(f"7B int4 decode step: {len(checks)} W4A8 matmuls on the model's activations, kernel E's "
+        f"route vs plain: worst share of the GEMM limit {worst:.3g}, max abs err "
+        f"{max(c['max_abs_err'] for c in checks):.3g}")
+    if len(checks) != want or int4_matmul.launches != launches or not worst <= 1.0:
+        raise RuntimeError(f"7B int4 decode step: {len(checks)} of {want} matmuls checked, "
+                           f"{int4_matmul.launches - launches} took kernel D, worst share {worst}")
+    top2 = plain[:, 0].topk(2, dim=-1).values
+    log(f"7B int4 decode step free running, kernels vs plain: rel err {rel(kern, plain):.3g}, "
+        f"argmax equal on {int((kern[:, 0].argmax(-1) == plain[:, 0].argmax(-1)).sum())}/8 rows "
+        f"(top-2 margins {[round(x, 4) for x in (top2[:, 0] - top2[:, 1]).tolist()]})")
+
+
+def phase_engine(cfg, params, label: str, required: tuple[str, ...]) -> dict:
+    """Serve the traffic below through AsyncEngine(Engine(params)); every
+    kernel's launch count is set to 0 just before and read just after, and
+    each kernel in ``required`` must have launched."""
     import torch
 
     from githubrepostorag_tpu_torch.ops.fused_decode import fused_window_attention
+    from githubrepostorag_tpu_torch.ops.int4_matmul import int4_matmul, w4a8_matmul
     from githubrepostorag_tpu_torch.ops.paged_decode import paged_attention_decode_staged
     from githubrepostorag_tpu_torch.serving import AsyncEngine, Engine, SamplingParams
 
+    counted = {"fused_window_attention": fused_window_attention,
+               "paged_attention_decode_staged": paged_attention_decode_staged,
+               "int4_matmul": int4_matmul, "w4a8_matmul": w4a8_matmul}
+    torch.cuda.reset_peak_memory_stats()
     engine = Engine(params, cfg, page_size=128, num_pages=256, max_num_seqs=8,
                     prefill_chunk=512, decode_burst=8, max_seq_len=11712, device="cuda")
     t0 = time.monotonic()
     engine.warmup()
     torch.cuda.synchronize()
-    log(f"engine warmup {time.monotonic() - t0:.1f} s")
+    log(f"{label} engine warmup {time.monotonic() - t0:.1f} s")
 
     rng = np.random.default_rng(SEED + 2)
     prefix = rng.integers(0, cfg.vocab_size, 1024).tolist()
@@ -456,13 +786,12 @@ def phase_engine(cfg, params) -> dict:
         finally:
             await aeng.stop()
 
-    fused_window_attention.launches = 0
-    paged_attention_decode_staged.launches = 0
+    for fn in counted.values():
+        fn.launches = 0
     hits_before = engine._allocator.hit_tokens
     first, last, streamed, decoded, t_start, t_mid = asyncio.run(serve())
     torch.cuda.synchronize()
-    launches = {"fused_window_attention": fused_window_attention.launches,
-                "paged_attention_decode_staged": paged_attention_decode_staged.launches}
+    launches = {name: fn.launches for name, fn in counted.items()}
     hit = engine._allocator.hit_tokens - hits_before
 
     for res, want in [(r, n_new) for r in first + [last]] + [(r, n_decode) for r in decoded]:
@@ -475,9 +804,9 @@ def phase_engine(cfg, params) -> dict:
         raise RuntimeError("streamed tokens differ from the final result")
     if hit < 1024:
         raise RuntimeError(f"prefix cache hit {hit} tokens, expected >= 1024")
-    for name, n in launches.items():
-        if n <= 0:
-            raise RuntimeError(f"{name} never launched on the main path")
+    for name in required:
+        if launches[name] <= 0:
+            raise RuntimeError(f"{name} never launched on the {label} path")
     if engine._allocator.free_count != engine._allocator.num_pages:
         raise RuntimeError("pages leaked after the engine drained")
 
@@ -500,7 +829,7 @@ def phase_engine(cfg, params) -> dict:
         "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
-    log(f"engine on {torch.cuda.get_device_name(0)}: {json.dumps(stats)}")
+    log(f"{label} engine on {torch.cuda.get_device_name(0)}: {json.dumps(stats)}")
     profile_decode(engine, decode_wave, SamplingParams(temperature=0.0, max_tokens=17))
     return stats
 
@@ -533,10 +862,22 @@ def profile_decode(engine, prompts, sp) -> None:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
 
 
+SOURCES = {
+    "fused_window_attention": ("githubrepostorag_tpu_torch/csrc/fused_window_attention.cu",
+                               "githubrepostorag_tpu/ops/fused_decode.py:232"),
+    "paged_attention_decode_staged": ("githubrepostorag_tpu_torch/csrc/paged_decode_staged.cu",
+                                      "githubrepostorag_tpu/ops/pallas_paged.py:395"),
+    "int4_matmul": ("githubrepostorag_tpu_torch/csrc/int4_matmul.cu",
+                    "githubrepostorag_tpu/ops/pallas_int4.py:418"),
+    "w4a8_matmul": ("githubrepostorag_tpu_torch/csrc/w4a8_matmul.cu",
+                    "githubrepostorag_tpu/ops/pallas_int4.py:305"),
+}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["kernels"], default=None,
-                        help="run the device, build and kernel phases only")
+                        help="kernels: the device, build and kernel phases only")
     args = parser.parse_args()
 
     import torch
@@ -555,26 +896,31 @@ def main() -> int:
     t_all = time.monotonic()
     device = phase_device()
     phase_build()
-    kres = phase_kernels()
+    kres = {**phase_kernels(), **phase_int4_kernels(np.random.default_rng(SEED + 3))}
     if args.only == "kernels":
         log(f"done in {time.monotonic() - t_all:.1f} s")
         return 0
     cfg, params = make_7b_params()
-    phase_model(cfg, params)
-    estats = phase_engine(cfg, params)
+    phase_model(cfg, params, "7B bf16")
+    estats = phase_engine(cfg, params, "bf16",
+                          ("fused_window_attention", "paged_attention_decode_staged"))
+    qparams = quantize_7b(params)
+    del params  # the bf16 tree and engine are gone before the int4 phases
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_model(cfg, qparams, "7B int4")
+    phase_decode_logits(cfg, qparams)
+    estats4 = phase_engine(cfg, qparams, "int4", tuple(SOURCES))
 
-    sources = {
-        "fused_window_attention": ("githubrepostorag_tpu_torch/csrc/fused_window_attention.cu",
-                                   "githubrepostorag_tpu/ops/fused_decode.py:232"),
-        "paged_attention_decode_staged": ("githubrepostorag_tpu_torch/csrc/paged_decode_staged.cu",
-                                          "githubrepostorag_tpu/ops/pallas_paged.py:395"),
-    }
     entries = []
-    for name, (source, replaces) in sources.items():
+    for name, (source, replaces) in SOURCES.items():
         r = kres[name]
+        # each kernel's launches on the path it belongs to: A and B on the
+        # bf16 engine run, D and E on the int4 one
+        runs = estats4 if name in ("int4_matmul", "w4a8_matmul") else estats
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": estats["launches"][name], "max_abs_err": r["max_abs_err"],
+            "launches": runs["launches"][name], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })

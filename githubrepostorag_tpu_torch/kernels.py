@@ -43,6 +43,10 @@ SIGNATURES = {
     # B, n_q, n_kv, P, page_size, head_dim, max_pages, n_steps, staged_len,
     # layer, dtype, scale, stream
     "paged_decode_staged": [_P] * 8 + [_I] * 11 + [_F, _P],
+    # x, q, s, zs, out, M, K, N, group_size, x dtype, out dtype, stream
+    "int4_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    # xg, q, s, acc, M, K, N, group_size, stream
+    "w4a8_matmul": [_P] * 4 + [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

@@ -5,6 +5,11 @@
 with leaves as numpy arrays or anything ``numpy.asarray`` accepts (this
 module imports neither JAX nor the JAX package), and returns the same
 dict of torch tensors, so both packages compute on identical weights.
+
+Quantized leaves (the JAX ``QuantizedLinear``, ``QuantizedLinear4`` and
+``QuantizedEmbedding`` NamedTuples) become the port's NamedTuples of the
+same name: uint8 and int8 fields stay integer, and bf16 scales keep their
+bits.
 """
 
 from __future__ import annotations
@@ -13,25 +18,38 @@ import numpy as np
 import torch
 
 from githubrepostorag_tpu_torch.device import resolve_device
+from githubrepostorag_tpu_torch.models import quant
 from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config
 
+_QUANTIZED = {cls.__name__: cls for cls in quant.QUANTIZED_TYPES}
 
-def _leaf(x, dev: torch.device, dtype) -> torch.Tensor:
-    if isinstance(x, tuple):  # QuantizedLinear / QuantizedEmbedding NamedTuples
-        raise NotImplementedError("quantized weights are not supported by the torch port yet")
+
+def _tensor(x, dev: torch.device) -> torch.Tensor:
     arr = np.asarray(x)
     if arr.dtype.name == "bfloat16":  # ml_dtypes bf16: reinterpret the bits
         t = torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy()).view(torch.bfloat16)
     else:
         t = torch.from_numpy(np.array(arr, copy=True))
+    return t.to(dev)
+
+
+def _leaf(x, dev: torch.device, dtype):
+    if isinstance(x, tuple):
+        cls = _QUANTIZED.get(type(x).__name__)
+        if cls is None or len(x) != len(cls._fields):
+            raise NotImplementedError(f"unsupported parameter leaf type {type(x).__name__}")
+        return cls(*(_tensor(f, dev) for f in x))
+    t = _tensor(x, dev)
     if not t.is_floating_point():
-        raise NotImplementedError(f"non-float parameter leaf of dtype {arr.dtype}")
-    return t.to(device=dev, dtype=dtype or t.dtype)
+        raise NotImplementedError(f"integer parameter leaf of dtype {t.dtype} outside a "
+                                  "quantized leaf")
+    return t.to(dtype=dtype or t.dtype)
 
 
 def params_from_jax(tree: dict, cfg: Qwen2Config, device=None, dtype=None) -> dict:
     """Convert every leaf, keeping the tree's keys (fused or unfused layout).
-    ``dtype`` None keeps each leaf's own dtype."""
+    ``dtype`` sets the plain float leaves (None keeps each leaf's own);
+    quantized leaves keep their fields' dtypes."""
     dev = resolve_device(device)
 
     def conv(node):
@@ -40,9 +58,11 @@ def params_from_jax(tree: dict, cfg: Qwen2Config, device=None, dtype=None) -> di
         return _leaf(node, dev, dtype)
 
     params = conv(tree)
-    if params["embed"].shape != (cfg.vocab_size, cfg.hidden_size):
+    embed = params["embed"]
+    embed_shape = tuple((embed.q if isinstance(embed, tuple) else embed).shape)
+    if embed_shape != (cfg.vocab_size, cfg.hidden_size):
         raise ValueError(
-            f"embed shape {tuple(params['embed'].shape)} does not match the config "
+            f"embed shape {embed_shape} does not match the config "
             f"({cfg.vocab_size}, {cfg.hidden_size})"
         )
     if params["layers"]["ln1"].shape[0] != cfg.num_layers:

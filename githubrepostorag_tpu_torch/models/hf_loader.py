@@ -1,6 +1,7 @@
 """HuggingFace Qwen2 state dicts -> the stacked-params dict; port of
 ``githubrepostorag_tpu/models/hf_loader.py`` (``config_from_hf``,
-``params_from_state_dict``) for dense checkpoints.
+``params_from_state_dict`` with its ``quantize`` option, and the AutoAWQ
+repacker ``awq_params_from_state_dict``) for dense checkpoints.
 
 HF stores linear weights [out, in]; the port stores [in, out] so the
 forward is ``x @ w``.  Per-layer tensors stack on a leading L axis.
@@ -12,6 +13,12 @@ import numpy as np
 import torch
 
 from githubrepostorag_tpu_torch.device import resolve_device
+from githubrepostorag_tpu_torch.models.quant import (
+    QuantizedLinear4,
+    quantize_embedding,
+    quantize_qwen2_params,
+    quantize_weight,
+)
 from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config
 
 
@@ -38,14 +45,19 @@ def config_from_hf(hf_cfg: dict) -> Qwen2Config:
 
 def _tensor(t) -> torch.Tensor:
     if isinstance(t, np.ndarray):
-        return torch.from_numpy(t)
+        return torch.from_numpy(np.ascontiguousarray(t))
     return t.detach()
 
 
 def params_from_state_dict(state_dict: dict, cfg: Qwen2Config, dtype=torch.float32,
-                           device=None) -> dict:
+                           device=None, quantize: bool | int = False) -> dict:
     """HF ``Qwen2ForCausalLM`` state dict (torch tensors or numpy arrays) ->
-    params on ``device`` in ``dtype``."""
+    params on ``device`` in ``dtype``.  ``quantize`` True/8 converts every
+    projection to per-channel int8, 4 to group-wise int4 (group 64); the
+    embedding table goes per-row int8 either way (``quantize_qwen2_params``,
+    computed on ``device``)."""
+    if quantize not in (False, True, 4, 8):
+        raise ValueError(f"quantize must be False/True/8/4, got {quantize!r}")
     dev = resolve_device(device)
     sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
     L = cfg.num_layers
@@ -82,4 +94,101 @@ def params_from_state_dict(state_dict: dict, cfg: Qwen2Config, dtype=torch.float
     }
     if not cfg.tie_word_embeddings:
         params["lm_head"] = put(_tensor(sd["lm_head.weight"]).to(torch.float32).t())
+    if quantize:
+        params = quantize_qwen2_params(params, bits=4 if quantize == 4 else 8)
+    return params
+
+
+# ---- AWQ checkpoint repacking -------------------------------------------
+
+AWQ_NIBBLE_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)  # AutoAWQ's GEMM packing order
+
+
+def _awq_unpack(packed) -> torch.Tensor:
+    """Unpack AutoAWQ int32 nibble-packed tensors along the LAST axis:
+    [r, c/8] int32 -> [r, c] uint8 (values 0..15).  AWQ packs 8 columns
+    per int32 in the interleaved order ``AWQ_NIBBLE_ORDER``: nibble ``pos``
+    (bits 4*pos..4*pos+3) of word w holds column 8*w + AWQ_NIBBLE_ORDER[pos].
+    The arithmetic shift of a negative int32 only sets bits above the
+    nibble, which the mask drops."""
+    u = _tensor(packed).to(torch.int32)
+    r, c8 = u.shape
+    out = torch.empty((r, c8, 8), dtype=torch.uint8, device=u.device)
+    for pos, col in enumerate(AWQ_NIBBLE_ORDER):
+        out[:, :, col] = ((u >> (4 * pos)) & 0xF).to(torch.uint8)
+    return out.reshape(r, c8 * 8)
+
+
+def awq_linear_to_quantized4(qweight, qzeros, scales) -> QuantizedLinear4:
+    """Repack one AutoAWQ GEMM-format linear (qweight int32 [in, out/8],
+    qzeros int32 [in/group, out/8], scales f16/f32 [in/group, out]) into
+    ``QuantizedLinear4``.  AWQ dequantizes ``(q - z) * s``; the port's
+    layout is ``q * s - zs`` with ``zs = z * s``, and its nibbles are
+    plane-packed within each group (low nibble: the group's first half of
+    rows, high nibble: its second half).  The uint4 codes transfer exactly;
+    s and zs are stored bf16, so dequant matches AWQ's to the bf16
+    rounding of the scales."""
+    q = _awq_unpack(qweight)  # [in, out]
+    z = _awq_unpack(qzeros).float()  # [in/group, out]
+    s = _tensor(scales).float()
+    in_dim, out = q.shape
+    n_g = s.shape[0]
+    group = in_dim // n_g
+    if group % 2 or in_dim % group:
+        raise ValueError(f"AWQ group size {group} not even over in dim {in_dim}")
+    qg = q.reshape(n_g, group, out)
+    packed = (qg[:, : group // 2] | (qg[:, group // 2 :] << 4)).reshape(in_dim // 2, out)
+    return QuantizedLinear4(q=packed, s=s.to(torch.bfloat16), zs=(z * s).to(torch.bfloat16))
+
+
+def awq_params_from_state_dict(state_dict: dict, cfg: Qwen2Config, hf_cfg: dict,
+                               dtype=torch.float32, device=None) -> dict:
+    """The stacked-params dict from an AutoAWQ checkpoint's qweight /
+    qzeros / scales tensors (projections) and full-precision embedding and
+    norm tensors.  The embedding table re-quantizes to per-row int8; an
+    fp16 lm_head to per-channel int8, a quantized one repacks like the
+    projections.  ``dtype`` sets the norms and biases, and with them the
+    activation dtype: bf16 for serving."""
+    dev = resolve_device(device)
+    qc = hf_cfg.get("quantization_config") or {}
+    if qc.get("bits", 4) != 4 or str(qc.get("version", "gemm")).lower() != "gemm":
+        raise ValueError(
+            f"only 4-bit GEMM-format AWQ checkpoints are supported, got "
+            f"bits={qc.get('bits')} version={qc.get('version')}")
+    sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
+    L = cfg.num_layers
+
+    def awq(prefix: str) -> QuantizedLinear4:
+        return awq_linear_to_quantized4(sd[prefix + ".qweight"], sd[prefix + ".qzeros"],
+                                        sd[prefix + ".scales"])
+
+    def stack_awq(fmt: str) -> QuantizedLinear4:
+        per_layer = [awq(fmt.format(i)) for i in range(L)]
+        return QuantizedLinear4(*(torch.stack(f).to(dev) for f in zip(*per_layer)))
+
+    def stack_vec(fmt: str) -> torch.Tensor:
+        return torch.stack([_tensor(sd[fmt.format(i)]).float() for i in range(L)]).to(dev, dtype)
+
+    attn, mlp = "layers.{}.self_attn.", "layers.{}.mlp."
+    layers = {
+        "ln1": stack_vec("layers.{}.input_layernorm.weight"),
+        "ln2": stack_vec("layers.{}.post_attention_layernorm.weight"),
+        "wq": stack_awq(attn + "q_proj"), "bq": stack_vec(attn + "q_proj.bias"),
+        "wk": stack_awq(attn + "k_proj"), "bk": stack_vec(attn + "k_proj.bias"),
+        "wv": stack_awq(attn + "v_proj"), "bv": stack_vec(attn + "v_proj.bias"),
+        "wo": stack_awq(attn + "o_proj"),
+        "wg": stack_awq(mlp + "gate_proj"), "wu": stack_awq(mlp + "up_proj"),
+        "wd": stack_awq(mlp + "down_proj"),
+    }
+    params = {
+        "embed": quantize_embedding(_tensor(sd["embed_tokens.weight"]).to(dev)),
+        "layers": layers,
+        "norm": _tensor(sd["norm.weight"]).to(dev, dtype),
+    }
+    if not cfg.tie_word_embeddings:
+        lm = sd.get("lm_head.weight")
+        if lm is not None:  # AWQ keeps lm_head fp16
+            params["lm_head"] = quantize_weight(_tensor(lm).to(dev).t())
+        else:  # some AWQ exports quantize lm_head too
+            params["lm_head"] = QuantizedLinear4(*(f.to(dev) for f in awq("lm_head")))
     return params

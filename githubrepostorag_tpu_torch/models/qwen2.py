@@ -8,7 +8,10 @@ Parameters are a plain dict with the JAX package's layout: per-layer leaves
 stacked on a leading L axis (``params["layers"]["wq"]`` is [L, d, n_q*hd]),
 linear weights stored [in, out] so the forward is ``x @ w``.  The fused
 single-chip serving layout (``wqkv``/``bqkv``/``wgu``, models/quant.py) is
-accepted wherever the unfused one is.
+accepted wherever the unfused one is, and so are quantized leaves (int8
+``QuantizedLinear``, int4 ``QuantizedLinear4``, an int8
+``QuantizedEmbedding`` table): every projection goes through
+``quant.qmatmul``, and the activation dtype is the final norm's.
 
 Where the JAX functions return fresh caches and donate the old ones, these
 update the KV caches and page pools IN PLACE and return the same tensors.
@@ -16,13 +19,22 @@ update the KV caches and page pools IN PLACE and return the same tensors.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
 
 from githubrepostorag_tpu_torch.device import resolve_device
-from githubrepostorag_tpu_torch.models.quant import embedding_lookup
+from githubrepostorag_tpu_torch.models.quant import (
+    QuantizedEmbedding,
+    QuantizedLinear,
+    QuantizedLinear4,
+    dequant_weight,
+    embedding_lookup,
+    q4_dispatch,
+    qmatmul,
+)
 from githubrepostorag_tpu_torch.ops.attention import dense_attention
 from githubrepostorag_tpu_torch.ops.fused_decode import fused_paged_attention
 from githubrepostorag_tpu_torch.ops.norms import rms_norm
@@ -113,39 +125,43 @@ def init_params(cfg: Qwen2Config, generator: torch.Generator, device=None,
 
 
 def layer_params(layers: dict, li: int) -> dict:
-    """One layer's leaves (views into the stacked tensors)."""
-    return {name: leaf[li] for name, leaf in layers.items()}
+    """One layer's leaves: views into the stacked tensors, field by field
+    for quantized NamedTuple leaves."""
+    return {name: (type(leaf)(*(f[li] for f in leaf)) if isinstance(leaf, tuple) else leaf[li])
+            for name, leaf in layers.items()}
 
 
-def _block(cfg: Qwen2Config, h, p, cos, sin, attend):
+def _block(cfg: Qwen2Config, h, p, cos, sin, attend, mm=qmatmul):
     """One transformer block.  ``attend(q, k, v) -> attn_out`` commits this
     step's K/V into whatever cache the caller uses and returns the
-    attention output, so the dense and paged paths share this body."""
+    attention output, so the dense and paged paths share this body.
+    ``mm(x, w)`` runs every projection (``qmatmul`` with the caller's int4
+    route)."""
     b, s, _ = h.shape
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     hn = rms_norm(h, p["ln1"], cfg.rms_norm_eps)
     if "wqkv" in p:  # fused single-chip serving layout
-        q, k, v = torch.split(hn @ p["wqkv"] + p["bqkv"],
+        q, k, v = torch.split(mm(hn, p["wqkv"]) + p["bqkv"],
                               [nq * hd, nkv * hd, nkv * hd], dim=-1)
     else:
-        q = hn @ p["wq"] + p["bq"]
-        k = hn @ p["wk"] + p["bk"]
-        v = hn @ p["wv"] + p["bv"]
+        q = mm(hn, p["wq"]) + p["bq"]
+        k = mm(hn, p["wk"]) + p["bk"]
+        v = mm(hn, p["wv"]) + p["bv"]
     q = q.reshape(b, s, nq, hd)
     k = k.reshape(b, s, nkv, hd)
     v = v.reshape(b, s, nkv, hd)
     q, k = apply_rope(q, k, cos, sin)
 
     attn = attend(q, k, v)
-    h = h + attn.reshape(b, s, nq * hd) @ p["wo"]
+    h = h + mm(attn.reshape(b, s, nq * hd), p["wo"])
 
     hn = rms_norm(h, p["ln2"], cfg.rms_norm_eps)
     if "wgu" in p:
-        g, u = torch.chunk(hn @ p["wgu"], 2, dim=-1)
+        g, u = torch.chunk(mm(hn, p["wgu"]), 2, dim=-1)
     else:
-        g, u = hn @ p["wg"], hn @ p["wu"]
-    return h + (F.silu(g) * u) @ p["wd"]
+        g, u = mm(hn, p["wg"]), mm(hn, p["wu"])
+    return h + mm(F.silu(g) * u, p["wd"])
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -161,24 +177,48 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
-def _logits(params: dict, h: torch.Tensor) -> torch.Tensor:
-    """Final projection -> float32 logits (tied embedding or lm_head)."""
+def _embed_dtype(params: dict) -> torch.dtype:
+    """Activation dtype of a param tree: the final norm's, a plain tensor
+    in every layout (the embedding table may be int8)."""
+    return params["norm"].dtype
+
+
+def _logits(params: dict, h: torch.Tensor, w4a8: bool | None = None,
+            kernel: bool = True) -> torch.Tensor:
+    """Final projection -> float32 logits: tied embedding (plain or int8,
+    whose per-row scales apply to the logits), or lm_head (plain, int8 as
+    the AWQ repacker leaves it, or int4 through ``q4_dispatch``, which
+    writes float32 directly)."""
     lm_head = params.get("lm_head")
-    return matmul_f32(h, params["embed"].t() if lm_head is None else lm_head)
+    if lm_head is None:
+        embed = params["embed"]
+        if isinstance(embed, QuantizedEmbedding):
+            return matmul_f32(h, embed.q.to(h.dtype).t()) * embed.s.float()
+        return matmul_f32(h, embed.t())
+    if isinstance(lm_head, QuantizedLinear4):
+        return q4_dispatch(h, lm_head, out_dtype=torch.float32, kernel=kernel, w4a8=w4a8)
+    if isinstance(lm_head, QuantizedLinear):
+        return matmul_f32(h, dequant_weight(lm_head, h.dtype))
+    return matmul_f32(h, lm_head)
 
 
 def forward(params: dict, cfg: Qwen2Config, input_ids, positions, cache_k=None,
-            cache_v=None, kv_lengths=None):
+            cache_v=None, kv_lengths=None, use_kernels: bool = True):
     """Full forward -> (logits [B, S, V] float32, (cache_k, cache_v) or None).
+
+    int4 projections and logits take the automatic route (kernel E for at
+    most 256 rows, else kernel D); ``use_kernels=False`` takes the same
+    route through the plain versions.
 
     Without a cache: causal attention over the input.  With a dense cache
     ([L, B, S_cache, n_kv, hd]): new K/V are written in place at each row's
     ``kv_lengths`` offset and attention covers the cache.  The JAX version's
     ``dynamic_update_slice`` clamps out-of-range starts; here
     ``kv_lengths + S`` beyond the cache raises instead."""
-    h = embedding_lookup(params["embed"], input_ids)
+    h = embedding_lookup(params["embed"], input_ids, _embed_dtype(params))
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     b, s = input_ids.shape
+    mm = functools.partial(qmatmul, kernel=use_kernels)
     use_cache = cache_k is not None
     if use_cache:
         if int((kv_lengths + s).max()) > cache_k.shape[2]:
@@ -199,10 +239,10 @@ def forward(params: dict, cfg: Qwen2Config, input_ids, positions, cache_k=None,
         else:
             def attend(q, k, v):
                 return dense_attention(q, k, v, causal=True, q_offset=0)
-        h = _block(cfg, h, p, cos, sin, attend)
+        h = _block(cfg, h, p, cos, sin, attend, mm)
 
     h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
-    logits = _logits(params, h)
+    logits = _logits(params, h, kernel=use_kernels)
     return logits, ((cache_k, cache_v) if use_cache else None)
 
 
@@ -227,17 +267,22 @@ def forward_paged(
     Each layer's new K/V are committed into the pools at ``slot_mapping``
     (padding slots are dropped), then attention runs over each row's block
     table: through kernel A (``ops/fused_decode.py``) with ``use_kernels``,
-    else through the plain ``paged_attention_ref``.  ``logits_at`` projects
+    else through the plain ``paged_attention_ref``.  int4 projections and
+    the logits pin the exact bf16-dequant route (``w4a8=False``): kernel D
+    with ``use_kernels``, else its plain version, so prompt processing
+    never takes the W4A8 contract even at a decode-sized chunk.
+    ``logits_at`` projects
     logits at one chunk position per row ([B, 1, V]) instead of every
     position.  Returns (logits float32, k_pages, v_pages)."""
     from githubrepostorag_tpu_torch.serving.kv_cache import commit_paged
 
     attn_fn = fused_paged_attention if use_kernels else paged_attention_ref
+    mm = functools.partial(qmatmul, w4a8=False, kernel=use_kernels)
     b, _ = input_ids.shape
     nkv, hd = cfg.num_kv_heads, cfg.head_dim
     page_size = k_pages.shape[3]
 
-    h = embedding_lookup(params["embed"], input_ids)
+    h = embedding_lookup(params["embed"], input_ids, _embed_dtype(params))
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     flat_slots = slot_mapping.reshape(-1)
 
@@ -250,9 +295,9 @@ def forward_paged(
             commit_paged(vp, v.reshape(-1, nkv, hd).transpose(0, 1), flat_slots, page_size)
             return attn_fn(q, kp, vp, block_tables, cached_lens, new_lens)
 
-        h = _block(cfg, h, p, cos, sin, attend)
+        h = _block(cfg, h, p, cos, sin, attend, mm)
 
     h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
     if logits_at is not None:
         h = h[torch.arange(b, device=h.device), logits_at.long()][:, None, :]
-    return _logits(params, h), k_pages, v_pages
+    return _logits(params, h, w4a8=False, kernel=use_kernels), k_pages, v_pages

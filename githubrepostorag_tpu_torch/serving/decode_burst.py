@@ -14,13 +14,26 @@ wrapper runs the plain version.
 
 Rows self-deactivate when they reach ``row_limits`` (their allocated page
 capacity), so a burst never writes beyond a row's pages.
+
+int4 projections and the logits take the automatic route, so a decode
+batch (at most 256 rows) runs kernel E (``ops/int4_matmul.py``).  Each
+layer's quantized leaves are views (``layer_params``), which the kernel
+reads in place: the JAX package's ``Layered4`` / ``_split_q4`` (a stacked
+weight plus a layer index, so its scan never slices a copy) have no
+counterpart here.
 """
 
 from __future__ import annotations
 
 import torch
 
-from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config, _block, _logits, layer_params
+from githubrepostorag_tpu_torch.models.qwen2 import (
+    Qwen2Config,
+    _block,
+    _embed_dtype,
+    _logits,
+    layer_params,
+)
 from githubrepostorag_tpu_torch.models.quant import embedding_lookup
 from githubrepostorag_tpu_torch.ops.paged_decode import paged_attention_decode_staged
 from githubrepostorag_tpu_torch.ops.rope import rope_cos_sin
@@ -71,7 +84,8 @@ def decode_burst(
         act = act & (lens < row_limits)
         # last may carry the -1 inactive sentinel (packed tokens chained
         # across bursts): clamp so inactive rows look up a real embedding
-        h = embedding_lookup(params["embed"], torch.clamp(last, min=0)[:, None])
+        h = embedding_lookup(params["embed"], torch.clamp(last, min=0)[:, None],
+                             _embed_dtype(params))
         cos, sin = rope_cos_sin(lens[:, None], hd, cfg.rope_theta)
 
         for li in range(L):

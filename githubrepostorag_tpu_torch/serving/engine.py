@@ -2,9 +2,10 @@
 paged KV cache, with continuous batching; port of the default serving path
 of ``githubrepostorag_tpu/serving/engine.py``.
 
-What it runs: bf16 (or f32) weights and KV pages, padded chunked prefill
-(``forward_paged`` -> kernel A), prefix caching, and pipelined decode
-bursts (``decode_burst`` -> kernel B).  Scheduling -- admission, page
+What it runs: bf16 (or f32) KV pages; bf16/f32, int8 or int4 weights
+(models/quant.py; int4 projections run kernel D at prefill and kernel E
+at decode); padded chunked prefill (``forward_paged`` -> kernel A), prefix
+caching, and pipelined decode bursts (``decode_burst`` -> kernel B).  Scheduling -- admission, page
 allocation, who prefills and who decodes -- is host-side Python; compute
 stays on the device.
 
@@ -17,9 +18,9 @@ burst's read.  The first host read (``.tolist()`` / ``.cpu()``) of a
 result is the sync point, at the same places the JAX engine fetches.
 
 Every other mode of the JAX engine (packed prefill, sequence-parallel ring
-prefill, n-gram / draft / fused-step speculation, quantized KV pages or
-weights, the host KV tier, preemption, meshes) is rejected at
-construction: it is not ported yet.
+prefill, n-gram / draft / fused-step speculation, quantized KV pages, the
+host KV tier, preemption, meshes) is rejected at construction: it is not
+ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import torch
 
 from githubrepostorag_tpu_torch.device import resolve_device
 from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config, forward_paged
-from githubrepostorag_tpu_torch.models.quant import fuse_projections
+from githubrepostorag_tpu_torch.models.quant import QUANTIZED_TYPES, fuse_projections
 from githubrepostorag_tpu_torch.ops.sampling import sample_tokens
 from githubrepostorag_tpu_torch.serving.decode_burst import decode_burst
 from githubrepostorag_tpu_torch.serving.kv_cache import (
@@ -150,12 +151,13 @@ class Engine:
                 raise NotImplementedError(
                     f"Engine option {name}={value!r} selects a mode the torch port "
                     "does not run yet; it serves the default path only (padded "
-                    "chunked prefill, bf16/f32 KV pages, prefix caching, pipelined "
-                    "decode bursts)"
+                    "chunked prefill, bf16/f32 KV pages, bf16/f32, int8 or int4 "
+                    "weights, prefix caching, pipelined decode bursts)"
                 )
         self.device = resolve_device(device)
         _check_params(params, self.device)
         # single-chip serving layout: 4 projection matmuls per layer, not 7
+        # (quantized leaves fuse too)
         self.params = fuse_projections(params)
         self.cfg = cfg
         self.max_num_seqs = max_num_seqs
@@ -728,15 +730,21 @@ class Engine:
 
 
 def _check_params(params: dict, device: torch.device) -> None:
-    """Plain float tensors on the engine's device; quantized or misplaced
-    weights raise."""
+    """Every leaf a float tensor or a quantized leaf of models/quant.py
+    (int8 per channel, int4 group-wise, int8 embedding table), all on the
+    engine's device; anything else raises."""
     leaves = [params["embed"], params["norm"], *params["layers"].values()]
     if "lm_head" in params:
         leaves.append(params["lm_head"])
     for leaf in leaves:
-        if not isinstance(leaf, torch.Tensor) or not leaf.is_floating_point():
+        if isinstance(leaf, QUANTIZED_TYPES):
+            tensors = list(leaf)
+        elif isinstance(leaf, torch.Tensor) and leaf.is_floating_point():
+            tensors = [leaf]
+        else:
             raise NotImplementedError(
-                "quantized weights are not supported by the torch port yet; "
-                "pass plain bf16 or f32 tensors")
-        if leaf.device.type != device.type:
-            raise ValueError(f"params live on {leaf.device}, the engine on {device}")
+                f"unsupported parameter leaf {type(leaf).__name__}; pass bf16/f32 tensors "
+                "or the quantized leaves of githubrepostorag_tpu_torch.models.quant")
+        for t in tensors:
+            if t.device.type != device.type:
+                raise ValueError(f"params live on {t.device}, the engine on {device}")

@@ -2,7 +2,17 @@
 weights (CPU, float32, tiny config): greedy tokens must be identical.
 
 Weights are the JAX ``init_params`` draw scaled x4, so greedy decoding of
-the tiny random model walks varied tokens instead of repeating one."""
+the tiny random model walks varied tokens instead of repeating one.  The
+int4 cases quantize that tree (group 16, int8 embedding table) on the JAX
+side and convert it.  The decode-burst case takes W4A8 on both sides: the
+JAX package's int4 matmuls run its Pallas kernel in interpret mode (the
+``jax_pallas_int4`` fixture; its CPU path would otherwise take its XLA
+oracle, never W4A8).  The engine case sets ``INT4_W4A8=0`` on both sides,
+because W4A8 rounds activations to int8 codes: a 1e-6 difference of
+float32 summation order upstream can move one code by one step (1e-2 on
+a projection's output), and over many greedy steps of a random model that
+flips a token.  The W4A8 route is held per burst, where its inputs are
+identical."""
 
 from __future__ import annotations
 
@@ -17,10 +27,13 @@ import jax
 import jax.numpy as jnp
 
 from githubrepostorag_tpu.models.qwen2 import Qwen2Config as JConfig, init_params as j_init
+from githubrepostorag_tpu.models import quant as j_quant
 from githubrepostorag_tpu.models.quant import fuse_projections as j_fuse
+from githubrepostorag_tpu.ops.pallas_int4 import int4_matmul as j_int4_matmul
 from githubrepostorag_tpu.serving import Engine as JEngine, SamplingParams as JSamplingParams
 from githubrepostorag_tpu.serving.decode_burst import decode_burst as j_decode_burst
 from githubrepostorag_tpu_torch.models.convert import params_from_jax
+from githubrepostorag_tpu_torch.models.quant import QuantizedLinear4
 from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config, init_params
 from githubrepostorag_tpu_torch.serving import AsyncEngine, Engine, SamplingParams
 from githubrepostorag_tpu_torch.serving.decode_burst import decode_burst
@@ -35,12 +48,43 @@ def weights():
     return jcfg, cfg, jp, params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
 
 
+@pytest.fixture(scope="module")
+def int4_weights(weights):
+    jcfg, cfg, jp, _ = weights
+    jp4 = j_quant.quantize_qwen2_params(jp, bits=4, group_size=16)
+    return jcfg, cfg, jp4, params_from_jax(jax.tree.map(np.asarray, jp4), cfg, device="cpu")
+
+
+@pytest.fixture
+def jax_pallas_int4(monkeypatch):
+    """Send the JAX package's int4 matmuls through its Pallas kernel in
+    interpret mode (automatic route: W4A8 for decode-sized batches, the
+    bf16-dequant kernel where the caller pins w4a8=False).  Compiled
+    functions are dropped before and after, so no trace crosses the
+    patch."""
+    def dispatch(x, q, s, zs, layer=None, out_dtype=None, kernel=True, w4a8=None):
+        return j_int4_matmul(x, q, s, zs, layer=layer, out_dtype=out_dtype, interpret=True,
+                             w4a8=w4a8)
+
+    monkeypatch.setattr(j_quant, "q4_dispatch", dispatch)
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
 def _torch_engine(cfg, params, **kw):
     return Engine(params, cfg, kv_dtype=torch.float32, device="cpu", **{**ENGINE_KW, **kw})
 
 
 def test_decode_burst_matches_jax(weights):
-    jcfg, cfg, jp, tp = weights
+    _check_decode_burst(*weights)
+
+
+def test_decode_burst_int4_matches_jax(int4_weights, jax_pallas_int4):
+    _check_decode_burst(*int4_weights)
+
+
+def _check_decode_burst(jcfg, cfg, jp, tp):
     rng = np.random.default_rng(0)
     b, n_steps, ps, num_pages, max_pages = 3, 4, 8, 16, 4
     shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, ps, cfg.head_dim)
@@ -84,7 +128,20 @@ def test_decode_burst_matches_jax(weights):
 
 
 def test_engine_greedy_tokens_match_jax(weights):
-    jcfg, cfg, jp, tp = weights
+    """Mixed prompt lengths and a prefix-cache hit."""
+    _check_greedy_tokens(*weights)
+
+
+def test_engine_int4_greedy_tokens_match_jax(int4_weights, monkeypatch):
+    """As above with int4 weights; both sides run the exact bf16-dequant
+    route, in prefill and in decode (see the module docstring): the port's
+    ``int4_matmul_ref`` against the JAX package's CPU path, its XLA oracle
+    ``q4_matmul``."""
+    monkeypatch.setenv("INT4_W4A8", "0")
+    _check_greedy_tokens(*int4_weights)
+
+
+def _check_greedy_tokens(jcfg, cfg, jp, tp):
     rng = np.random.default_rng(1)
     prefix = rng.integers(0, cfg.vocab_size, 24).tolist()
     # mixed lengths, one longer than prefill_chunk, one carrying a prefix
@@ -178,3 +235,15 @@ def test_engine_accepts_off_values_and_rejects_unknown_options(weights):
     _torch_engine(cfg, tp, kv_tier="auto", preempt="off", kv_quant=False, mesh=None)
     with pytest.raises(TypeError):
         _torch_engine(cfg, tp, use_pallas=True)
+
+
+def test_engine_accepts_quantized_params_and_checks_devices(int4_weights):
+    _, cfg, _, tp = int4_weights
+    te = _torch_engine(cfg, tp)
+    assert isinstance(te.params["layers"]["wqkv"], QuantizedLinear4)  # fused at construction
+    assert "wq" in tp["layers"]  # the caller's tree is left as it was
+    moved = QuantizedLinear4(*(f.to("meta") for f in tp["layers"]["wo"]))
+    with pytest.raises(ValueError, match="meta"):
+        _torch_engine(cfg, dict(tp, layers=dict(tp["layers"], wo=moved)))
+    with pytest.raises(NotImplementedError):
+        _torch_engine(cfg, dict(tp, norm=tp["norm"].to(torch.int32)))

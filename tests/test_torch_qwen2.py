@@ -1,10 +1,14 @@
 """The port's Qwen2 model against the JAX package on identical weights
 (CPU, float32, tiny config): parameter conversion, dense ``forward`` with
-and without a cache, and paged ``forward_paged`` logits, plus the HF
-state-dict loader.  Logits tolerance 1e-4 absolute: two layers of the same
-float32 arithmetic summed in another order."""
+and without a cache, and paged ``forward_paged`` logits, with plain and
+with quantized weights (int4 group 16 or int8 projections, int8 embedding
+table, tied or int4 / int8 lm_head), plus the HF state-dict loader.
+Logits tolerance 1e-4 absolute: two layers of the same float32 arithmetic
+summed in another order (for int4, the same dequantized weights)."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -15,6 +19,7 @@ import jax.numpy as jnp
 
 from githubrepostorag_tpu.models import qwen2 as jq
 from githubrepostorag_tpu.models.quant import fuse_projections as j_fuse
+from githubrepostorag_tpu.models.quant import quantize_qwen2_params as j_quantize
 from githubrepostorag_tpu_torch.models import qwen2 as tq
 from githubrepostorag_tpu_torch.models.convert import params_from_jax
 from githubrepostorag_tpu_torch.models.quant import fuse_projections as t_fuse
@@ -141,3 +146,53 @@ def test_params_from_state_dict_matches_jax_loader():
         hf_logits = model(ids).logits
     t_logits, _ = tq.forward(tp, cfg, ids, torch.arange(9)[None])
     np.testing.assert_allclose(t_logits.numpy(), hf_logits.numpy(), atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("bits, tied", [(4, True), (4, False), (8, False)])
+def test_quantized_forward_and_forward_paged_match_jax(bits, tied, monkeypatch):
+    """The same quantized tree (converted from the JAX one) through both
+    packages.  ``forward`` runs the exact bf16-dequant route on both sides
+    (INT4_W4A8=0 for the port: the JAX package's CPU path never takes
+    W4A8; the W4A8 route is held to the JAX kernel in
+    test_torch_engine.py); ``forward_paged`` pins that route itself."""
+    jcfg = dataclasses.replace(jq.Qwen2Config.tiny(), tie_word_embeddings=tied)
+    cfg = dataclasses.replace(tq.Qwen2Config.tiny(), tie_word_embeddings=tied)
+    rng = np.random.default_rng(5)
+    jp = jax.tree.map(lambda x: x + jnp.asarray(rng.normal(size=x.shape) * 0.02, x.dtype),
+                      jq.init_params(jcfg, jax.random.PRNGKey(1)))
+    jp = j_quantize(jp, bits=bits, group_size=16)
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu")
+    assert type(tp["embed"]).__name__ == "QuantizedEmbedding"
+    assert ("lm_head" in tp) is not tied
+
+    monkeypatch.setenv("INT4_W4A8", "0")
+    ids = rng.integers(0, cfg.vocab_size, size=(2, 9)).astype(np.int32)
+    pos = np.tile(np.arange(9, dtype=np.int32), (2, 1))
+    j_logits, _ = jq.forward(jp, jcfg, jnp.asarray(ids), jnp.asarray(pos))
+    t_logits, _ = tq.forward(tp, cfg, torch.from_numpy(ids), torch.from_numpy(pos))
+    assert t_logits.dtype == torch.float32
+    np.testing.assert_allclose(t_logits.numpy(), np.asarray(j_logits), atol=ATOL, rtol=0)
+    monkeypatch.delenv("INT4_W4A8")
+
+    b, s, ps, num_pages = 2, 8, 4, 8
+    bt = np.asarray([[5, 1, 6], [2, 7, 0]], dtype=np.int32)
+    cached, new = np.asarray([3, 0], np.int32), np.asarray([5, 8], np.int32)
+    ids = rng.integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+    pos = cached[:, None] + np.arange(s, dtype=np.int32)
+    slots = np.stack([slot_mapping(bt[i], int(cached[i]), int(new[i]), ps, s) for i in range(b)])
+    shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, ps, cfg.head_dim)
+    kp = rng.normal(size=shape).astype(np.float32)
+    j_logits, jk, _ = jq.forward_paged(
+        jp, jcfg, *(jnp.asarray(x) for x in (ids, pos, kp, kp, slots, bt, cached, new)),
+        use_pallas=False)
+    drop = np.zeros(shape[:2] + (1,) + shape[3:], np.float32)
+    for use_kernels in (True, False):
+        tkp = torch.from_numpy(np.concatenate([kp, drop], axis=2))
+        tvp = tkp.clone()
+        t_logits, _, _ = tq.forward_paged(
+            tp, cfg, torch.from_numpy(ids), torch.from_numpy(pos), tkp, tvp,
+            *(torch.from_numpy(x) for x in (slots, bt, cached, new)), use_kernels=use_kernels)
+        valid = np.arange(s)[None, :] < new[:, None]
+        np.testing.assert_allclose(t_logits.numpy()[valid], np.asarray(j_logits)[valid],
+                                   atol=ATOL, rtol=0)
+        np.testing.assert_allclose(tkp[:, :, :num_pages].numpy(), np.asarray(jk), atol=ATOL, rtol=0)
