@@ -9,22 +9,28 @@ Phases, each raising on failure:
 1. device  -- the card's name and power limit (nvidia-smi), torch and CUDA.
 2. build   -- compile every kernel in githubrepostorag_tpu_torch/csrc with
               nvcc (one process per source, all at once).
-3. kernels -- hold each kernel against its plain PyTorch version, element
-              by element, at the shapes the serving path gives it, in
-              float32 and bf16; time in bf16 the kernel, the plain
-              version, and PyTorch calls computing the same function
-              (scaled_dot_product_attention over pre-gathered K/V for A
-              and B; for the int4 GEMMs D and E, torch.matmul against the
-              dequantized bf16 weight and torch._weight_int4pack_mm where
-              the card's torch has it): yardsticks the port never calls;
-              compute the least time the card could take for the same work.
+3. kernels -- hold each kernel (and each pool branch of A and B) against
+              its plain PyTorch version, element by element, at the shapes
+              the serving path gives it, in float32 and bf16; time in bf16
+              the kernel, the plain version, and PyTorch calls computing
+              the same function (scaled_dot_product_attention over
+              pre-gathered, dequantized K/V for A, B and C; for the int4
+              GEMMs D and E, torch.matmul against the dequantized bf16
+              weight and torch._weight_int4pack_mm where the card's torch
+              has it): yardsticks the port never calls; compute the least
+              time the card could take for the same work.
 4. model   -- Qwen2-7B at its published widths and depth, random bf16
               weights from a seeded generator on the card: forward_paged
-              prefill logits with the kernels against the plain path.
+              and forward_paged_packed prefill logits with the kernels
+              against the plain path, and forward_paged over int8 / int4
+              KV pages against full-precision pages.
 5. engine  -- AsyncEngine(Engine(...)) at 7B serves a few requests
               (chunked prefill, a prefix-cache hit, one sampled row) after
               every kernel's launch count is set to 0; afterwards each
-              kernel of the path must have launched.
+              kernel (or pool branch) of the path must have launched, and
+              kernels the path never reaches must not have.  Four runs:
+              bf16 pages; packed prefill (prefill_token_budget=2048);
+              int8 pages; int4 pages with packed prefill.
 6. int4    -- the same 7B tree quantized to group-wise int4 (group 64) on
               the card, layer by layer; the model checks again (prefill
               logits through kernel D, decode logits through kernel E),
@@ -198,6 +204,58 @@ def kernel_b_case(rng, dev, b, n_q, n_kv, hd, ps, pool_lens, n_steps, staged_len
     )
 
 
+def quantize_pools(k, v, quant: int):
+    """int8 (quant 8) or int4 nibble-plane (quant 4) pools filled by
+    commit_paged from the float pages ``k``/``v`` [..., P, ps, hd], so every
+    (kv head, page) gets its own first-write scale: returns (kq, vq, ks,
+    vs), pools [..., P + 1, ps, hd or hd // 2] with the drop page and scales
+    [..., P + 1]."""
+    import torch
+
+    from githubrepostorag_tpu_torch.serving.kv_cache import commit_paged
+
+    *lead, p, ps, hd = k.shape
+    slots = torch.arange(p * ps, dtype=torch.int32, device=k.device)
+    pools, scales = [], []
+    for x in (k, v):
+        pool = torch.zeros((*lead, p + 1, ps, hd if quant == 8 else hd // 2),
+                           dtype=torch.int8 if quant == 8 else torch.uint8, device=k.device)
+        sc = torch.zeros((*lead, p + 1), dtype=torch.float32, device=k.device)
+        commit_paged(pool, x.reshape(*lead, p * ps, hd).float(), slots, ps, sc)
+        pools.append(pool)
+        scales.append(sc)
+    return pools[0], pools[1], scales[0], scales[1]
+
+
+def quantized_case(case, quant: int, n_layers: int | None = None) -> dict:
+    """``case`` with its float pools replaced by quantized ones.  With
+    ``n_layers`` (kernel B's rank-5 pools) the case's layer is committed
+    into the LAST of ``n_layers`` int8 layers, and every other layer holds
+    random codes and scales: a kernel that reads the wrong layer or scale
+    disagrees with its plain version."""
+    import torch
+
+    if n_layers is None:
+        kq, vq, ks, vs = quantize_pools(case["k"], case["v"], quant)
+        return dict(case, k=kq, v=vq, ks=ks, vs=vs)
+    li = case["layer"]
+    kl, vl, ksl, vsl = quantize_pools(case["k"][li], case["v"][li], quant)
+    dev = kl.device
+    kq = torch.randint(-127, 128, (n_layers, *kl.shape), dtype=torch.int8, device=dev)
+    vq = torch.randint(-127, 128, (n_layers, *kl.shape), dtype=torch.int8, device=dev)
+    ks = torch.rand((n_layers, *ksl.shape), device=dev) * 0.05
+    vs = torch.rand((n_layers, *ksl.shape), device=dev) * 0.05
+    for dst, src in ((kq, kl), (vq, vl), (ks, ksl), (vs, vsl)):
+        dst[-1].copy_(src)
+    return dict(case, k=kq, v=vq, ks=ks, vs=vs, layer=n_layers - 1)
+
+
+def _pool_elem_bytes(case) -> float:
+    """Bytes per K or V element as the pools hold them (int4: half a byte)."""
+    k = case["k"]
+    return 0.5 if str(k.dtype) == "torch.uint8" else float(k.element_size())
+
+
 def measure_kernel_a(case, timed: bool) -> dict:
     import torch
     import torch.nn.functional as F
@@ -206,7 +264,8 @@ def measure_kernel_a(case, timed: bool) -> dict:
         fused_window_attention, fused_window_attention_ref)
     from githubrepostorag_tpu_torch.ops.paged_attention import gather_kv
 
-    args = (case["q"], case["k"], case["v"], case["bt"], case["cached"], case["new"])
+    args = (case["q"], case["k"], case["v"], case["bt"], case["cached"], case["new"],
+            case.get("ks"), case.get("vs"))
     out = fused_window_attention(*args)
     ref = fused_window_attention_ref(*args)
     torch.cuda.synchronize()
@@ -225,8 +284,9 @@ def measure_kernel_a(case, timed: bool) -> dict:
         return res
     res["ms"] = time_ms(lambda: fused_window_attention(*args), 20)
     res["plain_ms"] = time_ms(lambda: fused_window_attention_ref(*args), 3, warmup=1)
-    # yardstick: one SDPA call over K/V gathered beforehand
-    k, v = gather_kv(case["k"], case["v"], case["bt"])  # [B, T, n_kv, hd]
+    # yardstick: one SDPA call over K/V gathered (and dequantized) beforehand
+    k, v = gather_kv(case["k"], case["v"], case["bt"], case.get("ks"), case.get("vs"),
+                     dtype=case["q"].dtype)  # [B, T, n_kv, hd]
     t = k.shape[1]
     kv_pos = torch.arange(t, device=k.device)
     q_pos = case["cached"].long()[:, None] + torch.arange(s, device=k.device)
@@ -237,7 +297,11 @@ def measure_kernel_a(case, timed: bool) -> dict:
         qs, ks, vs, attn_mask=mask[:, None], enable_gqa=True), 20)
     keys = sum(min(c + ti + 1, tt) for c, tt in zip(cached, total) for ti in range(s))
     flops = 4.0 * hd * n_q * keys
-    nbytes = 2 * (2 * b * s * n_q * hd + 2 * sum(total) * n_kv * hd)
+    nbytes = (case["q"].element_size() * 2 * b * s * n_q * hd
+              + _pool_elem_bytes(case) * 2 * sum(total) * n_kv * hd)
+    if "ks" in case:  # one f32 scale per (kv head, page) read, for K and V
+        ps = case["k"].shape[2]
+        nbytes += 4 * 2 * n_kv * sum(-(-t // ps) for t in total)
     res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
     return res
 
@@ -251,7 +315,7 @@ def measure_kernel_b(case, timed: bool) -> dict:
         paged_attention_decode_staged, paged_attention_decode_staged_ref)
 
     args = (case["q"], case["k"], case["v"], case["bt"], case["pool"], case["sk"], case["sv"],
-            case["staged_len"], case["layer"])
+            case["staged_len"], case["layer"], case.get("ks"), case.get("vs"))
     out = paged_attention_decode_staged(*args)
     ref = paged_attention_decode_staged_ref(*args)
     torch.cuda.synchronize()
@@ -266,7 +330,10 @@ def measure_kernel_b(case, timed: bool) -> dict:
     sl = case["staged_len"]
     res["ms"] = time_ms(lambda: paged_attention_decode_staged(*args), 50)
     res["plain_ms"] = time_ms(lambda: paged_attention_decode_staged_ref(*args), 5, warmup=1)
-    pk, pv = gather_kv(case["k"][case["layer"]], case["v"][case["layer"]], case["bt"])
+    li = case["layer"]
+    pk, pv = gather_kv(case["k"][li], case["v"][li], case["bt"],
+                       case["ks"][li] if "ks" in case else None,
+                       case["vs"][li] if "vs" in case else None, dtype=case["q"].dtype)
     k = torch.cat([pk, case["sk"].transpose(1, 2)], dim=1).transpose(1, 2)
     v = torch.cat([pv, case["sv"].transpose(1, 2)], dim=1).transpose(1, 2)
     t = pk.shape[1]
@@ -279,8 +346,91 @@ def measure_kernel_b(case, timed: bool) -> dict:
         qs, k, v, attn_mask=valid[:, None, None], enable_gqa=True), 50)
     keys = sum(pool) + b * sl
     flops = 4.0 * hd * n_q * keys
-    nbytes = 2 * (2 * b * n_q * hd + 2 * keys * n_kv * hd)
+    elem = case["q"].element_size()
+    nbytes = (elem * 2 * b * n_q * hd + elem * 2 * b * sl * n_kv * hd
+              + _pool_elem_bytes(case) * 2 * sum(pool) * n_kv * hd)
+    if "ks" in case:
+        ps = case["k"].shape[3]
+        nbytes += 4 * 2 * n_kv * sum(-(-n // ps) for n in pool)
     res["bound_ms"], res["bound_by"] = bound(flops, nbytes)
+    return res
+
+
+def kernel_c_case(rng, dev, n_q, n_kv, hd, ps, cached, new, tq, budget, dtype):
+    """A packed buffer of ``budget`` tokens: segment r's ``new[r]`` tokens
+    at positions cached[r].., back to back, then padding tokens; shuffled
+    block tables over a pool with holes."""
+    import torch
+
+    total = [c + n for c, n in zip(cached, new)]
+    max_pages = -(-max(total) // ps)
+    bt, num_pages = _shuffled_tables(rng, total, ps, max_pages)
+    seg, pos = [], []
+    for r, (c, n) in enumerate(zip(cached, new)):
+        seg += [r] * n
+        pos += list(range(c, c + n))
+    pad = budget - len(seg)
+    seg += [len(cached)] * pad
+    pos += [0] * pad
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(rng.integers(1 << 30)))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
+    return dict(q=randn(budget, n_q, hd), k=randn(n_kv, num_pages, ps, hd),
+                v=randn(n_kv, num_pages, ps, hd), bt=torch.from_numpy(bt).to(dev),
+                cached=i32(cached), new=i32(new), seg=i32(seg), pos=i32(pos), tq=tq)
+
+
+def measure_kernel_c(case, timed: bool) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from githubrepostorag_tpu_torch.ops.packed_prefill import (
+        _segment_scatter_indices, packed_prefill_attention_ref, packed_prefill_attention_seg)
+    from githubrepostorag_tpu_torch.ops.paged_attention import gather_kv
+
+    args = (case["q"], case["k"], case["v"], case["bt"], case["cached"], case["new"],
+            case["seg"], case["pos"])
+    tq = case["tq"]
+    out = packed_prefill_attention_seg(*args, tq=tq)
+    ref = packed_prefill_attention_ref(*args, tq=tq)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise RuntimeError("packed_prefill_attention_seg produced non-finite values")
+    r = case["bt"].shape[0]
+    if out[case["seg"] >= r].abs().max().item() != 0.0:
+        raise RuntimeError("packed_prefill_attention_seg wrote a padding token")
+    res = agreement(out, ref)
+    if not timed:
+        return res
+    res["ms"] = time_ms(lambda: packed_prefill_attention_seg(*args, tq=tq), 20)
+    res["plain_ms"] = time_ms(lambda: packed_prefill_attention_ref(*args, tq=tq), 3, warmup=1)
+    # yardstick: one SDPA call on the segment-major view, queries scattered
+    # and K/V gathered beforehand, with kernel A's yardstick mask
+    t, n_q, hd = case["q"].shape
+    n_kv = case["k"].shape[0]
+    dest = _segment_scatter_indices(case["seg"], case["pos"], case["cached"], tq).long()
+    q_seg = torch.zeros((r * tq + 1, n_q, hd), dtype=case["q"].dtype, device=out.device)
+    q_seg.index_copy_(0, dest, case["q"])
+    q_seg = q_seg[: r * tq].reshape(r, tq, n_q, hd).transpose(1, 2)
+    k, v = gather_kv(case["k"], case["v"], case["bt"])
+    kv_pos = torch.arange(k.shape[1], device=k.device)
+    q_pos = case["cached"].long()[:, None] + torch.arange(tq, device=k.device)
+    tot = (case["cached"] + case["new"]).long()
+    mask = (kv_pos[None, None] <= q_pos[:, :, None]) & (kv_pos[None, None] < tot[:, None, None])
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        q_seg, ks, vs, attn_mask=mask[:, None], enable_gqa=True), 20)
+    # the bound counts each segment's real tokens, not R * tq
+    cached, new = case["cached"].tolist(), case["new"].tolist()
+    keys = sum(c + i + 1 for c, n in zip(cached, new) for i in range(n))
+    elem = case["q"].element_size()
+    nbytes = elem * (2 * sum(new) * n_q * hd + 2 * sum(c + n for c, n in zip(cached, new))
+                     * n_kv * hd)
+    res["bound_ms"], res["bound_by"] = bound(4.0 * hd * n_q * keys, nbytes)
     return res
 
 
@@ -297,39 +447,76 @@ def phase_kernels() -> dict:
         log(f"{label}: {json.dumps(res)}")
         return res
 
-    # small cases in both dtypes: group 2, head_dim 64, a row with no KV
+    # small cases in both dtypes: group 2, head_dim 64, a row with no KV;
+    # quantized pools filled by commit_paged (scales vary per page and head)
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        check(f"kernel A small {name} (group 2, hd 64)", measure_kernel_a(kernel_a_case(
-            rng, dev, 3, 5, 4, 2, 64, 8, cached=[0, 9, 0], new=[5, 3, 0], dtype=dtype), False))
-        check(f"kernel B small {name} (group 2, hd 64)", measure_kernel_b(kernel_b_case(
-            rng, dev, 3, 4, 2, 64, 8, [0, 21, 40], n_steps=4, staged_len=2, dtype=dtype), False))
+        case = kernel_a_case(rng, dev, 3, 5, 4, 2, 64, 8, cached=[0, 9, 0], new=[5, 3, 0],
+                             dtype=dtype)
+        check(f"kernel A small {name} (group 2, hd 64)", measure_kernel_a(case, False))
+        for quant in (8, 4):
+            check(f"kernel A int{quant} small {name}",
+                  measure_kernel_a(quantized_case(case, quant), False))
+        case = kernel_b_case(rng, dev, 3, 4, 2, 64, 8, [0, 21, 40], n_steps=4, staged_len=2,
+                             dtype=dtype)
+        check(f"kernel B small {name} (group 2, hd 64)", measure_kernel_b(case, False))
+        check(f"kernel B int8 small {name}",
+              measure_kernel_b(quantized_case(case, 8, n_layers=3), False))
+        check(f"kernel C small {name} (group 2, hd 64)", measure_kernel_c(kernel_c_case(
+            rng, dev, 4, 2, 64, 8, cached=[3, 0, 17], new=[6, 8, 2], tq=8, budget=20,
+            dtype=dtype), False))
 
     # kernel A at the main prefill shape: B=4, S=512, 28/4 heads, hd 128,
-    # ps 128, contexts to 4096; float32 for the tight limit, bf16 timed
+    # ps 128, contexts to 4096, in all three pool branches; float32 for the
+    # tight limit, bf16 timed
     for dtype in (torch.float32, torch.bfloat16):
         main = kernel_a_case(rng, dev, 4, 512, 28, 4, 128, 128, cached=[0, 1024, 2560, 3584],
                              new=[512, 512, 300, 512], dtype=dtype)
         timed = dtype == torch.bfloat16
-        res = check(f"kernel A B=4 S=512 ctx<=4096 {str(dtype)[6:]}", measure_kernel_a(main, timed))
+        name = str(dtype)[6:]
+        res = check(f"kernel A B=4 S=512 ctx<=4096 {name}", measure_kernel_a(main, timed))
+        for quant in (8, 4):
+            resq = check(f"kernel A int{quant} B=4 S=512 ctx<=4096 {name}",
+                         measure_kernel_a(quantized_case(main, quant), timed))
+            if timed:
+                results[f"fused_window_attention@int{quant}"] = resq
         del main
     results["fused_window_attention"] = res
 
-    # kernel B: rank-5 pools, layer index 1, mid-burst staged tail
+    # kernel B: rank-5 pools, mid-burst staged tail; full precision at
+    # layer 1 of 2, int8 at layer 27 of 28 with a staged tail in the
+    # activation dtype
     for b, dtype in ((8, torch.float32), (8, torch.bfloat16), (64, torch.bfloat16)):
         pool = rng.integers(1, 8193, size=b)
         pool[0] = 8192
         case = kernel_b_case(rng, dev, b, 28, 4, 128, 128, pool.tolist(), n_steps=8, staged_len=5,
                              dtype=dtype)
         timed = dtype == torch.bfloat16
-        res = check(f"kernel B B={b} pool<=8192 n_steps 8 {str(dtype)[6:]}",
-                    measure_kernel_b(case, timed))
+        label = f"B={b} pool<=8192 n_steps 8 {str(dtype)[6:]}"
+        suffix = "" if b == 8 else f"@B{b}"
+        res = check(f"kernel B {label}", measure_kernel_b(case, timed))
         if timed:
-            results["paged_attention_decode_staged" + ("" if b == 8 else f"@B{b}")] = res
+            results["paged_attention_decode_staged" + suffix] = res
+        case = quantized_case(dict(case, k=case["k"][-1:], v=case["v"][-1:], layer=0), 8,
+                              n_layers=28)
+        res = check(f"kernel B int8 layer 27 of 28 {label}", measure_kernel_b(case, timed))
+        if timed:
+            results["paged_attention_decode_staged@int8" + suffix] = res
         del case
-    results["paged_attention_decode_staged"]["max_abs_err"] = max(
-        results["paged_attention_decode_staged"]["max_abs_err"],
-        results["paged_attention_decode_staged@B64"]["max_abs_err"])
+        torch.cuda.empty_cache()
+    for key in ("paged_attention_decode_staged", "paged_attention_decode_staged@int8"):
+        results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
+                                          results[key + "@B64"]["max_abs_err"])
+
+    # kernel C: a packed buffer of 2048 tokens at 7B heads, tq 512: five
+    # segments (one resuming mid-page at 2500) and 124 padding tokens
+    for dtype in (torch.float32, torch.bfloat16):
+        case = kernel_c_case(rng, dev, 28, 4, 128, 128, cached=[0, 1024, 2500, 0, 3000],
+                             new=[512, 512, 300, 500, 100], tq=512, budget=2048, dtype=dtype)
+        res = check(f"kernel C T=2048 R=5 tq=512 {str(dtype)[6:]}",
+                    measure_kernel_c(case, dtype == torch.bfloat16))
+        del case
+    results["packed_prefill_attention_seg"] = res
 
     limits = ", ".join(f"{k[6:]} {a:g} + {r:g}|ref|" for k, (a, r) in KERNEL_TOL.items())
     bad = [label for label, r in checks if not r["limit_share"] <= 1.0]
@@ -601,7 +788,7 @@ def check_f32_logits(label, kern, plain) -> None:
         raise RuntimeError(f"{label} float32 logits with kernels disagree with the plain path")
 
 
-def phase_model(cfg, params, label: str = "7B") -> None:
+def phase_model(cfg, params, label: str = "7B", p32=None) -> None:
     """forward_paged prefill logits, kernels against the plain path, at
     Qwen2-7B width and depth.  In float32 (plain float leaves upcast; int4
     leaves stay int4 and dequantize in f32) the two paths do the same
@@ -649,7 +836,7 @@ def phase_model(cfg, params, label: str = "7B") -> None:
 
     bf_kern = run(params, torch.bfloat16, True)
     bf_plain = run(params, torch.bfloat16, False)
-    p32 = upcast(params)
+    p32 = upcast(params) if p32 is None else p32
     f_kern = run(p32, torch.float32, True)
     f_plain = run(p32, torch.float32, False)
     del p32
@@ -661,6 +848,143 @@ def phase_model(cfg, params, label: str = "7B") -> None:
     if e_kern > LOGITS_BF16_SLACK * e_plain:
         raise RuntimeError(f"{label} bf16 forward_paged with kernels is less accurate than the "
                            "plain path")
+
+
+def _packed_wave(cfg, rng, dev):
+    """The kernel-C-shaped packed wave at 7B: a [1, 2048] buffer of five
+    segments (new 512, 512, 300, 500, 100 at cached 0, 1024, 2500, 0,
+    3000) and 124 padding tokens, in a row bucket of 8 (three empty
+    segments, as the engine pads five rows); shuffled block tables."""
+    import torch
+
+    from githubrepostorag_tpu_torch.serving.kv_cache import packed_slot_mapping
+
+    ps, budget, rb, tq = 128, 2048, 8, 512
+    cached, new = [0, 1024, 2500, 0, 3000], [512, 512, 300, 500, 100]
+    total = [c + n for c, n in zip(cached, new)]
+    max_pages = -(-max(total) // ps)
+    bt5, num_pages = _shuffled_tables(rng, total, ps, max_pages, spare=4)
+    bt = np.zeros((rb, max_pages), np.int32)
+    bt[:5] = bt5
+    ids = np.zeros((1, budget), np.int32)
+    pos = np.zeros((1, budget), np.int32)
+    seg = np.full((budget,), rb, np.int32)
+    slots = np.full((budget,), -1, np.int32)
+    logits_at = np.zeros((rb,), np.int32)
+    cached_a, new_a = np.zeros(rb, np.int32), np.zeros(rb, np.int32)
+    off = 0
+    for r, (c, n) in enumerate(zip(cached, new)):
+        ids[0, off:off + n] = rng.integers(0, cfg.vocab_size, n)
+        pos[0, off:off + n] = np.arange(c, c + n)
+        seg[off:off + n] = r
+        packed_slot_mapping(bt[r], c, n, ps, slots, off)
+        logits_at[r] = off + n - 1
+        cached_a[r], new_a[r] = c, n
+        off += n
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    args = [t(ids), t(pos)]
+    rest = [t(slots), t(bt), t(cached_a), t(new_a), t(seg), t(logits_at), tq]
+    return args, rest, num_pages, ps, t(slots[slots >= 0]).long()
+
+
+def phase_packed_model(cfg, params, p32) -> None:
+    """forward_paged_packed logits (and the last layer's committed K) on
+    the packed wave, kernels (C) against the plain path, by phase_model's
+    rules.  The cached context the wave resumes is random K/V, the same for
+    both paths."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models.qwen2 import forward_paged_packed
+    from githubrepostorag_tpu_torch.serving.kv_cache import make_page_pools
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 5)
+    args, rest, num_pages, ps, live_slots = _packed_wave(cfg, rng, dev)
+    gen = torch.Generator(device=dev)
+
+    def run(p, dtype, use_kernels):
+        pools = make_page_pools(cfg, num_pages, ps, dtype=dtype, device=dev)
+        gen.manual_seed(SEED + 6)
+        pools.k.normal_(generator=gen)
+        pools.v.normal_(generator=gen)
+        t0 = time.monotonic()
+        logits, kp, _ = forward_paged_packed(p, cfg, *args, pools.k, pools.v, *rest,
+                                             use_kernels=use_kernels)
+        torch.cuda.synchronize()
+        log(f"forward_paged_packed 7B [1, 2048] R=5 {str(dtype)[6:]} use_kernels={use_kernels}: "
+            f"{(time.monotonic() - t0) * 1e3:.1f} ms host wall")
+        out = logits[:5, 0]
+        k_last = kp[-1].reshape(cfg.num_kv_heads, -1, cfg.head_dim)[:, live_slots].float()
+        if not (torch.isfinite(out).all() and torch.isfinite(k_last).all()):
+            raise RuntimeError("non-finite packed prefill logits or K")
+        return out, k_last
+
+    bf_kern, _ = run(params, torch.bfloat16, True)
+    bf_plain, _ = run(params, torch.bfloat16, False)
+    f_kern, fk_kern = run(p32, torch.float32, True)
+    f_plain, fk_plain = run(p32, torch.float32, False)
+    check_f32_logits("7B forward_paged_packed", f_kern, f_plain)
+    e_k = rel(fk_kern, fk_plain)
+    log(f"7B forward_paged_packed f32 layer-27 K of the 1924 live tokens, kernels vs plain: "
+        f"rel err {e_k:.3g} (limit {LOGITS_RTOL_F32})")
+    if e_k > LOGITS_RTOL_F32:
+        raise RuntimeError("7B packed prefill K with kernels disagrees with the plain path")
+    e_kern, e_plain = rel(bf_kern, f_plain), rel(bf_plain, f_plain)
+    log(f"7B forward_paged_packed bf16 logits vs f32 plain: kernels {e_kern:.3g}, plain "
+        f"{e_plain:.3g}")
+    if e_kern > LOGITS_BF16_SLACK * e_plain:
+        raise RuntimeError("bf16 forward_paged_packed with kernels is less accurate than the "
+                           "plain path")
+
+
+def phase_quant_pools_model(cfg, p32) -> None:
+    """forward_paged with int8 and with int4 KV pages, float32 activations:
+    each quantized path (kernel A's branch, and the plain path) measured
+    against the plain path over full-precision pools.  The kernel path's
+    error may exceed the plain quantized path's by LOGITS_BF16_SLACK at
+    most: a step of one int8 code upstream (two correct summation orders
+    either side of a rounding boundary) makes an element-wise gate on the
+    whole model unsound, so the kernel phase holds the branches element by
+    element."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models.qwen2 import forward_paged
+    from githubrepostorag_tpu_torch.serving.kv_cache import make_page_pools, slot_mapping
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 1)
+    b, s, ps = 2, 512, 128
+    new = [512, 300]
+    ids = np.zeros((b, s), dtype=np.int32)
+    slots = np.full((b, s), -1, dtype=np.int32)
+    bt = np.asarray([[0, 1, 2, 3], [7, 6, 5, 4]], dtype=np.int32)
+    for i, n in enumerate(new):
+        ids[i, :n] = rng.integers(0, cfg.vocab_size, n)
+        slots[i] = slot_mapping(bt[i], 0, n, ps, s)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    rest = (t(slots), t(bt), t(np.zeros(b, np.int32)), t(np.asarray(new, np.int32)))
+    valid = torch.zeros((b, s), dtype=torch.bool, device=dev)
+    for i, n in enumerate(new):
+        valid[i, :n] = True
+
+    def run(quant, use_kernels):
+        pools = make_page_pools(cfg, 8, ps, dtype=torch.float32, device=dev, quant=quant)
+        out = forward_paged(p32, cfg, t(ids), t(pos), pools.k, pools.v, *rest,
+                            use_kernels=use_kernels, k_scales=pools.ks, v_scales=pools.vs)
+        torch.cuda.synchronize()
+        logits = out[0][valid]
+        if not torch.isfinite(logits).all():
+            raise RuntimeError(f"non-finite logits over int{quant} pages")
+        return logits
+
+    ref = run(0, False)
+    for quant in (8, 4):
+        e_kern, e_plain = rel(run(quant, True), ref), rel(run(quant, False), ref)
+        log(f"7B forward_paged f32 over int{quant} KV pages vs full-precision pages: kernel A "
+            f"int{quant} path {e_kern:.3g}, plain path {e_plain:.3g}")
+        if e_kern > LOGITS_BF16_SLACK * e_plain:
+            raise RuntimeError(f"kernel A's int{quant} path is less accurate than the plain path")
 
 
 def quantize_7b(params) -> dict:
@@ -733,23 +1057,50 @@ def phase_decode_logits(cfg, params) -> None:
         f"(top-2 margins {[round(x, 4) for x in (top2[:, 0] - top2[:, 1]).tolist()]})")
 
 
-def phase_engine(cfg, params, label: str, required: tuple[str, ...]) -> dict:
-    """Serve the traffic below through AsyncEngine(Engine(params)); every
-    kernel's launch count is set to 0 just before and read just after, and
-    each kernel in ``required`` must have launched."""
-    import torch
-
+def launch_counters() -> dict:
+    """Every kernel wrapper's launch count, and A's and B's per pool branch
+    (``name@int8`` ...)."""
     from githubrepostorag_tpu_torch.ops.fused_decode import fused_window_attention
     from githubrepostorag_tpu_torch.ops.int4_matmul import int4_matmul, w4a8_matmul
+    from githubrepostorag_tpu_torch.ops.packed_prefill import packed_prefill_attention_seg
     from githubrepostorag_tpu_torch.ops.paged_decode import paged_attention_decode_staged
+
+    return {"fused_window_attention": fused_window_attention,
+            "paged_attention_decode_staged": paged_attention_decode_staged,
+            "packed_prefill_attention_seg": packed_prefill_attention_seg,
+            "int4_matmul": int4_matmul, "w4a8_matmul": w4a8_matmul}
+
+
+def reset_launches() -> None:
+    for fn in launch_counters().values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_pool"):
+            fn.launches_by_pool = dict.fromkeys(fn.launches_by_pool, 0)
+
+
+def read_launches() -> dict:
+    out = {}
+    for name, fn in launch_counters().items():
+        out[name] = fn.launches
+        for kind, n in getattr(fn, "launches_by_pool", {}).items():
+            out[f"{name}@{kind}"] = n
+    return out
+
+
+def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tuple[str, ...] = (),
+                 profile: bool = True, **engine_kw) -> dict:
+    """Serve the traffic below through AsyncEngine(Engine(params,
+    **engine_kw)); every kernel's launch count is set to 0 just before and
+    read just after: each kernel (or ``kernel@branch``) in ``required``
+    must have launched, each in ``absent`` must not have."""
+    import torch
+
     from githubrepostorag_tpu_torch.serving import AsyncEngine, Engine, SamplingParams
 
-    counted = {"fused_window_attention": fused_window_attention,
-               "paged_attention_decode_staged": paged_attention_decode_staged,
-               "int4_matmul": int4_matmul, "w4a8_matmul": w4a8_matmul}
     torch.cuda.reset_peak_memory_stats()
     engine = Engine(params, cfg, page_size=128, num_pages=256, max_num_seqs=8,
-                    prefill_chunk=512, decode_burst=8, max_seq_len=11712, device="cuda")
+                    prefill_chunk=512, decode_burst=8, max_seq_len=11712, device="cuda",
+                    **engine_kw)
     t0 = time.monotonic()
     engine.warmup()
     torch.cuda.synchronize()
@@ -786,12 +1137,12 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...]) -> dict:
         finally:
             await aeng.stop()
 
-    for fn in counted.values():
-        fn.launches = 0
+    reset_launches()
     hits_before = engine._allocator.hit_tokens
+    packed_before = (engine.packed_prefill_tokens, engine.packed_prefill_padding)
     first, last, streamed, decoded, t_start, t_mid = asyncio.run(serve())
     torch.cuda.synchronize()
-    launches = {name: fn.launches for name, fn in counted.items()}
+    launches = read_launches()
     hit = engine._allocator.hit_tokens - hits_before
 
     for res, want in [(r, n_new) for r in first + [last]] + [(r, n_decode) for r in decoded]:
@@ -807,6 +1158,10 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...]) -> dict:
     for name in required:
         if launches[name] <= 0:
             raise RuntimeError(f"{name} never launched on the {label} path")
+    for name in absent:
+        if launches[name] != 0:
+            raise RuntimeError(f"{name} launched {launches[name]} times on the {label} path, "
+                               "which never reaches it")
     if engine._allocator.free_count != engine._allocator.num_pages:
         raise RuntimeError("pages leaked after the engine drained")
 
@@ -829,8 +1184,12 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...]) -> dict:
         "launches": launches,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    if engine.prefill_token_budget is not None:
+        stats["packed_prefill_tokens"] = engine.packed_prefill_tokens - packed_before[0]
+        stats["packed_prefill_padding"] = engine.packed_prefill_padding - packed_before[1]
     log(f"{label} engine on {torch.cuda.get_device_name(0)}: {json.dumps(stats)}")
-    profile_decode(engine, decode_wave, SamplingParams(temperature=0.0, max_tokens=17))
+    if profile:
+        profile_decode(engine, decode_wave, SamplingParams(temperature=0.0, max_tokens=17))
     return stats
 
 
@@ -867,6 +1226,8 @@ SOURCES = {
                                "githubrepostorag_tpu/ops/fused_decode.py:232"),
     "paged_attention_decode_staged": ("githubrepostorag_tpu_torch/csrc/paged_decode_staged.cu",
                                       "githubrepostorag_tpu/ops/pallas_paged.py:395"),
+    "packed_prefill_attention_seg": ("githubrepostorag_tpu_torch/csrc/packed_prefill.cu",
+                                     "githubrepostorag_tpu/ops/packed_prefill.py:198"),
     "int4_matmul": ("githubrepostorag_tpu_torch/csrc/int4_matmul.cu",
                     "githubrepostorag_tpu/ops/pallas_int4.py:418"),
     "w4a8_matmul": ("githubrepostorag_tpu_torch/csrc/w4a8_matmul.cu",
@@ -901,29 +1262,53 @@ def main() -> int:
         log(f"done in {time.monotonic() - t_all:.1f} s")
         return 0
     cfg, params = make_7b_params()
-    phase_model(cfg, params, "7B bf16")
-    estats = phase_engine(cfg, params, "bf16",
-                          ("fused_window_attention", "paged_attention_decode_staged"))
+    p32 = upcast(params)
+    phase_model(cfg, params, "7B bf16", p32)
+    phase_packed_model(cfg, params, p32)
+    phase_quant_pools_model(cfg, p32)
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    a, b, c = "fused_window_attention", "paged_attention_decode_staged", "packed_prefill_attention_seg"
+    runs = {
+        "bf16": phase_engine(cfg, params, "bf16", (a, b), (c,)),
+        # packed prefill over bf16 pools never reaches kernel A
+        "packed": phase_engine(cfg, params, "packed bf16", (c, b), (a,),
+                               prefill_token_budget=2048),
+        "kv8": phase_engine(cfg, params, "kv int8", (a + "@int8", b + "@int8"), (c,),
+                            profile=False, kv_quant=8),
+        # int4 pages decode on the gather path, so kernel B never launches
+        "kv4": phase_engine(cfg, params, "kv int4 packed", (a + "@int4",), (b, c),
+                            profile=False, kv_quant=4, prefill_token_budget=2048),
+    }
     qparams = quantize_7b(params)
-    del params  # the bf16 tree and engine are gone before the int4 phases
+    del params  # the bf16 tree and engines are gone before the int4 phases
     gc.collect()
     torch.cuda.empty_cache()
     phase_model(cfg, qparams, "7B int4")
     phase_decode_logits(cfg, qparams)
-    estats4 = phase_engine(cfg, qparams, "int4", tuple(SOURCES))
+    runs["int4"] = phase_engine(cfg, qparams, "int4", (a, b, "int4_matmul", "w4a8_matmul"))
+
+    # each kernel's (and branch's) launches come from the run whose path it
+    # belongs to; A and B carry their pool branches
+    launch_run = {a: "bf16", b: "bf16", c: "packed", "int4_matmul": "int4",
+                  "w4a8_matmul": "int4", a + "@int8": "kv8", a + "@int4": "kv4",
+                  b + "@int8": "kv8"}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def numbers(key):
+        return {"launches": runs[launch_run[key]]["launches"][key],
+                **{k: kres[key][k] for k in keys}}
 
     entries = []
     for name, (source, replaces) in SOURCES.items():
-        r = kres[name]
-        # each kernel's launches on the path it belongs to: A and B on the
-        # bf16 engine run, D and E on the int4 one
-        runs = estats4 if name in ("int4_matmul", "w4a8_matmul") else estats
-        entries.append({
-            "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": runs["launches"][name], "max_abs_err": r["max_abs_err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-        })
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 **numbers(name)}
+        branches = [k for k in launch_run if k.startswith(name + "@")]
+        if branches:
+            entry["branches"] = {"fp": numbers(name),
+                                 **{k.split("@")[1]: numbers(k) for k in branches}}
+        entries.append(entry)
     log(f"done in {time.monotonic() - t_all:.1f} s")
     print(device["card"])
     print(json.dumps({"kernels": entries}))

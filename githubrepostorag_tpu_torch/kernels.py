@@ -36,13 +36,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # argument list of each ``<name>_launch`` C function, in order
 SIGNATURES = {
-    # q, k_pages, v_pages, out, block_tables, cached_lens, new_lens,
-    # B, S, n_q, n_kv, P, page_size, head_dim, max_pages, dtype, scale, stream
-    "fused_window_attention": [_P] * 7 + [_I] * 9 + [_F, _P],
+    # q, k_pages, v_pages, out, block_tables, cached_lens, new_lens, k_scales,
+    # v_scales, B, S, n_q, n_kv, P, page_size, head_dim, max_pages, dtype,
+    # pool, scale, stream
+    "fused_window_attention": [_P] * 9 + [_I] * 10 + [_F, _P],
     # q, k_pages, v_pages, staged_k, staged_v, out, block_tables, pool_lens,
-    # B, n_q, n_kv, P, page_size, head_dim, max_pages, n_steps, staged_len,
-    # layer, dtype, scale, stream
-    "paged_decode_staged": [_P] * 8 + [_I] * 11 + [_F, _P],
+    # k_scales, v_scales, B, n_q, n_kv, P, page_size, head_dim, max_pages,
+    # n_steps, staged_len, layer, dtype, pool, scale, stream
+    "paged_decode_staged": [_P] * 10 + [_I] * 12 + [_F, _P],
+    # q, k_pages, v_pages, out, block_tables, cached_lens, new_lens, row_of,
+    # R, tq, n_q, n_kv, P, page_size, head_dim, max_pages, dtype, scale, stream
+    "packed_prefill": [_P] * 8 + [_I] * 9 + [_F, _P],
     # x, q, s, zs, out, M, K, N, group_size, x dtype, out dtype, stream
     "int4_matmul": [_P] * 5 + [_I] * 6 + [_P],
     # xg, q, s, acc, M, K, N, group_size, stream

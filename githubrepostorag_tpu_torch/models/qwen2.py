@@ -38,6 +38,7 @@ from githubrepostorag_tpu_torch.models.quant import (
 from githubrepostorag_tpu_torch.ops.attention import dense_attention
 from githubrepostorag_tpu_torch.ops.fused_decode import fused_paged_attention
 from githubrepostorag_tpu_torch.ops.norms import rms_norm
+from githubrepostorag_tpu_torch.ops.packed_prefill import packed_prefill_attention
 from githubrepostorag_tpu_torch.ops.paged_attention import paged_attention_ref
 from githubrepostorag_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
@@ -259,6 +260,8 @@ def forward_paged(
     new_lens: torch.Tensor,  # [B] int32 valid new tokens this step
     use_kernels: bool = True,
     logits_at: torch.Tensor | None = None,  # [B] per-row chunk index
+    k_scales: torch.Tensor | None = None,  # [L, n_kv, P] f32 per-page scales
+    v_scales: torch.Tensor | None = None,  # of int8 / int4 pools, in place
 ):
     """Prefill-chunk step over the paged KV cache (the JAX
     ``forward_paged`` and its unjitted body ``forward_paged_impl`` in one:
@@ -267,20 +270,89 @@ def forward_paged(
     Each layer's new K/V are committed into the pools at ``slot_mapping``
     (padding slots are dropped), then attention runs over each row's block
     table: through kernel A (``ops/fused_decode.py``) with ``use_kernels``,
-    else through the plain ``paged_attention_ref``.  int4 projections and
-    the logits pin the exact bf16-dequant route (``w4a8=False``): kernel D
-    with ``use_kernels``, else its plain version, so prompt processing
-    never takes the W4A8 contract even at a decode-sized chunk.
-    ``logits_at`` projects
-    logits at one chunk position per row ([B, 1, V]) instead of every
-    position.  Returns (logits float32, k_pages, v_pages)."""
+    else through the plain ``paged_attention_ref``.  ``k_scales``/
+    ``v_scales`` mark quantized pools (int8, or uint8 int4 nibble planes):
+    the commit quantizes per page with first-write scales
+    (``kv_cache.quantize_kv_paged``) and attention dequantizes.  int4
+    projections and the logits pin the exact bf16-dequant route
+    (``w4a8=False``): kernel D with ``use_kernels``, else its plain version,
+    so prompt processing never takes the W4A8 contract even at a
+    decode-sized chunk.  ``logits_at`` projects logits at one chunk
+    position per row ([B, 1, V]) instead of every position.  Returns
+    (logits float32, k_pages, v_pages), and k_scales, v_scales after them
+    when quantized, as the JAX function does."""
+    attn_fn = fused_paged_attention if use_kernels else paged_attention_ref
+
+    def attend_layer(q, kp, vp, ks, vs):
+        return attn_fn(q, kp, vp, block_tables, cached_lens, new_lens, ks, vs)
+
+    h = _paged_layers(params, cfg, input_ids, positions, k_pages, v_pages, slot_mapping,
+                      k_scales, v_scales, attend_layer, use_kernels)
+    if logits_at is not None:
+        h = h[torch.arange(h.shape[0], device=h.device), logits_at.long()][:, None, :]
+    logits = _logits(params, h, w4a8=False, kernel=use_kernels)
+    if k_scales is not None:
+        return logits, k_pages, v_pages, k_scales, v_scales
+    return logits, k_pages, v_pages
+
+
+def forward_paged_packed(
+    params: dict,
+    cfg: Qwen2Config,
+    input_ids: torch.Tensor,  # [1, T] int packed token buffer (T = budget)
+    positions: torch.Tensor,  # [1, T] int absolute position per token
+    k_pages: torch.Tensor,  # [L, n_kv, P, page_size, hd], updated in place
+    v_pages: torch.Tensor,
+    slot_mapping: torch.Tensor,  # [T] int flat pool slots, -1 for padding
+    block_tables: torch.Tensor,  # [R, max_pages] int32 per segment
+    cached_lens: torch.Tensor,  # [R] int32 tokens in cache before this chunk
+    new_lens: torch.Tensor,  # [R] int32 new tokens this chunk
+    seg_ids: torch.Tensor,  # [T] int32 owning segment; >= R marks padding
+    logits_at: torch.Tensor,  # [R] packed index of each segment's last token
+    tq: int,  # per-segment chunk cap, min(prefill_chunk, budget)
+    use_kernels: bool = True,
+    k_scales: torch.Tensor | None = None,
+    v_scales: torch.Tensor | None = None,
+):
+    """Token-budget packed prefill step over the paged KV cache: one flat
+    [1, budget] buffer holds every prefilling row's next chunk back to
+    back, so the dense layers scale with real tokens.  K/V commit as in
+    ``forward_paged``; attention is per segment through
+    ``ops/packed_prefill.packed_prefill_attention`` (kernel C over
+    full-precision pools, kernel A over quantized ones, with
+    ``use_kernels``).  int4 projections pin ``w4a8=False`` as
+    ``forward_paged`` does.  Returns (logits [R, 1, V] float32 at each
+    segment's ``logits_at``, k_pages, v_pages[, k_scales, v_scales])."""
+    seg_flat = seg_ids.reshape(-1).to(torch.int32)
+    pos_flat = positions.reshape(-1).to(torch.int32)
+
+    def attend_layer(q, kp, vp, ks, vs):
+        return packed_prefill_attention(
+            q[0], kp, vp, block_tables, cached_lens, new_lens, seg_flat, pos_flat, tq=tq,
+            use_kernels=use_kernels, k_scales=ks, v_scales=vs)[None]
+
+    h = _paged_layers(params, cfg, input_ids, positions, k_pages, v_pages, slot_mapping,
+                      k_scales, v_scales, attend_layer, use_kernels)
+    h = h[0, logits_at.long()][:, None, :]  # [R, 1, d]
+    logits = _logits(params, h, w4a8=False, kernel=use_kernels)
+    if k_scales is not None:
+        return logits, k_pages, v_pages, k_scales, v_scales
+    return logits, k_pages, v_pages
+
+
+def _paged_layers(params, cfg, input_ids, positions, k_pages, v_pages, slot_mapping,
+                  k_scales, v_scales, attend_layer, use_kernels):
+    """The layer loop shared by ``forward_paged`` and ``forward_paged_packed``:
+    each layer commits its new K/V (and, for quantized pools, their page
+    scales) in place with ``commit_paged``, then ``attend_layer(q, kp, vp,
+    ks, vs)`` runs attention over the layer's pools.  Returns the final
+    normed hidden states."""
     from githubrepostorag_tpu_torch.serving.kv_cache import commit_paged
 
-    attn_fn = fused_paged_attention if use_kernels else paged_attention_ref
     mm = functools.partial(qmatmul, w4a8=False, kernel=use_kernels)
-    b, _ = input_ids.shape
     nkv, hd = cfg.num_kv_heads, cfg.head_dim
     page_size = k_pages.shape[3]
+    quant = k_scales is not None
 
     h = embedding_lookup(params["embed"], input_ids, _embed_dtype(params))
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -289,15 +361,13 @@ def forward_paged(
     for li in range(cfg.num_layers):
         p = layer_params(params["layers"], li)
         kp, vp = k_pages[li], v_pages[li]
+        ks, vs = (k_scales[li], v_scales[li]) if quant else (None, None)
 
         def attend(q, k, v):
-            commit_paged(kp, k.reshape(-1, nkv, hd).transpose(0, 1), flat_slots, page_size)
-            commit_paged(vp, v.reshape(-1, nkv, hd).transpose(0, 1), flat_slots, page_size)
-            return attn_fn(q, kp, vp, block_tables, cached_lens, new_lens)
+            commit_paged(kp, k.reshape(-1, nkv, hd).transpose(0, 1), flat_slots, page_size, ks)
+            commit_paged(vp, v.reshape(-1, nkv, hd).transpose(0, 1), flat_slots, page_size, vs)
+            return attend_layer(q, kp, vp, ks, vs)
 
         h = _block(cfg, h, p, cos, sin, attend, mm)
 
-    h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
-    if logits_at is not None:
-        h = h[torch.arange(b, device=h.device), logits_at.long()][:, None, :]
-    return _logits(params, h, w4a8=False, kernel=use_kernels), k_pages, v_pages
+    return rms_norm(h, params["norm"], cfg.rms_norm_eps)

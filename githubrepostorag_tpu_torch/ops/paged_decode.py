@@ -1,18 +1,23 @@
 """Decode-burst paged attention (kernel B); port of
 ``githubrepostorag_tpu/ops/pallas_paged.py::paged_attention_decode_staged``
-(:281), full-precision rank-5 pools.
+(:281), over full-precision and int8 rank-5 pools.
 
 One decode query per row attends to the frozen pool prefix (``pool_lens[b]``
 tokens through its block table) and then to the burst's staged K/V tail
 (entries ``< staged_len``).  Pools are the whole ``[L, n_kv, P, ps, hd]``
 tensors plus an integer layer index, so no per-layer copy is made.  Masked
 scores are -1e30, a row with no valid KV outputs 0, and scores and
-accumulators are float32.
+accumulators are float32.  int8 pools carry one f32 scale per (layer, kv
+head, page), ``[L, n_kv, P]``, read with the same layer index; their pages
+dequantize in float32 as they load, and the staged tail stays in the
+activation dtype (the dtype of ``q``).  int4 (uint8) pools never reach this
+kernel: the decode burst takes its gather path for them, as the JAX
+package does.
 
 ``paged_attention_decode_staged`` launches the hand-written Hopper kernel
 ``csrc/paged_decode_staged.cu`` for CUDA tensors and runs
 ``paged_attention_decode_staged_ref``, the plain PyTorch version, for CPU
-tensors.  The int8 pool branch of the TPU kernel is not ported yet.
+tensors.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from githubrepostorag_tpu_torch import kernels
+from githubrepostorag_tpu_torch.ops.fused_decode import POOL_CODES
 from githubrepostorag_tpu_torch.ops.paged_attention import gather_kv
 
 NEG_INF = -1e30
@@ -30,17 +36,21 @@ _MAX_GROUP = 8
 
 
 def paged_attention_decode_staged_ref(q, k_pages, v_pages, block_tables, pool_lens,
-                                      staged_k, staged_v, staged_len: int, layer: int):
-    """Plain PyTorch version of kernel B: gather the layer's pages, append
-    the staged tail, mask, softmax in float32."""
+                                      staged_k, staged_v, staged_len: int, layer: int,
+                                      k_scales=None, v_scales=None):
+    """Plain PyTorch version of kernel B: gather the layer's pages (int8
+    ones dequantized in float32), append the staged tail, mask, softmax in
+    float32, round only the output."""
     b, _, n_q, hd = q.shape
     dev = q.device
-    pk, pv = gather_kv(k_pages[layer], v_pages[layer], block_tables)  # [B, T, n_kv, hd]
+    ks, vs = (None, None) if k_scales is None else (k_scales[layer], v_scales[layer])
+    pk, pv = gather_kv(k_pages[layer], v_pages[layer], block_tables, ks, vs,
+                       dtype=torch.float32)  # [B, T, n_kv, hd]
     t, n_kv = pk.shape[1], pk.shape[2]
     n_steps = staged_k.shape[2]
     group = n_q // n_kv
-    k_all = torch.cat([pk, staged_k.transpose(1, 2)], dim=1).float()
-    v_all = torch.cat([pv, staged_v.transpose(1, 2)], dim=1).float()
+    k_all = torch.cat([pk.float(), staged_k.transpose(1, 2).float()], dim=1)
+    v_all = torch.cat([pv.float(), staged_v.transpose(1, 2).float()], dim=1)
     valid = torch.cat([
         torch.arange(t, device=dev)[None, :] < pool_lens.to(dev)[:, None],
         (torch.arange(n_steps, device=dev) < staged_len)[None, :].expand(b, n_steps),
@@ -61,23 +71,30 @@ def _require(cond: bool, msg: str) -> None:
 
 
 def paged_attention_decode_staged(q, k_pages, v_pages, block_tables, pool_lens,
-                                  staged_k, staged_v, staged_len: int, layer: int):
-    """q [B, 1, n_q, hd]; k_pages/v_pages [L, n_kv, P, ps, hd]; block_tables
+                                  staged_k, staged_v, staged_len: int, layer: int,
+                                  k_scales=None, v_scales=None):
+    """q [B, 1, n_q, hd]; k_pages/v_pages [L, n_kv, P, ps, hd] in q's dtype,
+    or int8 with k_scales/v_scales [L, n_kv, P] f32; block_tables
     [B, max_pages] int32; pool_lens [B] int32 (valid pool-prefix tokens);
-    staged_k/v [B, n_kv, n_steps, hd]; ``staged_len`` staged entries valid
-    this step; ``layer`` the pool's layer.  Returns [B, 1, n_q, hd] in
-    q.dtype.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel or raise."""
+    staged_k/v [B, n_kv, n_steps, hd] in q's dtype; ``staged_len`` staged
+    entries valid this step; ``layer`` the pool's layer.  Returns
+    [B, 1, n_q, hd] in q.dtype.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     if q.device.type == "cpu":
         return paged_attention_decode_staged_ref(q, k_pages, v_pages, block_tables,
                                                  pool_lens, staged_k, staged_v,
-                                                 staged_len, layer)
+                                                 staged_len, layer, k_scales, v_scales)
     _require(q.device.type == "cuda", f"unsupported device {q.device}")
-    tensors = (q, k_pages, v_pages, block_tables, pool_lens, staged_k, staged_v)
+    kind = "fp" if k_scales is None else "int8"
+    tensors = [q, k_pages, v_pages, block_tables, pool_lens, staged_k, staged_v]
+    if kind == "int8":
+        _require(v_scales is not None, "k_scales without v_scales")
+        tensors += [k_scales, v_scales]
     _require(all(x.device == q.device for x in tensors), "all operands must be on one device")
     _require(all(x.is_contiguous() for x in tensors), "operands must be contiguous")
     _require(q.dim() == 4 and q.shape[1] == 1, "q must be [B, 1, n_q, hd]")
-    _require(k_pages.dim() == 5 and v_pages.shape == k_pages.shape,
+    _require(k_pages.dim() == 5 and v_pages.shape == k_pages.shape
+             and v_pages.dtype == k_pages.dtype,
              "pools must be rank-5 [L, n_kv, P, ps, hd] and alike")
     b, _, n_q, hd = q.shape
     n_layers, n_kv, num_pages, page_size, hd_pool = k_pages.shape
@@ -86,8 +103,14 @@ def paged_attention_decode_staged(q, k_pages, v_pages, block_tables, pool_lens,
     _require(n_q % n_kv == 0 and n_q // n_kv <= _MAX_GROUP,
              f"GQA group {n_q}/{n_kv} must divide evenly and be <= {_MAX_GROUP}")
     dtype = q.dtype
-    _require(dtype in _DTYPES and all(x.dtype == dtype for x in (k_pages, v_pages, staged_k, staged_v)),
-             "q, pools and staged tail must share one dtype: bf16 or f32")
+    _require(dtype in _DTYPES and staged_k.dtype == dtype and staged_v.dtype == dtype,
+             "q and the staged tail must share one dtype: bf16 or f32")
+    _require(k_pages.dtype == (torch.int8 if kind == "int8" else dtype),
+             f"pools must be in q's dtype, or int8 with scales (got {k_pages.dtype}; "
+             "int4 pools take the decode burst's gather path)")
+    if kind == "int8":
+        _require(all(x.shape == (n_layers, n_kv, num_pages) and x.dtype == torch.float32
+                     for x in (k_scales, v_scales)), "scales must be [L, n_kv, P] f32")
     _require(staged_k.dim() == 4 and staged_k.shape[:2] == (b, n_kv) and staged_k.shape[3] == hd
              and staged_v.shape == staged_k.shape, "staged k/v must be [B, n_kv, n_steps, hd]")
     n_steps = staged_k.shape[2]
@@ -103,12 +126,18 @@ def paged_attention_decode_staged(q, k_pages, v_pages, block_tables, pool_lens,
     err = kernels.launcher("paged_decode_staged")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), staged_k.data_ptr(),
         staged_v.data_ptr(), out.data_ptr(), block_tables.data_ptr(), pool_lens.data_ptr(),
+        k_scales.data_ptr() if kind == "int8" else None,
+        v_scales.data_ptr() if kind == "int8" else None,
         b, n_q, n_kv, num_pages, page_size, hd, block_tables.shape[1], n_steps,
-        int(staged_len), int(layer), _DTYPES[dtype], 1.0 / hd ** 0.5, stream,
+        int(staged_len), int(layer), _DTYPES[dtype], POOL_CODES[kind], 1.0 / hd ** 0.5,
+        stream,
     )
     kernels.check_launch("paged_attention_decode_staged", err)
     paged_attention_decode_staged.launches += 1
+    paged_attention_decode_staged.launches_by_pool[kind] += 1
     return out
 
 
-paged_attention_decode_staged.launches = 0  # kernel launches (CUDA path only)
+# kernel launches (CUDA path only), in all and per pool branch
+paged_attention_decode_staged.launches = 0
+paged_attention_decode_staged.launches_by_pool = {"fp": 0, "int8": 0}

@@ -2,12 +2,16 @@
 paged KV cache, with continuous batching; port of the default serving path
 of ``githubrepostorag_tpu/serving/engine.py``.
 
-What it runs: bf16 (or f32) KV pages; bf16/f32, int8 or int4 weights
-(models/quant.py; int4 projections run kernel D at prefill and kernel E
-at decode); padded chunked prefill (``forward_paged`` -> kernel A), prefix
-caching, and pipelined decode bursts (``decode_burst`` -> kernel B).  Scheduling -- admission, page
-allocation, who prefills and who decodes -- is host-side Python; compute
-stays on the device.
+What it runs: bf16 (or f32) KV pages, or int8 / int4 pages with per-page
+scales (``kv_quant``); bf16/f32, int8 or int4 weights (models/quant.py;
+int4 projections run kernel D at prefill and kernel E at decode); padded
+chunked prefill (``forward_paged`` -> kernel A) or token-budget packed
+prefill (``prefill_token_budget``: ``forward_paged_packed`` -> kernel C,
+or kernel A over quantized pages), prefix caching, and pipelined decode
+bursts (``decode_burst`` -> kernel B; int4 pages take the burst's gather
+path, as in the JAX package).  Scheduling -- admission, page allocation,
+who prefills and who decodes -- is host-side Python; compute stays on the
+device.
 
 Pipelining: while only decoding, burst k+1 is dispatched before burst k's
 tokens are read, so the device->host read overlaps the next burst's
@@ -17,10 +21,10 @@ the next burst's chained last-token/length state and committed with that
 burst's read.  The first host read (``.tolist()`` / ``.cpu()``) of a
 result is the sync point, at the same places the JAX engine fetches.
 
-Every other mode of the JAX engine (packed prefill, sequence-parallel ring
-prefill, n-gram / draft / fused-step speculation, quantized KV pages, the
-host KV tier, preemption, meshes) is rejected at construction: it is not
-ported yet.
+Every other mode of the JAX engine (sequence-parallel ring prefill,
+n-gram / draft / fused-step speculation, the host KV tier, preemption,
+prefill priority, width buckets, meshes) is rejected at construction: it
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -35,7 +39,11 @@ import numpy as np
 import torch
 
 from githubrepostorag_tpu_torch.device import resolve_device
-from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config, forward_paged
+from githubrepostorag_tpu_torch.models.qwen2 import (
+    Qwen2Config,
+    forward_paged,
+    forward_paged_packed,
+)
 from githubrepostorag_tpu_torch.models.quant import QUANTIZED_TYPES, fuse_projections
 from githubrepostorag_tpu_torch.ops.sampling import sample_tokens
 from githubrepostorag_tpu_torch.serving.decode_burst import decode_burst
@@ -44,8 +52,10 @@ from githubrepostorag_tpu_torch.serving.kv_cache import (
     PageAllocator,
     PrefixCachingAllocator,
     make_page_pools,
+    packed_slot_mapping,
     page_hashes,
     pages_needed,
+    quant_bits,
     slot_mapping,
 )
 from githubrepostorag_tpu_torch.serving.sampling_params import SamplingParams
@@ -68,8 +78,6 @@ def _bucket(n: int, cap: int, minimum: int = 16) -> int:
 # "off".  Passing any other value raises at construction.
 _UNPORTED_OPTIONS = {
     "prefill_widths": 1,
-    "prefill_token_budget": None,
-    "kv_quant": False,
     "layer_unroll": 1,
     "mesh": None,
     "kv_tier": "off",
@@ -85,7 +93,7 @@ _UNPORTED_OPTIONS = {
     "preempt_headroom_pages": 0,
 }
 # values the JAX engine also reads as "off" for these options
-_ALSO_OFF = {"kv_tier": ("auto",), "preempt": ("auto",), "kv_quant": (0, None)}
+_ALSO_OFF = {"kv_tier": ("auto",), "preempt": ("auto",)}
 
 
 @dataclass
@@ -136,7 +144,14 @@ class Engine:
         page_size: int = 16,
         max_seq_len: int = 2048,
         prefill_chunk: int = 512,
+        prefill_token_budget: int | None = None,  # token-budget packed
+        # prefill: every prefilling row's next chunk (whole, or split where
+        # the budget runs out) back to back in one [budget] buffer, so the
+        # dense layers scale with real tokens.  None: padded prefill
         kv_dtype: torch.dtype = torch.bfloat16,
+        kv_quant: bool | int | str = False,  # quantized KV pages with
+        # per-page first-write scales: 8 (or True) int8, 4 nibble-packed
+        # int4 (kv_cache.quant_bits)
         rng_seed: int = 0,
         decode_burst: int = 8,
         prefix_caching: bool = True,
@@ -150,9 +165,10 @@ class Engine:
             if not (value is default or value == default or value in _ALSO_OFF.get(name, ())):
                 raise NotImplementedError(
                     f"Engine option {name}={value!r} selects a mode the torch port "
-                    "does not run yet; it serves the default path only (padded "
-                    "chunked prefill, bf16/f32 KV pages, bf16/f32, int8 or int4 "
-                    "weights, prefix caching, pipelined decode bursts)"
+                    "does not run yet; it serves padded or packed (prefill_token_budget) "
+                    "chunked prefill, bf16/f32 or int8/int4 (kv_quant) KV pages, "
+                    "bf16/f32, int8 or int4 weights, prefix caching and pipelined "
+                    "decode bursts"
                 )
         self.device = resolve_device(device)
         _check_params(params, self.device)
@@ -165,10 +181,22 @@ class Engine:
         self.max_seq_len = max_seq_len
         self.max_pages_per_seq = pages_needed(max_seq_len, page_size)
         self.prefill_chunk = prefill_chunk
+        if prefill_token_budget is not None and prefill_token_budget < 1:
+            raise ValueError("prefill_token_budget must be >= 1 when set")
+        self.prefill_token_budget = prefill_token_budget
+        # per-segment chunk cap in the packed buffer
+        self.packed_chunk = (min(prefill_chunk, prefill_token_budget)
+                             if prefill_token_budget is not None else 0)
+        self.packed_prefill_tokens = 0  # stats: real tokens dispatched packed
+        self.packed_prefill_padding = 0  # stats: unused budget slots
         self.decode_burst = max(1, decode_burst)
 
-        pools = make_page_pools(cfg, num_pages, page_size, dtype=kv_dtype, device=self.device)
+        # 0 off, 8 int8, 4 nibble-packed int4
+        self.kv_quant = quant_bits(kv_quant)
+        pools = make_page_pools(cfg, num_pages, page_size, dtype=kv_dtype, device=self.device,
+                                quant=self.kv_quant)
         self._k_pages, self._v_pages = pools.k, pools.v
+        self._k_scales, self._v_scales = pools.ks, pools.vs
         self.prefix_caching = prefix_caching
         self._allocator = (PrefixCachingAllocator(num_pages) if prefix_caching
                            else PageAllocator(num_pages))
@@ -426,7 +454,11 @@ class Engine:
         """One prefill dispatch covering a chunk of EVERY prefilling row.
         Rows whose prompt completes this chunk sample their first token in
         one batched call; while decode is running those tokens stay on the
-        device and commit with the next burst."""
+        device and commit with the next burst.  With a token budget the
+        wave is packed instead (``_prefill_batch_packed``)."""
+        if self.prefill_token_budget is not None:
+            self._prefill_batch_packed(reqs, finished)
+            return
         others_running = any(r.state == "running" for r in self._row_req.values())
         n = len(reqs)
         rb = _bucket(n, self.max_num_seqs, minimum=1)
@@ -455,22 +487,40 @@ class Engine:
         ids_d = self._tensor(ids)
         new_lens_d = self._tensor(new_lens)
         self.step_dispatches_total += 1
-        logits, self._k_pages, self._v_pages = forward_paged(
-            self.params, self.cfg, ids_d, self._tensor(pos),
-            self._k_pages, self._v_pages, self._tensor(slots), self._tensor(bt),
-            self._tensor(cached), new_lens_d, logits_at=self._tensor(last_idx),
-        )
+        logits = self._run_prefill(
+            forward_paged, ids_d, self._tensor(pos), self._tensor(slots), self._tensor(bt),
+            self._tensor(cached), new_lens_d, logits_at=self._tensor(last_idx))
 
         # mark the chunk's prompt tokens (padding rows have lens 0)
         row_idx = np.zeros((rb,), dtype=np.int32)
         row_idx[:n] = [r.row for r in reqs]
+        self._finish_prefill_wave(list(zip(reqs, valids)), rb, row_idx, ids_d, new_lens_d,
+                                  logits, others_running, finished)
+
+    def _run_prefill(self, fn, ids, pos, *args, **kwargs) -> torch.Tensor:
+        """Run ``forward_paged`` or ``forward_paged_packed`` over the
+        engine's pools (and their scales when quantized), which update in
+        place; returns the logits."""
+        out = fn(self.params, self.cfg, ids, pos, self._k_pages, self._v_pages, *args,
+                 k_scales=self._k_scales, v_scales=self._v_scales, **kwargs)
+        return out[0]
+
+    def _finish_prefill_wave(self, granted: list[tuple[_Request, int]], rb: int,
+                             row_idx: np.ndarray, ids_d: torch.Tensor, new_lens_d: torch.Tensor,
+                             logits: torch.Tensor, others_running: bool,
+                             finished: list[GenerationResult]) -> None:
+        """Bookkeeping after a padded or packed prefill dispatch: presence
+        marks for the chunk's tokens (``ids_d`` [rb, width], ``new_lens_d``
+        [rb]), each request's advance by its granted tokens and page
+        registration, and first-token sampling for rows whose prompt
+        completed (``logits`` [rb, 1, V], one row per wave row)."""
         row_d = self._tensor(row_idx)
         self._mark_presence_chunks(row_d, ids_d, new_lens_d)
 
         done_idx: list[int] = []
-        for i, req in enumerate(reqs):
-            req.prefill_pos += valids[i]
-            self.prefill_tokens += int(valids[i])
+        for i, (req, share) in enumerate(granted):
+            req.prefill_pos += share
+            self.prefill_tokens += int(share)
             req.seq_len = req.prefill_pos
             self._seq_lens[req.row] = req.seq_len
             self._register_full_pages(req)
@@ -480,7 +530,8 @@ class Engine:
             return
 
         # sample first tokens over the whole padded wave; rows that are not
-        # done sample too but their tokens are discarded
+        # done (and bucket padding rows) sample too but their tokens are
+        # discarded
         done_mask = np.zeros((rb,), dtype=bool)
         done_mask[done_idx] = True
         self._push_sampling()
@@ -492,7 +543,7 @@ class Engine:
         )
         safe = torch.where(self._tensor(done_mask), tokens_d, vocab)
         self._presence[rows_l, safe.long()] = True  # column V drops the rest
-        wave = [(reqs[i], i) for i in done_idx]
+        wave = [(granted[i][0], i) for i in done_idx]
         for req, _ in wave:
             req.state = "running"
         if self._chain is None and not others_running:
@@ -502,6 +553,93 @@ class Engine:
                 self._commit_token(req, tokens[i], finished)
         else:
             self._pending_first.append((tokens_d, wave))
+
+    def packed_prefill_buckets(self) -> list[int]:
+        """The segment-count row buckets a packed dispatch can take: at
+        most min(max_num_seqs, budget) segments, through the same
+        ``_bucket`` call ``_build_packed_wave`` makes, so both engines pad a
+        packed wave to the same row count."""
+        cap = min(self.max_num_seqs, self.prefill_token_budget or 0)
+        out: list[int] = []
+        b = 1
+        while cap:
+            out.append(_bucket(min(b, cap), self.max_num_seqs, minimum=1))
+            if b >= cap:
+                break
+            b *= 2
+        return list(dict.fromkeys(out))
+
+    def _prefill_batch_packed(self, reqs: list[_Request],
+                              finished: list[GenerationResult]) -> None:
+        """Token-budget packed prefill dispatch.  Greedy packing walks the
+        prefilling rows in order and grants each its next chunk -- whole,
+        or split to whatever budget remains -- until the [budget] buffer is
+        full; rows that get nothing wait for the next step.  Per-token
+        segment ids carry each token's block table and cached length into
+        the per-segment attention, first tokens sample at each segment's
+        last position, and the handoff into ``_pending_first`` / the decode
+        chain is the padded path's."""
+        others_running = any(r.state == "running" for r in self._row_req.values())
+        meta = self._build_packed_wave(reqs)
+        self.step_dispatches_total += 1
+        t = self._tensor
+        logits = self._run_prefill(
+            forward_paged_packed, t(meta["ids"]), t(meta["pos"]), t(meta["slots"]),
+            t(meta["bt"]), t(meta["cached"]), t(meta["new_lens"]), t(meta["seg"]),
+            t(meta["last_idx"]), self.packed_chunk)
+        self._finish_prefill_wave(meta["packed"], meta["rb"], meta["row_idx"],
+                                  t(meta["seg_ids_2d"]), t(meta["new_lens"]), logits,
+                                  others_running, finished)
+
+    def _build_packed_wave(self, reqs: list[_Request]) -> dict:
+        """Greedy-pack the prefilling rows' next chunks into the [budget]
+        token buffer and build every host array the packed dispatch
+        needs."""
+        budget = self.prefill_token_budget
+        tq = self.packed_chunk
+        packed: list[tuple[_Request, int]] = []  # (request, tokens granted)
+        used = 0
+        for req in reqs:
+            if used >= budget:
+                break
+            share = min(len(req.prompt) - req.prefill_pos, tq, budget - used)
+            packed.append((req, share))
+            used += share
+        n = len(packed)
+        rb = _bucket(n, self.max_num_seqs, minimum=1)
+
+        ids = np.zeros((1, budget), dtype=np.int32)
+        pos = np.zeros((1, budget), dtype=np.int32)
+        slots = np.full((budget,), -1, dtype=np.int32)
+        seg = np.full((budget,), rb, dtype=np.int32)  # rb marks padding
+        bt = np.zeros((rb, self.max_pages_per_seq), dtype=np.int32)
+        cached = np.zeros((rb,), dtype=np.int32)
+        new_lens = np.zeros((rb,), dtype=np.int32)
+        last_idx = np.zeros((rb,), dtype=np.int32)
+        # each segment's tokens as a [rb, tq] block, for the presence marks
+        seg_ids_2d = np.zeros((rb, tq), dtype=np.int32)
+        off = 0
+        for i, (req, share) in enumerate(packed):
+            start = req.prefill_pos
+            chunk = req.prompt[start: start + share]
+            ids[0, off: off + share] = chunk
+            pos[0, off: off + share] = np.arange(start, start + share)
+            packed_slot_mapping(self._block_tables[req.row], start, share, self.page_size,
+                                slots, off)
+            seg[off: off + share] = i
+            seg_ids_2d[i, :share] = chunk
+            bt[i] = self._block_tables[req.row]
+            cached[i] = start
+            new_lens[i] = share
+            last_idx[i] = off + share - 1
+            off += share
+        self.packed_prefill_tokens += used
+        self.packed_prefill_padding += budget - used
+        row_idx = np.zeros((rb,), dtype=np.int32)
+        row_idx[:n] = [req.row for req, _ in packed]
+        return {"packed": packed, "rb": rb, "ids": ids, "pos": pos, "slots": slots,
+                "seg": seg, "bt": bt, "cached": cached, "new_lens": new_lens,
+                "last_idx": last_idx, "seg_ids_2d": seg_ids_2d, "row_idx": row_idx}
 
     def _decode_step(self, finished: list[GenerationResult]) -> None:
         """One decode dispatch: a burst of ``decode_burst`` iterations.
@@ -552,7 +690,7 @@ class Engine:
 
         self._push_sampling()
         self.step_dispatches_total += 1
-        toks, _, self._k_pages, self._v_pages, self._presence, out_lens = decode_burst(
+        toks, _, self._k_pages, self._v_pages, self._presence, out_lens, *_ = decode_burst(
             self.params, self.cfg, last_d, lens_d, self._k_pages, self._v_pages,
             self._presence, self._tensor(active), self._tensor(self._row_limits),
             self._tensor(self._block_tables), self._gen,
@@ -561,6 +699,7 @@ class Engine:
             # sort-free sampling whenever no sampling row filters
             filter_sampling=bool(np.any((self._temp > 0.0)
                                         & ((self._top_p < 1.0) | (self._top_k > 0)))),
+            k_scales=self._k_scales, v_scales=self._v_scales,
         )
         prev = self._chain
         self._chain = {"last": toks[:, -1], "lens": out_lens, "pending": toks,
@@ -702,8 +841,9 @@ class Engine:
 
     def warmup(self) -> None:
         """Build the kernels and touch every path live traffic takes --
-        prefill at full chunk width, a greedy and a sampled decode burst --
-        through the public step loop, leaving the engine state clean."""
+        prefill at full chunk width (packed when a token budget is set),
+        a greedy and a sampled decode burst -- through the public step loop,
+        leaving the engine state clean."""
         if self.device.type == "cuda":
             from githubrepostorag_tpu_torch import kernels
 

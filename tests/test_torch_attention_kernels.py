@@ -109,3 +109,88 @@ def test_staged_ref_with_no_valid_kv_is_zero():
     out = paged_attention_decode_staged_ref(q, kp, kp, torch.zeros(1, 1, dtype=torch.int32),
                                             torch.zeros(1, dtype=torch.int32), st, st, 0, 0)
     assert not out.any()
+
+
+# ---- quantized pools: kernel A's int8 / int4 branches, kernel B's int8 ----
+
+def _quant_pages(rng, shape, quant):
+    """Random int8 codes or uint8 nibble-plane bytes, and per-(kv head,
+    page) scales that differ everywhere, so a wrong scale index shows."""
+    if quant == 8:
+        codes = rng.integers(-127, 128, shape).astype(np.int8)
+    else:
+        codes = rng.integers(0, 256, shape[:-1] + (shape[-1] // 2,)).astype(np.uint8)
+    return codes, rng.uniform(0.005, 0.05, shape[:-2]).astype(np.float32)
+
+
+def _assert_close(out: torch.Tensor, ref: np.ndarray) -> None:
+    """float32: 2e-5.  bf16: one bf16 ulp of the reference (2**-7 relative),
+    both sides accumulating in float32 and rounding the output once."""
+    if out.dtype == torch.bfloat16:
+        np.testing.assert_allclose(out.float().numpy(), ref.astype(np.float32),
+                                   atol=1e-5, rtol=2 ** -7)
+    else:
+        np.testing.assert_allclose(out.numpy(), ref, atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("quant,s_w,cached,new", [
+    (8, 1, [9], [1]),
+    (8, 5, [0, 6, 11], [5, 3, 0]),
+    (4, 1, [3, 0, 14], [1, 1, 0]),
+    (4, 5, [7], [5]),
+])
+def test_window_ref_quantized_matches_pallas_interpret(quant, s_w, cached, new, dtype):
+    rng = np.random.default_rng(quant * 10 + s_w)
+    n_kv, group, num_pages = 2, 2, 16
+    b = len(cached)
+    total = [c + n for c, n in zip(cached, new)]
+    q = rng.normal(size=(b, s_w, n_kv * group, HD)).astype(np.float32)
+    kq, ks = _quant_pages(rng, (n_kv, num_pages, PS, HD), quant)
+    vq, vs = _quant_pages(rng, (n_kv, num_pages, PS, HD), quant)
+    bt = _tables(rng, b, num_pages, total)
+    cl, nl = np.asarray(cached, np.int32), np.asarray(new, np.int32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    j_out = np.asarray(j_window(jnp.asarray(q, jdt), *(jnp.asarray(x) for x in (kq, vq, bt, cl, nl,
+                                                                               ks, vs)),
+                                interpret=True).astype(jnp.float32))
+    args = [torch.from_numpy(q).to(dtype)] + [torch.from_numpy(x) for x in (kq, vq, bt, cl, nl)]
+    scales = [torch.from_numpy(ks), torch.from_numpy(vs)]
+    t_out = fused_window_attention_ref(*args, *scales)
+    assert t_out.dtype == dtype
+    _assert_close(t_out, j_out)
+    before = dict(fused_window_attention.launches_by_pool)
+    assert torch.equal(fused_window_attention(*args, *scales), t_out)  # CPU -> plain version
+    assert fused_window_attention.launches_by_pool == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_staged_ref_int8_matches_pallas_interpret(dtype):
+    """Rank-5 int8 pools with [L, n_kv, P] scales read at layer 1, and a
+    staged tail in the activation dtype."""
+    rng = np.random.default_rng(77)
+    L, n_kv, group, num_pages, n_steps, layer, staged_len = 3, 2, 7, 16, 4, 1, 3
+    pool_lens = [13, 0, 20]
+    b = len(pool_lens)
+    q = rng.normal(size=(b, 1, n_kv * group, HD)).astype(np.float32)
+    kq, ks = _quant_pages(rng, (L, n_kv, num_pages, PS, HD), 8)
+    vq, vs = _quant_pages(rng, (L, n_kv, num_pages, PS, HD), 8)
+    sk = rng.normal(size=(b, n_kv, n_steps, HD)).astype(np.float32)
+    sv = rng.normal(size=(b, n_kv, n_steps, HD)).astype(np.float32)
+    bt = _tables(rng, b, num_pages, pool_lens)
+    pl = np.asarray(pool_lens, np.int32)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    j_out = np.asarray(j_staged(
+        jnp.asarray(q, jdt), jnp.asarray(kq), jnp.asarray(vq), jnp.asarray(bt), jnp.asarray(pl),
+        jnp.asarray(sk, jdt), jnp.asarray(sv, jdt), jnp.asarray([staged_len], jnp.int32),
+        jnp.asarray([layer], jnp.int32), jnp.asarray(ks), jnp.asarray(vs),
+        interpret=True).astype(jnp.float32))
+    args = [torch.from_numpy(q).to(dtype), torch.from_numpy(kq), torch.from_numpy(vq),
+            torch.from_numpy(bt), torch.from_numpy(pl), torch.from_numpy(sk).to(dtype),
+            torch.from_numpy(sv).to(dtype)]
+    scales = dict(k_scales=torch.from_numpy(ks), v_scales=torch.from_numpy(vs))
+    t_out = paged_attention_decode_staged_ref(*args, staged_len, layer, **scales)
+    _assert_close(t_out, j_out)
+    before = dict(paged_attention_decode_staged.launches_by_pool)
+    assert torch.equal(paged_attention_decode_staged(*args, staged_len, layer, **scales), t_out)
+    assert paged_attention_decode_staged.launches_by_pool == before

@@ -80,16 +80,27 @@ def test_decode_burst_matches_jax(weights):
     _check_decode_burst(*weights)
 
 
+def test_decode_burst_int8_pools_matches_jax(weights):
+    """int8 pages with per-page scales: kernel B's int8 branch (its plain
+    version here) against the JAX burst's gather path; the burst-end
+    commit quantizes the staged tail with the stored scales."""
+    _check_decode_burst(*weights, quant=8)
+
+
 def test_decode_burst_int4_matches_jax(int4_weights, jax_pallas_int4):
     _check_decode_burst(*int4_weights)
 
 
-def _check_decode_burst(jcfg, cfg, jp, tp):
+def _check_decode_burst(jcfg, cfg, jp, tp, quant=0):
     rng = np.random.default_rng(0)
     b, n_steps, ps, num_pages, max_pages = 3, 4, 8, 16, 4
     shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, ps, cfg.head_dim)
     kp = rng.normal(size=shape).astype(np.float32)
     vp = rng.normal(size=shape).astype(np.float32)
+    scales = []
+    if quant:  # int8 codes and per-page scales that differ everywhere
+        kp, vp = (rng.integers(-127, 128, shape).astype(np.int8) for _ in range(2))
+        scales = [rng.uniform(0.01, 0.1, shape[:3]).astype(np.float32) for _ in range(2)]
     bt = np.asarray([[3, 9, 15, 0], [7, 1, 0, 0], [0, 0, 0, 0]], dtype=np.int32)
     last = np.asarray([11, 200, -1], dtype=np.int32)
     lens = np.asarray([13, 6, 0], dtype=np.int32)
@@ -105,24 +116,35 @@ def _check_decode_burst(jcfg, cfg, jp, tp):
         j_fuse(jp), jcfg, *(jnp.asarray(x) for x in (last, lens, kp, vp, presence, active,
                                                       row_limits, bt)),
         jax.random.PRNGKey(0), *(jnp.asarray(x) for x in (temp, top_p, top_k, pen)),
-        n_steps=n_steps, use_pallas=False, filter_sampling=False)
-    j_packed, j_valid, j_k, j_v, j_pres, j_lens = (np.asarray(x) for x in j_out)
+        n_steps=n_steps, use_pallas=False, filter_sampling=False,
+        **dict(zip(("k_scales", "v_scales"), map(jnp.asarray, scales))))
+    j_packed, j_valid, j_k, j_v, j_pres, j_lens, *j_scales = (np.asarray(x) for x in j_out)
     assert (j_packed[1, 2:] == -1).all() and (j_packed[2] == -1).all()
 
     # the port's pools carry one extra page, the drop page of commit_paged
-    drop = np.zeros(shape[:2] + (1,) + shape[3:], np.float32)
-    tkp = torch.from_numpy(np.concatenate([kp, drop], axis=2))
-    tvp = torch.from_numpy(np.concatenate([vp, drop], axis=2))
+    def with_drop(x):
+        return torch.from_numpy(np.concatenate([x, np.zeros_like(x[:, :, :1])], axis=2))
+
+    tkp, tvp = with_drop(kp), with_drop(vp)
+    t_scales = [with_drop(x) for x in scales]
     pres = torch.from_numpy(presence.copy())
-    packed, valid, _, _, _, out_lens = decode_burst(
+    packed, valid, _, _, _, out_lens, *_ = decode_burst(
         tp, cfg, *(torch.from_numpy(x) for x in (last, lens)), tkp, tvp, pres,
         *(torch.from_numpy(x) for x in (active, row_limits, bt)), torch.Generator(),
         *(torch.from_numpy(x) for x in (temp, top_p, top_k, pen)),
-        n_steps=n_steps, filter_sampling=False)
+        n_steps=n_steps, filter_sampling=False,
+        **dict(zip(("k_scales", "v_scales"), t_scales)))
     np.testing.assert_array_equal(packed.numpy(), j_packed)
     np.testing.assert_array_equal(valid.numpy(), j_valid)
     np.testing.assert_array_equal(out_lens.numpy(), j_lens)
     np.testing.assert_array_equal(pres.numpy(), j_pres)
+    if quant:  # codes bit for bit; scales of pages the burst opened within
+        # 1e-6 relative (their amax comes from K/V that agree to f32 order)
+        np.testing.assert_array_equal(tkp[:, :, :num_pages].numpy(), j_k)
+        np.testing.assert_array_equal(tvp[:, :, :num_pages].numpy(), j_v)
+        for t, j in zip(t_scales, j_scales):
+            np.testing.assert_allclose(t[:, :, :num_pages].numpy(), j, rtol=1e-6, atol=0)
+        return
     np.testing.assert_allclose(tkp[:, :, :num_pages].numpy(), j_k, atol=1e-5, rtol=0)
     np.testing.assert_allclose(tvp[:, :, :num_pages].numpy(), j_v, atol=1e-5, rtol=0)
 
@@ -130,6 +152,20 @@ def _check_decode_burst(jcfg, cfg, jp, tp):
 def test_engine_greedy_tokens_match_jax(weights):
     """Mixed prompt lengths and a prefix-cache hit."""
     _check_greedy_tokens(*weights)
+
+
+@pytest.mark.parametrize("mode", [
+    {"prefill_token_budget": 40},  # mixed lengths, a mid-chunk split, a resume
+    {"kv_quant": 8},
+    {"kv_quant": 4, "prefill_token_budget": 40},
+])
+def test_engine_packed_and_quantized_greedy_tokens_match_jax(weights, mode):
+    """The packed prefill path and int8 / int4 KV pages, each against the
+    JAX engine in the same mode (its CPU path: the XLA attention paths,
+    the burst's gather path).  A 40-token budget splits the 45-token
+    prompt's chunks and the wave's later rows mid-chunk, so segments
+    resume at cached lengths that are not page boundaries."""
+    _check_greedy_tokens(*weights, **mode)
 
 
 def test_engine_int4_greedy_tokens_match_jax(int4_weights, monkeypatch):
@@ -141,15 +177,15 @@ def test_engine_int4_greedy_tokens_match_jax(int4_weights, monkeypatch):
     _check_greedy_tokens(*int4_weights)
 
 
-def _check_greedy_tokens(jcfg, cfg, jp, tp):
+def _check_greedy_tokens(jcfg, cfg, jp, tp, **mode):
     rng = np.random.default_rng(1)
     prefix = rng.integers(0, cfg.vocab_size, 24).tolist()
     # mixed lengths, one longer than prefill_chunk, one carrying a prefix
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 17, 45)]
     prompts.append(prefix + rng.integers(0, cfg.vocab_size, 5).tolist())
     later = [prefix + rng.integers(0, cfg.vocab_size, 7).tolist()]  # hits the cache
-    je = JEngine(jp, jcfg, kv_dtype=jnp.float32, **ENGINE_KW)
-    te = _torch_engine(cfg, tp)
+    je = JEngine(jp, jcfg, kv_dtype=jnp.float32, **ENGINE_KW, **mode)
+    te = _torch_engine(cfg, tp, **mode)
     j_sp = JSamplingParams(temperature=0.0, max_tokens=10)
     t_sp = SamplingParams(temperature=0.0, max_tokens=10)
     for batch in (prompts, later):
@@ -159,6 +195,8 @@ def _check_greedy_tokens(jcfg, cfg, jp, tp):
             assert t.finish_reason == j.finish_reason == "length"
             assert t.output_tokens == j.output_tokens
     assert te._allocator.hit_tokens == je._allocator.hit_tokens >= 24
+    assert te.packed_prefill_tokens == je.packed_prefill_tokens
+    assert te.packed_prefill_padding == je.packed_prefill_padding
     assert te._allocator.free_count == te._allocator.num_pages
     assert sorted(te._free_rows) == list(range(ENGINE_KW["max_num_seqs"]))
 
@@ -221,8 +259,9 @@ def test_engine_defaults_to_the_card(weights):
 
 
 @pytest.mark.parametrize("option", [
-    {"prefill_token_budget": 64}, {"kv_quant": 8}, {"spec_ngram_k": 4}, {"fused_step": True},
-    {"kv_tier": "on"}, {"preempt": "on"}, {"sp_prefill_threshold": 64}, {"mesh": object()},
+    {"spec_burst_iters": 2}, {"prefill_priority": True}, {"spec_ngram_k": 4},
+    {"fused_step": True}, {"kv_tier": "on"}, {"preempt": "on"}, {"sp_prefill_threshold": 64},
+    {"mesh": object()},
 ])
 def test_engine_rejects_unported_modes(weights, option):
     _, cfg, _, tp = weights
@@ -235,6 +274,18 @@ def test_engine_accepts_off_values_and_rejects_unknown_options(weights):
     _torch_engine(cfg, tp, kv_tier="auto", preempt="off", kv_quant=False, mesh=None)
     with pytest.raises(TypeError):
         _torch_engine(cfg, tp, use_pallas=True)
+
+
+def test_engine_accepts_packed_prefill_and_quantized_pages(weights):
+    _, cfg, _, tp = weights
+    te = _torch_engine(cfg, tp, prefill_token_budget=48, kv_quant="int4")
+    assert te.kv_quant == 4 and te.packed_chunk == ENGINE_KW["prefill_chunk"]
+    assert te._k_pages.dtype == torch.uint8 and te._k_scales.dtype == torch.float32
+    assert te.packed_prefill_buckets() == [1, 2, 4]
+    te = _torch_engine(cfg, tp, kv_quant=True, prefill_token_budget=None)
+    assert te.kv_quant == 8 and te._k_pages.dtype == torch.int8
+    with pytest.raises(ValueError):
+        _torch_engine(cfg, tp, prefill_token_budget=0)
 
 
 def test_engine_accepts_quantized_params_and_checks_devices(int4_weights):

@@ -196,3 +196,120 @@ def test_quantized_forward_and_forward_paged_match_jax(bits, tied, monkeypatch):
         np.testing.assert_allclose(t_logits.numpy()[valid], np.asarray(j_logits)[valid],
                                    atol=ATOL, rtol=0)
         np.testing.assert_allclose(tkp[:, :, :num_pages].numpy(), np.asarray(jk), atol=ATOL, rtol=0)
+
+
+def _pools_pair(rng, cfg, num_pages, ps, quant):
+    """Matching JAX and port pools: random float32 pages, or zeroed
+    quantized pages and scales (the port's with the drop page)."""
+    from githubrepostorag_tpu_torch.serving.kv_cache import make_page_pools
+
+    shape = (cfg.num_layers, cfg.num_kv_heads, num_pages, ps, cfg.head_dim)
+    if not quant:
+        kv = [rng.normal(size=shape).astype(np.float32) for _ in range(2)]
+        drop = np.zeros(shape[:2] + (1,) + shape[3:], np.float32)
+        t = [torch.from_numpy(np.concatenate([x, drop], axis=2)) for x in kv]
+        return [jnp.asarray(x) for x in kv] + [None, None], t + [None, None]
+    from githubrepostorag_tpu.serving.kv_cache import make_page_pools as j_make
+
+    jpools = j_make(jq.Qwen2Config.tiny(), num_pages, ps, quant=quant)
+    tpools = make_page_pools(cfg, num_pages, ps, device="cpu", quant=quant)
+    return [jpools.k, jpools.v, jpools.ks, jpools.vs], [tpools.k, tpools.v, tpools.ks, tpools.vs]
+
+
+def _assert_pools_match(t_pools, j_pools, num_pages):
+    """Pools on the real pages: float pages within ATOL; quantized codes
+    bit for bit and their scales within 1e-6 relative (the K/V feeding
+    them agree to float32 summation order)."""
+    for t, j in zip(t_pools, j_pools + [None] * (4 - len(j_pools))):
+        if t is None:
+            continue
+        t, j = t[:, :, :num_pages].numpy(), np.asarray(j)
+        if t.dtype == np.float32 and t.ndim == 3:
+            np.testing.assert_allclose(t, j, rtol=1e-6, atol=0)
+        elif t.dtype == np.float32:
+            np.testing.assert_allclose(t, j, atol=ATOL, rtol=0)
+        else:
+            np.testing.assert_array_equal(t, j)
+
+
+@pytest.mark.parametrize("quant", [8, 4])
+def test_forward_paged_quantized_pools_match_jax(weights, quant):
+    """Two chunks into zeroed int8 / int4 pools: the first opens pages and
+    fixes their scales, the second resumes mid-page and appends with the
+    stored scales.  Logits, pool codes and scales against JAX."""
+    jcfg, cfg, jp, tp = weights
+    rng = np.random.default_rng(20 + quant)
+    b, s, ps, num_pages = 2, 6, 4, 8
+    bt = np.asarray([[5, 1, 6], [2, 7, 0]], dtype=np.int32)
+    jpools, tpools = _pools_pair(rng, cfg, num_pages, ps, quant)
+    for cached, new in (([0, 0], [6, 3]), ([6, 3], [5, 6])):
+        cached, new = np.asarray(cached, np.int32), np.asarray(new, np.int32)
+        ids = rng.integers(0, cfg.vocab_size, size=(b, s)).astype(np.int32)
+        pos = cached[:, None] + np.arange(s, dtype=np.int32)
+        slots = np.stack([slot_mapping(bt[i], int(cached[i]), int(new[i]), ps, s)
+                          for i in range(b)])
+        j_slots = np.where(slots < 0, num_pages * ps, slots)  # JAX drops the sentinel
+        j_logits, *jpools = jq.forward_paged(
+            jp, jcfg, *(jnp.asarray(x) for x in (ids, pos)), jpools[0], jpools[1],
+            *(jnp.asarray(x) for x in (j_slots, bt, cached, new)), use_pallas=False,
+            k_scales=jpools[2], v_scales=jpools[3])
+        t_logits, *out = tq.forward_paged(
+            tp, cfg, torch.from_numpy(ids), torch.from_numpy(pos), tpools[0], tpools[1],
+            *(torch.from_numpy(x) for x in (slots, bt, cached, new)),
+            k_scales=tpools[2], v_scales=tpools[3])
+        assert all(o is t for o, t in zip(out, tpools))  # pools and scales in place
+        valid = np.arange(s)[None, :] < new[:, None]
+        np.testing.assert_allclose(t_logits.numpy()[valid], np.asarray(j_logits)[valid],
+                                   atol=ATOL, rtol=0)
+        _assert_pools_match(tpools, jpools, num_pages)
+    assert tpools[2][:, :, 5].all()  # page 5 opened by the first chunk
+
+
+@pytest.mark.parametrize("quant", [0, 8])
+def test_forward_paged_packed_matches_jax(weights, quant):
+    """One packed wave of three segments (a resume mid-page, a fresh chunk,
+    a one-token tail) and padding, logits per segment and pools, against
+    the JAX function's XLA path."""
+    from githubrepostorag_tpu.serving.kv_cache import packed_slot_mapping as j_psm
+    from githubrepostorag_tpu_torch.serving.kv_cache import packed_slot_mapping
+
+    jcfg, cfg, jp, tp = weights
+    rng = np.random.default_rng(30 + quant)
+    ps, num_pages, tq_, budget, rb = 4, 12, 6, 16, 4
+    bt = np.zeros((rb, 3), np.int32)
+    bt[:3] = [[3, 9, 0], [11, 1, 4], [6, 2, 8]]
+    cached = np.asarray([5, 0, 7, 0], np.int32)
+    new = np.asarray([6, 5, 1, 0], np.int32)  # segment 3 is bucket padding
+    ids = np.zeros((1, budget), np.int32)
+    pos = np.zeros((1, budget), np.int32)
+    seg = np.full((budget,), rb, np.int32)
+    slots = np.full((budget,), -1, np.int32)
+    logits_at = np.zeros((rb,), np.int32)
+    off = 0
+    for i in range(3):
+        n = int(new[i])
+        ids[0, off:off + n] = rng.integers(0, cfg.vocab_size, n)
+        pos[0, off:off + n] = np.arange(cached[i], cached[i] + n)
+        seg[off:off + n] = i
+        packed_slot_mapping(bt[i], int(cached[i]), n, ps, slots, off)
+        logits_at[i] = off + n - 1
+        off += n
+    j_slots = np.full((budget,), -1, np.int32)
+    for i, o in ((0, 0), (1, 6), (2, 11)):
+        j_psm(bt[i], int(cached[i]), int(new[i]), ps, j_slots, o)
+    np.testing.assert_array_equal(slots, j_slots)
+    jpools, tpools = _pools_pair(rng, cfg, num_pages, ps, quant)
+    j_logits, *jpools = jq.forward_paged_packed(
+        jp, jcfg, *(jnp.asarray(x) for x in (ids, pos)), jpools[0], jpools[1],
+        *(jnp.asarray(x) for x in (slots, bt, cached, new, seg, logits_at)), tq=tq_,
+        use_pallas=False, k_scales=jpools[2], v_scales=jpools[3])
+    for use_kernels in (True, False):
+        t_pools = [None if t is None else t.clone() for t in tpools]
+        t_logits, *out = tq.forward_paged_packed(
+            tp, cfg, torch.from_numpy(ids), torch.from_numpy(pos), t_pools[0], t_pools[1],
+            *(torch.from_numpy(x) for x in (slots, bt, cached, new, seg, logits_at)), tq_,
+            use_kernels=use_kernels, k_scales=t_pools[2], v_scales=t_pools[3])
+        assert t_logits.shape == (rb, 1, cfg.vocab_size)
+        np.testing.assert_allclose(t_logits[:3].numpy(), np.asarray(j_logits)[:3], atol=ATOL,
+                                   rtol=0)
+        _assert_pools_match(t_pools, jpools, num_pages)
