@@ -11,14 +11,24 @@ Phases, each raising on failure:
               nvcc (one process per source, all at once).
 3. kernels -- hold each kernel (and each pool branch of A and B) against
               its plain PyTorch version, element by element, at the shapes
-              the serving path gives it, in float32 and bf16; time in bf16
+              the serving path gives it, in float32 and bf16 (kernel F also
+              against kernel A at S = 1, with table entries past each row's
+              pages set to -1 and a row with no key); time in bf16
               the kernel, the plain version, and PyTorch calls computing
               the same function (scaled_dot_product_attention over
-              pre-gathered, dequantized K/V for A, B and C; for the int4
+              pre-gathered, dequantized K/V for A, B, C and F; for the int4
               GEMMs D and E, torch.matmul against the dequantized bf16
               weight and torch._weight_int4pack_mm where the card's torch
               has it): yardsticks the port never calls; compute the least
               time the card could take for the same work.
+   dispatcher -- kernel F's path: paged_attention at S = 1 launches F once
+              and nothing else; at S = 512 it launches nothing and equals
+              paged_attention_ref.
+   load    -- a full-width Qwen2-7B checkpoint cut to 2 layers, written
+              with the port's safetensors writer and loaded onto the card
+              by load_qwen2: tensors and prefill logits bit for bit equal
+              to the in-memory tree's; loaded again with quantize=4
+              (kernel D).
 4. model   -- Qwen2-7B at its published widths and depth, random bf16
               weights from a seeded generator on the card: forward_paged
               and forward_paged_packed prefill logits with the kernels
@@ -31,6 +41,12 @@ Phases, each raising on failure:
               kernels the path never reaches must not have.  Four runs:
               bf16 pages; packed prefill (prefill_token_budget=2048);
               int8 pages; int4 pages with packed prefill.
+   http    -- right after the bf16 run: the same 7B tree served over HTTP
+              on localhost through the model server's entry points
+              (settings from the environment, build_engine, AsyncEngine,
+              OpenAIServer, byte tokenizer); stdlib clients send every
+              route, a malformed body and a wave of 8 concurrent streamed
+              chats; A and B must launch, nothing else; no page leaks.
 6. int4    -- the same 7B tree quantized to group-wise int4 (group 64) on
               the card, layer by layer; the model checks again (prefill
               logits through kernel D, decode logits through kernel E),
@@ -356,6 +372,77 @@ def measure_kernel_b(case, timed: bool) -> dict:
     return res
 
 
+def kernel_f_case(rng, dev, lens, n_q=28, n_kv=4, hd=128, ps=128, dtype=None):
+    """One decode query per row over one layer's rank-4 pool: row lengths
+    ``lens`` (cached len - 1, new 1; a 0 is a padding row with nothing
+    cached), shuffled tables over a pool with holes, and every table entry
+    past a row's pages set to -1, which the kernel must never read."""
+    import torch
+
+    dtype = dtype or torch.bfloat16
+    max_pages = max(1, -(-max(lens) // ps))
+    bt, num_pages = _shuffled_tables(rng, lens, ps, max_pages)
+    for i, n in enumerate(lens):
+        bt[i, -(-n // ps):] = -1
+    g = torch.Generator(device=dev)
+    g.manual_seed(int(rng.integers(1 << 30)))
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
+    return dict(q=randn(len(lens), 1, n_q, hd), k=randn(n_kv, num_pages, ps, hd),
+                v=randn(n_kv, num_pages, ps, hd), bt=torch.from_numpy(bt).to(dev),
+                cached=i32([max(n - 1, 0) for n in lens]), new=i32([int(n > 0) for n in lens]))
+
+
+def measure_kernel_f(case, timed: bool) -> dict:
+    """Kernel F against its plain version and against kernel A at S = 1
+    (both hand-written kernels compute the same function there); rows with
+    no key must be exactly 0."""
+    import torch
+    import torch.nn.functional as F
+
+    from githubrepostorag_tpu_torch.ops.fused_decode import fused_window_attention
+    from githubrepostorag_tpu_torch.ops.paged_attention import gather_kv
+    from githubrepostorag_tpu_torch.ops.paged_decode import (
+        paged_attention_decode, paged_attention_decode_ref)
+
+    args = (case["q"], case["k"], case["v"], case["bt"], case["cached"], case["new"])
+    out = paged_attention_decode(*args)
+    ref = paged_attention_decode_ref(*args)
+    via_a = fused_window_attention(*args)
+    torch.cuda.synchronize()
+    if not torch.isfinite(out).all():
+        raise RuntimeError("paged_attention_decode produced non-finite values")
+    total = (case["cached"] + case["new"]).tolist()
+    for i, t in enumerate(total):
+        if t == 0 and out[i].abs().max().item() != 0.0:
+            raise RuntimeError(f"row {i} has no key but a non-zero output")
+    res = agreement(out, ref)
+    res_a = agreement(out, via_a)
+    res["vs_kernel_a_max_abs_err"] = res_a["max_abs_err"]
+    res["vs_kernel_a_limit_share"] = res_a["limit_share"]
+    if not timed:
+        return res
+    b, _, n_q, hd = case["q"].shape
+    n_kv = case["k"].shape[0]
+    res["ms"] = time_ms(lambda: paged_attention_decode(*args), 50)
+    res["plain_ms"] = time_ms(lambda: paged_attention_decode_ref(*args), 5, warmup=1)
+    # yardstick: one SDPA call over K/V gathered beforehand (-1 entries
+    # gather the pool's last page, masked)
+    k, v = gather_kv(case["k"], case["v"], case["bt"])
+    valid = torch.arange(k.shape[1], device=k.device)[None] < torch.tensor(
+        total, device=k.device)[:, None]
+    qs, ks, vs = case["q"].transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, attn_mask=valid[:, None, None], enable_gqa=True), 50)
+    elem = case["q"].element_size()
+    nbytes = elem * (2 * b * n_q * hd + 2 * sum(total) * n_kv * hd)
+    res["bound_ms"], res["bound_by"] = bound(4.0 * hd * n_q * sum(total), nbytes)
+    return res
+
+
 def kernel_c_case(rng, dev, n_q, n_kv, hd, ps, cached, new, tq, budget, dtype):
     """A packed buffer of ``budget`` tokens: segment r's ``new[r]`` tokens
     at positions cached[r].., back to back, then padding tokens; shuffled
@@ -465,6 +552,8 @@ def phase_kernels() -> dict:
         check(f"kernel C small {name} (group 2, hd 64)", measure_kernel_c(kernel_c_case(
             rng, dev, 4, 2, 64, 8, cached=[3, 0, 17], new=[6, 8, 2], tq=8, budget=20,
             dtype=dtype), False))
+        check(f"kernel F small {name} (group 2, hd 64)", measure_kernel_f(kernel_f_case(
+            rng, dev, [13, 0, 40, 1], n_q=4, n_kv=2, hd=64, ps=8, dtype=dtype), False))
 
     # kernel A at the main prefill shape: B=4, S=512, 28/4 heads, hd 128,
     # ps 128, contexts to 4096, in all three pool branches; float32 for the
@@ -508,6 +597,22 @@ def phase_kernels() -> dict:
         results[key]["max_abs_err"] = max(results[key]["max_abs_err"],
                                           results[key + "@B64"]["max_abs_err"])
 
+    # kernel F: one layer's rank-4 pool at 7B decode geometry, contexts to
+    # 8192; row 1 ends mid-page, row 2 is a padding row (no key)
+    for b, dtype in ((8, torch.float32), (8, torch.bfloat16), (64, torch.bfloat16)):
+        lens = rng.integers(1, 8193, size=b)
+        lens[0], lens[1], lens[2] = 8192, 1000, 0
+        case = kernel_f_case(rng, dev, lens.tolist(), dtype=dtype)
+        timed = dtype == torch.bfloat16
+        suffix = "" if b == 8 else f"@B{b}"
+        res = check(f"kernel F B={b} ctx<=8192 {str(dtype)[6:]}", measure_kernel_f(case, timed))
+        if timed:
+            results["paged_attention_decode" + suffix] = res
+        del case
+    results["paged_attention_decode"]["max_abs_err"] = max(
+        results["paged_attention_decode"]["max_abs_err"],
+        results["paged_attention_decode@B64"]["max_abs_err"])
+
     # kernel C: a packed buffer of 2048 tokens at 7B heads, tq 512: five
     # segments (one resuming mid-page at 2500) and 124 padding tokens
     for dtype in (torch.float32, torch.bfloat16):
@@ -519,11 +624,64 @@ def phase_kernels() -> dict:
     results["packed_prefill_attention_seg"] = res
 
     limits = ", ".join(f"{k[6:]} {a:g} + {r:g}|ref|" for k, (a, r) in KERNEL_TOL.items())
-    bad = [label for label, r in checks if not r["limit_share"] <= 1.0]
+    # kernel F is also held to kernel A at S = 1
+    bad = [label for label, r in checks
+           if not (r["limit_share"] <= 1.0 and r.get("vs_kernel_a_limit_share", 0.0) <= 1.0)]
     if bad:
         raise RuntimeError(f"kernel and plain version disagree beyond {limits}: {bad}")
     log(f"kernels agree with their plain versions element-wise within {limits}")
     return results
+
+
+def phase_dispatcher() -> dict:
+    """Kernel F's path, the ``paged_attention`` dispatcher, on the 7B decode
+    case: every launch count is set to 0 just before each call and read
+    just after.  S = 1 must launch F exactly once and nothing else; S = 512
+    must launch nothing and equal ``paged_attention_ref``."""
+    import torch
+
+    from githubrepostorag_tpu_torch.ops.paged_attention import paged_attention_ref
+    from githubrepostorag_tpu_torch.ops.paged_decode import (
+        paged_attention, paged_attention_decode_ref)
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 7)
+    lens = rng.integers(1, 8193, size=8)
+    lens[1] = 0
+    case = kernel_f_case(rng, dev, lens.tolist())
+    args = (case["q"], case["k"], case["v"], case["bt"], case["cached"], case["new"])
+    reset_launches()
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    want = {k: int(k == "paged_attention_decode") for k in launches}
+    if launches != want:
+        raise RuntimeError(f"paged_attention at S=1 launched {launches}, expected only F once")
+    res = agreement(out, paged_attention_decode_ref(*args))
+    if not res["limit_share"] <= 1.0:
+        raise RuntimeError(f"paged_attention at S=1 disagrees with F's plain version: {res}")
+
+    # a prefill chunk: 512 new tokens on contexts of 0..2048
+    cached = [0, 700, 1536, 2048]
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 8)
+    q = torch.randn((4, 512, 28, 128), generator=g, device=dev, dtype=torch.bfloat16)
+    bt, num_pages = _shuffled_tables(rng, [c + 512 for c in cached], 128, 20)
+    kp = torch.randn((4, num_pages, 128, 128), generator=g, device=dev, dtype=torch.bfloat16)
+    vp = torch.randn_like(kp)
+    i32 = lambda a: torch.tensor(a, dtype=torch.int32, device=dev)  # noqa: E731
+    args = (q, kp, vp, torch.from_numpy(bt).to(dev), i32(cached), i32([512] * 4))
+    reset_launches()
+    out = paged_attention(*args)
+    torch.cuda.synchronize()
+    launches_prefill = read_launches()
+    if any(launches_prefill.values()):
+        raise RuntimeError(f"paged_attention at S=512 launched {launches_prefill}")
+    if not torch.equal(out, paged_attention_ref(*args)):
+        raise RuntimeError("paged_attention at S=512 differs from paged_attention_ref")
+    log(f"dispatcher: S=1 launched {launches['paged_attention_decode']} x F and nothing else "
+        f"(vs plain {json.dumps(res)}); S=512 launched nothing and equals paged_attention_ref")
+    return {"launches": launches}
 
 
 # ------------------------------------------------------- int4 GEMMs (D, E) --
@@ -1057,16 +1215,371 @@ def phase_decode_logits(cfg, params) -> None:
         f"(top-2 margins {[round(x, 4) for x in (top2[:, 0] - top2[:, 1]).tolist()]})")
 
 
+def _prefill_logits(params, cfg, seed: int):
+    """forward_paged logits of a padded [2, 256] prefill wave (row 1 has
+    200 real tokens) over fresh bf16 pools: [valid positions, V] f32."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models.qwen2 import forward_paged
+    from githubrepostorag_tpu_torch.serving.kv_cache import make_page_pools, slot_mapping
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    b, s, ps, new = 2, 256, 128, [256, 200]
+    ids = np.zeros((b, s), dtype=np.int32)
+    slots = np.full((b, s), -1, dtype=np.int32)
+    bt = np.asarray([[0, 1], [3, 2]], dtype=np.int32)
+    for i, n in enumerate(new):
+        ids[i, :n] = rng.integers(0, cfg.vocab_size, n)
+        slots[i] = slot_mapping(bt[i], 0, n, ps, s)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    pools = make_page_pools(cfg, 4, ps, dtype=torch.bfloat16, device=dev)
+    logits, _, _ = forward_paged(params, cfg, t(ids), t(pos), pools.k, pools.v, t(slots), t(bt),
+                                 t(np.zeros(b, np.int32)), t(np.asarray(new, np.int32)))
+    valid = torch.zeros((b, s), dtype=torch.bool, device=dev)
+    for i, n in enumerate(new):
+        valid[i, :n] = True
+    return logits[valid]
+
+
+def hf_state_dict(params: dict, cfg) -> dict:
+    """An unfused param tree in a HuggingFace Qwen2 checkpoint's names and
+    [out, in] layout (the inverse of hf_loader.params_from_state_dict)."""
+    layers = params["layers"]
+    sd = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["norm"],
+          "lm_head.weight": params["lm_head"].t()}
+    names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
+             "wo": "self_attn.o_proj", "wg": "mlp.gate_proj", "wu": "mlp.up_proj",
+             "wd": "mlp.down_proj"}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        for key, name in names.items():
+            sd[p + name + ".weight"] = layers[key][i].t()
+        for key, name in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
+            sd[p + f"self_attn.{name}.bias"] = layers[key][i]
+        sd[p + "input_layernorm.weight"] = layers["ln1"][i]
+        sd[p + "post_attention_layernorm.weight"] = layers["ln2"][i]
+    return sd
+
+
+def phase_load() -> dict:
+    """A full-width Qwen2-7B checkpoint cut to 2 layers (depth cut only to
+    keep the write short), random bf16 weights from the seed, written with
+    the port's save_file and loaded back with load_qwen2 onto the card:
+    every tensor equal to the one written, forward_paged logits equal bit
+    for bit to those of the same tensors built in memory; loaded again with
+    quantize=4, whose prefill runs kernel D."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from githubrepostorag_tpu_torch import kernels
+    from githubrepostorag_tpu_torch.models.hf_loader import load_qwen2
+    from githubrepostorag_tpu_torch.models.quant import fuse_projections
+    from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config, init_params
+    from githubrepostorag_tpu_torch.models.safetensors_io import save_file
+
+    cfg = dataclasses.replace(Qwen2Config.qwen2_7b(), num_layers=2)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="ckpt-", dir=kernels.BUILD_DIR))
+    stats = {}
+    try:
+        t0 = time.monotonic()
+        save_file(hf_state_dict(params, cfg), root / "model.safetensors")
+        (root / "config.json").write_text(json.dumps({
+            "model_type": "qwen2", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+            "max_position_embeddings": cfg.max_position_embeddings,
+            "tie_word_embeddings": False, "torch_dtype": "bfloat16"}))
+        nbytes = (root / "model.safetensors").stat().st_size
+        stats["checkpoint_gb"] = nbytes / 1e9
+        stats["write_s"] = time.monotonic() - t0
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        loaded, lcfg = load_qwen2(root, dtype=torch.bfloat16, fuse=True, device="cuda")
+        torch.cuda.synchronize()
+        stats["load_s"] = time.monotonic() - t0
+        stats["load_gb_s"] = nbytes / 1e9 / stats["load_s"]
+        # the load's own device peak, over the checkpoint's bytes; at full
+        # depth the same ratio of the 28-layer checkpoint is an estimate
+        peak = torch.cuda.max_memory_allocated() - base
+        stats["load_peak_gb"] = peak / 1e9
+        stats["load_peak_over_checkpoint"] = peak / nbytes
+        full = Qwen2Config.qwen2_7b()
+        layer_bytes = sum(t.numel() * t.element_size() for k, t in hf_state_dict(params, cfg).items()
+                          if k.startswith("model.layers.")) / cfg.num_layers
+        stats["full_depth_checkpoint_gb"] = (
+            nbytes + (full.num_layers - cfg.num_layers) * layer_bytes) / 1e9
+        stats["full_depth_load_peak_gb_est"] = (stats["load_peak_over_checkpoint"]
+                                                * stats["full_depth_checkpoint_gb"])
+        if lcfg != cfg:
+            raise RuntimeError(f"loaded config {lcfg} differs from the written {cfg}")
+        want = fuse_projections(params)
+        flat = lambda tree: {**{k: v for k, v in tree.items() if k != "layers"},  # noqa: E731
+                             **{f"layers.{k}": v for k, v in tree["layers"].items()}}
+        got, exp = flat(loaded), flat(want)
+        if sorted(got) != sorted(exp):
+            raise RuntimeError(f"loaded keys {sorted(got)} differ from {sorted(exp)}")
+        bad = [k for k in exp if not (got[k].dtype == exp[k].dtype and torch.equal(got[k], exp[k]))]
+        if bad:
+            raise RuntimeError(f"loaded tensors differ from the written ones: {bad}")
+        if not torch.equal(_prefill_logits(loaded, cfg, SEED + 10),
+                           _prefill_logits(want, cfg, SEED + 10)):
+            raise RuntimeError("forward_paged logits of the loaded tree differ from the "
+                               "in-memory tree's")
+        del loaded, want, got, exp
+        torch.cuda.empty_cache()
+
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        qparams, _ = load_qwen2(root, dtype=torch.bfloat16, quantize=4, fuse=True, device="cuda")
+        torch.cuda.synchronize()
+        stats["load_int4_s"] = time.monotonic() - t0
+        stats["load_int4_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+        reset_launches()
+        logits = _prefill_logits(qparams, cfg, SEED + 10)
+        torch.cuda.synchronize()
+        stats["int4_launches"] = read_launches()["int4_matmul"]
+        if stats["int4_launches"] <= 0 or not torch.isfinite(logits).all():
+            raise RuntimeError(f"int4 prefill of the loaded checkpoint: {stats['int4_launches']} "
+                               "kernel D launches, finite logits "
+                               f"{bool(torch.isfinite(logits).all())}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"load: full-width 2-layer Qwen2-7B checkpoint {stats['checkpoint_gb']:.2f} GB written in "
+        f"{stats['write_s']:.1f} s, loaded onto the card in {stats['load_s']:.2f} s "
+        f"({stats['load_gb_s']:.2f} GB/s), every tensor and the prefill logits equal bit for bit; "
+        f"device peak of the load {stats['load_peak_gb']:.3f} GB "
+        f"({stats['load_peak_over_checkpoint']:.3f}x the checkpoint; at full depth, "
+        f"{stats['full_depth_checkpoint_gb']:.2f} GB, that ratio gives "
+        f"{stats['full_depth_load_peak_gb_est']:.2f} GB, an estimate); "
+        f"loaded with quantize=4 in {stats['load_int4_s']:.2f} s "
+        f"(peak {stats['load_int4_peak_gb']:.3f} GB), prefill through kernel D "
+        f"({stats['int4_launches']} launches)")
+    return stats
+
+
+# /health's key set in the JAX package (its AsyncEngine.stats() plus status)
+HEALTH_KEYS = {
+    "status", "role", "running", "waiting", "requests_admitted", "free_pages", "total_pages",
+    "prefix_cache_hit_tokens", "sp_prefills", "sp_ring_segments", "sp_ring_tokens",
+    "spec_proposed", "spec_accepted", "spec_acceptance_rate", "spec_fallbacks", "deadline_reaps",
+    "kv_host_pages", "kv_fault_ins", "kv_writebacks", "kv_dedup_hits", "kv_dedup_holds",
+    "kv_pages_exported", "kv_pages_imported", "parked", "preemptions", "preempted_pages",
+    "preempt_resumes", "resume_faulted_pages", "resume_recomputed_tokens",
+    "resume_recomputed_prompt_tokens",
+}
+
+
+def _http(port: int, method: str, path: str, body: bytes | None = None):
+    """(status, parsed JSON body or SSE events, (start, end) monotonic
+    times) of one request on a fresh connection; SSE bodies become a list
+    of parsed events ending in "[DONE]"."""
+    import http.client
+
+    t0 = time.monotonic()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=body, headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        data = resp.read()
+        if resp.getheader("Content-Type") == "text/event-stream":
+            events = []
+            for block in data.decode().split("\n\n"):
+                if not block:
+                    continue
+                if not block.startswith("data: "):
+                    raise RuntimeError(f"not an SSE data event: {block[:80]!r}")
+                payload = block[len("data: "):]
+                events.append(payload if payload == "[DONE]" else json.loads(payload))
+            return resp.status, events, (t0, time.monotonic())
+        return resp.status, json.loads(data), (t0, time.monotonic())
+    finally:
+        conn.close()
+
+
+def phase_http(cfg, params) -> dict:
+    """Serve the in-memory 7B bf16 tree over HTTP on localhost through the
+    port's entry points: settings from the environment (the engine phase's
+    geometry), build_engine, AsyncEngine, OpenAIServer with the byte
+    tokenizer.  Stdlib clients in threads send /health, /v1/models, a
+    greedy chat, a streamed chat, a completion, a malformed body and a wave
+    of 8 concurrent streamed chats; every launch count is set to 0 just
+    before the requests and read just after."""
+    import os
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from githubrepostorag_tpu_torch import config
+    from githubrepostorag_tpu_torch.serving import AsyncEngine
+    from githubrepostorag_tpu_torch.serving.__main__ import build_engine
+    from githubrepostorag_tpu_torch.serving.openai_api import OpenAIServer
+    from githubrepostorag_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    os.environ.update(MAX_NUM_SEQS="8", KV_NUM_PAGES="256", KV_PAGE_SIZE="128",
+                      PREFILL_CHUNK="512", CONTEXT_WINDOW="11712")
+    s = config.reload_settings()
+    engine = build_engine(s, params, cfg, "cuda")
+    t0 = time.monotonic()
+    engine.warmup()
+    torch.cuda.synchronize()
+    log(f"http engine warmup {time.monotonic() - t0:.1f} s")
+    aeng = AsyncEngine(engine)
+    results = {}  # request id -> the engine's GenerationResult
+    engine_stream = aeng.stream
+
+    async def recording_stream(*args, **kw):
+        async for event in engine_stream(*args, **kw):
+            if event.type == "final":
+                results[event.result.request_id] = event.result
+            yield event
+
+    aeng.stream = recording_stream
+    tok = ByteTokenizer()
+    server = OpenAIServer(aeng, tok, model_name=s.qwen_model)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="http-server", daemon=True)
+    thread.start()
+
+    def run(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(600)
+
+    rng = np.random.default_rng(SEED + 11)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz  ,.", dtype=np.uint8)
+
+    def text(n):
+        return bytes(rng.choice(letters, n)).decode()
+
+    def chat(content, max_tokens, stream):
+        return json.dumps({"messages": [{"role": "user", "content": content}],
+                           "max_tokens": max_tokens, "temperature": 0, "stream": stream}).encode()
+
+    def engine_result(rid, want_tokens):
+        res = results.get(rid)
+        if res is None or res.finish_reason not in ("length", "stop"):
+            raise RuntimeError(f"{rid}: engine result {res}")
+        if res.finish_reason == "length" and len(res.output_tokens) != want_tokens:
+            raise RuntimeError(f"{rid}: {len(res.output_tokens)} tokens, expected {want_tokens}")
+        return res
+
+    def finished_stream(status, events, want_tokens):
+        if status != 200 or events[-1] != "[DONE]":
+            raise RuntimeError(f"stream: status {status}, last event {events[-1]!r}")
+        if events[-2]["choices"][0]["finish_reason"] is None:
+            raise RuntimeError("stream: the final chunk carries no finish_reason")
+        rid = events[0]["id"]
+        if any(e["id"] != rid for e in events[:-1]):
+            raise RuntimeError(f"stream {rid}: chunks of other requests on its connection")
+        res = engine_result(rid, want_tokens)
+        streamed = "".join(e["choices"][0]["delta"].get("content", "") for e in events[:-1])
+        if streamed != tok.decode(res.output_tokens):
+            raise RuntimeError(f"stream {rid}: the deltas are not the decoded engine tokens")
+        return res
+
+    port = run(server.start("127.0.0.1", 0))
+    stats = {}
+    try:
+        reset_launches()
+        status, health, _ = _http(port, "GET", "/health")
+        if status != 200 or set(health) != HEALTH_KEYS:
+            raise RuntimeError(f"/health: {status}, keys {sorted(set(health) ^ HEALTH_KEYS)} differ")
+        status, models, _ = _http(port, "GET", "/v1/models")
+        if status != 200 or models["data"][0]["id"] != s.qwen_model:
+            raise RuntimeError(f"/v1/models: {status} {models}")
+        for path, body in (("/v1/chat/completions", chat(text(200), 32, False)),
+                           ("/v1/completions", json.dumps({"prompt": text(300), "max_tokens": 32,
+                                                           "temperature": 0}).encode())):
+            status, reply, _ = _http(port, "POST", path, body)
+            res = engine_result(reply["id"], 32) if status == 200 else None
+            if res is None or reply["usage"]["completion_tokens"] != len(res.output_tokens):
+                raise RuntimeError(f"{path}: {status} {reply}")
+            choice = reply["choices"][0]
+            got = choice["message"]["content"] if "message" in choice else choice["text"]
+            if got != tok.decode(res.output_tokens):
+                raise RuntimeError(f"{path}: the reply is not the decoded engine tokens")
+        finished_stream(*_http(port, "POST", "/v1/chat/completions", chat(text(150), 32, True))[:2],
+                        32)
+        status, reply, _ = _http(port, "POST", "/v1/chat/completions", b'{"messages": ')
+        if status != 400 or "error" not in reply:
+            raise RuntimeError(f"malformed body: {status} {reply}")
+
+        sizes = [100, 700, 1500, 3000, 1224, 256, 256, 256]
+        bodies = [chat(text(n), 64, True) for n in sizes]
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(len(bodies)) as pool:
+            wave = list(pool.map(lambda b: _http(port, "POST", "/v1/chat/completions", b), bodies))
+        wall = time.monotonic() - t0
+        torch.cuda.synchronize()
+        launches = read_launches()
+        wave_res = [finished_stream(st, ev, 64) for st, ev, _ in wave]
+        latency = sorted(end - start for _, _, (start, end) in wave)
+        # outside the engine's submit-to-done time: before, the request's
+        # parse on the loop and the wait for the step the driver is in (it
+        # takes submissions between steps); after, the last events' and the
+        # closing chunks' delivery, the front end's alone
+        before = sorted(r.timings["submit_t"] - start for (_, _, (start, _)), r in zip(wave, wave_res))
+        after = sorted(end - r.timings["done_t"] for (_, _, (_, end)), r in zip(wave, wave_res))
+        ttft = sorted(r.ttft_s for r in wave_res)
+        tokens = sum(len(r.output_tokens) for r in wave_res)
+        a, b = "fused_window_attention", "paged_attention_decode_staged"
+        if launches[a] <= 0 or launches[b] <= 0:
+            raise RuntimeError(f"the HTTP path launched A {launches[a]}, B {launches[b]} times")
+        off = {k: n for k, n in launches.items() if k.split("@")[0] not in (a, b) and n}
+        if off:
+            raise RuntimeError(f"the HTTP path launched kernels it never reaches: {off}")
+        stats = {
+            "wave_prompt_bytes": sizes,
+            "wave_completion_tokens": tokens,
+            "latency_p50_s": latency[len(latency) // 2],
+            "latency_p95_s": latency[min(len(latency) - 1, int(0.95 * len(latency)))],
+            "completion_tok_s": tokens / wall,
+            "engine_ttft_p50_s": ttft[len(ttft) // 2],
+            "send_to_submit_ms": [round(1e3 * x, 1) for x in before],
+            "done_to_client_ms_p50": 1e3 * after[len(after) // 2],
+            "done_to_client_ms_max": 1e3 * after[-1],
+            "engine_ttft_s": [round(x, 4) for x in ttft],
+            "wave_wall_s": wall,
+            "requests": len(results),
+            "launches": launches,
+        }
+    finally:
+        run(server.stop())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+        loop.close()
+    if engine.has_work() or engine._allocator.free_count != engine._allocator.num_pages:
+        raise RuntimeError("pages leaked after the HTTP server stopped")
+    log(f"http server on {torch.cuda.get_device_name(0)}: {json.dumps(stats)}")
+    return stats
+
+
 def launch_counters() -> dict:
     """Every kernel wrapper's launch count, and A's and B's per pool branch
     (``name@int8`` ...)."""
     from githubrepostorag_tpu_torch.ops.fused_decode import fused_window_attention
     from githubrepostorag_tpu_torch.ops.int4_matmul import int4_matmul, w4a8_matmul
     from githubrepostorag_tpu_torch.ops.packed_prefill import packed_prefill_attention_seg
-    from githubrepostorag_tpu_torch.ops.paged_decode import paged_attention_decode_staged
+    from githubrepostorag_tpu_torch.ops.paged_decode import (
+        paged_attention_decode, paged_attention_decode_staged)
 
     return {"fused_window_attention": fused_window_attention,
             "paged_attention_decode_staged": paged_attention_decode_staged,
+            "paged_attention_decode": paged_attention_decode,
             "packed_prefill_attention_seg": packed_prefill_attention_seg,
             "int4_matmul": int4_matmul, "w4a8_matmul": w4a8_matmul}
 
@@ -1232,6 +1745,8 @@ SOURCES = {
                     "githubrepostorag_tpu/ops/pallas_int4.py:418"),
     "w4a8_matmul": ("githubrepostorag_tpu_torch/csrc/w4a8_matmul.cu",
                     "githubrepostorag_tpu/ops/pallas_int4.py:305"),
+    "paged_attention_decode": ("githubrepostorag_tpu_torch/csrc/paged_decode.cu",
+                               "githubrepostorag_tpu/ops/pallas_paged.py:150"),
 }
 
 
@@ -1258,9 +1773,11 @@ def main() -> int:
     device = phase_device()
     phase_build()
     kres = {**phase_kernels(), **phase_int4_kernels(np.random.default_rng(SEED + 3))}
+    dispatch = phase_dispatcher()
     if args.only == "kernels":
         log(f"done in {time.monotonic() - t_all:.1f} s")
         return 0
+    phase_load()
     cfg, params = make_7b_params()
     p32 = upcast(params)
     phase_model(cfg, params, "7B bf16", p32)
@@ -1272,6 +1789,7 @@ def main() -> int:
     a, b, c = "fused_window_attention", "paged_attention_decode_staged", "packed_prefill_attention_seg"
     runs = {
         "bf16": phase_engine(cfg, params, "bf16", (a, b), (c,)),
+        "http": phase_http(cfg, params),
         # packed prefill over bf16 pools never reaches kernel A
         "packed": phase_engine(cfg, params, "packed bf16", (c, b), (a,),
                                prefill_token_budget=2048),
@@ -1291,9 +1809,10 @@ def main() -> int:
 
     # each kernel's (and branch's) launches come from the run whose path it
     # belongs to; A and B carry their pool branches
+    runs["dispatch"] = dispatch
     launch_run = {a: "bf16", b: "bf16", c: "packed", "int4_matmul": "int4",
-                  "w4a8_matmul": "int4", a + "@int8": "kv8", a + "@int4": "kv4",
-                  b + "@int8": "kv8"}
+                  "w4a8_matmul": "int4", "paged_attention_decode": "dispatch",
+                  a + "@int8": "kv8", a + "@int4": "kv4", b + "@int8": "kv8"}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def numbers(key):

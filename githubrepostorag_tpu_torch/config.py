@@ -1,0 +1,167 @@
+"""Settings of the port's model server; port of the serving part of
+``githubrepostorag_tpu/config.py``.
+
+The fields are the ones the model server reads: ``serving/__main__.py``
+(checkpoint, engine geometry and options), ``serving/openai_api.py``
+(the default priority class) and ``serving/tokenizer.py`` (the tokenizer
+backend).  Each reads the same environment variable, with the same
+default and parser, as the JAX package's field of the same name, so a pod
+spec carries over unchanged.  The settings of modes the port does not run
+yet (host tier, preemption, speculation, the fused step, meshes) are kept:
+setting one reaches ``Engine``, which refuses it, or ``__main__``, which
+exits naming the roadmap item that brings it.  ``SP_PREFILL_THRESHOLD``
+means nothing on one card (the JAX server resolves it to off there) and
+comes with the sequence-parallel layer.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, field
+
+
+def _env_bool(name: str, default: bool = False) -> bool:
+    val = os.environ.get(name)
+    if val is None:
+        return default
+    return str(val).strip().lower() in {"1", "true", "t", "yes", "y", "on"}
+
+
+def _parse_quant_bits() -> int:
+    """QUANTIZE_WEIGHTS -> bit width (0 = off).  Raises on typos rather
+    than silently loading full-precision weights."""
+    raw = os.environ.get("QUANTIZE_WEIGHTS", "")
+    val = str(raw).strip().lower()
+    if val in {"", "0", "false", "f", "no", "n", "off"}:
+        return 0
+    if val in {"1", "true", "t", "yes", "y", "on", "int8", "8"}:
+        return 8
+    if val in {"int4", "4", "awq"}:
+        return 4
+    raise ValueError(
+        f"QUANTIZE_WEIGHTS={raw!r} not understood; use int4, int8, or a boolean"
+    )
+
+
+def _parse_kv_quant() -> int:
+    """KV_QUANT -> page bit width (0 = full precision, 8 = int8, 4 = int4
+    nibble-packed pages).  Typos raise rather than silently serving
+    full-precision pages."""
+    raw = os.environ.get("KV_QUANT", "")
+    val = str(raw).strip().lower()
+    if val in {"", "0", "false", "f", "no", "n", "off"}:
+        return 0
+    if val in {"1", "true", "t", "yes", "y", "on", "int8", "8"}:
+        return 8
+    if val in {"int4", "4"}:
+        return 4
+    raise ValueError(
+        f"KV_QUANT={raw!r} not understood; use int4, int8, or a boolean"
+    )
+
+
+def _env_int(name: str, default: int) -> int:
+    try:
+        return int(os.environ.get(name, default))
+    except (TypeError, ValueError):
+        return default
+
+
+def _env_float(name: str, default: float) -> float:
+    try:
+        return float(os.environ.get(name, default))
+    except (TypeError, ValueError):
+        return default
+
+
+def _env(name: str, default: str):
+    return field(default_factory=lambda: os.getenv(name, default))
+
+
+def _int(name: str, default: int):
+    return field(default_factory=lambda: _env_int(name, default))
+
+
+def _float(name: str, default: float):
+    return field(default_factory=lambda: _env_float(name, default))
+
+
+def _bool(name: str, default: bool):
+    return field(default_factory=lambda: _env_bool(name, default))
+
+
+@dataclass(frozen=True)
+class Settings:
+    """The model server's knobs, read from the environment when built."""
+
+    log_level: str = _env("LOG_LEVEL", "INFO")
+
+    # --- checkpoint and the served model ---
+    qwen_model: str = _env("QWEN_MODEL", "Qwen/Qwen2.5-3B-Instruct")  # /v1/models id
+    model_weights_path: str = _env("MODEL_WEIGHTS_PATH", "")  # local HF checkpoint dir
+    # weight-only quantization at load: 0 off, 8 int8, 4 int4 (AWQ class)
+    quantize_weights: int = field(default_factory=_parse_quant_bits)
+    # "native" = the in-tree byte-level BPE (serving/bpe_native.py) when the
+    # checkpoint has a tokenizer.json; "hf" = transformers AutoTokenizer
+    tokenizer_backend: str = _env("TOKENIZER_BACKEND", "native")
+
+    # --- engine geometry (page_size x num_pages = KV token capacity) ---
+    context_window: int = _int("CONTEXT_WINDOW", 11712)
+    kv_page_size: int = _int("KV_PAGE_SIZE", 128)
+    kv_num_pages: int = _int("KV_NUM_PAGES", 256)
+    max_num_seqs: int = _int("MAX_NUM_SEQS", 64)
+    prefill_chunk: int = _int("PREFILL_CHUNK", 512)
+    # >0: token-budget packed prefill (Engine.prefill_token_budget); 0 padded
+    prefill_token_budget: int = _int("PREFILL_TOKEN_BUDGET", 0)
+    prefix_caching: bool = _bool("PREFIX_CACHING", True)
+    # quantized KV pages: 0 full precision, 8 int8, 4 int4
+    kv_quant: int = field(default_factory=_parse_kv_quant)
+
+    # --- priority classes ---
+    # SLO class stamped on requests that arrive unlabeled
+    priority_default_class: str = _env("PRIORITY_DEFAULT_CLASS", "interactive")
+    # the class headroom reservations and preemption act for: a tuning of
+    # those modes, so Engine takes only the default until they are ported
+    priority_protected_class: str = _env("PRIORITY_PROTECTED_CLASS", "interactive")
+
+    # --- modes the port does not run yet: Engine refuses them when on, and
+    # their tuning when not at its default ---
+    prefill_widths: int = _int("PREFILL_WIDTHS", 1)
+    prefill_priority: bool = _bool("PREFILL_PRIORITY", False)
+    sp_ring_pack: bool = _bool("SP_RING_PACK", True)
+    sp_ring_buckets: int = _int("SP_RING_BUCKETS", 0)
+    spec_ngram_k: int = _int("SPEC_NGRAM_K", 0)
+    spec_burst_iters: int = _int("SPEC_BURST_ITERS", 0)
+    fused_step: bool = _bool("FUSED_STEP", False)
+    spec_k: int = _int("SPEC_K", 4)
+    spec_iters: int = _int("SPEC_ITERS", 4)
+    spec_accept_floor: float = _float("SPEC_ACCEPT_FLOOR", 0.35)
+    spec_deadline_margin_s: float = _float("SPEC_DEADLINE_MARGIN_S", 0.25)
+    kv_tier: str = _env("KV_TIER", "auto")
+    kv_host_pool_pages: int = _int("KV_HOST_POOL_PAGES", 0)
+    kv_migrate_burst: int = _int("KV_MIGRATE_BURST", 8)
+    preempt: str = _env("PREEMPT", "auto")
+    preempt_headroom_pages: int = _int("PREEMPT_HEADROOM_PAGES", 0)
+
+    # --- settings __main__ refuses: they need planes the port lacks ---
+    mesh_shape: str = _env("MESH_SHAPE", "")  # e.g. "dp:2,tp:4"
+    spec_draft_model: str = _env("SPEC_DRAFT_MODEL", "")  # draft checkpoint dir
+    ctrl: str = _env("CTRL", "off")  # the fleet controller
+
+
+_settings: Settings | None = None
+
+
+def get_settings() -> Settings:
+    """Process-wide settings (environment read once, at first use)."""
+    global _settings
+    if _settings is None:
+        _settings = Settings()
+    return _settings
+
+
+def reload_settings() -> Settings:
+    """Re-read the environment."""
+    global _settings
+    _settings = Settings()
+    return _settings

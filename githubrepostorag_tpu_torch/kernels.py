@@ -40,6 +40,9 @@ SIGNATURES = {
     # v_scales, B, S, n_q, n_kv, P, page_size, head_dim, max_pages, dtype,
     # pool, scale, stream
     "fused_window_attention": [_P] * 9 + [_I] * 10 + [_F, _P],
+    # q, k_pages, v_pages, out, block_tables, cached_lens, new_lens, B, n_q,
+    # n_kv, P, page_size, head_dim, max_pages, dtype, scale, stream
+    "paged_decode": [_P] * 7 + [_I] * 8 + [_F, _P],
     # q, k_pages, v_pages, staged_k, staged_v, out, block_tables, pool_lens,
     # k_scales, v_scales, B, n_q, n_kv, P, page_size, head_dim, max_pages,
     # n_steps, staged_len, layer, dtype, pool, scale, stream

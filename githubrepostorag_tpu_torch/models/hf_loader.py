@@ -1,7 +1,9 @@
-"""HuggingFace Qwen2 state dicts -> the stacked-params dict; port of
+"""HuggingFace Qwen2 checkpoints -> the stacked-params dict; port of
 ``githubrepostorag_tpu/models/hf_loader.py`` (``config_from_hf``,
-``params_from_state_dict`` with its ``quantize`` option, and the AutoAWQ
-repacker ``awq_params_from_state_dict``) for dense checkpoints.
+``params_from_state_dict`` with its ``quantize`` option, the AutoAWQ
+repacker ``awq_params_from_state_dict``, and ``load_qwen2`` for a local
+checkpoint directory) for dense checkpoints.  Shards are read by the
+port's own safetensors reader (``models/safetensors_io.py``).
 
 HF stores linear weights [out, in]; the port stores [in, out] so the
 forward is ``x @ w``.  Per-layer tensors stack on a leading L axis.
@@ -9,17 +11,25 @@ forward is ``x @ w``.  Per-layer tensors stack on a leading L axis.
 
 from __future__ import annotations
 
+import json
+import logging
+from pathlib import Path
+
 import numpy as np
 import torch
 
 from githubrepostorag_tpu_torch.device import resolve_device
 from githubrepostorag_tpu_torch.models.quant import (
     QuantizedLinear4,
+    fuse_projections,
     quantize_embedding,
     quantize_qwen2_params,
     quantize_weight,
 )
 from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config
+from githubrepostorag_tpu_torch.models.safetensors_io import load_file
+
+logger = logging.getLogger(__name__)
 
 
 def config_from_hf(hf_cfg: dict) -> Qwen2Config:
@@ -62,41 +72,90 @@ def params_from_state_dict(state_dict: dict, cfg: Qwen2Config, dtype=torch.float
     sd = {k.removeprefix("model."): v for k, v in state_dict.items()}
     L = cfg.num_layers
 
-    def get(name: str) -> torch.Tensor:
-        return _tensor(sd[name]).to(torch.float32)
+    # Each leaf is allocated once in ``dtype`` and filled by one converting
+    # copy per source tensor (bf16, f16 and f32 sources round as through
+    # f32, as the JAX loader converts them), so a load holds the checkpoint
+    # and the tree and no full-precision temporary beside them.
+    def put(t) -> torch.Tensor:
+        t = _tensor(t)
+        return torch.empty(t.shape, dtype=dtype, device=dev).copy_(t)
 
-    def put(t: torch.Tensor) -> torch.Tensor:
-        return t.to(device=dev, dtype=dtype).contiguous()
-
-    def stack_linear(fmt: str) -> torch.Tensor:
-        return put(torch.stack([get(fmt.format(i)).t() for i in range(L)]))
-
-    def stack_vec(fmt: str) -> torch.Tensor:
-        return put(torch.stack([get(fmt.format(i)) for i in range(L)]))
+    def stack(fmt: str, transpose: bool = False) -> torch.Tensor:
+        rows = [_tensor(sd[fmt.format(i)]) for i in range(L)]
+        if transpose:
+            rows = [r.t() for r in rows]
+        out = torch.empty((L, *rows[0].shape), dtype=dtype, device=dev)
+        for i, r in enumerate(rows):
+            out[i].copy_(r)
+        return out
 
     params = {
-        "embed": put(get("embed_tokens.weight")),
+        "embed": put(sd["embed_tokens.weight"]),
         "layers": {
-            "ln1": stack_vec("layers.{}.input_layernorm.weight"),
-            "ln2": stack_vec("layers.{}.post_attention_layernorm.weight"),
-            "wq": stack_linear("layers.{}.self_attn.q_proj.weight"),
-            "bq": stack_vec("layers.{}.self_attn.q_proj.bias"),
-            "wk": stack_linear("layers.{}.self_attn.k_proj.weight"),
-            "bk": stack_vec("layers.{}.self_attn.k_proj.bias"),
-            "wv": stack_linear("layers.{}.self_attn.v_proj.weight"),
-            "bv": stack_vec("layers.{}.self_attn.v_proj.bias"),
-            "wo": stack_linear("layers.{}.self_attn.o_proj.weight"),
-            "wg": stack_linear("layers.{}.mlp.gate_proj.weight"),
-            "wu": stack_linear("layers.{}.mlp.up_proj.weight"),
-            "wd": stack_linear("layers.{}.mlp.down_proj.weight"),
+            "ln1": stack("layers.{}.input_layernorm.weight"),
+            "ln2": stack("layers.{}.post_attention_layernorm.weight"),
+            "wq": stack("layers.{}.self_attn.q_proj.weight", transpose=True),
+            "bq": stack("layers.{}.self_attn.q_proj.bias"),
+            "wk": stack("layers.{}.self_attn.k_proj.weight", transpose=True),
+            "bk": stack("layers.{}.self_attn.k_proj.bias"),
+            "wv": stack("layers.{}.self_attn.v_proj.weight", transpose=True),
+            "bv": stack("layers.{}.self_attn.v_proj.bias"),
+            "wo": stack("layers.{}.self_attn.o_proj.weight", transpose=True),
+            "wg": stack("layers.{}.mlp.gate_proj.weight", transpose=True),
+            "wu": stack("layers.{}.mlp.up_proj.weight", transpose=True),
+            "wd": stack("layers.{}.mlp.down_proj.weight", transpose=True),
         },
-        "norm": put(get("norm.weight")),
+        "norm": put(sd["norm.weight"]),
     }
     if not cfg.tie_word_embeddings:
-        params["lm_head"] = put(_tensor(sd["lm_head.weight"]).to(torch.float32).t())
+        params["lm_head"] = put(_tensor(sd["lm_head.weight"]).t())
     if quantize:
         params = quantize_qwen2_params(params, bits=4 if quantize == 4 else 8)
     return params
+
+
+def load_qwen2(checkpoint_dir: str | Path, dtype=torch.float32, quantize: bool | int = False,
+               fuse: bool = False, device=None) -> tuple[dict, Qwen2Config]:
+    """Load ``config.json`` and every ``*.safetensors`` shard of a local
+    checkpoint directory onto ``device``, one tensor at a time.
+
+    ``quantize`` True/8 converts every projection to per-channel int8 and
+    4 to group-wise int4 (the embedding table goes per-row int8 either
+    way).  A checkpoint that is already AutoAWQ 4-bit
+    (``quantization_config.quant_method == "awq"``) is repacked by
+    ``awq_params_from_state_dict``, its codes unchanged; an int8 request
+    is then ignored with a warning.  ``fuse`` returns the single-chip
+    serving layout (``fuse_projections``), fused while the tree is the only
+    thing on the device."""
+    if quantize not in (False, True, 4, 8):
+        raise ValueError(f"quantize must be False/True/8/4, got {quantize!r}")
+    dev = resolve_device(device)
+    root = Path(checkpoint_dir)
+    hf_cfg = json.loads((root / "config.json").read_text())
+    cfg = config_from_hf(hf_cfg)
+    shards = sorted(root.glob("*.safetensors"))
+    if not shards:
+        raise FileNotFoundError(f"no *.safetensors shard in {root}")
+    state: dict[str, torch.Tensor] = {}
+    for shard in shards:
+        state.update(load_file(shard, device=dev))
+    awq = (hf_cfg.get("quantization_config") or {}).get("quant_method") == "awq"
+    if awq:
+        if quantize in (True, 8):
+            logger.warning(
+                "checkpoint %s is natively 4-bit AWQ; ignoring the int8 quantize request "
+                "and repacking the AWQ codes", checkpoint_dir)
+        params = awq_params_from_state_dict(state, cfg, hf_cfg, dtype=dtype, device=dev)
+    else:
+        params = params_from_state_dict(state, cfg, dtype=dtype, device=dev)
+    # the checkpoint's tensors are freed before the quantizer's f32
+    # temporaries are made, which then sit beside the tree alone
+    del state
+    if quantize and not awq:
+        params = quantize_qwen2_params(params, bits=4 if quantize == 4 else 8)
+    if fuse:
+        params = fuse_projections(params, in_place=True)  # solely owned here
+    return params, cfg
 
 
 # ---- AWQ checkpoint repacking -------------------------------------------

@@ -1,22 +1,29 @@
-"""Decode-burst paged attention (kernel B); port of
-``githubrepostorag_tpu/ops/pallas_paged.py::paged_attention_decode_staged``
-(:281), over full-precision and int8 rank-5 pools.
+"""Paged attention at decode: kernels F and B; port of
+``githubrepostorag_tpu/ops/pallas_paged.py``.
 
-One decode query per row attends to the frozen pool prefix (``pool_lens[b]``
-tokens through its block table) and then to the burst's staged K/V tail
-(entries ``< staged_len``).  Pools are the whole ``[L, n_kv, P, ps, hd]``
-tensors plus an integer layer index, so no per-layer copy is made.  Masked
-scores are -1e30, a row with no valid KV outputs 0, and scores and
-accumulators are float32.  int8 pools carry one f32 scale per (layer, kv
+Kernel F, ``paged_attention_decode`` (:103, ``pallas_call`` :150): one query
+per row attends to the row's first ``cached_lens[b] + new_lens[b]`` keys of
+one layer's full-precision ``[n_kv, P, ps, hd]`` pool through its block
+table.  Its only caller is the dispatcher ``paged_attention`` (:408), which
+sends decode steps (S = 1) to F and prefill chunks (S > 1) to
+``paged_attention_ref``; no serving path of either package calls it.
+
+Kernel B, ``paged_attention_decode_staged`` (:281), over full-precision
+and int8 rank-5 pools: one decode query per row attends to the frozen pool
+prefix (``pool_lens[b]`` tokens through its block table) and then to the
+burst's staged K/V tail (entries ``< staged_len``).  Pools are the whole
+``[L, n_kv, P, ps, hd]`` tensors plus an integer layer index, so no
+per-layer copy is made.  int8 pools carry one f32 scale per (layer, kv
 head, page), ``[L, n_kv, P]``, read with the same layer index; their pages
 dequantize in float32 as they load, and the staged tail stays in the
 activation dtype (the dtype of ``q``).  int4 (uint8) pools never reach this
 kernel: the decode burst takes its gather path for them, as the JAX
 package does.
 
-``paged_attention_decode_staged`` launches the hand-written Hopper kernel
-``csrc/paged_decode_staged.cu`` for CUDA tensors and runs
-``paged_attention_decode_staged_ref``, the plain PyTorch version, for CPU
+Both: masked scores are -1e30, a row with no valid KV outputs 0, and scores
+and accumulators are float32.  Each wrapper launches its hand-written
+Hopper kernel (``csrc/paged_decode.cu``, ``csrc/paged_decode_staged.cu``)
+for CUDA tensors and runs its ``*_ref`` plain PyTorch version for CPU
 tensors.
 """
 
@@ -26,13 +33,99 @@ import torch
 
 from githubrepostorag_tpu_torch import kernels
 from githubrepostorag_tpu_torch.ops.fused_decode import POOL_CODES
-from githubrepostorag_tpu_torch.ops.paged_attention import gather_kv
+from githubrepostorag_tpu_torch.ops.paged_attention import gather_kv, paged_attention_ref
 
 NEG_INF = -1e30
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP = 8
+
+
+def paged_attention_decode_ref(q, k_pages, v_pages, block_tables, cached_lens, new_lens):
+    """Plain PyTorch version of kernel F: gather the row's pages, mask keys
+    at positions >= cached + new, softmax in float32, round only the
+    output.  A row with no key writes 0 (``paged_attention_ref`` would give
+    the mean of V there)."""
+    b, _, n_q, hd = q.shape
+    dev = q.device
+    k, v = gather_kv(k_pages, v_pages, block_tables)  # [B, T, n_kv, hd]
+    t, n_kv = k.shape[1], k.shape[2]
+    total = (cached_lens + new_lens).to(dev)
+    valid = (torch.arange(t, device=dev)[None, :] < total[:, None])[:, None, None, :]
+    qg = q.reshape(b, n_kv, n_q // n_kv, hd).float()
+    scores = torch.einsum("bngh,btnh->bngt", qg, k.float()) * (1.0 / hd ** 0.5)
+    scores = scores.masked_fill(~valid, NEG_INF)
+    p = torch.where(valid, torch.exp(scores - scores.amax(dim=-1, keepdim=True)), 0.0)
+    denom = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bngt,btnh->bngh", p / torch.where(denom == 0, 1.0, denom), v.float())
+    return out.reshape(b, 1, n_q, hd).to(q.dtype)
+
+
+def _require_f(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"paged_attention_decode: {msg}")
+
+
+def paged_attention_decode(q, k_pages, v_pages, block_tables, cached_lens, new_lens):
+    """q [B, 1, n_q, hd]; k_pages/v_pages [n_kv, P, ps, hd] (one layer's
+    pool) in q's dtype; block_tables [B, max_pages]; cached_lens [B] (tokens
+    in the cache before this step) and new_lens [B] (1 for active rows, 0
+    for padding rows), int32 on the card.  Returns [B, 1, n_q, hd] in
+    q.dtype.  Raises for S != 1 and for quantized pools, whatever the
+    device (the TPU kernel takes neither); CPU tensors then take the plain
+    version, and CUDA tensors launch the kernel or raise."""
+    _require_f(q.dim() == 4 and q.shape[1] == 1, f"q must be [B, 1, n_q, hd], got {tuple(q.shape)}")
+    _require_f(k_pages.is_floating_point() and v_pages.dtype == k_pages.dtype,
+               f"pools must be full precision (got {k_pages.dtype}); quantized pages carry "
+               "scales this kernel does not take")
+    _require_f(k_pages.dim() == 4 and v_pages.shape == k_pages.shape,
+               "pools must be rank-4 [n_kv, P, ps, hd] and alike")
+    if q.device.type == "cpu":
+        return paged_attention_decode_ref(q, k_pages, v_pages, block_tables, cached_lens,
+                                          new_lens)
+    _require_f(q.device.type == "cuda", f"unsupported device {q.device}")
+    tensors = [q, k_pages, v_pages, block_tables, cached_lens, new_lens]
+    _require_f(all(x.device == q.device for x in tensors), "all operands must be on one device")
+    _require_f(all(x.is_contiguous() for x in tensors), "operands must be contiguous")
+    b, _, n_q, hd = q.shape
+    n_kv, num_pages, page_size, hd_pool = k_pages.shape
+    _require_f(hd_pool == hd and hd in _HEAD_DIMS,
+               f"head_dim {hd} (pool {hd_pool}) not in {_HEAD_DIMS}")
+    _require_f(n_q % n_kv == 0 and n_q // n_kv <= _MAX_GROUP,
+               f"GQA group {n_q}/{n_kv} must divide evenly and be <= {_MAX_GROUP}")
+    _require_f(q.dtype in _DTYPES and k_pages.dtype == q.dtype,
+               "q and the pools must share one dtype: bf16 or f32")
+    _require_f(block_tables.dim() == 2 and block_tables.shape[0] == b
+               and block_tables.dtype == torch.int32, "block_tables must be [B, max_pages] int32")
+    _require_f(all(x.shape == (b,) and x.dtype == torch.int32 for x in (cached_lens, new_lens)),
+               "cached_lens and new_lens must be [B] int32")
+    _require_f(all(x.data_ptr() % 16 == 0 for x in (q, k_pages, v_pages)),
+               "q and pools must be 16-byte aligned")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = kernels.launcher("paged_decode")(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
+        block_tables.data_ptr(), cached_lens.data_ptr(), new_lens.data_ptr(),
+        b, n_q, n_kv, num_pages, page_size, hd, block_tables.shape[1], _DTYPES[q.dtype],
+        1.0 / hd ** 0.5, stream,
+    )
+    kernels.check_launch("paged_attention_decode", err)
+    paged_attention_decode.launches += 1
+    return out
+
+
+# kernel launches (CUDA path only)
+paged_attention_decode.launches = 0
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, cached_lens, new_lens):
+    """Dispatcher with the ``paged_attention_ref`` contract: kernel F for
+    decode steps (S == 1), gather + dense attention for prefill chunks
+    (S > 1)."""
+    if q.shape[1] == 1:
+        return paged_attention_decode(q, k_pages, v_pages, block_tables, cached_lens, new_lens)
+    return paged_attention_ref(q, k_pages, v_pages, block_tables, cached_lens, new_lens)
 
 
 def paged_attention_decode_staged_ref(q, k_pages, v_pages, block_tables, pool_lens,

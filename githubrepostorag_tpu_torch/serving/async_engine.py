@@ -7,6 +7,20 @@ queues through ``call_soon_threadsafe``.  The device never waits on the
 event loop and the event loop never blocks on the device.  The JAX
 version's observability planes (step profiler, token ledger, SLO monitor,
 page observatory, router digest, metrics) are not ported yet.
+
+The engine belongs to the driver thread alone.  Submissions and
+cancellations go into an inbox that the driver applies before each step,
+so the event loop never waits for the driver: taking the driver's lock on
+the loop, as the JAX version does, starves the loop under concurrent HTTP
+arrivals (the busy driver retakes the lock within one step's Python), and
+the requests then run one after another.
+
+``stats()`` returns the JAX version's key set; keys of modes the port does
+not run read 0, as the JAX version's defaults give them while the mode is
+off.  It reads the engine's counters without a lock, each read atomic
+under the interpreter lock, so a row may mix two steps' values; the JAX
+version's bounded wait and stale row need the fleet controller's stats
+timeout, a setting the port does not have yet.
 """
 
 from __future__ import annotations
@@ -14,8 +28,10 @@ from __future__ import annotations
 import asyncio
 import logging
 import threading
+import uuid
+from collections import deque
 from dataclasses import dataclass
-from typing import AsyncIterator
+from typing import Any, AsyncIterator, Callable
 
 from githubrepostorag_tpu_torch.serving.engine import Engine, GenerationResult
 from githubrepostorag_tpu_torch.serving.sampling_params import SamplingParams
@@ -32,8 +48,9 @@ class StreamEvent:
 
 class AsyncEngine:
     def __init__(self, engine: Engine) -> None:
-        self.engine = engine
-        self._lock = threading.Lock()  # engine state belongs to the driver
+        self.engine = engine  # driven by the driver thread alone
+        # (request id, operation) the driver applies before its next step
+        self._inbox: deque[tuple[str, Callable[[], None]]] = deque()
         self._wake = threading.Event()
         self._stop = False
         self._thread: threading.Thread | None = None
@@ -59,20 +76,37 @@ class AsyncEngine:
 
     def _drive(self) -> None:
         while not self._stop:
-            with self._lock:
-                try:
-                    has_work = self.engine.has_work()
-                    finished = self.engine.step() if has_work else []
-                except Exception as exc:  # noqa: BLE001 - fail every waiter, never hang
-                    logger.exception("engine driver failed")
-                    self.driver_error = repr(exc)
-                    self._fail_in_flight(self.driver_error)
-                    return
+            self._apply_inbox()
+            try:
+                has_work = self.engine.has_work()
+                finished = self.engine.step() if has_work else []
+            except Exception as exc:  # noqa: BLE001 - fail every waiter, never hang
+                logger.exception("engine driver failed")
+                self.driver_error = repr(exc)
+                self._fail_in_flight(self.driver_error)
+                return
             for res in finished:
                 self._emit(res.request_id, StreamEvent(type="final", result=res))
-            if not has_work:
+            if not has_work and not self._inbox:
                 self._wake.wait(timeout=0.02)
                 self._wake.clear()
+
+    def _apply_inbox(self) -> None:
+        """Run the queued submissions and cancellations in order; one that
+        raises ends its own request with an error, not the driver."""
+        while self._inbox:
+            rid, op = self._inbox.popleft()
+            try:
+                op()
+            except Exception as exc:  # noqa: BLE001 - one bad request must not stop serving
+                logger.exception("engine rejected %s", rid)
+                res = GenerationResult(request_id=rid, prompt_tokens=[], output_tokens=[],
+                                       finish_reason="error", error=repr(exc))
+                self._emit(rid, StreamEvent(type="final", result=res))
+
+    def _submit(self, rid: str, op: Callable[[], None]) -> None:
+        self._inbox.append((rid, op))
+        self._wake.set()
 
     def _fail_in_flight(self, reason: str) -> None:
         for rid in list(self._queues):
@@ -92,23 +126,28 @@ class AsyncEngine:
         sampling: SamplingParams | None = None,
         request_id: str | None = None,
         deadline_s: float | None = None,
+        priority: str | None = None,
     ) -> AsyncIterator[StreamEvent]:
         """Submit a request and yield its token events, then the final
         event.  ``deadline_s`` (absolute time.monotonic()) lets the engine
-        reap the request once its caller's budget is gone."""
+        reap the request once its caller's budget is gone; ``priority`` is
+        its SLO class (the engine's default class when None)."""
         await self.start()
         if self.driver_error is not None:
             raise RuntimeError(f"engine driver is dead: {self.driver_error}")
         q: asyncio.Queue[StreamEvent] = asyncio.Queue()
+        rid = request_id or f"req-{uuid.uuid4().hex}"
 
         def on_token(rid: str, token_id: int) -> None:
             self._emit(rid, StreamEvent(type="token", token_id=token_id))
 
-        with self._lock:
-            rid = self.engine.add_request(prompt_ids, sampling, on_token=on_token,
-                                          request_id=request_id, deadline_s=deadline_s)
-            self._queues[rid] = q
-        self._wake.set()
+        self._queues[rid] = q
+        if self.driver_error is not None:  # it died before the queue was there to fail
+            self._queues.pop(rid, None)
+            raise RuntimeError(f"engine driver is dead: {self.driver_error}")
+        self._submit(rid, lambda: self.engine.add_request(
+            prompt_ids, sampling, on_token=on_token, request_id=rid, deadline_s=deadline_s,
+            priority=priority))
         try:
             while True:
                 event = await q.get()
@@ -124,13 +163,37 @@ class AsyncEngine:
         sampling: SamplingParams | None = None,
         request_id: str | None = None,
         deadline_s: float | None = None,
+        priority: str | None = None,
     ) -> GenerationResult:
-        async for event in self.stream(prompt_ids, sampling, request_id, deadline_s):
+        async for event in self.stream(prompt_ids, sampling, request_id, deadline_s,
+                                       priority):
             if event.type == "final":
                 return event.result
         raise RuntimeError("stream ended without a final event")  # pragma: no cover
 
     async def cancel(self, request_id: str) -> None:
-        with self._lock:
-            self.engine.cancel(request_id)
-        self._wake.set()
+        self._submit(request_id, lambda: self.engine.cancel(request_id))
+
+    def stats(self) -> dict[str, Any]:
+        """Queue, page and request counters for ``/health``."""
+        eng = self.engine
+        out = {
+            "role": "fused",
+            "running": eng.num_running,
+            "waiting": eng.num_waiting,
+            "requests_admitted": eng.requests_admitted,
+            "free_pages": eng._allocator.free_count,
+            "total_pages": eng._allocator.num_pages,
+            "prefix_cache_hit_tokens": getattr(eng._allocator, "hit_tokens", 0),
+            "deadline_reaps": eng.deadline_reaps,
+        }
+        # the sequence-parallel, speculative, host-tier, disaggregation and
+        # preemption modes are not ported: their counters stay 0
+        zero = ("sp_prefills", "sp_ring_segments", "sp_ring_tokens", "spec_proposed",
+                "spec_accepted", "spec_fallbacks", "kv_host_pages", "kv_fault_ins",
+                "kv_writebacks", "kv_dedup_hits", "kv_dedup_holds", "kv_pages_exported",
+                "kv_pages_imported", "parked", "preemptions", "preempted_pages",
+                "preempt_resumes", "resume_faulted_pages", "resume_recomputed_tokens",
+                "resume_recomputed_prompt_tokens")
+        out.update(dict.fromkeys(zero, 0), spec_acceptance_rate=0.0)
+        return out

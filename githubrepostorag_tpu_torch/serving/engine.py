@@ -75,7 +75,9 @@ def _bucket(n: int, cap: int, minimum: int = 16) -> int:
 
 
 # JAX Engine options whose modes are not ported, with the value that means
-# "off".  Passing any other value raises at construction.
+# "off" (for a mode's tuning keyword, its JAX default).  Passing any other
+# value raises at construction, so the port is stricter than the JAX engine,
+# which ignores a mode's tuning while the mode is off.
 _UNPORTED_OPTIONS = {
     "prefill_widths": 1,
     "layer_unroll": 1,
@@ -91,6 +93,15 @@ _UNPORTED_OPTIONS = {
     "draft_cfg": None,
     "preempt": "off",
     "preempt_headroom_pages": 0,
+    # tuning of those modes (JAX defaults)
+    "protected_priority": "interactive",
+    "kv_migrate_burst": 8,
+    "sp_ring_pack": True,
+    "sp_ring_buckets": 0,
+    "spec_k": 4,
+    "spec_iters": 4,
+    "spec_accept_floor": 0.35,
+    "spec_deadline_margin_s": 0.25,
 }
 # values the JAX engine also reads as "off" for these options
 _ALSO_OFF = {"kv_tier": ("auto",), "preempt": ("auto",)}
@@ -131,6 +142,7 @@ class _Request:
     first_token_t: float | None = None
     deadline_ts: float | None = None  # absolute time.monotonic() budget
     deadline_expired: bool = False
+    priority: str = "interactive"  # SLO class
 
 
 class Engine:
@@ -155,6 +167,8 @@ class Engine:
         rng_seed: int = 0,
         decode_burst: int = 8,
         prefix_caching: bool = True,
+        default_priority: str = "interactive",  # class stamped on
+        # unlabeled add_request calls (PRIORITY_DEFAULT_CLASS)
         device: str | torch.device | None = None,
         **unported,
     ) -> None:
@@ -164,8 +178,8 @@ class Engine:
             default = _UNPORTED_OPTIONS[name]
             if not (value is default or value == default or value in _ALSO_OFF.get(name, ())):
                 raise NotImplementedError(
-                    f"Engine option {name}={value!r} selects a mode the torch port "
-                    "does not run yet; it serves padded or packed (prefill_token_budget) "
+                    f"Engine option {name}={value!r} selects or tunes a mode the torch "
+                    f"port does not run yet (leave it at {default!r}); it serves padded or packed (prefill_token_budget) "
                     "chunked prefill, bf16/f32 or int8/int4 (kv_quant) KV pages, "
                     "bf16/f32, int8 or int4 weights, prefix caching and pipelined "
                     "decode bursts"
@@ -190,6 +204,7 @@ class Engine:
         self.packed_prefill_tokens = 0  # stats: real tokens dispatched packed
         self.packed_prefill_padding = 0  # stats: unused budget slots
         self.decode_burst = max(1, decode_burst)
+        self.default_priority = default_priority
 
         # 0 off, 8 int8, 4 nibble-packed int4
         self.kv_quant = quant_bits(kv_quant)
@@ -259,11 +274,13 @@ class Engine:
         on_token: TokenCallback | None = None,
         request_id: str | None = None,
         deadline_s: float | None = None,
+        priority: str | None = None,
     ) -> str:
         rid = request_id or f"req-{next(self._ids)}"
         sampling = sampling or SamplingParams()
         req = _Request(request_id=rid, prompt=list(prompt_ids), sampling=sampling,
-                       on_token=on_token, deadline_ts=deadline_s)
+                       on_token=on_token, deadline_ts=deadline_s,
+                       priority=priority or self.default_priority)
         if len(req.prompt) + sampling.max_tokens > self.max_seq_len:
             req.sampling = sampling.clamped(self.max_seq_len - len(req.prompt))
         self._requests[rid] = req

@@ -1,8 +1,9 @@
-"""The plain versions of the two ported attention kernels against the Pallas
+"""The plain versions of the ported attention kernels against the Pallas
 TPU kernels they replace, run in interpret mode on the CPU:
 
   fused_window_attention_ref        vs ops/fused_decode.fused_window_attention
   paged_attention_decode_staged_ref vs ops/pallas_paged.paged_attention_decode_staged
+  paged_attention_decode_ref        vs ops/pallas_paged.paged_attention_decode
 
 Same numpy inputs, float32, tolerance 1e-5 absolute (the same f32
 arithmetic in another summation order).  Cases: GQA groups 2 and 7,
@@ -19,12 +20,16 @@ import torch
 import jax.numpy as jnp
 
 from githubrepostorag_tpu.ops.fused_decode import fused_window_attention as j_window
+from githubrepostorag_tpu.ops.pallas_paged import paged_attention as j_paged_attention
+from githubrepostorag_tpu.ops.pallas_paged import paged_attention_decode as j_decode
 from githubrepostorag_tpu.ops.pallas_paged import paged_attention_decode_staged as j_staged
 from githubrepostorag_tpu_torch.ops.fused_decode import (
     fused_window_attention,
     fused_window_attention_ref,
 )
 from githubrepostorag_tpu_torch.ops.paged_decode import (
+    paged_attention,
+    paged_attention_decode,
     paged_attention_decode_staged,
     paged_attention_decode_staged_ref,
 )
@@ -194,3 +199,103 @@ def test_staged_ref_int8_matches_pallas_interpret(dtype):
     before = dict(paged_attention_decode_staged.launches_by_pool)
     assert torch.equal(paged_attention_decode_staged(*args, staged_len, layer, **scales), t_out)
     assert paged_attention_decode_staged.launches_by_pool == before
+
+
+# ---- kernel F: paged_attention_decode and its dispatcher ------------------
+#
+# The cases of tests/test_pallas_paged.py: single rows of 13, 16 and 1
+# tokens, a ragged batch with a padding row (no key: exactly 0 on both
+# sides), and Qwen2-7B's group of 7.  float32 within 1e-5; bf16 within one
+# bf16 ulp of the Pallas kernel (both sum in f32 and round the output once).
+
+F_CASES = {
+    "single_13": (0, 1, 4, 2, 32, 8, 16, 4, [13]),
+    "single_16": (0, 1, 4, 2, 32, 8, 16, 4, [16]),
+    "single_1": (0, 1, 4, 2, 32, 8, 16, 4, [1]),
+    "ragged_with_padding_row": (1, 4, 8, 2, 64, 16, 32, 4, [50, 7, 0, 33]),
+    "group_of_seven": (2, 2, 28, 4, 64, 16, 24, 6, [80, 42]),
+}
+
+
+def _f_case(seed, b, n_q, n_kv, hd, ps, num_pages, max_pages, lens, s=1):
+    """tests/test_pallas_paged.py's inputs: distinct random pages per row,
+    cached = len - 1 and one new token (0 and 0 for a padding row); with
+    ``s`` > 1 a prefill chunk of ``s`` tokens instead."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, s, n_q, hd)).astype(np.float32)
+    kp = rng.normal(size=(n_kv, num_pages, ps, hd)).astype(np.float32)
+    vp = rng.normal(size=(n_kv, num_pages, ps, hd)).astype(np.float32)
+    perm = rng.permutation(num_pages)
+    bt = np.zeros((b, max_pages), dtype=np.int32)
+    taken = 0
+    for row in range(b):
+        need = -(-int(lens[row]) // ps) if lens[row] else 0
+        bt[row, :need] = perm[taken: taken + need]
+        taken += need
+    new = np.asarray([min(s, n) for n in lens], dtype=np.int32)
+    cached = np.asarray(lens, dtype=np.int32) - new
+    return q, kp, vp, bt, cached, new
+
+
+def _torch_and_jax(arrays, dtype):
+    """The same values for both packages: float arrays rounded to ``dtype``
+    once, on the torch side."""
+    ts = [torch.from_numpy(a).to(dtype) if a.dtype == np.float32 else torch.from_numpy(a)
+          for a in arrays]
+    js = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) if t.dtype == torch.bfloat16
+          else jnp.asarray(t.numpy()) for t in ts]
+    return ts, js
+
+
+def _assert_one_bf16_ulp(out: torch.Tensor, ref: torch.Tensor):
+    a, b = out.float(), ref.float()
+    assert bool(((a - b).abs() <= 2 ** -7 * torch.maximum(a.abs(), b.abs())).all()), \
+        (a - b).abs().max().item()
+
+
+@pytest.mark.parametrize("name,dtype", [(n, torch.float32) for n in F_CASES] + [
+    (n, torch.bfloat16) for n in ("ragged_with_padding_row", "group_of_seven")])
+def test_paged_decode_ref_matches_pallas_interpret(name, dtype):
+    seed, b, n_q, n_kv, hd, ps, num_pages, max_pages, lens = F_CASES[name]
+    ts, js = _torch_and_jax(_f_case(seed, b, n_q, n_kv, hd, ps, num_pages, max_pages, lens),
+                            dtype)
+    out = paged_attention_decode(*ts)
+    ref = torch.from_numpy(np.asarray(j_decode(*js, interpret=True)).astype(np.float32))
+    assert out.dtype == dtype and out.shape == (b, 1, n_q, hd)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=1e-5, rtol=1e-5)
+    else:
+        _assert_one_bf16_ulp(out, ref)
+    for row, n in enumerate(lens):
+        if n == 0:  # no key: exactly 0 on both sides (the JAX kernel's safe_l)
+            assert not out[row].float().any() and not ref[row].any()
+    assert paged_attention_decode.launches == 0  # CPU tensors launch nothing
+
+
+@pytest.mark.parametrize("s", [1, 3])
+def test_paged_attention_dispatcher_matches_jax(s):
+    seed, b, n_q, n_kv, hd, ps, num_pages, max_pages, lens = F_CASES["ragged_with_padding_row"]
+    arrays = _f_case(seed, b, n_q, n_kv, hd, ps, num_pages, max_pages, lens, s=s)
+    ts, js = _torch_and_jax(arrays, torch.float32)
+    out = paged_attention(*ts)
+    # every row, the padding row too: 0 from kernel F at S = 1, the mean of
+    # V from the gather path at S > 1, on both sides
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_paged_attention(*js)),
+                               atol=1e-5, rtol=1e-5)
+    if s == 1:
+        assert not out[lens.index(0)].any()
+
+
+@pytest.mark.parametrize("bad", ["window", "int8_pools", "uint8_pools"])
+def test_paged_decode_refuses_before_launch(bad):
+    """S != 1 and quantized pools raise on any device, before a launch: the
+    TPU kernel takes neither (its pools carry no scales)."""
+    seed, b, n_q, n_kv, hd, ps, num_pages, max_pages, lens = F_CASES["single_13"]
+    q, kp, vp, bt, cached, new = (torch.from_numpy(a) for a in _f_case(
+        seed, b, n_q, n_kv, hd, ps, num_pages, max_pages, lens, s=3 if bad == "window" else 1))
+    if bad != "window":
+        code = torch.int8 if bad == "int8_pools" else torch.uint8
+        kp, vp = kp.to(code), vp.to(code)
+    with pytest.raises(ValueError, match="paged_attention_decode"):
+        paged_attention_decode(q, kp, vp, bt, cached, new)
+    assert paged_attention_decode.launches == 0

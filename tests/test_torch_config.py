@@ -1,0 +1,63 @@
+"""The port's model-server settings against the JAX package's: for each
+environment below, every field of ``githubrepostorag_tpu_torch.config.Settings``
+equals the JAX ``Settings`` field of the same name (same variable, default
+and parser), and a typo raises on both sides."""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from pathlib import Path
+
+import pytest
+
+from githubrepostorag_tpu import config as j_config
+from githubrepostorag_tpu_torch import config
+
+# every environment variable the port's settings read
+ENV_NAMES = sorted(set(re.findall(r'"([A-Z][A-Z0-9_]{2,})"', Path(config.__file__).read_text())))
+
+ENVIRONMENTS = {
+    "defaults": {},
+    "int4_weights": {"QUANTIZE_WEIGHTS": "int4"},
+    "int8_pages": {"KV_QUANT": "8"},
+    "packed_prefill": {"PREFILL_TOKEN_BUDGET": "2048", "MAX_NUM_SEQS": "8"},
+    "no_prefix_cache": {"PREFIX_CACHING": "0", "PRIORITY_DEFAULT_CLASS": "batch"},
+    "unported_modes": {"KV_TIER": "on", "SPEC_K": "8", "PRIORITY_PROTECTED_CLASS": "batch",
+                       "MESH_SHAPE": "tp:2", "CTRL": "on"},
+}
+
+
+@pytest.fixture
+def env(monkeypatch):
+    for name in ENV_NAMES:
+        monkeypatch.delenv(name, raising=False)
+
+    def apply(values: dict[str, str]):
+        for name, value in values.items():
+            monkeypatch.setenv(name, value)
+        return config.reload_settings(), j_config.reload_settings()
+
+    yield apply
+    monkeypatch.undo()
+    config.reload_settings()
+
+
+def test_env_names_found():
+    assert {"MODEL_WEIGHTS_PATH", "QUANTIZE_WEIGHTS", "KV_QUANT", "CONTEXT_WINDOW"} <= set(ENV_NAMES)
+
+
+@pytest.mark.parametrize("name", list(ENVIRONMENTS))
+def test_fields_equal_jax(env, name):
+    port, jax_side = env(ENVIRONMENTS[name])
+    for f in dataclasses.fields(port):
+        assert getattr(port, f.name) == getattr(jax_side, f.name), f.name
+    assert config.get_settings() is port
+
+
+@pytest.mark.parametrize("var,value", [("QUANTIZE_WEIGHTS", "int5"), ("KV_QUANT", "fp8")])
+def test_typo_raises_on_both_sides(env, var, value):
+    with pytest.raises(ValueError, match=var):
+        env({var: value})
+    with pytest.raises(ValueError, match=var):
+        j_config.reload_settings()

@@ -262,6 +262,8 @@ def test_engine_defaults_to_the_card(weights):
     {"spec_burst_iters": 2}, {"prefill_priority": True}, {"spec_ngram_k": 4},
     {"fused_step": True}, {"kv_tier": "on"}, {"preempt": "on"}, {"sp_prefill_threshold": 64},
     {"mesh": object()},
+    # a mode's tuning away from its JAX default is refused like the mode
+    {"spec_k": 8}, {"kv_migrate_burst": 16}, {"protected_priority": "batch"},
 ])
 def test_engine_rejects_unported_modes(weights, option):
     _, cfg, _, tp = weights
@@ -298,3 +300,61 @@ def test_engine_accepts_quantized_params_and_checks_devices(int4_weights):
         _torch_engine(cfg, dict(tp, layers=dict(tp["layers"], wo=moved)))
     with pytest.raises(NotImplementedError):
         _torch_engine(cfg, dict(tp, norm=tp["norm"].to(torch.int32)))
+
+
+def test_engine_stamps_priority_as_jax(weights):
+    """add_request stamps ``priority or default_priority`` on the request,
+    on both engines; AsyncEngine.stream passes it through."""
+    jcfg, cfg, jp, tp = weights
+    te = _torch_engine(cfg, tp, default_priority="batch")
+    je = JEngine(jp, jcfg, kv_dtype=jnp.float32, default_priority="batch", **ENGINE_KW)
+    for eng in (te, je):
+        plain = eng.add_request([5, 6, 7], JSamplingParams(max_tokens=2))
+        tagged = eng.add_request([5, 6, 7], JSamplingParams(max_tokens=2), priority="interactive")
+        assert eng._requests[plain].priority == "batch"
+        assert eng._requests[tagged].priority == "interactive"
+
+    async def stream_one():
+        ae = AsyncEngine(_torch_engine(cfg, tp))
+        seen = []
+        real = ae.engine.add_request
+
+        def spy(*args, **kw):
+            rid = real(*args, **kw)
+            seen.append(ae.engine._requests[rid].priority)
+            return rid
+
+        ae.engine.add_request = spy
+        try:
+            await ae.generate([1, 2, 3], SamplingParams(max_tokens=2), priority="longctx")
+            await ae.generate([1, 2, 3], SamplingParams(max_tokens=2))
+        finally:
+            await ae.stop()
+        return seen
+
+    assert asyncio.run(stream_one()) == ["longctx", "interactive"]
+
+
+def test_async_engine_stats_key_set_matches_jax(weights):
+    from githubrepostorag_tpu.serving.async_engine import AsyncEngine as JAsyncEngine
+
+    jcfg, cfg, jp, tp = weights
+    port = AsyncEngine(_torch_engine(cfg, tp)).stats()
+    ref = JAsyncEngine(JEngine(jp, jcfg, kv_dtype=jnp.float32, **ENGINE_KW)).stats()
+    assert sorted(port) == sorted(ref)
+    # a fresh engine of the same geometry reads the same everywhere
+    assert port == ref
+    assert port["free_pages"] == port["total_pages"] == ENGINE_KW["num_pages"]
+
+
+def test_engine_takes_the_servers_tuning_keywords(weights):
+    """The JAX server passes its modes' tuning keywords whatever the mode:
+    at their JAX defaults they are accepted, and refused otherwise
+    (``test_engine_rejects_unported_modes``), with a message naming the
+    value to leave them at."""
+    _, cfg, _, tp = weights
+    _torch_engine(cfg, tp, kv_migrate_burst=8, sp_ring_pack=True, sp_ring_buckets=0, spec_k=4,
+                  spec_iters=4, spec_accept_floor=0.35, spec_deadline_margin_s=0.25,
+                  protected_priority="interactive")
+    with pytest.raises(NotImplementedError, match=r"spec_iters=2 .*leave it at 4"):
+        _torch_engine(cfg, tp, spec_iters=2)
