@@ -20,7 +20,11 @@ Phases, each raising on failure:
               GEMMs D and E, torch.matmul against the dequantized bf16
               weight and torch._weight_int4pack_mm where the card's torch
               has it): yardsticks the port never calls; compute the least
-              time the card could take for the same work.
+              time the card could take for the same work.  Kernel D also
+              at ragged shapes through both of its loaders (TMA and
+              cp.async, each launch counted by loader), at every tile of x
+              rows its plan could take, and bit for bit against dequant4
+              through an identity x.
    dispatcher -- kernel F's path: paged_attention at S = 1 launches F once
               and nothing else; at S = 512 it launches nothing and equals
               paged_attention_ref.
@@ -51,7 +55,7 @@ Phases, each raising on failure:
               the card, layer by layer; the model checks again (prefill
               logits through kernel D, decode logits through kernel E),
               then the engine phase again with the int4 weights (A, B, D
-              and E must all launch).
+              and E must all launch, every D launch through TMA).
 7. summary -- one JSON line per kernel list, then the result line.
 
 There is no CPU fallback: without a card the script exits non-zero.
@@ -158,7 +162,7 @@ def phase_build() -> None:
     log(f"build: {time.monotonic() - t0:.1f} s wall; per source {seconds}")
     for name, out in kernels.build_logs.items():
         for line in out.splitlines():
-            if "registers" in line or "spill" in line or "error" in line.lower():
+            if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
                 log(f"  ptxas[{name}] {line.strip()}")
 
 
@@ -748,15 +752,52 @@ def int4pack_yardstick(x, w):
         return None
 
 
-def measure_int4(x, w, w_view, out_dtype, timed: bool) -> dict:
+def int4_plan(x, w):
+    """The wrapper's plan of kernel D for bf16 ``x`` and weights ``w``."""
+    from githubrepostorag_tpu_torch.ops import int4_matmul as ops
+
+    m, k = x.numel() // x.shape[-1], x.shape[-1]
+    n, n_g = w.q.shape[1], w.s.shape[0]
+    return ops._plan_int4(m, k, n, k // n_g, x.data_ptr(), w.q.data_ptr(), w.s.data_ptr(),
+                          w.zs.data_ptr(), ops._sm_count(x.device))
+
+
+def launch_plan(x, w, out, plan):
+    """Kernel D through its C entry point with ``plan`` (no count): the
+    block_m sweep of the kernel phase."""
+    import torch
+
+    from githubrepostorag_tpu_torch import kernels
+    from githubrepostorag_tpu_torch.ops import int4_matmul as ops
+
+    m, k = x.numel() // x.shape[-1], x.shape[-1]
+    n, n_g = w.q.shape[1], w.s.shape[0]
+    err = kernels.launcher("int4_matmul")(
+        x.data_ptr(), w.q.data_ptr(), w.s.data_ptr(), w.zs.data_ptr(), out.data_ptr(), m, k, n,
+        k // n_g, ops._DTYPES[x.dtype], ops._DTYPES[out.dtype], ops.LOADERS.index(plan.loader),
+        plan.block_m, plan.grid, torch.cuda.current_stream().cuda_stream)
+    kernels.check_launch("int4_matmul", err)
+
+
+def measure_int4(x, w, w_view, out_dtype, timed: bool, sweep: bool = False) -> dict:
     """Kernel D (int4_matmul, w4a8=False) on ``w_view`` and ``w`` against
-    int4_matmul_ref."""
+    int4_matmul_ref; both launches must take the loader of the wrapper's
+    plan (``f32`` for float32 x).  Timed or ``sweep``: also every tile of x
+    rows the plan could have taken, each held to int4_matmul_ref like the
+    plan's (and timed when ``timed``)."""
     import torch
 
     from githubrepostorag_tpu_torch.ops.int4_matmul import dequant4, int4_matmul, int4_matmul_ref
 
+    plan = int4_plan(x, w_view)
+    loader = "f32" if x.dtype == torch.float32 else plan.loader
+    before = dict(int4_matmul.launches_by_loader)
     out = int4_matmul(x, *w_view, out_dtype=out_dtype, w4a8=False)
     out_own = int4_matmul(x, *w, out_dtype=out_dtype, w4a8=False)
+    took = {key: n - before[key] for key, n in int4_matmul.launches_by_loader.items()
+            if n != before[key]}
+    if took != {loader: 2}:
+        raise RuntimeError(f"int4_matmul launches by loader {took}, expected {loader}: 2")
     ref = int4_matmul_ref(x, *w, out_dtype=out_dtype)
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
@@ -765,6 +806,24 @@ def measure_int4(x, w, w_view, out_dtype, timed: bool) -> dict:
         raise RuntimeError("int4_matmul differs between a stacked layer's view and its own copy")
     wq = dequant4(*w, x.dtype).float()
     res = gemm_agreement(out, ref, x.float().abs() @ wq.abs())
+    res["loader"], res["block_m"] = loader, plan.block_m
+    if not (timed or sweep) or loader == "f32":
+        return res
+    res["block_m_ms"], res["block_m_same_bits"] = {}, {}
+    m, n = x.numel() // x.shape[-1], w.q.shape[1]
+    scale = x.float().abs() @ wq.abs()
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    for bm in ((8,) if m <= 8 else (64, 128, 256)):
+        tiles = -(-n // 128) * -(-m // bm)
+        alt = plan._replace(block_m=bm, tiles=tiles, grid=min(tiles, n_sm))
+        other = torch.empty_like(out)
+        launch_plan(x, w_view, other, alt)
+        torch.cuda.synchronize()
+        if not gemm_agreement(other, ref, scale)["limit_share"] <= 1.0:
+            raise RuntimeError(f"kernel D with block_m {bm} disagrees with int4_matmul_ref")
+        res["block_m_same_bits"][bm] = torch.equal(other, out)
+        if timed:
+            res["block_m_ms"][bm] = time_ms(lambda: launch_plan(x, w_view, other, alt), 10)
     if not timed:
         return res
     m, k = x.numel() // x.shape[-1], x.shape[-1]
@@ -780,6 +839,29 @@ def measure_int4(x, w, w_view, out_dtype, timed: bool) -> dict:
     res["bound_ms"], res["bound_by"] = bound(
         2.0 * m * k * n, m * k * x.element_size() + k * n / 2 + 2 * n_g * n * 2 + m * n * out_bytes)
     return res
+
+
+def dequant_bits(w, label: str) -> None:
+    """Kernel D's dequantization bit for bit: with x the K x K identity in
+    bf16 and f32 out, each output element is one product 1 * w[k, o]
+    summed with zeros, so ``out`` must equal dequant4(q, s, zs, bf16)
+    exactly, on every nibble and scale of ``w``."""
+    import torch
+
+    from githubrepostorag_tpu_torch.ops.int4_matmul import dequant4, int4_matmul
+
+    k = w.q.shape[0] * 2
+    eye = torch.eye(k, device="cuda", dtype=torch.bfloat16)
+    out = int4_matmul(eye, *w, out_dtype=torch.float32, w4a8=False)
+    want = dequant4(*w, torch.bfloat16).float()
+    nibbles = torch.cat([w.q & 15, w.q >> 4]).unique().numel()
+    if not torch.equal(out, want):
+        bad = (out != want).sum().item()
+        raise RuntimeError(f"kernel D's dequantization differs from dequant4 on {bad} weights "
+                           f"({label})")
+    log(f"kernel D dequantization bit for bit equal to dequant4 ({label}: {out.numel()} weights, "
+        f"{nibbles} nibble values, {w.s.unique().numel()} scales, {int4_plan(eye, w).loader} "
+        "loader)")
 
 
 def w4a8_scale(x, w):
@@ -835,8 +917,11 @@ def measure_w4a8(x, w, w_view, out_dtype, timed: bool) -> dict:
 
 def phase_int4_kernels(rng) -> dict:
     """Kernels D and E against their plain versions at the 7B shapes, on
-    the last layer of a 28-layer stack and on their own copy."""
+    the last layer of a 28-layer stack and on their own copy, and D at
+    ragged shapes through both of its loaders."""
     import torch
+
+    from githubrepostorag_tpu_torch.ops.int4_matmul import int4_matmul
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(int(rng.integers(1 << 30)))
@@ -861,26 +946,57 @@ def phase_int4_kernels(rng) -> dict:
                   measure_int4(x, w, w, dtype, False))
             check(f"kernel E small K={k} N={n} M={m} group {gsz} {str(dtype)[6:]}",
                   measure_w4a8(x, w, w, dtype, False))
+    # kernel D's loaders off the 7B path: cp.async with N % 4 == 2 (2-byte q
+    # copies) and with groups that are not a K step (48, 32), TMA with
+    # ragged M and N tiles at group 128, and tiles of 64 and 128 rows
+    for k, n, m, gsz in ((384, 202, 7, 48), (256, 72, 77, 32), (512, 272, 77, 128),
+                         (512, 400, 300, 64), (256, 4608, 100, 64)):
+        w = quantize_weight4(torch.randn((k, n), generator=gen, device="cuda") * 0.02, gsz)
+        check(f"kernel D ragged K={k} N={n} M={m} group {gsz} bfloat16",
+              measure_int4(randx(m, k, torch.bfloat16), w, w, torch.bfloat16, False, sweep=True))
+        dequant_bits(w, f"K={k} N={n} group {gsz}")
+    # the host's cost of a launch, with (TMA: four tensor maps encoded) and
+    # without descriptors (cp.async), at a size where the device work is
+    # negligible
+    for n in (256, 200):
+        w = quantize_weight4(torch.randn((256, n), generator=gen, device="cuda") * 0.02, 64)
+        x = randx(8, 256, torch.bfloat16)
+        fn = lambda: int4_matmul(x, *w, w4a8=False)  # noqa: E731
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn()
+        host_us = (time.perf_counter() - t0) / 500 * 1e6
+        torch.cuda.synchronize()
+        log(f"kernel D host time per call, {int4_plan(x, w).loader} loader (M=8 K=256 N={n}): "
+            f"{host_us:.2f} us")
 
     layers = 28
-    for name in ("wqkv", "wgu", "wd", "lm_head"):
+    d_rows = {"wqkv": (4096,), "wo": (4096,), "wgu": (512, 2048, 4096), "wd": (4096,),
+              "lm_head": (8,)}
+    for name in ("wqkv", "wo", "wgu", "wd", "lm_head"):
         k, n = Q7B_SHAPES[name]
         w, view = int4_case(gen, k, n, None if name == "lm_head" else layers)
         out_dtype = torch.float32 if name == "lm_head" else None
-        for m in (8, 64):
+        if name == "wqkv":
+            dequant_bits(view, "7B wqkv, the stacked layer's view")
+        for m in ((8, 64) if name != "wo" else ()):
             for dtype in (torch.float32, torch.bfloat16):
                 timed = dtype == torch.bfloat16
                 res = check(f"kernel E {name} M={m} {str(dtype)[6:]}",
                             measure_w4a8(randx(m, k, dtype), w, view, out_dtype or dtype, timed))
                 if timed:
                     results[f"w4a8_matmul@{name}@M{m}"] = res
-        if name in ("wgu", "wd", "lm_head"):
-            m = 8 if name == "lm_head" else 4096
+        for m in d_rows[name]:
             for dtype in (torch.float32, torch.bfloat16):
                 timed = dtype == torch.bfloat16
                 res = check(f"kernel D {name} M={m} {str(dtype)[6:]}",
                             measure_int4(randx(m, k, dtype), w, view, out_dtype or dtype, timed))
                 if timed:
+                    if res["loader"] != "tma":
+                        raise RuntimeError(f"kernel D at 7B {name} took the {res['loader']} loader")
                     results[f"int4_matmul@{name}@M{m}"] = res
         del w, view
         torch.cuda.empty_cache()
@@ -1569,8 +1685,9 @@ def phase_http(cfg, params) -> dict:
 
 
 def launch_counters() -> dict:
-    """Every kernel wrapper's launch count, and A's and B's per pool branch
-    (``name@int8`` ...)."""
+    """Every kernel wrapper, whose ``launches`` (and A's and B's per pool
+    branch, D's per loader: ``name@int8``, ``int4_matmul@tma`` ...) the
+    engine phases read."""
     from githubrepostorag_tpu_torch.ops.fused_decode import fused_window_attention
     from githubrepostorag_tpu_torch.ops.int4_matmul import int4_matmul, w4a8_matmul
     from githubrepostorag_tpu_torch.ops.packed_prefill import packed_prefill_attention_seg
@@ -1584,19 +1701,25 @@ def launch_counters() -> dict:
             "int4_matmul": int4_matmul, "w4a8_matmul": w4a8_matmul}
 
 
+# per-branch counts beside a wrapper's total: A and B by pool, D by loader
+BRANCH_COUNTS = ("launches_by_pool", "launches_by_loader")
+
+
 def reset_launches() -> None:
     for fn in launch_counters().values():
         fn.launches = 0
-        if hasattr(fn, "launches_by_pool"):
-            fn.launches_by_pool = dict.fromkeys(fn.launches_by_pool, 0)
+        for attr in BRANCH_COUNTS:
+            if hasattr(fn, attr):
+                setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))
 
 
 def read_launches() -> dict:
     out = {}
     for name, fn in launch_counters().items():
         out[name] = fn.launches
-        for kind, n in getattr(fn, "launches_by_pool", {}).items():
-            out[f"{name}@{kind}"] = n
+        for attr in BRANCH_COUNTS:
+            for kind, n in getattr(fn, attr, {}).items():
+                out[f"{name}@{kind}"] = n
     return out
 
 
@@ -1687,6 +1810,7 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tup
         "wave_prompt_tokens": [len(p) for p in wave1],
         "ttft_s": [round(x, 4) for x in ttft],
         "ttft_p50_s": ttft[len(ttft) // 2],
+        "ttft_p95_s": ttft[-(-95 * len(ttft) // 100) - 1],  # nearest rank
         "wave_wall_s": t_mid - t_start,
         "decode_rows": len(decoded),
         "decode_tok_s": decode_tokens / (done - first_tok),
@@ -1806,6 +1930,11 @@ def main() -> int:
     phase_model(cfg, qparams, "7B int4")
     phase_decode_logits(cfg, qparams)
     runs["int4"] = phase_engine(cfg, qparams, "int4", (a, b, "int4_matmul", "w4a8_matmul"))
+    d_runs = runs["int4"]["launches"]
+    if d_runs["int4_matmul@tma"] != d_runs["int4_matmul"]:
+        raise RuntimeError(f"kernel D on the int4 path: {d_runs['int4_matmul']} launches, "
+                           f"{d_runs['int4_matmul@tma']} through the TMA loader")
+    log(f"int4 path: all {d_runs['int4_matmul']} launches of kernel D took the TMA loader")
 
     # each kernel's (and branch's) launches come from the run whose path it
     # belongs to; A and B carry their pool branches
@@ -1823,6 +1952,9 @@ def main() -> int:
     for name, (source, replaces) in SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  **numbers(name)}
+        if name == "int4_matmul":
+            entry["launches_by_loader"] = {
+                k: runs["int4"]["launches"][f"{name}@{k}"] for k in ("tma", "cp_async", "f32")}
         branches = [k for k in launch_run if k.startswith(name + "@")]
         if branches:
             entry["branches"] = {"fp": numbers(name),

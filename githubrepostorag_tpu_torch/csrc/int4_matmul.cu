@@ -12,46 +12,56 @@
 //
 // What bounds it on this card: at prefill (M up to 4096 rows) each weight
 // byte feeds M multiply-adds, far above the H100's ~295 FLOP/byte ridge, so
-// operations bound it; at M = 8 (the prefill logits) the weight bytes do.
+// the tensor cores bound it; at M = 8 (the prefill logits) the weight bytes
+// do, and the dequantization's instructions come close.
 //
-// Design.  A K step covers 32 packed byte rows, i.e. 64 weight rows: rows
-// b0..b0+31's low nibbles and their high-nibble partners gsz/2 further on.
-// The kernel fills 64 "k slots" in shared memory in that order (low plane,
-// then high plane) and gathers the matching x columns, which are two
-// contiguous 32-column runs per group, so no interleave is needed.  The
-// dequantized tile is stored n-major (k contiguous) so that each mma
-// fragment is one 32-bit shared load without bank conflicts.
-//   bf16 x: 128 x 128 output tile per 256-thread block, 8 warps of 64 x 32,
-//           tensor cores through mma.sync.m16n8k16 (bf16 in, f32 sum).
-//   f32 x:  64 x 64 tile, 4 x 4 outputs per thread, f32 FMA on the CUDA
-//           cores (the tensor cores have no full-f32 product); used by the
-//           f32 comparison runs.
-// Loads and compute are not overlapped (no cp.async / TMA pipeline) and
-// the tensor-core path is mma.sync, not wgmma: a first version, right and
-// simple; its times against the bound are in PERF.md.
+// Design (bf16 x).  Swap-AB: the kernel computes out^T[N, M] = W^T x^T, so
+// the dequantized weight is wgmma's A operand, built in registers, and x is
+// the B operand, read by wgmma from shared memory; wgmma's n (8..256) is a
+// tile of M, so the prefill logits (M = 8) run m64n8 with no padded rows.
+//   - A K step covers SB packed byte rows: SB k slots of low nibbles, then
+//     SB of high nibbles.  With SB = gsz/2 (gsz 64 or 128) a step is one
+//     whole group and its slots are x's natural k order.
+//   - Warp specialisation: warpgroup 0 loads, warpgroups 1 and 2 each own
+//     64 weight columns of the block's 128 and all BM rows of x.  The loads
+//     go through a ring of 3..8 shared-memory stages with one "full" and one
+//     "empty" mbarrier each; setmaxnreg moves registers to the consumers.
+//   - Two loaders fill the same stage layout.  TMA (cp.async.bulk.tensor),
+//     one thread, for gsz 64 / 128 with 16-byte strides and bases: x as
+//     [BM][64] bf16 boxes in the 128-byte swizzle (wgmma's K-major B), the
+//     q tile [SB][128] uint8 in the 128-byte swizzle, one s and one zs row.
+//     cp.async, the whole warpgroup, for every other shape the wrapper
+//     accepts (ragged N, any gsz % 16 == 0): predicated 16-byte x copies
+//     gathered into slot order, 4-byte q, s and zs copies (2-byte loads and
+//     stores for q when N % 4 == 2), zeros past the edges.
+//   - Each consumer thread dequantizes its A fragments straight from the q
+//     tile: the mma A fragment gives it rows gid and gid + 8 of its warp's
+//     16, which the kernel maps to the adjacent columns 2*gid and 2*gid + 1,
+//     so one 2-byte load serves both, and the swizzle spreads the four
+//     byte rows a load instruction touches over distinct banks.  Nothing
+//     dequantized goes back to shared memory.  The product n * s rounds to
+//     bf16, then the difference with zs does, as dequant4 rounds, in bf16x2
+//     arithmetic (five instructions for two weights; deq2 says why the
+//     bits are the same).
+//   - Persistent blocks walk the (M, N) tiles, M fastest, so the loads of a
+//     block's next tile overlap its epilogue.  The epilogue stores each
+//     thread's two adjacent columns of a row: a warp writes whole 32-byte
+//     sectors (64 bytes for f32 out).  No atomics: the sum order is fixed.
+// f32 x (the comparison runs): int4_fma_kernel, a 64 x 64 tile on the CUDA
+// cores, unchanged since its first version.
+
+#include <cuda.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+// ------------------------------------------------------------- f32 x, FMA --
 
 constexpr int THREADS = 256;
 constexpr int KB = 32;      // packed byte rows per K step
 constexpr int KS = 2 * KB;  // k slots per K step: KB low-plane rows, then KB high-plane rows
-
-template <typename T>
-__device__ __forceinline__ float dequant(unsigned nib, float s, float z);
-// f32: two f32 roundings, as torch's (n * s) - zs in float32
-template <>
-__device__ __forceinline__ float dequant<float>(unsigned nib, float s, float z) {
-  return __fsub_rn(__fmul_rn((float)nib, s), z);
-}
-// bf16: the product rounds to bf16, then the difference does, as torch's
-// bf16 (n * s) - zs
-template <>
-__device__ __forceinline__ float dequant<__nv_bfloat16>(unsigned nib, float s, float z) {
-  const float p = __bfloat162float(__float2bfloat16_rn(__fmul_rn((float)nib, s)));
-  return __bfloat162float(__float2bfloat16_rn(__fsub_rn(p, z)));
-}
 
 // x column of k slot `slot` in the K step that starts at packed byte row b0
 __device__ __forceinline__ int slot_col(int b0, int slot, int half, int gsz) {
@@ -60,21 +70,20 @@ __device__ __forceinline__ int slot_col(int b0, int slot, int half, int gsz) {
   return (br / half) * gsz + br % half + (hi ? half : 0);
 }
 
-// four dequantized weights of column `col`: packed rows br and br + 1 (one
-// group, since gsz/2 is even), low and high nibbles
-template <typename T>
+// four dequantized f32 weights of column `col`: packed rows br and br + 1
+// (one group, since gsz/2 is even), low and high nibbles; two f32
+// roundings, as torch's (n * s) - zs in float32
 __device__ __forceinline__ void dequant_pair(const uint8_t* __restrict__ q,
                                              const __nv_bfloat16* __restrict__ s,
-                                             const __nv_bfloat16* __restrict__ zs,
-                                             int br, int col, int N, int half, float* lo,
-                                             float* hi) {
+                                             const __nv_bfloat16* __restrict__ zs, int br, int col,
+                                             int N, int half, float* lo, float* hi) {
   const size_t gi = (size_t)(br / half) * N + col;
   const float sv = __bfloat162float(s[gi]), zv = __bfloat162float(zs[gi]);
   const unsigned q0 = q[(size_t)br * N + col], q1 = q[(size_t)(br + 1) * N + col];
-  lo[0] = dequant<T>(q0 & 15u, sv, zv);
-  lo[1] = dequant<T>(q1 & 15u, sv, zv);
-  hi[0] = dequant<T>(q0 >> 4, sv, zv);
-  hi[1] = dequant<T>(q1 >> 4, sv, zv);
+  lo[0] = __fsub_rn(__fmul_rn((float)(q0 & 15u), sv), zv);
+  lo[1] = __fsub_rn(__fmul_rn((float)(q1 & 15u), sv), zv);
+  hi[0] = __fsub_rn(__fmul_rn((float)(q0 >> 4), sv), zv);
+  hi[1] = __fsub_rn(__fmul_rn((float)(q1 >> 4), sv), zv);
 }
 
 template <bool OUT_F32>
@@ -86,108 +95,6 @@ __device__ __forceinline__ void store2(void* out, size_t idx, float a, float b) 
         __floats2bfloat162_rn(a, b);
   }
 }
-
-// ------------------------------------------------------------ bf16 x, mma --
-
-constexpr int BM = 128, BN = 128;
-constexpr int SPAD = 8;  // bf16 row padding: rows 36 words apart, fragment loads conflict-free
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <bool OUT_F32>
-__global__ void __launch_bounds__(THREADS) int4_mma_kernel(
-    const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ q,
-    const __nv_bfloat16* __restrict__ s, const __nv_bfloat16* __restrict__ zs,
-    void* __restrict__ out, int M, int K, int N, int gsz) {
-  __shared__ __align__(16) __nv_bfloat16 As[BM][KS + SPAD];  // [row][k slot]
-  __shared__ __align__(16) __nv_bfloat16 Bs[BN][KS + SPAD];  // [col][k slot]
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int gid = lane >> 2, tig = lane & 3;  // mma fragment coordinates
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int wm = (warp >> 2) * 64, wn = (warp & 3) * 32;  // warp's 64 x 32 sub-tile
-  const int half = gsz / 2;
-
-  float acc[4][4][4];  // [m16 tile][n8 tile][fragment]
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  for (int b0 = 0; b0 < K / 2; b0 += KB) {
-    // x tile: BM rows x KS slots, 8 slots (16 bytes) per load; 8 slots
-    // never straddle a group half (gsz % 16 == 0)
-    for (int i = tid; i < BM * (KS / 8); i += THREADS) {
-      const int r = i / (KS / 8), c = (i % (KS / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + r < M)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + slot_col(b0, c, half, gsz));
-      *reinterpret_cast<uint4*>(&As[r][c]) = v;
-    }
-    // weight tile: each pass dequantizes two packed rows of one column
-    // (byte loads coalesced along N) into four k slots
-    for (int i = tid; i < BN * (KB / 2); i += THREADS) {
-      const int n = i % BN, r = (i / BN) * 2;
-      float lo[2] = {0.f, 0.f}, hi[2] = {0.f, 0.f};
-      if (n0 + n < N) dequant_pair<__nv_bfloat16>(q, s, zs, b0 + r, n0 + n, N, half, lo, hi);
-      *reinterpret_cast<__nv_bfloat162*>(&Bs[n][r]) = __floats2bfloat162_rn(lo[0], lo[1]);
-      *reinterpret_cast<__nv_bfloat162*>(&Bs[n][KB + r]) = __floats2bfloat162_rn(hi[0], hi[1]);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < KS; kk += 16) {
-      uint32_t a[4][4], b[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int row = wm + mt * 16 + gid;
-        a[mt][0] = ld32(&As[row][kk + tig * 2]);
-        a[mt][1] = ld32(&As[row + 8][kk + tig * 2]);
-        a[mt][2] = ld32(&As[row][kk + tig * 2 + 8]);
-        a[mt][3] = ld32(&As[row + 8][kk + tig * 2 + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int col = wn + nt * 8 + gid;
-        b[nt][0] = ld32(&Bs[col][kk + tig * 2]);
-        b[nt][1] = ld32(&Bs[col][kk + tig * 2 + 8]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_bf16(acc[mt][nt], a[mt], b[nt]);
-    }
-    __syncthreads();
-  }
-
-  // fragment (gid, tig): rows gid and gid + 8, columns 2*tig and 2*tig + 1
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int row = m0 + wm + mt * 16 + gid;
-      const int col = n0 + wn + nt * 8 + tig * 2;
-      if (col >= N) continue;
-      if (row < M) store2<OUT_F32>(out, (size_t)row * N + col, acc[mt][nt][0], acc[mt][nt][1]);
-      if (row + 8 < M)
-        store2<OUT_F32>(out, (size_t)(row + 8) * N + col, acc[mt][nt][2], acc[mt][nt][3]);
-    }
-  }
-}
-
-// ------------------------------------------------------------- f32 x, FMA --
 
 constexpr int FBM = 64, FBN = 64, FPAD = 4;
 
@@ -222,7 +129,7 @@ __global__ void __launch_bounds__(THREADS) int4_fma_kernel(
     for (int i = tid; i < FBN * (KB / 2); i += THREADS) {
       const int n = i % FBN, r = (i / FBN) * 2;
       float lo[2] = {0.f, 0.f}, hi[2] = {0.f, 0.f};
-      if (n0 + n < N) dequant_pair<float>(q, s, zs, b0 + r, n0 + n, N, half, lo, hi);
+      if (n0 + n < N) dequant_pair(q, s, zs, b0 + r, n0 + n, N, half, lo, hi);
       Bs[r][n] = lo[0];
       Bs[r + 1][n] = lo[1];
       Bs[KB + r][n] = hi[0];
@@ -254,13 +161,417 @@ __global__ void __launch_bounds__(THREADS) int4_fma_kernel(
   }
 }
 
+// ------------------------------------------------------ bf16 x, wgmma --
+
+constexpr int LOADER_TMA = 0, LOADER_CP_ASYNC = 1;  // codes passed from the wrapper
+constexpr int WG = 128;                             // threads of a warpgroup
+constexpr int GEMM_THREADS = 3 * WG;                // loader + two consumer warpgroups
+constexpr int BN = 128;                             // weight columns per tile
+constexpr int SMEM_LIMIT = 232448;                  // bytes of shared memory a block may use
+
+template <int LOADER, int SB, int BM>
+struct Cfg {
+  static constexpr int KSTEP = 2 * SB;                        // k slots per step
+  static constexpr int XSUB = KSTEP / 64;                     // [BM][64] x sub-tiles per step
+  static constexpr int GW = LOADER == LOADER_TMA ? 1 : 4;     // s / zs rows per step
+  static constexpr int X_BYTES = XSUB * BM * 128;
+  static constexpr int Q_BYTES = SB * BN;
+  static constexpr int S_BYTES = GW * BN * 2;
+  static constexpr int STAGE = (X_BYTES + Q_BYTES + 2 * S_BYTES + 1023) / 1024 * 1024;
+  static constexpr int FIT = (SMEM_LIMIT - 1024 - 256) / STAGE;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr int SMEM = STAGES * STAGE + 1024;  // + slack to align the ring to 1024 bytes
+  // registers a thread after setmaxnreg (128 * LOADER_REGS + 256 *
+  // CONSUMER_REGS <= 64K): the cp.async loader computes its addresses itself
+  static constexpr int LOADER_REGS = LOADER == LOADER_TMA ? 40 : 56;
+  static constexpr int CONSUMER_REGS = LOADER == LOADER_TMA ? 232 : 224;
+  static_assert(STAGES >= 3, "stage does not fit three times");
+  static_assert(BM % 8 == 0 && BM <= 256, "wgmma n");
+};
+
+struct GemmParams {
+  CUtensorMap tm_x, tm_q, tm_s, tm_zs;  // TMA loader only
+  const __nv_bfloat16* x;
+  const uint8_t* q;
+  const __nv_bfloat16* s;
+  const __nv_bfloat16* zs;
+  void* out;
+  int M, K, N, gsz, out_f32, m_tiles, tiles;
+};
+
+// bf16x2 arithmetic, each result rounded once to nearest even (an explicit
+// rounding mode also keeps ptxas from fusing a mul and a sub into an fma)
+__device__ __forceinline__ uint32_t bf2_mul(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t bf2_sub(uint32_t a, uint32_t b) {
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Two weights as bf16x2 from two nibbles, one in each 16-bit lane of
+// `nib2` (bits 0..3 and 16..19, the rest 0), and one column's scales
+// broadcast to both lanes: bf16(bf16(n * s) - zs), as dequant4 rounds.
+// 0x4300 | n is the bf16 128 + n, exactly, so subtracting 128 gives n
+// exactly; n * s is exact before its rounding (4 by 8 significant bits);
+// and a difference of two bf16 values rounds to the same bf16 whether
+// rounded once or first to f32 (f32 holds it exactly unless the exponents
+// differ by more than 16, and then the smaller is below a quarter ulp of
+// the larger): tests/test_torch_int4_kernels.py checks both claims over
+// the bf16 values, and chip_smoke.py holds the kernel's weights to
+// dequant4 bit for bit.
+__device__ __forceinline__ uint32_t deq2(uint32_t nib2, uint32_t s2, uint32_t z2) {
+  const uint32_t n2 = bf2_sub(nib2 | 0x43004300u, 0x43004300u);
+  return bf2_sub(bf2_mul(n2, s2), z2);
+}
+
+__device__ __forceinline__ uint32_t lds16(const uint8_t* p) {
+  return *reinterpret_cast<const uint16_t*>(p);
+}
+
+// the bf16 pair {v[col], v[col + 1]} at p as {v[col], v[col]} and
+// {v[col + 1], v[col + 1]}
+__device__ __forceinline__ uint2 lds_bf2_split(const uint8_t* p) {
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(p);
+  return make_uint2(__byte_perm(v, 0, 0x1010), __byte_perm(v, 0, 0x3232));
+}
+
+// pin register operands in place: the compiler may not move their
+// definitions or uses across this point
+template <int N>
+__device__ __forceinline__ void fence_operands(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Loader warpgroup, cp.async route: one step's x slots, q rows and s / zs
+// rows into a stage, zeros past the edges; every thread arrives twice on
+// `full` (once now, once when its copies land).
+template <int SB, int BM>
+__device__ __forceinline__ void cp_async_step(const GemmParams& p, uint8_t* base, uint64_t* full,
+                                              int m0, int n0, int b0, int lt) {
+  using C = Cfg<LOADER_CP_ASYNC, SB, BM>;
+  const int half = p.gsz / 2, n_g = p.K / p.gsz, gw = b0 / half;
+  for (int i = lt; i < BM * (C::KSTEP / 8); i += WG) {
+    const int r = i / (C::KSTEP / 8), j = (i % (C::KSTEP / 8)) * 8;  // row, first slot
+    const bool hi = j >= SB;
+    const int br = b0 + (hi ? j - SB : j);
+    const int k = (br / half) * p.gsz + br % half + (hi ? half : 0);
+    const bool ok = m0 + r < p.M;
+    uint8_t* dst = base + (j / 64) * BM * 128 + r * 128 + ((((j % 64) / 8) ^ (r & 7)) << 4);
+    hopper::cp_async16(dst, ok ? p.x + (size_t)(m0 + r) * p.K + k : p.x, ok ? 16 : 0);
+  }
+  uint8_t* qs = base + C::X_BYTES;
+  if (p.N % 4 == 0) {
+    for (int i = lt; i < SB * (BN / 4); i += WG) {
+      const int r = i / (BN / 4), nl = (i % (BN / 4)) * 4;
+      const bool ok = n0 + nl < p.N;
+      uint8_t* dst = qs + r * 128 + (((nl >> 4) ^ (r & 7)) << 4) + (nl & 15);
+      hopper::cp_async4(dst, ok ? p.q + (size_t)(b0 + r) * p.N + n0 + nl : p.q, ok ? 4 : 0);
+    }
+  } else {  // rows start 2 bytes off a 4-byte boundary: plain 2-byte copies
+    for (int i = lt; i < SB * (BN / 2); i += WG) {
+      const int r = i / (BN / 2), nl = (i % (BN / 2)) * 2;
+      uint16_t v = 0;
+      if (n0 + nl < p.N)
+        v = *reinterpret_cast<const uint16_t*>(p.q + (size_t)(b0 + r) * p.N + n0 + nl);
+      *reinterpret_cast<uint16_t*>(qs + r * 128 + (((nl >> 4) ^ (r & 7)) << 4) + (nl & 15)) = v;
+    }
+  }
+  uint8_t* ss = qs + C::Q_BYTES;
+  for (int i = lt; i < C::GW * (BN / 2); i += WG) {
+    const int g = i / (BN / 2), nl = (i % (BN / 2)) * 2;
+    const bool ok = n0 + nl < p.N && gw + g < n_g;
+    const size_t off = ok ? (size_t)(gw + g) * p.N + n0 + nl : 0;
+    hopper::cp_async4(ss + g * BN * 2 + nl * 2, p.s + off, ok ? 4 : 0);
+    hopper::cp_async4(ss + C::S_BYTES + g * BN * 2 + nl * 2, p.zs + off, ok ? 4 : 0);
+  }
+  hopper::cp_async_arrive(full);
+  hopper::mbar_arrive(full);
+}
+
+template <int LOADER, int SB, int BM>
+__global__ void __launch_bounds__(GEMM_THREADS, 1)
+    int4_wgmma_kernel(const __grid_constant__ GemmParams p) {
+  using C = Cfg<LOADER, SB, BM>;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[C::STAGES], empty_bar[C::STAGES];
+  uint8_t* ring = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+
+  const int tid = threadIdx.x, wg = tid / WG;
+  if (tid == 0) {
+    for (int st = 0; st < C::STAGES; ++st) {
+      hopper::mbar_init(&full_bar[st], LOADER == LOADER_TMA ? 1 : 2 * WG);
+      hopper::mbar_init(&empty_bar[st], 8);  // one arrival per consumer warp
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  const int n_steps = p.K / (2 * SB);
+
+  if (wg == 0) {
+    // ---------------------------------------------------------- loader --
+    hopper::setmaxnreg_dec<C::LOADER_REGS>();
+    if constexpr (LOADER == LOADER_TMA) {
+      if (tid != 0) return;
+    }
+    int it = 0;
+    for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+      const int m0 = (t % p.m_tiles) * BM, n0 = (t / p.m_tiles) * BN;
+      for (int step = 0; step < n_steps; ++step, ++it) {
+        const int st = it % C::STAGES;
+        hopper::mbar_wait(&empty_bar[st], ((it / C::STAGES) & 1) ^ 1);
+        uint8_t* base = ring + st * C::STAGE;
+        const int b0 = step * SB;
+        if constexpr (LOADER == LOADER_TMA) {  // SB = gsz / 2: step `step` is group `step`
+          hopper::mbar_expect_tx(&full_bar[st], C::X_BYTES + C::Q_BYTES + 2 * C::S_BYTES);
+#pragma unroll
+          for (int i = 0; i < C::XSUB; ++i)
+            hopper::tma_load_2d(base + i * BM * 128, &p.tm_x, &full_bar[st], 2 * b0 + 64 * i, m0);
+          uint8_t* qs = base + C::X_BYTES;
+          hopper::tma_load_2d(qs, &p.tm_q, &full_bar[st], n0, b0);
+          hopper::tma_load_2d(qs + C::Q_BYTES, &p.tm_s, &full_bar[st], n0, step);
+          hopper::tma_load_2d(qs + C::Q_BYTES + C::S_BYTES, &p.tm_zs, &full_bar[st], n0, step);
+        } else {
+          cp_async_step<SB, BM>(p, base, &full_bar[st], m0, n0, b0, tid);
+        }
+      }
+    }
+    if constexpr (LOADER == LOADER_CP_ASYNC) hopper::cp_async_wait_all();
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers --
+  hopper::setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int ct = tid - WG * wg, warp = ct / 32, lane = tid % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  // A rows gid and gid + 8 of this warp are weight columns nl and nl + 1
+  const int nl = 64 * (wg - 1) + 16 * warp + 2 * gid;
+  // swizzled byte offsets of column nl in q rows r with r & 7 == 2*tig, 2*tig + 1
+  const int qcol0 = (((nl >> 4) ^ (2 * tig)) << 4) | (nl & 15);
+  const int qcol1 = (((nl >> 4) ^ (2 * tig + 1)) << 4) | (nl & 15);
+  const int half = p.gsz / 2;
+
+  float acc[BM / 2];
+  // A fragments of one wgmma group (two pairs of byte-row blocks: four
+  // slices), in two sets: a group's set is written again only after the
+  // group has retired
+  uint32_t a0[4][4], a1[4][4];
+
+  int it = 0;
+  for (int t = blockIdx.x; t < p.tiles; t += gridDim.x) {
+    const int m0 = (t % p.m_tiles) * BM, n0 = (t / p.m_tiles) * BN;
+#pragma unroll
+    for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
+    fence_operands<BM / 2>(acc);
+
+    // One wgmma group: byte rows 16*pi .. 16*pi + 15 for pi = p0, p0 + 1,
+    // their low nibbles (slices p0, p0 + 1) and high nibbles (slices p0 +
+    // SB/16, p0 + 1 + SB/16).  Everything is dequantized before the fence
+    // (ptxas keeps wgmmas asynchronous only if nothing else writes their A
+    // registers while they are in flight), then the four wgmmas issue as
+    // one group; when the group before has retired, and it was the last of
+    // its stage, that stage is released.
+    auto group_fn = [&](const uint8_t* xs, int b0, int p0, bool release_prev,
+                        uint32_t (&a)[4][4]) {
+      const uint8_t* qs = xs + C::X_BYTES;
+      const uint8_t* ss = qs + C::Q_BYTES;
+      const int gw = b0 / half;
+      const uint2 sv = lds_bf2_split(ss + nl * 2), zv = lds_bf2_split(ss + C::S_BYTES + nl * 2);
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int r0 = 16 * (p0 + u) + 2 * tig;  // rows r0, r0 + 1 (one group), r0 + 8, r0 + 9
+        // bytes [col, col + 1] of rows r0 and r0 + 1 (then r0 + 8 and r0 + 9):
+        // lane 0 of t holds row r0's pair, lane 1 row r0 + 1's
+        const uint32_t t0 = __byte_perm(lds16(qs + r0 * 128 + qcol0),
+                                        lds16(qs + (r0 + 1) * 128 + qcol1), 0x5410);
+        const uint32_t t1 = __byte_perm(lds16(qs + (r0 + 8) * 128 + qcol0),
+                                        lds16(qs + (r0 + 9) * 128 + qcol1), 0x5410);
+        uint2 sa = sv, za = zv, sb = sv, zb = zv;
+        if constexpr (LOADER == LOADER_CP_ASYNC) {  // a step may span up to four groups
+          const int ga = (b0 + r0) / half - gw, gb = (b0 + r0 + 8) / half - gw;
+          sa = lds_bf2_split(ss + ga * BN * 2 + nl * 2);
+          za = lds_bf2_split(ss + C::S_BYTES + ga * BN * 2 + nl * 2);
+          sb = lds_bf2_split(ss + gb * BN * 2 + nl * 2);
+          zb = lds_bf2_split(ss + C::S_BYTES + gb * BN * 2 + nl * 2);
+        }
+        constexpr uint32_t NIB = 0x000F000Fu;
+        uint32_t* lo = a[u];      // slice p0 + u: low nibbles; column col in byte 0
+        uint32_t* hi = a[2 + u];  // slice p0 + u + SB/16: high nibbles
+        lo[0] = deq2(t0 & NIB, sa.x, za.x);
+        lo[1] = deq2((t0 >> 8) & NIB, sa.y, za.y);
+        lo[2] = deq2(t1 & NIB, sb.x, zb.x);
+        lo[3] = deq2((t1 >> 8) & NIB, sb.y, zb.y);
+        hi[0] = deq2((t0 >> 4) & NIB, sa.x, za.x);
+        hi[1] = deq2((t0 >> 12) & NIB, sa.y, za.y);
+        hi[2] = deq2((t1 >> 4) & NIB, sb.x, zb.x);
+        hi[3] = deq2((t1 >> 12) & NIB, sb.y, zb.y);
+      }
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // slice sl reads slots 16*sl ..: x sub-tile sl / 4, 32 bytes a slice into its rows
+        const int sl = p0 + (i & 1) + (i >> 1) * (SB / 16);
+        const uint64_t desc = hopper::desc_k_sw128(xs + (sl / 4) * BM * 128, (sl % 4) * 32);
+        hopper::wgmma_rs<BM>(acc, a[i], desc);
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();
+      if (release_prev) {
+        __syncwarp();
+        if (lane == 0) hopper::mbar_arrive(&empty_bar[(it - 1) % C::STAGES]);
+      }
+    };
+
+    // one K step: wait for its stage, then its SB/32 groups
+    auto step_fn = [&](int step, uint32_t (&a)[4][4], uint32_t (&b)[4][4]) {
+      const int st = it % C::STAGES;
+      hopper::mbar_wait(&full_bar[st], (it / C::STAGES) & 1);
+      if constexpr (LOADER == LOADER_CP_ASYNC) hopper::fence_proxy_async();
+      const uint8_t* xs = ring + st * C::STAGE;
+      group_fn(xs, step * SB, 0, step > 0, a);
+      if constexpr (SB == 64) group_fn(xs, step * SB, 2, false, b);
+      ++it;
+    };
+
+    // two groups an iteration, one set each, and no branch between them
+    // (ptxas then sees that no in-flight wgmma reads a set being written)
+    if constexpr (SB == 32) {  // one group a step
+      int step = 0;
+      for (; step + 1 < n_steps; step += 2) {
+        step_fn(step, a0, a1);
+        step_fn(step + 1, a1, a0);
+      }
+      if (step < n_steps) step_fn(step, a0, a1);
+    } else {  // two groups a step
+      for (int step = 0; step < n_steps; ++step) step_fn(step, a0, a1);
+    }
+    hopper::wgmma_wait<0>();
+    fence_operands<BM / 2>(acc);
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&empty_bar[(it - 1) % C::STAGES]);
+
+    // D fragment: rows gid / gid + 8 are columns n, n + 1; chunk j holds
+    // x rows 8j + 2*tig and 8j + 2*tig + 1
+    const int n = n0 + nl;
+    if (n < p.N) {
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        const int m = m0 + 8 * j + 2 * tig;
+        if (p.out_f32) {
+          if (m < p.M) store2<true>(p.out, (size_t)m * p.N + n, acc[4 * j], acc[4 * j + 2]);
+          if (m + 1 < p.M)
+            store2<true>(p.out, (size_t)(m + 1) * p.N + n, acc[4 * j + 1], acc[4 * j + 3]);
+        } else {
+          if (m < p.M) store2<false>(p.out, (size_t)m * p.N + n, acc[4 * j], acc[4 * j + 2]);
+          if (m + 1 < p.M)
+            store2<false>(p.out, (size_t)(m + 1) * p.N + n, acc[4 * j + 1], acc[4 * j + 3]);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ host --
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point: the
+// library links only the CUDA runtime
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// a row-major [outer, inner] tensor with `row_bytes` between rows, read in
+// [box_outer, box_inner] boxes
+bool encode_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr, uint64_t inner,
+               uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer,
+               CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer}, elem_strides[2] = {1, 1};
+  return fn(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int LOADER, int SB, int BM>
+int launch_bm(GemmParams& p, int grid, cudaStream_t stream) {
+  using C = Cfg<LOADER, SB, BM>;
+  p.m_tiles = (p.M + BM - 1) / BM;
+  p.tiles = p.m_tiles * ((p.N + BN - 1) / BN);
+  if constexpr (LOADER == LOADER_TMA) {
+    const uint64_t K = p.K, N = p.N;
+    if (!encode_2d(&p.tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.x, K, p.M, 2 * K, 64, BM,
+                   CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !encode_2d(&p.tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.q, N, K / 2, N, BN, SB,
+                   CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !encode_2d(&p.tm_s, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.s, N, K / p.gsz, 2 * N, BN, 1,
+                   CU_TENSOR_MAP_SWIZZLE_NONE) ||
+        !encode_2d(&p.tm_zs, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.zs, N, K / p.gsz, 2 * N, BN, 1,
+                   CU_TENSOR_MAP_SWIZZLE_NONE))
+      return (int)cudaErrorInvalidValue;
+  }
+  auto kernel = int4_wgmma_kernel<LOADER, SB, BM>;
+  static bool sized = false;  // one per instance
+  if (!sized) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    sized = true;
+  }
+  kernel<<<grid < p.tiles ? grid : p.tiles, GEMM_THREADS, C::SMEM, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+template <int LOADER, int SB>
+int launch_loader(GemmParams& p, int block_m, int grid, cudaStream_t stream) {
+  switch (block_m) {
+    case 8: return launch_bm<LOADER, SB, 8>(p, grid, stream);
+    case 64: return launch_bm<LOADER, SB, 64>(p, grid, stream);
+    case 128: return launch_bm<LOADER, SB, 128>(p, grid, stream);
+    case 256: return launch_bm<LOADER, SB, 256>(p, grid, stream);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+bool aligned16(const void* ptr) { return reinterpret_cast<uintptr_t>(ptr) % 16 == 0; }
+
 }  // namespace
 
 // x [M, K] (bf16 or f32), q [K/2, N] uint8, s / zs [K/gsz, N] bf16,
 // out [M, N] (bf16 or f32).  Needs K % 64 == 0, gsz % 16 == 0, N even.
+// bf16 x: `loader` (0 TMA, 1 cp.async), `block_m` (8, 64, 128 or 256 rows
+// of x per tile) and `grid` (persistent blocks) come from the wrapper's
+// plan (ops/int4_matmul._plan_int4); the TMA loader needs gsz 64 or 128,
+// N % 16 == 0 and 16-byte aligned x, q, s and zs, and a shape it cannot
+// take is refused, not rerouted.  f32 x ignores the three.
 extern "C" int int4_matmul_launch(const void* x, const void* q, const void* s, const void* zs,
                                   void* out, int M, int K, int N, int gsz, int x_dtype,
-                                  int out_dtype, void* stream) {
+                                  int out_dtype, int loader, int block_m, int grid,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M == 0 || N == 0) return 0;
   if (K % KS || gsz % 16 || K % gsz || N % 2) return (int)cudaErrorInvalidValue;
@@ -269,21 +580,41 @@ extern "C" int int4_matmul_launch(const void* x, const void* q, const void* s, c
   const auto* zb = static_cast<const __nv_bfloat16*>(zs);
   const bool f32_out = out_dtype == port::DTYPE_F32;
   if (x_dtype == port::DTYPE_BF16) {
-    const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-    const auto* xb = static_cast<const __nv_bfloat16*>(x);
-    if (f32_out)
-      int4_mma_kernel<true><<<grid, THREADS, 0, st>>>(xb, qb, sb, zb, out, M, K, N, gsz);
-    else
-      int4_mma_kernel<false><<<grid, THREADS, 0, st>>>(xb, qb, sb, zb, out, M, K, N, gsz);
-  } else if (x_dtype == port::DTYPE_F32) {
-    const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
-    const auto* xf = static_cast<const float*>(x);
-    if (f32_out)
-      int4_fma_kernel<true><<<grid, THREADS, 0, st>>>(xf, qb, sb, zb, out, M, K, N, gsz);
-    else
-      int4_fma_kernel<false><<<grid, THREADS, 0, st>>>(xf, qb, sb, zb, out, M, K, N, gsz);
-  } else {
+    if (grid < 1) return (int)cudaErrorInvalidValue;
+    GemmParams p;
+    p.x = static_cast<const __nv_bfloat16*>(x);
+    p.q = qb;
+    p.s = sb;
+    p.zs = zb;
+    p.out = out;
+    p.M = M;
+    p.K = K;
+    p.N = N;
+    p.gsz = gsz;
+    p.out_f32 = f32_out ? 1 : 0;
+    if (loader == LOADER_TMA) {
+      if ((gsz != 64 && gsz != 128) || N % 16 || !aligned16(x) || !aligned16(q) ||
+          !aligned16(s) || !aligned16(zs))
+        return (int)cudaErrorInvalidValue;
+      return gsz == 64 ? launch_loader<LOADER_TMA, 32>(p, block_m, grid, st)
+                       : launch_loader<LOADER_TMA, 64>(p, block_m, grid, st);
+    }
+    if (loader == LOADER_CP_ASYNC) {
+      if (!aligned16(x) || reinterpret_cast<uintptr_t>(q) % 4 ||
+          reinterpret_cast<uintptr_t>(s) % 4 || reinterpret_cast<uintptr_t>(zs) % 4)
+        return (int)cudaErrorInvalidValue;
+      return launch_loader<LOADER_CP_ASYNC, 32>(p, block_m, grid, st);
+    }
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  if (x_dtype == port::DTYPE_F32) {
+    const dim3 fgrid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
+    const auto* xf = static_cast<const float*>(x);
+    if (f32_out)
+      int4_fma_kernel<true><<<fgrid, THREADS, 0, st>>>(xf, qb, sb, zb, out, M, K, N, gsz);
+    else
+      int4_fma_kernel<false><<<fgrid, THREADS, 0, st>>>(xf, qb, sb, zb, out, M, K, N, gsz);
+    return (int)cudaGetLastError();
+  }
+  return (int)cudaErrorInvalidValue;
 }

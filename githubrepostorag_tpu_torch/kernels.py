@@ -50,8 +50,9 @@ SIGNATURES = {
     # q, k_pages, v_pages, out, block_tables, cached_lens, new_lens, row_of,
     # R, tq, n_q, n_kv, P, page_size, head_dim, max_pages, dtype, scale, stream
     "packed_prefill": [_P] * 8 + [_I] * 9 + [_F, _P],
-    # x, q, s, zs, out, M, K, N, group_size, x dtype, out dtype, stream
-    "int4_matmul": [_P] * 5 + [_I] * 6 + [_P],
+    # x, q, s, zs, out, M, K, N, group_size, x dtype, out dtype, loader,
+    # block_m, grid, stream
+    "int4_matmul": [_P] * 5 + [_I] * 9 + [_P],
     # xg, q, s, acc, M, K, N, group_size, stream
     "w4a8_matmul": [_P] * 4 + [_I] * 4 + [_P],
 }

@@ -18,7 +18,12 @@ Stacked [L, ...] leaves reach these functions as one layer's view
   the Pallas call.  Results differ from the bf16-dequant math by the
   activation quantization (about 1e-2 relative).
 - otherwise, or with ``w4a8=False`` (prefill pins it), the exact
-  bf16-dequant route: kernel D (``csrc/int4_matmul.cu``).
+  bf16-dequant route: kernel D (``csrc/int4_matmul.cu``), a warp-specialised
+  ``wgmma`` GEMM.  ``_plan_int4`` picks its loader (TMA, or ``cp.async`` for
+  shapes whose strides or group size TMA cannot take), its tile of x rows
+  and its persistent grid; ``int4_matmul.launches_by_loader`` counts the
+  launches of each (``f32`` for float32 activations, which take the CUDA
+  cores).
 
 For CUDA tensors the wrappers launch the kernels or raise; CPU tensors take
 the plain versions ``int4_matmul_ref`` (D) and ``w4a8_matmul_ref`` (E).
@@ -32,6 +37,7 @@ over.
 from __future__ import annotations
 
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -80,7 +86,9 @@ def _require(name: str, cond: bool, msg: str) -> None:
         raise ValueError(f"{name}: {msg}")
 
 
-def _check_weights(name, x, q, s, zs=None):
+def _check_weights(name, x, q, s, zs=None, align=16):
+    """Device, layout, dtypes and shapes of the weights, and their bases
+    ``align``-byte aligned; returns (K, N, group size)."""
     k, n = x.shape[-1], q.shape[-1]
     ws = (q, s) if zs is None else (q, s, zs)
     _require(name, x.device.type == "cuda", f"unsupported device {x.device}")
@@ -94,8 +102,67 @@ def _check_weights(name, x, q, s, zs=None):
              "s/zs must be [K/gsz, N] bf16")
     gsz = k // s.shape[0]
     _require(name, gsz % 16 == 0, f"group size {gsz} must be a multiple of 16")
-    _require(name, all(t.data_ptr() % 16 == 0 for t in ws), "weights must be 16-byte aligned")
+    _require(name, all(t.data_ptr() % align == 0 for t in ws),
+             f"weights must be {align}-byte aligned")
     return k, n, gsz
+
+
+# kernel D's loaders (the C entry point's codes) and its tiles
+LOADERS = ("tma", "cp_async")
+BLOCK_N = 128  # weight columns per tile: 64 per consumer warpgroup
+BLOCK_MS = (256, 128, 64)  # rows of x per tile above 8 rows (wgmma n)
+
+
+class Int4Plan(NamedTuple):
+    loader: str  # "tma" or "cp_async"
+    block_m: int  # rows of x per tile: 8, 64, 128 or 256
+    tiles: int
+    grid: int  # persistent blocks, one per SM at most
+
+
+def _plan_int4(m: int, k: int, n: int, gsz: int, x_ptr: int, q_ptr: int, s_ptr: int,
+               zs_ptr: int, n_sm: int = 132) -> Int4Plan:
+    """Kernel D's launch for bf16 x [m, k] and weights q [k/2, n], s / zs
+    [k/gsz, n] at these addresses, on a card with ``n_sm`` SMs.
+
+    The loader is TMA where TMA can take every operand: a K step is one
+    whole group (gsz 64 or 128), every row stride a multiple of 16 bytes
+    (q rows are n bytes: n % 16 == 0) and every base 16-byte aligned.
+    Otherwise the ``cp.async`` loader, which needs x 16-byte aligned and q,
+    s, zs 4-byte aligned; anything less is refused.  The tile of x rows is
+    8 for m <= 8 (wgmma n8: the prefill logits); above, the one of 256,
+    128 and 64 rows with the fewest waves of tiles times a tile's step
+    time, modelled as block_m + 64: the tensor cores' time grows with the
+    rows, and the dequantization, the same for any block_m, adds what it
+    does not overlap (about 64 rows' worth)."""
+    _require("int4_matmul", k % 64 == 0 and k > 0 and n % 2 == 0,
+             f"K {k} must be a positive multiple of 64, N {n} even")
+    _require("int4_matmul", gsz % 16 == 0 and k % gsz == 0,
+             f"group size {gsz} must be a multiple of 16 dividing K {k}")
+    _require("int4_matmul", x_ptr % 16 == 0, "x must be 16-byte aligned")
+    _require("int4_matmul", all(p % 4 == 0 for p in (q_ptr, s_ptr, zs_ptr)),
+             "weights must be 4-byte aligned")
+    tma = (gsz in (64, 128) and n % 16 == 0
+           and all(p % 16 == 0 for p in (x_ptr, q_ptr, s_ptr, zs_ptr)))
+    n_tiles = -(-n // BLOCK_N)
+    if m <= 8:
+        block_m = 8
+    else:
+        def cost(bm):
+            return -(-n_tiles * -(-m // bm) // n_sm) * (bm + 64)
+        block_m = min(BLOCK_MS, key=cost)  # ties: the larger tile (listed first)
+    tiles = n_tiles * -(-m // block_m)
+    return Int4Plan("tma" if tma else "cp_async", block_m, tiles, min(tiles, n_sm))
+
+
+_SMS: dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
 
 
 def int4_matmul(x, q, s, zs, out_dtype=None, w4a8: bool | None = None):
@@ -108,25 +175,27 @@ def int4_matmul(x, q, s, zs, out_dtype=None, w4a8: bool | None = None):
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
         return int4_matmul_ref(x, q, s, zs, out_dtype)
-    k, n, gsz = _check_weights("int4_matmul", x, q, s, zs)
-    _require("int4_matmul", k % 64 == 0 and n % 2 == 0,
-             f"K {k} must be a multiple of 64, N {n} even")
+    k, n, gsz = _check_weights("int4_matmul", x, q, s, zs, align=4)
     _require("int4_matmul", x.dtype in _DTYPES and out_dtype in _DTYPES,
              f"x/out dtypes {x.dtype}/{out_dtype}; need bf16 or f32")
     lead, m = x.shape[:-1], _rows(x)
     x2 = x.reshape(m, k).contiguous()
-    _require("int4_matmul", x2.data_ptr() % 16 == 0, "x must be 16-byte aligned")
+    plan = _plan_int4(m, k, n, gsz, x2.data_ptr(), q.data_ptr(), s.data_ptr(), zs.data_ptr(),
+                      _sm_count(x.device))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = kernels.launcher("int4_matmul")(
         x2.data_ptr(), q.data_ptr(), s.data_ptr(), zs.data_ptr(), out.data_ptr(),
-        m, k, n, gsz, _DTYPES[x.dtype], _DTYPES[out_dtype], stream)
+        m, k, n, gsz, _DTYPES[x.dtype], _DTYPES[out_dtype], LOADERS.index(plan.loader),
+        plan.block_m, plan.grid, stream)
     kernels.check_launch("int4_matmul", err)
     int4_matmul.launches += 1
+    int4_matmul.launches_by_loader["f32" if x.dtype == torch.float32 else plan.loader] += 1
     return out.reshape(*lead, n)
 
 
 int4_matmul.launches = 0  # kernel D launches (CUDA path only)
+int4_matmul.launches_by_loader = {"tma": 0, "cp_async": 0, "f32": 0}
 
 
 # --------------------------------------------------------- kernel E (W4A8) --

@@ -151,3 +151,118 @@ def test_routing(stacked, monkeypatch):
         expect = ops._w4a8(x, *w, None, ops.w4a8_matmul_ref) if want else ops.int4_matmul_ref(x, *w)
         assert torch.equal(out, expect) and torch.equal(plain, expect)
     assert ops.int4_matmul.launches == 0 and real.launches == 0  # CPU: no launches
+
+
+# ---------------------------------------------- kernel D's launch plan --
+# ``_plan_int4`` is the pure-Python half of kernel D's launch: which loader
+# fills the shared-memory ring (TMA or cp.async), how many rows of x a tile
+# takes and how many persistent blocks run.  The CUDA kernel itself runs
+# only on the card; these hold its preconditions here.
+
+Q7B = {"wqkv": (3584, 4608), "wo": (3584, 3584), "wgu": (3584, 37888), "wd": (18944, 3584),
+       "lm_head": (3584, 152064)}
+A16 = 1 << 20  # a 16-byte aligned address
+
+
+@pytest.mark.parametrize("name", sorted(Q7B))
+@pytest.mark.parametrize("m", [8, 512, 2048, 4096])
+@pytest.mark.parametrize("gsz", [64, 128])
+def test_plan_7b_shapes_take_tma(name, m, gsz):
+    k, n = Q7B[name]
+    plan = ops._plan_int4(m, k, n, gsz, A16, A16, A16, A16)
+    assert plan.loader == "tma"
+    assert plan.block_m in (8, 64, 128, 256) and (plan.block_m == 8) == (m <= 8)
+    assert plan.tiles == -(-n // ops.BLOCK_N) * -(-m // plan.block_m)
+    assert plan.grid == min(plan.tiles, 132)
+
+
+def test_plan_tiles_of_x_rows():
+    # the prefill logits run wgmma n8: no padded rows
+    assert ops._plan_int4(8, 3584, 152064, 64, A16, A16, A16, A16).block_m == 8
+    assert ops._plan_int4(1, 256, 256, 64, A16, A16, A16, A16).block_m == 8
+    # a decode-sized batch takes 64 rows, the prefill widths 256
+    assert ops._plan_int4(64, 3584, 4608, 64, A16, A16, A16, A16).block_m == 64
+    assert ops._plan_int4(4096, 3584, 37888, 64, A16, A16, A16, A16).block_m == 256
+    # fewer SMs: the same tiles, a smaller persistent grid
+    plan = ops._plan_int4(4096, 3584, 37888, 64, A16, A16, A16, A16, n_sm=16)
+    assert plan.grid == 16 and plan.tiles == 296 * 16
+
+
+@pytest.mark.parametrize("n", [200, 136, 202, 72])
+def test_plan_ragged_columns_take_cp_async(n):
+    # q rows of N bytes: TMA needs N % 16 == 0
+    assert ops._plan_int4(5, 256, n, 64, A16, A16, A16, A16).loader == "cp_async"
+
+
+@pytest.mark.parametrize("gsz", [16, 32, 48, 256])
+def test_plan_groups_off_the_k_step_take_cp_async(gsz):
+    k = 768
+    assert ops._plan_int4(300, k, 4608, gsz, A16, A16, A16, A16).loader == "cp_async"
+
+
+@pytest.mark.parametrize("which", [1, 2, 3])
+@pytest.mark.parametrize("offset", [4, 8, 12])
+def test_plan_weights_off_16_bytes_reroute_to_cp_async(which, offset):
+    ptrs = [A16] * 4
+    ptrs[which] += offset
+    assert ops._plan_int4(4096, 3584, 4608, 64, *ptrs).loader == "cp_async"
+
+
+@pytest.mark.parametrize("ptrs", [(A16 + 8, A16, A16, A16), (A16 + 4, A16, A16, A16),
+                                  (A16, A16 + 2, A16, A16), (A16, A16, A16 + 2, A16),
+                                  (A16, A16, A16, A16 + 1)])
+def test_plan_refuses_what_no_loader_takes(ptrs):
+    # x 16-byte aligned (16-byte copies), q / s / zs 4-byte aligned
+    with pytest.raises(ValueError, match="aligned"):
+        ops._plan_int4(64, 256, 256, 64, *ptrs)
+
+
+@pytest.mark.parametrize("k, n, gsz", [(96, 256, 16), (200, 256, 8), (256, 255, 64),
+                                       (256, 256, 24), (256, 256, 40), (0, 256, 64)])
+def test_plan_refuses_what_the_wrapper_refused(k, n, gsz):
+    # K % 64, gsz % 16 (and dividing K), odd N: ValueError as before
+    with pytest.raises(ValueError):
+        ops._plan_int4(8, k, n, gsz, A16, A16, A16, A16)
+
+
+def test_loader_counts_start_at_zero_and_cpu_launches_nothing(stacked):
+    _, tw = stacked
+    x = torch.from_numpy(np.random.default_rng(14).normal(size=(300, IN)).astype(np.float32))
+    before = dict(ops.int4_matmul.launches_by_loader)
+    ops.int4_matmul(x.bfloat16(), *_layer(tw, 0), w4a8=False)
+    assert set(before) == {"tma", "cp_async", "f32"}
+    assert ops.int4_matmul.launches_by_loader == before
+
+
+def _round_bf16(x64: np.ndarray) -> np.ndarray:
+    """float64 -> the nearest bf16 (ties to even), exactly, for finite x."""
+    m, e = np.frexp(x64)
+    return np.ldexp(np.round(np.ldexp(m, 8)), e - 8)
+
+
+def test_bf16_dequant_arithmetic_rounds_as_dequant4():
+    """Kernel D dequantizes in bf16x2 arithmetic, each step rounded once
+    (``csrc/int4_matmul.cu``, ``deq2``); dequant4 computes each step in
+    f32 and rounds it to bf16.  The two agree when (a) n * s, n in 0..15,
+    is exact in f32, so rounding it once to bf16 is the same, and (b) the
+    difference of two bf16 values rounds to the same bf16 once as through
+    f32.  (a) over every bf16 s of either sign with an exponent in [-120,
+    120] (the product stays a normal f32); (b) over every pair of bf16
+    values, either sign, with exponents in [-20, 6] (scales, products and
+    zero points of real weights lie there)."""
+    bits = np.arange(1 << 16, dtype=np.uint32)
+    vals = (bits << 16).view(np.float32)
+    e = ((bits >> 7) & 0xFF).astype(np.int64) - 127
+    scales = vals[(e >= -120) & (e <= 120)].astype(np.float64)
+    n = np.arange(16, dtype=np.float64)[:, None]
+    prod = n * scales[None, :]
+    assert np.array_equal(prod.astype(np.float32).astype(np.float64), prod)
+
+    pos = vals[(bits < 0x8000) & (e >= -20) & (e <= 6)].astype(np.float64)
+    both = np.concatenate([pos, -pos, [0.0]])
+    zt = torch.from_numpy(both.astype(np.float32)).bfloat16()
+    for i in range(0, len(both), 256):
+        p = both[i:i + 256, None]
+        once = _round_bf16(p - both[None, :])  # exact in float64: exponents span < 40
+        twice = (torch.from_numpy(p.astype(np.float32)).bfloat16() - zt[None, :]).double()
+        assert np.array_equal(once, twice.numpy())
