@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --only kernels   # device, build and kernel phases
+    python3 chip_smoke.py --only longctx   # device, build, long-context profiles
 
 Phases, each raising on failure:
 
@@ -24,7 +25,14 @@ Phases, each raising on failure:
               at ragged shapes through both of its loaders (TMA and
               cp.async, each launch counted by loader), at every tile of x
               rows its plan could take, and bit for bit against dequant4
-              through an identity x.
+              through an identity x.  Kernels B and F (split-K over pages)
+              also at batch 1 over 8192 keys, at rows ending on and one past
+              a split edge of the wrapper's plan, one key and none (B: the
+              staged tail alone), 8-key pages at hd 64, fp and int8; timed
+              by device time (torch.profiler, per kernel) and by CUDA
+              events, and at every other pages-per-split (each held to the
+              plain version).  Kernel E also at group 256 and N % 4 != 0,
+              and the route on the card: groups 64/128/256 take E, 32/48 D.
    dispatcher -- kernel F's path: paged_attention at S = 1 launches F once
               and nothing else; at S = 512 it launches nothing and equals
               paged_attention_ref.
@@ -45,6 +53,11 @@ Phases, each raising on failure:
               kernels the path never reaches must not have.  Four runs:
               bf16 pages; packed prefill (prefill_token_budget=2048);
               int8 pages; int4 pages with packed prefill.
+   longctx -- after the four runs: long-context decode (8 rows of distinct
+              7936-token prompts, 17 greedy tokens, an engine of its own
+              with 520 pages) profiled as above, bf16 and int8 pages:
+              kernel B's total and launches, idle share, TPOT, prefill
+              tokens per call.
    http    -- right after the bf16 run: the same 7B tree served over HTTP
               on localhost through the model server's entry points
               (settings from the environment, build_engine, AsyncEngine,
@@ -123,6 +136,26 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(fn, iters: int = 20) -> dict:
+    """Mean device time (us) per call of each kernel ``fn`` launches, by
+    kernel name, from a torch.profiler trace of the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if "CUDA" in str(e.device_type) and e.self_device_time_total > 0:
+            name = e.key.split("<")[0].split("(")[0].split("::")[-1].split(" ")[-1]
+            out[name] = out.get(name, 0.0) + e.self_device_time_total / iters
+    return out
+
+
 def agreement(out, ref) -> dict:
     """Max |out - ref| and the largest share of the element-wise limit any
     element uses (over 1 fails)."""
@@ -162,7 +195,9 @@ def phase_build() -> None:
     log(f"build: {time.monotonic() - t0:.1f} s wall; per source {seconds}")
     for name, out in kernels.build_logs.items():
         for line in out.splitlines():
-            if any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
+            if "Compiling entry function" in line:  # the mangled name of the next reports
+                log(f"  ptxas[{name}] entry {line.split(chr(39))[1][:120]}")
+            elif any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
                 log(f"  ptxas[{name}] {line.strip()}")
 
 
@@ -326,6 +361,91 @@ def measure_kernel_a(case, timed: bool) -> dict:
     return res
 
 
+def launch_decode_plan(case, pps: int, out):
+    """Kernel B (a case with a staged tail) or F through its C entry point
+    with ``pps`` pages per split instead of the plan's (no count): the
+    split sweep of the kernel phase."""
+    import torch
+
+    from githubrepostorag_tpu_torch import kernels
+    from githubrepostorag_tpu_torch.ops import paged_decode as ops
+    from githubrepostorag_tpu_torch.ops.fused_decode import POOL_CODES
+
+    q, bt = case["q"], case["bt"]
+    b, _, n_q, hd = q.shape
+    max_pages = bt.shape[1]
+    n_splits = -(-max_pages // pps)
+    ws = ops._workspace(b * case["k"].shape[-4] * (n_splits + 1), hd, q.device)
+    stream = torch.cuda.current_stream().cuda_stream
+    if "sk" in case:  # kernel B, rank-5 pools
+        _, n_kv, num_pages, ps, _ = case["k"].shape
+        ks, vs = case.get("ks"), case.get("vs")
+        err = kernels.launcher("paged_decode_staged")(
+            q.data_ptr(), case["k"].data_ptr(), case["v"].data_ptr(), case["sk"].data_ptr(),
+            case["sv"].data_ptr(), out.data_ptr(), bt.data_ptr(), case["pool"].data_ptr(),
+            None if ks is None else ks.data_ptr(), None if vs is None else vs.data_ptr(),
+            ws.data_ptr(), ops._counters(b * n_kv, q.device).data_ptr(), b, n_q, n_kv,
+            num_pages, ps, hd, max_pages, case["sk"].shape[2],
+            case["staged_len"], case["layer"], ops._DTYPES[q.dtype],
+            POOL_CODES["fp" if ks is None else "int8"], pps, n_splits, 1.0 / hd ** 0.5, stream)
+    else:
+        n_kv, num_pages, ps, _ = case["k"].shape
+        err = kernels.launcher("paged_decode")(
+            q.data_ptr(), case["k"].data_ptr(), case["v"].data_ptr(), out.data_ptr(),
+            bt.data_ptr(), case["cached"].data_ptr(), case["new"].data_ptr(), ws.data_ptr(),
+            ops._counters(b * n_kv, q.device).data_ptr(), b, n_q, n_kv, num_pages, ps, hd,
+            max_pages, ops._DTYPES[q.dtype], pps, n_splits,
+            1.0 / hd ** 0.5, stream)
+    kernels.check_launch("decode split sweep", err)
+
+
+def decode_timing(case, fn, ref, library_fn) -> dict:
+    """Kernel B's or F's times: device time per call from the profiler (by
+    kernel name, ``kernels_us``) as ``ms``, the same
+    calls by CUDA events with the host's wrapper time in them as
+    ``events_ms``; the plain version; the SDPA yardstick by device time and
+    by events.  Then the split sweep: every pages-per-split the page size
+    allows up to 32, each held to the plain version, device us per call."""
+    import torch
+
+    from githubrepostorag_tpu_torch.device import sm_count
+    from githubrepostorag_tpu_torch.ops.paged_decode import _plan_decode
+
+    res = {"events_ms": time_ms(fn, 50)}
+    # the wrapper's host time per call: launches queued back to back, no
+    # wait; where the device work is shorter (batch 1) this is the host's
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fn()
+    res["host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    res["kernels_us"] = device_us(fn)
+    res["ms"] = sum(res["kernels_us"].values()) / 1e3
+    lib = device_us(library_fn)
+    res["library_ms"] = sum(lib.values()) / 1e3
+    res["library_events_ms"] = time_ms(library_fn, 50)
+    ps, max_pages = case["k"].shape[-2], case["bt"].shape[1]
+    b, n_kv = case["q"].shape[0], case["k"].shape[-4]
+    res["plan"] = _plan_decode(b, n_kv, max_pages, ps, sm_count(case["q"].device))._asdict()
+    unit = max(1, 64 // ps)
+    sweep = {}
+    for pps in sorted({unit * m for m in (1, 2, 4, 8, 16, 32)}):
+        if pps > max_pages * 2 or pps > 256:
+            continue
+        out = torch.empty_like(case["q"])
+        launch_decode_plan(case, pps, out)
+        torch.cuda.synchronize()
+        if not agreement(out, ref)["limit_share"] <= 1.0:
+            raise RuntimeError(f"decode kernel with {pps} pages per split disagrees with its "
+                               "plain version")
+        sweep[pps] = sum(device_us(lambda: launch_decode_plan(case, pps, out)).values())
+    res["split_sweep_us"] = sweep
+    return res
+
+
 def measure_kernel_b(case, timed: bool) -> dict:
     import torch
     import torch.nn.functional as F
@@ -348,7 +468,6 @@ def measure_kernel_b(case, timed: bool) -> dict:
     n_kv = case["k"].shape[1]
     pool = case["pool"].tolist()
     sl = case["staged_len"]
-    res["ms"] = time_ms(lambda: paged_attention_decode_staged(*args), 50)
     res["plain_ms"] = time_ms(lambda: paged_attention_decode_staged_ref(*args), 5, warmup=1)
     li = case["layer"]
     pk, pv = gather_kv(case["k"][li], case["v"][li], case["bt"],
@@ -362,8 +481,9 @@ def measure_kernel_b(case, timed: bool) -> dict:
         torch.arange(t, device=k.device)[None] < case["pool"][:, None],
         (torch.arange(n_steps, device=k.device) < sl)[None].expand(b, n_steps)], dim=1)
     qs = case["q"].transpose(1, 2)
-    res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, k, v, attn_mask=valid[:, None, None], enable_gqa=True), 50)
+    res.update(decode_timing(case, lambda: paged_attention_decode_staged(*args), ref,
+                             lambda: F.scaled_dot_product_attention(
+                                 qs, k, v, attn_mask=valid[:, None, None], enable_gqa=True)))
     keys = sum(pool) + b * sl
     flops = 4.0 * hd * n_q * keys
     elem = case["q"].element_size()
@@ -431,7 +551,6 @@ def measure_kernel_f(case, timed: bool) -> dict:
         return res
     b, _, n_q, hd = case["q"].shape
     n_kv = case["k"].shape[0]
-    res["ms"] = time_ms(lambda: paged_attention_decode(*args), 50)
     res["plain_ms"] = time_ms(lambda: paged_attention_decode_ref(*args), 5, warmup=1)
     # yardstick: one SDPA call over K/V gathered beforehand (-1 entries
     # gather the pool's last page, masked)
@@ -439,8 +558,9 @@ def measure_kernel_f(case, timed: bool) -> dict:
     valid = torch.arange(k.shape[1], device=k.device)[None] < torch.tensor(
         total, device=k.device)[:, None]
     qs, ks, vs = case["q"].transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=valid[:, None, None], enable_gqa=True), 50)
+    res.update(decode_timing(case, lambda: paged_attention_decode(*args), ref,
+                             lambda: F.scaled_dot_product_attention(
+                                 qs, ks, vs, attn_mask=valid[:, None, None], enable_gqa=True)))
     elem = case["q"].element_size()
     nbytes = elem * (2 * b * n_q * hd + 2 * sum(total) * n_kv * hd)
     res["bound_ms"], res["bound_by"] = bound(4.0 * hd * n_q * sum(total), nbytes)
@@ -617,6 +737,43 @@ def phase_kernels() -> dict:
         results["paged_attention_decode"]["max_abs_err"],
         results["paged_attention_decode@B64"]["max_abs_err"])
 
+    # the split-K cases (7B heads, hd 128, ps 128, bf16 and float32): batch
+    # 1 at 8192 keys, the case split-K exists for (timed in bf16); rows
+    # ending exactly on a split edge, one key past it, one key, and an empty
+    # row (F: no key; B: pool_len 0, the staged tail alone), the edge taken
+    # from the wrapper's plan at this batch and table width
+    from githubrepostorag_tpu_torch.ops.paged_decode import _plan_decode
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    edge = _plan_decode(5, 4, 64, 128, n_sm).pages_per_split * 128 * 3
+    for dtype in (torch.float32, torch.bfloat16):
+        name, timed = str(dtype)[6:], dtype == torch.bfloat16
+        res = check(f"kernel B B=1 pool 8192 {name}", measure_kernel_b(kernel_b_case(
+            rng, dev, 1, 28, 4, 128, 128, [8192], n_steps=8, staged_len=8, dtype=dtype), timed))
+        if timed:
+            results["paged_attention_decode_staged@B1"] = res
+        res = check(f"kernel F B=1 ctx 8192 {name}", measure_kernel_f(kernel_f_case(
+            rng, dev, [8192], dtype=dtype), timed))
+        if timed:
+            results["paged_attention_decode@B1"] = res
+        lens = [8192, edge, edge + 1, 1, 0]
+        case = kernel_b_case(rng, dev, 5, 28, 4, 128, 128, lens, n_steps=8, staged_len=3,
+                             dtype=dtype)
+        check(f"kernel B split edges {lens} {name}", measure_kernel_b(case, False))
+        check(f"kernel B int8 split edges {lens} {name}",
+              measure_kernel_b(quantized_case(case, 8, n_layers=3), False))
+        check(f"kernel F split edges {lens} {name}", measure_kernel_f(kernel_f_case(
+            rng, dev, lens, dtype=dtype), False))
+        # small pages: 8-key pages at hd 64, eight to a tile, many splits
+        case = kernel_b_case(rng, dev, 3, 4, 2, 64, 8, [1000, 64, 0], n_steps=4, staged_len=4,
+                             dtype=dtype)
+        check(f"kernel B ps 8 hd 64 pool [1000, 64, 0] {name}", measure_kernel_b(case, False))
+        check(f"kernel B int8 ps 8 hd 64 pool [1000, 64, 0] {name}",
+              measure_kernel_b(quantized_case(case, 8, n_layers=2), False))
+        check(f"kernel F ps 8 hd 64 ctx [1000, 65, 0] {name}", measure_kernel_f(kernel_f_case(
+            rng, dev, [1000, 65, 0], n_q=4, n_kv=2, hd=64, ps=8, dtype=dtype), False))
+        del case
+        torch.cuda.empty_cache()
+
     # kernel C: a packed buffer of 2048 tokens at 7B heads, tq 512: five
     # segments (one resuming mid-page at 2500) and 124 padding tokens
     for dtype in (torch.float32, torch.bfloat16):
@@ -754,12 +911,13 @@ def int4pack_yardstick(x, w):
 
 def int4_plan(x, w):
     """The wrapper's plan of kernel D for bf16 ``x`` and weights ``w``."""
+    from githubrepostorag_tpu_torch.device import sm_count
     from githubrepostorag_tpu_torch.ops import int4_matmul as ops
 
     m, k = x.numel() // x.shape[-1], x.shape[-1]
     n, n_g = w.q.shape[1], w.s.shape[0]
     return ops._plan_int4(m, k, n, k // n_g, x.data_ptr(), w.q.data_ptr(), w.s.data_ptr(),
-                          w.zs.data_ptr(), ops._sm_count(x.device))
+                          w.zs.data_ptr(), sm_count(x.device))
 
 
 def launch_plan(x, w, out, plan):
@@ -946,6 +1104,28 @@ def phase_int4_kernels(rng) -> dict:
                   measure_int4(x, w, w, dtype, False))
             check(f"kernel E small K={k} N={n} M={m} group {gsz} {str(dtype)[6:]}",
                   measure_w4a8(x, w, w, dtype, False))
+    # kernel E at the shapes the route now sends it: group 256 (AutoAWQ
+    # checkpoints), N % 4 == 2 and odd N (byte loads, a ragged last column
+    # tile), weights 4-byte aligned
+    from githubrepostorag_tpu_torch.ops import int4_matmul as ops
+    for k, n, m, gsz in ((1024, 4608, 8, 256), (768, 202, 8, 256), (512, 202, 5, 64),
+                         (512, 131, 8, 128)):
+        w = quantize_weight4(torch.randn((k, n), generator=gen, device="cuda") * 0.02, gsz)
+        for dtype in (torch.float32, torch.bfloat16):
+            check(f"kernel E K={k} N={n} M={m} group {gsz} {str(dtype)[6:]}",
+                  measure_w4a8(randx(m, k, dtype), w, w, dtype, False))
+    # the route on the card, as the JAX package takes it on the chip: W4A8
+    # (kernel E) for groups with (gsz // 2) % 32 == 0, kernel D otherwise
+    for gsz in (32, 48, 64, 128, 256):
+        w = quantize_weight4(torch.randn((768, 256), generator=gen, device="cuda") * 0.02, gsz)
+        before = (ops.int4_matmul.launches, ops.w4a8_matmul.launches)
+        int4_matmul(randx(8, 768, torch.bfloat16), *w)
+        took = (ops.int4_matmul.launches - before[0], ops.w4a8_matmul.launches - before[1])
+        want = (0, 1) if (gsz // 2) % 32 == 0 else (1, 0)
+        if took != want:
+            raise RuntimeError(f"int4_matmul at group {gsz}: (D, E) launches {took}, want {want}")
+    log("int4 route on the card: groups 64, 128, 256 -> kernel E; 32, 48 -> kernel D")
+
     # kernel D's loaders off the 7B path: cp.async with N % 4 == 2 (2-byte q
     # copies) and with groups that are not a K step (48, 32), TMA with
     # ragged M and N tiles at group 128, and tiles of 64 and 128 rows
@@ -1826,36 +2006,96 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tup
         stats["packed_prefill_padding"] = engine.packed_prefill_padding - packed_before[1]
     log(f"{label} engine on {torch.cuda.get_device_name(0)}: {json.dumps(stats)}")
     if profile:
-        profile_decode(engine, decode_wave, SamplingParams(temperature=0.0, max_tokens=17))
+        stats["profile"] = profile_decode(engine, decode_wave,
+                                          SamplingParams(temperature=0.0, max_tokens=17))
     return stats
 
 
-def profile_decode(engine, prompts, sp) -> None:
+# kernel B's device kernel by name: the split-K kernel, or the earlier
+# one-pass kernel when another checkout's port is profiled; kernel F's is
+# the same template, which no engine run reaches
+B_KERNEL_NAMES = ("split_kernel", "decode_staged_kernel")
+
+
+def profile_decode(engine, prompts, sp) -> dict:
     """Where a decode-heavy request batch's time goes: the device's idle
     share (one minus kernel time, from a torch.profiler trace of the card
     only, over the wall time of the same call run unprofiled) and the
-    kernels that take most of it.  Outside the timed engine numbers."""
+    kernels that take most of it; kernel B's total and its wrapper's
+    launches in the profiled call; decode TPOT and the prefill tokens each
+    call ran (the prefix cache may serve the repeats).  Outside the timed
+    engine numbers."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    engine.generate(prompts, sp)  # same shapes, so the measured runs are warm
-    torch.cuda.synchronize()
+    from githubrepostorag_tpu_torch.ops.paged_decode import paged_attention_decode_staged
+
+    prefill = []
+
+    def run():
+        before = engine.prefill_tokens
+        res = engine.generate(prompts, sp)
+        torch.cuda.synchronize()
+        prefill.append(engine.prefill_tokens - before)
+        return res
+
+    run()  # same shapes, so the measured runs are warm
     t0 = time.monotonic()
-    engine.generate(prompts, sp)
-    torch.cuda.synchronize()
+    res = run()
     wall_ms = (time.monotonic() - t0) * 1e3
+    launches0 = paged_attention_decode_staged.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        engine.generate(prompts, sp)
-        torch.cuda.synchronize()
+        run()
         prof_wall_ms = (time.monotonic() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if "CUDA" in str(e.device_type)]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    b_ms = sum(e.self_device_time_total for e in kernels
+               if any(n in e.key for n in B_KERNEL_NAMES)) / 1e3
+    stats = {
+        "rows": len(prompts), "prompt_tokens": len(prompts[0]),
+        "new_tokens": sp.max_tokens, "wall_ms": wall_ms, "profiled_wall_ms": prof_wall_ms,
+        "busy_ms": busy_ms, "idle_pct": 100 * (1 - busy_ms / wall_ms),
+        "kernel_b_ms": b_ms,
+        "kernel_b_launches": paged_attention_decode_staged.launches - launches0,
+        "tpot_ms_p50": 1e3 * sorted(r.decode_time_s / (len(r.output_tokens) - 1)
+                                    for r in res)[len(res) // 2],
+        "prefill_tokens_per_call": prefill,
+    }
     log(f"profile: {len(prompts)} rows x {sp.max_tokens} tokens, wall {wall_ms:.1f} ms unprofiled "
         f"({prof_wall_ms:.1f} ms profiled), device busy {busy_ms:.1f} ms, idle "
-        f"{100 * (1 - busy_ms / wall_ms):.1f}% of the unprofiled wall")
+        f"{stats['idle_pct']:.1f}% of the unprofiled wall; kernel B {b_ms:.2f} ms over "
+        f"{stats['kernel_b_launches']} launches; TPOT p50 {stats['tpot_ms_p50']:.2f} ms; "
+        f"prefill tokens per call {prefill}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
+    return stats
+
+
+def phase_longctx(cfg, params, label: str, **engine_kw) -> dict:
+    """Long-context decode, the shape of a code-RAG request (retrieved
+    chunks plus the question): 8 rows of distinct random 7936-token prompts,
+    17 greedy new tokens, profiled as profile_decode does, on an engine of
+    its own whose pool holds every row (8 x 63 pages + spare, about 4 GB of
+    KV at 7B)."""
+    import torch
+
+    from githubrepostorag_tpu_torch.serving import Engine, SamplingParams
+
+    engine = Engine(params, cfg, page_size=128, num_pages=8 * 63 + 16, max_num_seqs=8,
+                    prefill_chunk=512, decode_burst=8, max_seq_len=8192, device="cuda",
+                    **engine_kw)
+    engine.warmup()
+    rng = np.random.default_rng(SEED + 11)
+    prompts = [rng.integers(0, cfg.vocab_size, 7936).tolist() for _ in range(8)]
+    log(f"long-context decode, {label}:")
+    stats = profile_decode(engine, prompts, SamplingParams(temperature=0.0, max_tokens=17))
+    if engine._allocator.free_count != engine._allocator.num_pages:
+        raise RuntimeError("pages leaked after the long-context run")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
 
 
 SOURCES = {
@@ -1876,8 +2116,10 @@ SOURCES = {
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["kernels"], default=None,
-                        help="kernels: the device, build and kernel phases only")
+    parser.add_argument("--only", choices=["kernels", "longctx"], default=None,
+                        help="kernels: the device, build and kernel phases only; longctx: "
+                             "the device and build phases and the long-context decode "
+                             "profiles only")
     args = parser.parse_args()
 
     import torch
@@ -1896,6 +2138,12 @@ def main() -> int:
     t_all = time.monotonic()
     device = phase_device()
     phase_build()
+    if args.only == "longctx":
+        cfg, params = make_7b_params()
+        for label, kw in (("bf16", {}), ("kv int8", {"kv_quant": 8})):
+            log(f"longctx {label}: {json.dumps(phase_longctx(cfg, params, label, **kw))}")
+        log(f"done in {time.monotonic() - t_all:.1f} s")
+        return 0
     kres = {**phase_kernels(), **phase_int4_kernels(np.random.default_rng(SEED + 3))}
     dispatch = phase_dispatcher()
     if args.only == "kernels":
@@ -1923,6 +2171,11 @@ def main() -> int:
         "kv4": phase_engine(cfg, params, "kv int4 packed", (a + "@int4",), (b, c),
                             profile=False, kv_quant=4, prefill_token_budget=2048),
     }
+    gc.collect()
+    torch.cuda.empty_cache()
+    longctx = {"bf16": phase_longctx(cfg, params, "bf16"),
+               "kv8": phase_longctx(cfg, params, "kv int8", kv_quant=8)}
+    log(f"long-context decode profiles: {json.dumps(longctx)}")
     qparams = quantize_7b(params)
     del params  # the bf16 tree and engines are gone before the int4 phases
     gc.collect()
@@ -1948,6 +2201,9 @@ def main() -> int:
         return {"launches": runs[launch_run[key]]["launches"][key],
                 **{k: kres[key][k] for k in keys}}
 
+    from githubrepostorag_tpu_torch.ops.paged_decode import _plan_decode
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     entries = []
     for name, (source, replaces) in SOURCES.items():
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -1955,6 +2211,10 @@ def main() -> int:
         if name == "int4_matmul":
             entry["launches_by_loader"] = {
                 k: runs["int4"]["launches"][f"{name}@{k}"] for k in ("tma", "cp_async", "f32")}
+        if name in ("paged_attention_decode_staged", "paged_attention_decode"):
+            # the split of the timed cases: 4 kv heads, 64 pages of 128 keys
+            entry["plan"] = {f"B={bb}": _plan_decode(bb, 4, 64, 128, n_sm)._asdict()
+                             for bb in (1, 8, 64)}
         branches = [k for k in launch_run if k.startswith(name + "@")]
         if branches:
             entry["branches"] = {"fp": numbers(name),

@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks for the hand-written kernels: mbarriers,
-// TMA tile loads, cp.async copies that complete on an mbarrier, and wgmma
-// with the A operand in registers.  PTX ISA names; no library code.
+// TMA tile loads and the host's tensor-map encoding, cp.async copies that
+// complete on an mbarrier, ldmatrix and mma.sync, and wgmma with the A
+// operand in registers.  PTX ISA names; no library code.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap (a type only: nothing of the driver API is linked)
+#include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace hopper {
@@ -61,6 +63,45 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// The host side: cuTensorMapEncodeTiled through the runtime's driver entry
+// point, so the libraries link only the CUDA runtime.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// a row-major [outer, inner] tensor with `row_bytes` between rows, read in
+// [box_outer, box_inner] boxes
+inline bool encode_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr,
+                      uint64_t inner, uint64_t outer, uint64_t row_bytes, uint32_t box_inner,
+                      uint32_t box_outer, CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer}, elem_strides[2] = {1, 1};
+  return fn(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // ------------------------------------------------------------- cp.async --
 
 // 16- and 4-byte copies; bytes past `src_bytes` (0 or the full size) are
@@ -91,6 +132,34 @@ __device__ __forceinline__ void cp_async_wait_all() {
 // async-proxy reads (wgmma operands written by cp.async or st.shared)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------- ldmatrix, mma.sync --
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i,
+// and r[i] receives this thread's pair of matrix i (row lane/4, columns
+// 2*(lane%4), +1; with .trans row and column swap)
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* row) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(row)));
+}
+
+// D[16 x 8] (f32) += A[16 x 16] (bf16, row-major fragment a[4]) * B[16 x 8]
+// (bf16, column-major fragment b[2])
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a, uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // ---------------------------------------------------------------- wgmma --

@@ -478,45 +478,6 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
 
 // ------------------------------------------------------------------ host --
 
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's driver entry point: the
-// library links only the CUDA runtime
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// a row-major [outer, inner] tensor with `row_bytes` between rows, read in
-// [box_outer, box_inner] boxes
-bool encode_2d(CUtensorMap* map, CUtensorMapDataType dtype, const void* ptr, uint64_t inner,
-               uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer,
-               CUtensorMapSwizzle swizzle) {
-  EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {inner, outer}, strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer}, elem_strides[2] = {1, 1};
-  return fn(map, dtype, 2, const_cast<void*>(ptr), dims, strides, box, elem_strides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int LOADER, int SB, int BM>
 int launch_bm(GemmParams& p, int grid, cudaStream_t stream) {
   using C = Cfg<LOADER, SB, BM>;
@@ -524,6 +485,7 @@ int launch_bm(GemmParams& p, int grid, cudaStream_t stream) {
   p.tiles = p.m_tiles * ((p.N + BN - 1) / BN);
   if constexpr (LOADER == LOADER_TMA) {
     const uint64_t K = p.K, N = p.N;
+    using hopper::encode_2d;
     if (!encode_2d(&p.tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, p.x, K, p.M, 2 * K, 64, BM,
                    CU_TENSOR_MAP_SWIZZLE_128B) ||
         !encode_2d(&p.tm_q, CU_TENSOR_MAP_DATA_TYPE_UINT8, p.q, N, K / 2, N, BN, SB,

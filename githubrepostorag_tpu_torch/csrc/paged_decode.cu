@@ -16,67 +16,40 @@
 //
 // Design: the TPU grid (B, n_kv, max_pages) walked one page of one kv head a
 // step, carrying (m, l, acc) in VMEM scratch across the sequential page axis.
-// Here that walk is a loop inside one block per (kv head, row), the block
-// body kernel B runs (decode_attention.cuh) with no staged tail, a rank-4
-// pool (layer 0) and the row's length cached + new: 32 keys of K and V a
-// step through the block table into shared memory, warp g owning query g of
-// the group.  The TPU index map sent table entries past the row's pages to
-// page 0 and skipped their compute (pallas_paged.py:127-131); here only
-// positions below the row's length read the table, so such entries (the
-// engine pads tables with values that are not pages) are never dereferenced.
-// As in B, the grid (n_kv, B) is small at low batch; split-K over pages and
-// tensor cores are later work.
+// Here the page axis is split across blocks (flash-decoding) and the last
+// block of each (row, kv head) to finish merges the partials: the split-K
+// kernel B runs (decode_attention.cuh) with no staged tail and the row's
+// length cached + new, over a rank-4 pool.  The TPU index map sent table entries past the
+// row's pages to page 0 and skipped their compute (pallas_paged.py:127-131);
+// here only pages below the row's length read the table, so such entries
+// (the engine pads tables with values that are not pages) are never
+// dereferenced.
 
 #include "decode_attention.cuh"
 
-namespace {
-
-using port::decode::THREADS;
-using port::decode::GMAX;
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages, const T* __restrict__ v_pages,
-    T* __restrict__ out, const int* __restrict__ block_tables,
-    const int* __restrict__ cached_lens, const int* __restrict__ new_lens, int n_q,
-    int n_kv, int num_pages, int page_size, int max_pages, float scale) {
-  const int b = blockIdx.y;
-  port::decode::decode_block<T, T, HD, false, false>(
-      q, k_pages, v_pages, nullptr, nullptr, out, block_tables + (size_t)b * max_pages,
-      cached_lens[b] + new_lens[b], nullptr, nullptr, b, blockIdx.x, n_q, n_kv, num_pages,
-      page_size, max_pages, 0, 0, 0, scale);
-}
-
-template <typename T, int HD>
-int launch(const void* q, const void* k_pages, const void* v_pages, void* out,
-           const int* block_tables, const int* cached_lens, const int* new_lens, int B,
-           int n_q, int n_kv, int num_pages, int page_size, int max_pages, float scale,
-           cudaStream_t stream) {
-  dim3 grid(n_kv, B);
-  paged_decode_kernel<T, HD><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<T*>(out), block_tables, cached_lens,
-      new_lens, n_q, n_kv, num_pages, page_size, max_pages, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
+// q [B, n_q, hd], pools [n_kv, P, ps, hd] in q's dtype (bf16 or f32), out
+// like q; workspace (the splits' partials), counters ([B, n_kv] int32, 0
+// between launches) and (pages_per_split, n_splits) from the wrapper and its
+// plan (ops/paged_decode._plan_decode).
 extern "C" int paged_decode_launch(
     const void* q, const void* k_pages, const void* v_pages, void* out,
-    const int* block_tables, const int* cached_lens, const int* new_lens, int B, int n_q,
-    int n_kv, int num_pages, int page_size, int head_dim, int max_pages, int dtype,
-    float scale, void* stream) {
+    const int* block_tables, const int* cached_lens, const int* new_lens, void* workspace,
+    void* counters, int B, int n_q, int n_kv, int num_pages, int page_size, int head_dim,
+    int max_pages, int dtype, int pages_per_split, int n_splits, float scale, void* stream) {
+  using port::decode::launch;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (B == 0) return 0;
-  if (n_q / n_kv > GMAX) return (int)cudaErrorInvalidValue;
-#define PORT_LAUNCH(T, HD)                                                             \
-  return launch<T, HD>(q, k_pages, v_pages, out, block_tables, cached_lens, new_lens, B, \
-                       n_q, n_kv, num_pages, page_size, max_pages, scale, st)
-  if (dtype == port::DTYPE_BF16 && head_dim == 128) PORT_LAUNCH(__nv_bfloat16, 128);
-  if (dtype == port::DTYPE_BF16 && head_dim == 64) PORT_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == port::DTYPE_F32 && head_dim == 128) PORT_LAUNCH(float, 128);
-  if (dtype == port::DTYPE_F32 && head_dim == 64) PORT_LAUNCH(float, 64);
-#undef PORT_LAUNCH
+  const port::decode::Launch a{q, k_pages, v_pages, nullptr, nullptr, out, block_tables,
+                               cached_lens, new_lens, nullptr, nullptr,
+                               static_cast<float*>(workspace), static_cast<int*>(counters), B,
+                               n_q, n_kv, num_pages, page_size, max_pages, 0, 0,
+                               pages_per_split, n_splits, scale};
+  if (dtype == port::DTYPE_BF16 && head_dim == 128)
+    return launch<__nv_bfloat16, __nv_bfloat16, 128, false, false>(a, st);
+  if (dtype == port::DTYPE_BF16 && head_dim == 64)
+    return launch<__nv_bfloat16, __nv_bfloat16, 64, false, false>(a, st);
+  if (dtype == port::DTYPE_F32 && head_dim == 128)
+    return launch<float, float, 128, false, false>(a, st);
+  if (dtype == port::DTYPE_F32 && head_dim == 64)
+    return launch<float, float, 64, false, false>(a, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -19,3 +19,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
 
+
+_SMS: dict[int, int] = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's number of SMs (the kernels' plans size their grids by
+    it), read once per device."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]

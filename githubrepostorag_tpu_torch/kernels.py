@@ -40,21 +40,23 @@ SIGNATURES = {
     # v_scales, B, S, n_q, n_kv, P, page_size, head_dim, max_pages, dtype,
     # pool, scale, stream
     "fused_window_attention": [_P] * 9 + [_I] * 10 + [_F, _P],
-    # q, k_pages, v_pages, out, block_tables, cached_lens, new_lens, B, n_q,
-    # n_kv, P, page_size, head_dim, max_pages, dtype, scale, stream
-    "paged_decode": [_P] * 7 + [_I] * 8 + [_F, _P],
+    # q, k_pages, v_pages, out, block_tables, cached_lens, new_lens,
+    # workspace, counters, B, n_q, n_kv, P, page_size, head_dim, max_pages,
+    # dtype, pages_per_split, n_splits, scale, stream
+    "paged_decode": [_P] * 9 + [_I] * 10 + [_F, _P],
     # q, k_pages, v_pages, staged_k, staged_v, out, block_tables, pool_lens,
-    # k_scales, v_scales, B, n_q, n_kv, P, page_size, head_dim, max_pages,
-    # n_steps, staged_len, layer, dtype, pool, scale, stream
-    "paged_decode_staged": [_P] * 10 + [_I] * 12 + [_F, _P],
+    # k_scales, v_scales, workspace, counters, B, n_q, n_kv, P, page_size,
+    # head_dim, max_pages, n_steps, staged_len, layer, dtype, pool,
+    # pages_per_split, n_splits, scale, stream
+    "paged_decode_staged": [_P] * 12 + [_I] * 14 + [_F, _P],
     # q, k_pages, v_pages, out, block_tables, cached_lens, new_lens, row_of,
     # R, tq, n_q, n_kv, P, page_size, head_dim, max_pages, dtype, scale, stream
     "packed_prefill": [_P] * 8 + [_I] * 9 + [_F, _P],
     # x, q, s, zs, out, M, K, N, group_size, x dtype, out dtype, loader,
     # block_m, grid, stream
     "int4_matmul": [_P] * 5 + [_I] * 9 + [_P],
-    # xg, q, s, acc, M, K, N, group_size, stream
-    "w4a8_matmul": [_P] * 4 + [_I] * 4 + [_P],
+    # xg, q, s, acc, M, K, N, group_size, general (plan), stream
+    "w4a8_matmul": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

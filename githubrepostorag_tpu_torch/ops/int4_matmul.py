@@ -10,10 +10,14 @@ Stacked [L, ...] leaves reach these functions as one layer's view
 ``int4_matmul`` is the router and kernel D's wrapper:
 
 - the W4A8 route, ``w4a8_matmul``, for decode-sized batches (rows <= 256)
-  when ``w4a8`` is None and ``INT4_W4A8`` is not ``0``.  Activations are
+  when ``w4a8`` is None and ``INT4_W4A8`` is not ``0``; on the card only
+  for groups with ``(gsz // 2) % 32 == 0`` (64, 128, 256, ...), as the
+  JAX package sends other groups to its bf16-dequant kernel on the chip
+  (``takes_w4a8``).  Activations are
   quantized per row to symmetric int8 (f32 amax, ``x * 127 / amax`` rounded
   half to even, 0 for an all-zero row); kernel E (``csrc/w4a8_matmul.cu``)
-  computes the group-scaled int32 partials, and the zero-point term and
+  computes the group-scaled int32 partials (``_plan_w4a8`` holds its
+  preconditions), and the zero-point term and
   ``sxn * (acc - zs_term)`` are plain torch, as they are plain XLA around
   the Pallas call.  Results differ from the bf16-dequant math by the
   activation quantization (about 1e-2 relative).
@@ -42,9 +46,12 @@ from typing import NamedTuple
 import torch
 
 from githubrepostorag_tpu_torch import kernels
+from githubrepostorag_tpu_torch.device import sm_count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 W4A8_MAX_ROWS = 256
+# kernel E's int32 group partials stay exact in f32: 127 * 15 * gsz < 2**24
+W4A8_MAX_GSZ = 8192
 
 
 def dequant4(q: torch.Tensor, s: torch.Tensor, zs: torch.Tensor, dtype: torch.dtype):
@@ -63,12 +70,19 @@ def _rows(x: torch.Tensor) -> int:
     return x.numel() // x.shape[-1] if x.shape[-1] else 0
 
 
-def takes_w4a8(rows: int, w4a8: bool | None) -> bool:
-    """The route: W4A8 for decode-sized batches unless ``INT4_W4A8=0``;
-    an explicit ``w4a8`` wins."""
+def _gsz(x: torch.Tensor, s: torch.Tensor) -> int:
+    return x.shape[-1] // s.shape[-2] if s.shape[-2] else 0
+
+
+def takes_w4a8(rows: int, w4a8: bool | None, gsz: int = 64, on_card: bool = False) -> bool:
+    """The route, as ``pallas_int4.int4_matmul`` takes it: W4A8 for
+    decode-sized batches unless ``INT4_W4A8=0``, an explicit ``w4a8``
+    winning; then, on the card (where JAX compiles its kernel, not in
+    interpret mode), only for groups with ``(gsz // 2) % 32 == 0``: other
+    groups take the exact bf16-dequant kernel, whatever ``w4a8`` said."""
     if w4a8 is None:
-        return rows <= W4A8_MAX_ROWS and os.environ.get("INT4_W4A8", "1") != "0"
-    return bool(w4a8)
+        w4a8 = rows <= W4A8_MAX_ROWS and os.environ.get("INT4_W4A8", "1") != "0"
+    return bool(w4a8) and not (on_card and (gsz // 2) % 32)
 
 
 # ------------------------------------------------------ kernel D (dequant) --
@@ -155,22 +169,12 @@ def _plan_int4(m: int, k: int, n: int, gsz: int, x_ptr: int, q_ptr: int, s_ptr: 
     return Int4Plan("tma" if tma else "cp_async", block_m, tiles, min(tiles, n_sm))
 
 
-_SMS: dict[int, int] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    idx = device.index if device.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
-
-
 def int4_matmul(x, q, s, zs, out_dtype=None, w4a8: bool | None = None):
     """``x @ dequant(q, s, zs)`` for x [..., K]; returns [..., N] in
     ``out_dtype`` (default x's dtype; float32 for logits).  Routes to
     ``w4a8_matmul`` (kernel E) or runs kernel D; see the module
     docstring."""
-    if takes_w4a8(_rows(x), w4a8):
+    if takes_w4a8(_rows(x), w4a8, _gsz(x, s), x.device.type == "cuda"):
         return w4a8_matmul(x, q, s, zs, out_dtype)
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
@@ -181,7 +185,7 @@ def int4_matmul(x, q, s, zs, out_dtype=None, w4a8: bool | None = None):
     lead, m = x.shape[:-1], _rows(x)
     x2 = x.reshape(m, k).contiguous()
     plan = _plan_int4(m, k, n, gsz, x2.data_ptr(), q.data_ptr(), s.data_ptr(), zs.data_ptr(),
-                      _sm_count(x.device))
+                      sm_count(x.device))
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = kernels.launcher("int4_matmul")(
@@ -223,17 +227,38 @@ def w4a8_matmul_ref(xg: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch
     return (p * s.float()[:, None, :]).sum(dim=0)
 
 
+class W4A8Plan(NamedTuple):
+    general: bool  # the general kernel (groups in pieces, byte loads for ragged N)
+
+
+def _plan_w4a8(m: int, k: int, n: int, gsz: int, q_ptr: int, s_ptr: int) -> W4A8Plan:
+    """Kernel E's launch for xg [k/gsz, m, gsz] int8 against q [k/2, n]
+    and s [k/gsz, n] at these addresses.  E takes any group the route
+    sends it and more: gsz % 16 == 0 up to ``W4A8_MAX_GSZ``, any n >= 1,
+    weights 4-byte aligned as kernel D's wrapper takes them.  Groups up to
+    128 with n % 4 == 0 and s 8-byte aligned take the kernel that stages a
+    whole group with 16-byte copies; every other shape takes the general
+    kernel, which stages a wider group (AutoAWQ's 256) in pieces and reads
+    q and s byte by byte where n % 4 != 0 (a ragged last column tile)."""
+    _require("w4a8_matmul", gsz % 16 == 0 and 0 < gsz <= W4A8_MAX_GSZ and k % gsz == 0,
+             f"group size {gsz} must be a multiple of 16 dividing K {k}, at most {W4A8_MAX_GSZ}")
+    _require("w4a8_matmul", m >= 0 and n >= 1, f"M {m}, N {n}")
+    _require("w4a8_matmul", q_ptr % 4 == 0 and s_ptr % 4 == 0, "weights must be 4-byte aligned")
+    return W4A8Plan(general=not (gsz <= 128 and n % 4 == 0 and s_ptr % 8 == 0))
+
+
 def _w4a8_acc(xg, q, s):
     """Kernel E for CUDA tensors, its plain version for CPU tensors."""
     if xg.device.type == "cpu":
         return w4a8_matmul_ref(xg, q, s)
     n_g, m, gsz = xg.shape
     n = q.shape[-1]
-    _require("w4a8_matmul", gsz <= 128 and n % 4 == 0, f"group size {gsz} > 128 or N {n} % 4")
+    plan = _plan_w4a8(m, n_g * gsz, n, gsz, q.data_ptr(), s.data_ptr())
     acc = torch.empty((m, n), dtype=torch.float32, device=xg.device)
     stream = torch.cuda.current_stream(xg.device).cuda_stream
     err = kernels.launcher("w4a8_matmul")(
-        xg.data_ptr(), q.data_ptr(), s.data_ptr(), acc.data_ptr(), m, n_g * gsz, n, gsz, stream)
+        xg.data_ptr(), q.data_ptr(), s.data_ptr(), acc.data_ptr(), m, n_g * gsz, n, gsz,
+        int(plan.general), stream)
     kernels.check_launch("w4a8_matmul", err)
     w4a8_matmul.launches += 1
     return acc
@@ -261,7 +286,7 @@ def w4a8_matmul(x, q, s, zs, out_dtype=None):
     """The W4A8 route of ``int4_matmul``: int8 activations, kernel E for
     the group partials.  x [..., K] -> [..., N] in ``out_dtype``."""
     if x.device.type != "cpu":
-        _check_weights("w4a8_matmul", x, q, s, zs)
+        _check_weights("w4a8_matmul", x, q, s, zs, align=4)
     return _w4a8(x, q, s, zs, out_dtype, _w4a8_acc)
 
 
@@ -270,6 +295,6 @@ w4a8_matmul.launches = 0  # kernel E launches (CUDA path only)
 
 def int4_matmul_plain(x, q, s, zs, out_dtype=None, w4a8: bool | None = None):
     """``int4_matmul``'s route through the plain versions, on any device."""
-    if takes_w4a8(_rows(x), w4a8):
+    if takes_w4a8(_rows(x), w4a8, _gsz(x, s), x.device.type == "cuda"):
         return _w4a8(x, q, s, zs, out_dtype, w4a8_matmul_ref)
     return int4_matmul_ref(x, q, s, zs, out_dtype)

@@ -22,16 +22,24 @@ package does.
 
 Both: masked scores are -1e30, a row with no valid KV outputs 0, and scores
 and accumulators are float32.  Each wrapper launches its hand-written
-Hopper kernel (``csrc/paged_decode.cu``, ``csrc/paged_decode_staged.cu``)
-for CUDA tensors and runs its ``*_ref`` plain PyTorch version for CPU
-tensors.
+Hopper kernel (``csrc/paged_decode.cu``, ``csrc/paged_decode_staged.cu``:
+one split-K kernel over pages whose last block per (row, kv head) merges
+the splits) for CUDA tensors and runs its ``*_ref`` plain
+PyTorch version for CPU tensors.  ``_plan_decode`` cuts each row's block
+table into splits of whole pages from static shapes alone (batch, kv heads,
+table width, page size, SM count), so no row length is read to the host;
+the splits' partials go to a float32 workspace from the caching allocator,
+and per-(row, kv head) arrival counters persist per device.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from githubrepostorag_tpu_torch import kernels
+from githubrepostorag_tpu_torch.device import sm_count
 from githubrepostorag_tpu_torch.ops.fused_decode import POOL_CODES
 from githubrepostorag_tpu_torch.ops.paged_attention import gather_kv, paged_attention_ref
 
@@ -40,6 +48,81 @@ NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_GROUP = 8
+
+# the split-K kernel's geometry (csrc/decode_attention.cuh)
+TILE_KEYS = 64  # keys per shared-memory stage
+SPLIT_KEYS = 1024  # keys a split aims at: at most 128 pages, the kernel's page list
+
+
+class DecodePlan(NamedTuple):
+    pages_per_split: int
+    n_splits: int
+    blocks: int  # split blocks launched: B * n_kv * n_splits
+
+
+def _plan_decode(b: int, n_kv: int, max_pages: int, page_size: int,
+                 n_sm: int = 132) -> DecodePlan:
+    """The split of every (row, kv head)'s block table: ``n_splits`` blocks
+    of ``pages_per_split`` whole pages each, covering the table's
+    ``max_pages`` entries.  Static shapes only: a row's length is read on
+    the card, where a split that starts past it writes an empty partial.
+
+    A split aims at ``SPLIT_KEYS`` keys, fewer where that would leave
+    fewer blocks than SMs (batch 1 takes 2-page splits of 128 keys); it
+    holds whole tiles of ``TILE_KEYS`` keys (page sizes below 64 take
+    several pages a tile, which must divide it).  The split sweep of
+    ``chip_smoke.py`` times the alternatives on the card."""
+    _require_plan(page_size > 0 and (page_size % TILE_KEYS == 0
+                                     or (TILE_KEYS % page_size == 0 and page_size % 8 == 0)),
+                  f"page size {page_size}: a multiple of {TILE_KEYS}, or 8..{TILE_KEYS} "
+                  f"dividing {TILE_KEYS}")
+    _require_plan(b >= 0 and n_kv >= 1 and max_pages >= 1, f"B {b}, n_kv {n_kv}, "
+                  f"max_pages {max_pages}")
+    unit = max(1, TILE_KEYS // page_size)  # pages of one tile
+    pairs = max(1, b * n_kv)
+    pps = max(1, SPLIT_KEYS // page_size)
+    if pairs * -(-max_pages // pps) < n_sm:  # too few blocks: smaller splits
+        pps = -(-max_pages // -(-n_sm // pairs))
+    pps = max(unit, -(-pps // unit) * unit)
+    n_splits = -(-max_pages // pps)
+    return DecodePlan(pps, n_splits, b * n_kv * n_splits)
+
+
+def _require_plan(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"_plan_decode: {msg}")
+
+
+def _workspace(parts: int, hd: int, device: torch.device) -> torch.Tensor:
+    """The partials of ``parts`` blocks (the splits, and kernel B's staged
+    tail, one block a row): (m, l) and acc[hd] for each of the kernel's 8
+    query rows, float32."""
+    return torch.empty(parts * _MAX_GROUP * (hd + 2), dtype=torch.float32, device=device)
+
+
+_COUNTERS: dict[torch.device, torch.Tensor] = {}
+
+
+def _counters(pairs: int, device: torch.device) -> torch.Tensor:
+    """Per (row, kv head), the split blocks that have finished: int32 zeros
+    kept per device (grown as needed) that every launch leaves at zero, its
+    last block resetting them.  Launches on the device share them, so they
+    run on one stream at a time, as the engine's do."""
+    buf = _COUNTERS.get(device)
+    if buf is None or buf.numel() < pairs:
+        buf = torch.zeros(max(pairs, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device] = buf
+    return buf
+
+
+def _split_buffers(b: int, n_kv: int, block_tables, page_size: int, hd: int, device,
+                   tail_blocks: int = 0):
+    """One launch's plan, workspace (the split blocks' partials and
+    ``tail_blocks`` more: kernel B's staged tail, one block a row) and the
+    address of its arrival counters."""
+    plan = _plan_decode(b, n_kv, block_tables.shape[1], page_size, sm_count(device))
+    ws = _workspace(plan.blocks + tail_blocks, hd, device)
+    return plan, ws, _counters(b * n_kv, device).data_ptr()
 
 
 def paged_attention_decode_ref(q, k_pages, v_pages, block_tables, cached_lens, new_lens):
@@ -102,13 +185,14 @@ def paged_attention_decode(q, k_pages, v_pages, block_tables, cached_lens, new_l
                "cached_lens and new_lens must be [B] int32")
     _require_f(all(x.data_ptr() % 16 == 0 for x in (q, k_pages, v_pages)),
                "q and pools must be 16-byte aligned")
+    plan, ws, counters = _split_buffers(b, n_kv, block_tables, page_size, hd, q.device)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = kernels.launcher("paged_decode")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), out.data_ptr(),
-        block_tables.data_ptr(), cached_lens.data_ptr(), new_lens.data_ptr(),
-        b, n_q, n_kv, num_pages, page_size, hd, block_tables.shape[1], _DTYPES[q.dtype],
-        1.0 / hd ** 0.5, stream,
+        block_tables.data_ptr(), cached_lens.data_ptr(), new_lens.data_ptr(), ws.data_ptr(),
+        counters, b, n_q, n_kv, num_pages, page_size, hd, block_tables.shape[1],
+        _DTYPES[q.dtype], plan.pages_per_split, plan.n_splits, 1.0 / hd ** 0.5, stream,
     )
     kernels.check_launch("paged_attention_decode", err)
     paged_attention_decode.launches += 1
@@ -214,16 +298,18 @@ def paged_attention_decode_staged(q, k_pages, v_pages, block_tables, pool_lens,
              "pool_lens must be [B] int32")
     _require(all(x.data_ptr() % 16 == 0 for x in (q, k_pages, v_pages, staged_k, staged_v)),
              "q, pools and staged tail must be 16-byte aligned")
+    plan, ws, counters = _split_buffers(b, n_kv, block_tables, page_size, hd, q.device,
+                                        tail_blocks=b * n_kv)
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = kernels.launcher("paged_decode_staged")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), staged_k.data_ptr(),
         staged_v.data_ptr(), out.data_ptr(), block_tables.data_ptr(), pool_lens.data_ptr(),
         k_scales.data_ptr() if kind == "int8" else None,
-        v_scales.data_ptr() if kind == "int8" else None,
+        v_scales.data_ptr() if kind == "int8" else None, ws.data_ptr(), counters,
         b, n_q, n_kv, num_pages, page_size, hd, block_tables.shape[1], n_steps,
-        int(staged_len), int(layer), _DTYPES[dtype], POOL_CODES[kind], 1.0 / hd ** 0.5,
-        stream,
+        int(staged_len), int(layer), _DTYPES[dtype], POOL_CODES[kind],
+        plan.pages_per_split, plan.n_splits, 1.0 / hd ** 0.5, stream,
     )
     kernels.check_launch("paged_attention_decode_staged", err)
     paged_attention_decode_staged.launches += 1

@@ -299,3 +299,212 @@ def test_paged_decode_refuses_before_launch(bad):
     with pytest.raises(ValueError, match="paged_attention_decode"):
         paged_attention_decode(q, kp, vp, bt, cached, new)
     assert paged_attention_decode.launches == 0
+
+
+# ---- kernels B and F on the card: the split-K plan and its arithmetic -----
+#
+# On the card both kernels cut every (row, kv head)'s block table into
+# splits of whole pages (``_plan_decode``, static shapes only), write one
+# unnormalised online-softmax partial (m, l, acc) per split, and merge the
+# partials in split order, then B's staged tail one key at a time.  The
+# plan is pure Python; the arithmetic is emulated here in plain torch and
+# held to the plain versions and to the Pallas kernels in interpret mode.
+
+import inspect  # noqa: E402
+
+from githubrepostorag_tpu_torch.ops.paged_decode import (  # noqa: E402
+    TILE_KEYS,
+    _plan_decode,
+    paged_attention_decode_ref,
+)
+
+
+def _split_ranges(plan, max_pages):
+    return [(s * plan.pages_per_split, min((s + 1) * plan.pages_per_split, max_pages))
+            for s in range(plan.n_splits)]
+
+
+@pytest.mark.parametrize("b,n_kv,max_pages,ps,want", [
+    (1, 4, 64, 128, (2, 32)),     # 7B heads, 8192-key tables: 128 blocks, not 32
+    (8, 4, 64, 128, (8, 8)),      # 1024-key splits
+    (64, 4, 64, 128, (8, 8)),
+    (8, 4, 92, 128, (8, 12)),     # the engine's table at max_seq_len 11712
+    (3, 2, 5, 8, (8, 1)),         # 8-key pages: eight to a 64-key tile
+    (3, 2, 125, 8, (8, 16)),
+    (64, 4, 4096, 8, (128, 32)),  # the kernel's page list at its longest
+    (2, 4, 3, 256, (1, 3)),
+])
+def test_decode_plan_splits_whole_pages(b, n_kv, max_pages, ps, want):
+    plan = _plan_decode(b, n_kv, max_pages, ps)
+    assert (plan.pages_per_split, plan.n_splits) == want
+    assert plan.blocks == b * n_kv * plan.n_splits
+    assert plan.pages_per_split <= 128  # the kernel's page list
+    assert plan.pages_per_split * ps % TILE_KEYS == 0  # splits hold whole tiles
+    # every page of the table lies in exactly one split, and no split is
+    # wholly past the table
+    owners = [[s for s, (lo, hi) in enumerate(_split_ranges(plan, max_pages)) if lo <= p < hi]
+              for p in range(max_pages)]
+    assert all(len(o) == 1 for o in owners)
+    assert all(lo < hi for lo, hi in _split_ranges(plan, max_pages))
+
+
+def test_decode_plan_takes_shapes_only():
+    """The plan's arguments are integers: the wrappers give it B, n_kv, the
+    table's width and the page size from shapes (here of tensors on the meta
+    device, which hold no values) and the SM count, never a row length."""
+    assert all(p.annotation == "int" for p in inspect.signature(_plan_decode).parameters.values())
+    q = torch.empty((8, 1, 28, 128), device="meta", dtype=torch.bfloat16)
+    pools = torch.empty((28, 4, 257, 128, 128), device="meta", dtype=torch.bfloat16)
+    tables = torch.empty((8, 92), device="meta", dtype=torch.int32)
+    plan = _plan_decode(q.shape[0], pools.shape[1], tables.shape[1], pools.shape[3])
+    assert plan == _plan_decode(8, 4, 92, 128)
+    more_sms = _plan_decode(8, 4, 92, 128, n_sm=264)
+    assert more_sms.n_splits >= plan.n_splits
+
+
+@pytest.mark.parametrize("ps", [4, 12, 96, 0])
+def test_decode_plan_refuses_page_sizes_off_the_tile(ps):
+    with pytest.raises(ValueError, match="_plan_decode"):
+        _plan_decode(8, 4, 16, ps)
+
+
+def _split_combine(q, kp, vp, bt, n_keys, plan, scales=None, staged=None):
+    """The kernels' arithmetic in plain float32 torch: per (row, kv head,
+    split) the unnormalised partial of the split's keys (softmax over them
+    alone: m their max score, l the sum of exp(s - m), acc the p-weighted
+    V rows; int8 K scales multiply the scores and V scales the p's), an
+    empty partial (l = 0, acc NaN, never read) for a split at or past the
+    row's end; merged in split order, with B's staged keys after them as
+    partials (s, 1, v), each partial weighted by exp(m - M) where l > 0
+    and by 0 where l == 0, as the last block of a row merges them.
+    Returns the output and the l of every split."""
+    b, _, n_q, hd = q.shape
+    n_kv, _, ps, _ = kp.shape
+    group, scale, pps = n_q // n_kv, 1.0 / hd ** 0.5, plan.pages_per_split
+    out = torch.zeros((b, 1, n_q, hd))
+    split_l = {}
+    for row in range(b):
+        for h in range(n_kv):
+            qg = q[row, 0, h * group:(h + 1) * group].float()
+            parts = []
+            for s in range(plan.n_splits):
+                k0, k1 = s * pps * ps, min(int(n_keys[row]), (s + 1) * pps * ps)
+                if k0 >= k1:
+                    parts.append((torch.full((group,), NEG), torch.zeros(group),
+                                  torch.full((group, hd), float("nan"))))
+                    split_l[row, h, s] = 0.0
+                    continue
+                keys = torch.arange(k0, k1)
+                pages, slots = bt[row, keys // ps].long(), keys % ps
+                k, v = kp[h, pages, slots].float(), vp[h, pages, slots].float()
+                sc = qg @ k.T * scale
+                pv_mult = torch.ones(len(keys))
+                if scales is not None:
+                    sc = sc * scales[0][h, pages]
+                    pv_mult = scales[1][h, pages]
+                m = sc.max(dim=-1).values
+                p = torch.exp(sc - m[:, None])
+                parts.append((m, p.sum(dim=-1), (p * pv_mult) @ v))
+                split_l[row, h, s] = float(p.sum(dim=-1).min())
+            if staged is not None:
+                sk, sv, staged_len = staged
+                for t in range(staged_len):
+                    st = qg @ sk[row, h, t].float() * scale
+                    parts.append((st, torch.ones(group), sv[row, h, t].float()[None, :].expand(
+                        group, hd)))
+            m, l, acc = torch.full((group,), NEG), torch.zeros(group), torch.zeros(group, hd)
+            for pm, pl_, pacc in parts:
+                live = pl_ > 0
+                mn = torch.where(live, torch.maximum(m, pm), m)
+                a, e = torch.exp(m - mn), torch.where(live, torch.exp(pm - mn), 0.0)
+                l = l * a + torch.where(live, pl_ * e, 0.0)
+                acc = acc * a[:, None] + torch.where(live[:, None], pacc * e[:, None], 0.0)
+                m = mn
+            out[row, 0, h * group:(h + 1) * group] = torch.where(
+                l[:, None] > 0, acc / torch.where(l > 0, l, 1.0)[:, None], 0.0)
+    return out, split_l
+
+
+NEG = -1e30
+SPLIT_PS, SPLIT_MAX_PAGES = 8, 24
+
+
+def _split_case(seed, lens, group, n_kv=2, hd=32, layers=None, quant=False):
+    """Rows over shuffled 8-key pages of a pool with holes (entries past a
+    row's pages -1, which nothing may read), rank 4 or, with ``layers``,
+    rank 5."""
+    rng = np.random.default_rng(seed)
+    b, ps, max_pages = len(lens), SPLIT_PS, SPLIT_MAX_PAGES
+    num_pages = sum(-(-n // ps) for n in lens) + 7
+    lead = (n_kv, num_pages, ps, hd) if layers is None else (layers, n_kv, num_pages, ps, hd)
+    q = rng.normal(size=(b, 1, n_kv * group, hd)).astype(np.float32)
+    if quant:
+        (kp, ks), (vp, vs) = _quant_pages(rng, lead, 8), _quant_pages(rng, lead, 8)
+    else:
+        kp, vp = (rng.normal(size=lead).astype(np.float32) for _ in range(2))
+        ks = vs = None
+    perm, at = rng.permutation(num_pages), 0
+    bt = np.full((b, max_pages), -1, dtype=np.int32)
+    for i, n in enumerate(lens):
+        need = -(-n // ps)
+        bt[i, :need] = perm[at:at + need]
+        at += need
+    return q, kp, vp, bt, ks, vs
+
+
+# rows on (64) and one past (65) a split edge of 64 keys (8 pages of 8),
+# one key, none, and one ending mid-split whose later split is empty
+SPLIT_LENS = [64, 65, 1, 0, 150]
+
+
+@pytest.mark.parametrize("group", [2, 7])
+def test_split_combine_matches_kernel_f_and_pallas(group):
+    q, kp, vp, bt, _, _ = _split_case(5 + group, SPLIT_LENS, group)
+    plan = _plan_decode(len(SPLIT_LENS), 2, SPLIT_MAX_PAGES, SPLIT_PS)
+    assert plan.pages_per_split * SPLIT_PS == 64 and plan.n_splits == 3
+    lens = np.asarray(SPLIT_LENS, np.int32)
+    cached, new = np.maximum(lens - 1, 0).astype(np.int32), (lens > 0).astype(np.int32)
+    ts = [torch.from_numpy(x) for x in (q, kp, vp, bt, cached, new)]
+    emu, split_l = _split_combine(ts[0], ts[1], ts[2], ts[3], lens, plan)
+    # splits at or past a row's end add nothing to l, and their (NaN)
+    # partials never reach the output
+    for (row, _, s), l in split_l.items():
+        assert (l == 0.0) == (s * 64 >= SPLIT_LENS[row])
+    assert torch.isfinite(emu).all() and not emu[SPLIT_LENS.index(0)].any()
+    np.testing.assert_allclose(emu.numpy(), paged_attention_decode_ref(*ts).numpy(),
+                               atol=1e-5, rtol=0)
+    bt_jax = np.where(bt < 0, 0, bt)  # the Pallas index map reads page 0 past a row's pages
+    j_out = np.asarray(j_decode(*(jnp.asarray(x) for x in (q, kp, vp, bt_jax, cached, new)),
+                                interpret=True))
+    np.testing.assert_allclose(emu.numpy(), j_out, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("quant", [False, True])
+def test_split_combine_matches_kernel_b_and_pallas(quant):
+    """Rank-5 pools read at layer 1, a staged tail of 3 keys, a row whose
+    pool prefix is empty (the staged keys alone), int8 pages with their
+    scales."""
+    L, layer, n_steps, staged_len, group = 3, 1, 4, 3, 7
+    q, kp, vp, bt, ks, vs = _split_case(40 + quant, SPLIT_LENS, group, layers=L, quant=quant)
+    rng = np.random.default_rng(41)
+    sk, sv = (rng.normal(size=(len(SPLIT_LENS), 2, n_steps, 32)).astype(np.float32)
+              for _ in range(2))
+    plan = _plan_decode(len(SPLIT_LENS), 2, SPLIT_MAX_PAGES, SPLIT_PS)
+    pl = np.asarray(SPLIT_LENS, np.int32)
+    t = [torch.from_numpy(x) for x in (q, kp, vp, bt, pl, sk, sv)]
+    scales = None if not quant else (torch.from_numpy(ks), torch.from_numpy(vs))
+    emu, split_l = _split_combine(
+        t[0], t[1][layer], t[2][layer], t[3], pl, plan,
+        scales=None if scales is None else (scales[0][layer], scales[1][layer]),
+        staged=(t[5], t[6], staged_len))
+    assert all((l == 0.0) == (s * 64 >= SPLIT_LENS[r]) for (r, _, s), l in split_l.items())
+    assert torch.isfinite(emu).all()
+    kw = {} if scales is None else dict(k_scales=scales[0], v_scales=scales[1])
+    ref = paged_attention_decode_staged_ref(*t, staged_len, layer, **kw)
+    np.testing.assert_allclose(emu.numpy(), ref.numpy(), atol=2e-5, rtol=0)
+    bt_jax = np.where(bt < 0, 0, bt)
+    j_out = np.asarray(j_staged(
+        *(jnp.asarray(x) for x in (q, kp, vp, bt_jax, pl, sk, sv)),
+        jnp.asarray([staged_len], jnp.int32), jnp.asarray([layer], jnp.int32),
+        *(() if not quant else (jnp.asarray(ks), jnp.asarray(vs))), interpret=True))
+    np.testing.assert_allclose(emu.numpy(), j_out, atol=2e-5, rtol=0)

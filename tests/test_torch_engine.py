@@ -358,3 +358,25 @@ def test_engine_takes_the_servers_tuning_keywords(weights):
                   protected_priority="interactive")
     with pytest.raises(NotImplementedError, match=r"spec_iters=2 .*leave it at 4"):
         _torch_engine(cfg, tp, spec_iters=2)
+
+
+def test_out_of_vocabulary_prompt_ids_are_refused_where_jax_admits_them(weights):
+    """A divergence by design: the JAX engine admits prompt ids outside the
+    vocabulary (its embedding gather reads NaN rows past the table and the
+    request runs to its length); the port refuses such a request at
+    intake, surfaced as an ``error`` completion through the next step, and
+    frees everything it held."""
+    jcfg, cfg, jp, tp = weights
+    prompt = [5, cfg.vocab_size + 3, 7]
+    te = _torch_engine(cfg, tp)
+    rid = te.add_request(prompt, SamplingParams(temperature=0.0, max_tokens=3))
+    done = {}
+    while te.has_work():
+        done.update({r.request_id: r for r in te.step()})
+    assert done[rid].finish_reason == "error"
+    assert done[rid].error == "prompt token id outside the vocabulary"
+    assert done[rid].output_tokens == []
+    assert te._allocator.free_count == te._allocator.num_pages
+    je = JEngine(jp, jcfg, kv_dtype=jnp.float32, **ENGINE_KW)
+    j_res = je.generate([prompt], JSamplingParams(temperature=0.0, max_tokens=3))[0]
+    assert j_res.finish_reason != "error" and len(j_res.output_tokens) == 3

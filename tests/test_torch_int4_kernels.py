@@ -266,3 +266,79 @@ def test_bf16_dequant_arithmetic_rounds_as_dequant4():
         once = _round_bf16(p - both[None, :])  # exact in float64: exponents span < 40
         twice = (torch.from_numpy(p.astype(np.float32)).bfloat16() - zt[None, :]).double()
         assert np.array_equal(once, twice.numpy())
+
+
+# ---------------------------------- the W4A8 route and kernel E's plan --
+# On the chip the JAX package sends a group to its W4A8 kernel only when
+# (gsz // 2) % 32 == 0 (pallas_int4.int4_matmul, the ``not interpret``
+# branch); the port's route takes the same rule for CUDA tensors and keeps
+# W4A8 at any group for CPU tensors, as interpret mode does.
+
+class _Took(Exception):
+    pass
+
+
+def _jax_route_on_chip(monkeypatch, rows, w, w4a8=None):
+    """The kernel ``pallas_int4.int4_matmul`` picks outside interpret mode,
+    asked with both of its launches replaced by probes that name
+    themselves."""
+    from githubrepostorag_tpu.ops import pallas_int4
+
+    def took(name):
+        def probe(*args, **kwargs):
+            raise _Took(name)
+        return probe
+
+    monkeypatch.setattr(pallas_int4, "_w4a8_matmul", took("w4a8"))
+    monkeypatch.setattr(pallas_int4.pl, "pallas_call", took("dequant"))
+    with pytest.raises(_Took) as probe:
+        j_int4_matmul(jnp.zeros((rows, w.q.shape[0] * 2), jnp.float32), w.q, w.s, w.zs,
+                      w4a8=w4a8)
+    return probe.value.args[0]
+
+
+@pytest.mark.parametrize("gsz", [16, 32, 48, 64, 128, 256])
+@pytest.mark.parametrize("rows,w4a8", [(8, None), (300, None), (8, True)])
+def test_w4a8_route_on_the_card_is_the_chips(monkeypatch, gsz, rows, w4a8):
+    w = j_quantize4(np.random.default_rng(gsz).normal(0, 0.02, (768, 64)).astype(np.float32),
+                    gsz)
+    want = _jax_route_on_chip(monkeypatch, rows, w, w4a8) == "w4a8"
+    assert want is (rows <= 256 and gsz in (64, 128, 256))
+    assert ops.takes_w4a8(rows, w4a8, gsz, on_card=True) is want
+    # CPU tensors: W4A8 at any group, as in interpret mode
+    assert ops.takes_w4a8(rows, w4a8, gsz) is (rows <= 256 or w4a8 is True)
+
+
+@pytest.mark.parametrize("gsz", [256, 64])
+def test_wide_group_w4a8_matches_pallas(gsz):
+    """A group wider than kernel E's 128-byte activation stage (AutoAWQ's
+    256) through the route's CPU path, against the Pallas W4A8 kernel in
+    interpret mode; the CPU launches nothing."""
+    rng = np.random.default_rng(gsz + 1)
+    k, n = 1024, 50  # N % 4 == 2: byte loads on the card
+    jw = j_quantize4(rng.normal(0, 0.02, (k, n)).astype(np.float32), gsz)
+    w = QuantizedLinear4(*(_torch(f) for f in jw))
+    x = rng.normal(size=(5, k)).astype(np.float32)
+    before = (ops.int4_matmul.launches, ops.w4a8_matmul.launches)
+    got = ops.int4_matmul(torch.from_numpy(x), *w)
+    ref = np.asarray(j_int4_matmul(jnp.asarray(x), jw.q, jw.s, jw.zs, interpret=True, w4a8=True))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
+    assert (ops.int4_matmul.launches, ops.w4a8_matmul.launches) == before
+
+
+@pytest.mark.parametrize("k, n, gsz, s_off, general", [
+    (1024, 4608, 256, 0, True), (768, 202, 256, 0, True), (512, 202, 64, 0, True),
+    (512, 131, 128, 0, True), (3584, 37888, 64, 0, False), (18944, 3584, 128, 0, False),
+    (256, 200, 16, 8, False), (3584, 4608, 64, 4, True), (3584, 4608, 64, 12, True)])
+def test_w4a8_plan_takes_wide_groups_and_ragged_columns(k, n, gsz, s_off, general):
+    # weights 4-byte aligned are enough, as for kernel D; the 7B shapes keep
+    # the kernel that stages a whole group with 16-byte copies
+    assert ops._plan_w4a8(8, k, n, gsz, A16 + 4, A16 + s_off).general is general
+
+
+@pytest.mark.parametrize("k, n, gsz, q_off, s_off", [
+    (768, 256, 24, 0, 0), (16384 * 2, 256, 16384, 0, 0), (768, 256, 512, 0, 0),
+    (768, 256, 64, 2, 0), (768, 256, 64, 0, 2), (768, 0, 64, 0, 0)])
+def test_w4a8_plan_refuses_what_kernel_e_cannot_take(k, n, gsz, q_off, s_off):
+    with pytest.raises(ValueError, match="w4a8_matmul"):
+        ops._plan_w4a8(8, k, n, gsz, A16 + q_off, A16 + s_off)
