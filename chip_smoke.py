@@ -33,6 +33,12 @@ Phases, each raising on failure:
               events, and at every other pages-per-split (each held to the
               plain version).  Kernel E also at group 256 and N % 4 != 0,
               and the route on the card: groups 64/128/256 take E, 32/48 D.
+              Kernels A and C (bf16: the tensor-core body; f32: the
+              CUDA-core one) also at their tile edges (group 7's flat rows
+              across 128-row tiles, a row with no key, 8-key pages at hd
+              64, int4 there), and A at the long-context profile's launch
+              (B=8, S=128 over 7936 keys; bf16 and int8 pages); A and C are
+              timed by device time, with the wrapper's host time per call.
    dispatcher -- kernel F's path: paged_attention at S = 1 launches F once
               and nothing else; at S = 512 it launches nothing and equals
               paged_attention_ref.
@@ -56,8 +62,8 @@ Phases, each raising on failure:
    longctx -- after the four runs: long-context decode (8 rows of distinct
               7936-token prompts, 17 greedy tokens, an engine of its own
               with 520 pages) profiled as above, bf16 and int8 pages:
-              kernel B's total and launches, idle share, TPOT, prefill
-              tokens per call.
+              kernels B's and A's totals and launches, idle share, TPOT,
+              prefill tokens per call.
    http    -- right after the bf16 run: the same 7B tree served over HTTP
               on localhost through the model server's entry points
               (settings from the environment, build_engine, AsyncEngine,
@@ -197,7 +203,7 @@ def phase_build() -> None:
         for line in out.splitlines():
             if "Compiling entry function" in line:  # the mangled name of the next reports
                 log(f"  ptxas[{name}] entry {line.split(chr(39))[1][:120]}")
-            elif any(w in line.lower() for w in ("registers", "spill", "error", "warning")):
+            elif any(w in line.lower() for w in ("registers", "spill", "error", "warning", "c75")):
                 log(f"  ptxas[{name}] {line.strip()}")
 
 
@@ -311,6 +317,20 @@ def _pool_elem_bytes(case) -> float:
     return 0.5 if str(k.dtype) == "torch.uint8" else float(k.element_size())
 
 
+def window_plan(q, k_pages, pool: str) -> dict:
+    """Kernels A's and C's launch plan for these operands (q [B, S, ...] or
+    [T, ...] of C, whose plan takes R and tq: the caller passes them as q)."""
+    import torch
+
+    from githubrepostorag_tpu_torch.ops.fused_decode import _plan_window
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    b, s, n_q, hd = q.shape
+    return _plan_window(b, s, n_q, k_pages.shape[0], hd, k_pages.shape[2], n_sm,
+                        route="wgmma" if q.dtype == torch.bfloat16 else "fma",
+                        pool=pool)._asdict()
+
+
 def measure_kernel_a(case, timed: bool) -> dict:
     import torch
     import torch.nn.functional as F
@@ -337,7 +357,6 @@ def measure_kernel_a(case, timed: bool) -> dict:
     res = agreement(out, ref)
     if not timed:
         return res
-    res["ms"] = time_ms(lambda: fused_window_attention(*args), 20)
     res["plain_ms"] = time_ms(lambda: fused_window_attention_ref(*args), 3, warmup=1)
     # yardstick: one SDPA call over K/V gathered (and dequantized) beforehand
     k, v = gather_kv(case["k"], case["v"], case["bt"], case.get("ks"), case.get("vs"),
@@ -348,8 +367,11 @@ def measure_kernel_a(case, timed: bool) -> dict:
     tot = torch.tensor(total, device=k.device)
     mask = (kv_pos[None, None] <= q_pos[:, :, None]) & (kv_pos[None, None] < tot[:, None, None])
     qs, ks, vs = case["q"].transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, attn_mask=mask[:, None], enable_gqa=True), 20)
+    res.update(device_timing(lambda: fused_window_attention(*args),
+                             lambda: F.scaled_dot_product_attention(
+                                 qs, ks, vs, attn_mask=mask[:, None], enable_gqa=True)))
+    res["plan"] = window_plan(case["q"], case["k"], "fp" if "ks" not in case else (
+        "int4" if str(case["k"].dtype) == "torch.uint8" else "int8"))
     keys = sum(min(c + ti + 1, tt) for c, tt in zip(cached, total) for ti in range(s))
     flops = 4.0 * hd * n_q * keys
     nbytes = (case["q"].element_size() * 2 * b * s * n_q * hd
@@ -399,6 +421,31 @@ def launch_decode_plan(case, pps: int, out):
     kernels.check_launch("decode split sweep", err)
 
 
+def device_timing(fn, library_fn) -> dict:
+    """A kernel's times: device time per call from the profiler (by kernel
+    name, ``kernels_us``) as ``ms``; the same calls by CUDA events with the
+    wrapper's host time in them as ``events_ms``; the wrapper's host time per
+    call alone (``host_us``: launches queued back to back, no wait; it
+    encodes the tensor maps at each launch); the library yardstick by device
+    time (``library_ms``) and by events."""
+    import torch
+
+    res = {"events_ms": time_ms(fn, 50)}
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fn()
+    res["host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+    torch.cuda.synchronize()
+    res["kernels_us"] = device_us(fn)
+    res["ms"] = sum(res["kernels_us"].values()) / 1e3
+    res["library_ms"] = sum(device_us(library_fn).values()) / 1e3
+    res["library_events_ms"] = time_ms(library_fn, 50)
+    return res
+
+
 def decode_timing(case, fn, ref, library_fn) -> dict:
     """Kernel B's or F's times: device time per call from the profiler (by
     kernel name, ``kernels_us``) as ``ms``, the same
@@ -411,22 +458,9 @@ def decode_timing(case, fn, ref, library_fn) -> dict:
     from githubrepostorag_tpu_torch.device import sm_count
     from githubrepostorag_tpu_torch.ops.paged_decode import _plan_decode
 
-    res = {"events_ms": time_ms(fn, 50)}
-    # the wrapper's host time per call: launches queued back to back, no
-    # wait; where the device work is shorter (batch 1) this is the host's
-    for _ in range(10):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(200):
-        fn()
-    res["host_us"] = (time.perf_counter() - t0) / 200 * 1e6
-    torch.cuda.synchronize()
-    res["kernels_us"] = device_us(fn)
-    res["ms"] = sum(res["kernels_us"].values()) / 1e3
-    lib = device_us(library_fn)
-    res["library_ms"] = sum(lib.values()) / 1e3
-    res["library_events_ms"] = time_ms(library_fn, 50)
+    # where the device work is shorter than the wrapper's (batch 1), the
+    # events time is the host's
+    res = device_timing(fn, library_fn)
     ps, max_pages = case["k"].shape[-2], case["bt"].shape[1]
     b, n_kv = case["q"].shape[0], case["k"].shape[-4]
     res["plan"] = _plan_decode(b, n_kv, max_pages, ps, sm_count(case["q"].device))._asdict()
@@ -617,7 +651,6 @@ def measure_kernel_c(case, timed: bool) -> dict:
     res = agreement(out, ref)
     if not timed:
         return res
-    res["ms"] = time_ms(lambda: packed_prefill_attention_seg(*args, tq=tq), 20)
     res["plain_ms"] = time_ms(lambda: packed_prefill_attention_ref(*args, tq=tq), 3, warmup=1)
     # yardstick: one SDPA call on the segment-major view, queries scattered
     # and K/V gathered beforehand, with kernel A's yardstick mask
@@ -633,8 +666,15 @@ def measure_kernel_c(case, timed: bool) -> dict:
     tot = (case["cached"] + case["new"]).long()
     mask = (kv_pos[None, None] <= q_pos[:, :, None]) & (kv_pos[None, None] < tot[:, None, None])
     ks, vs = k.transpose(1, 2), v.transpose(1, 2)
-    res["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-        q_seg, ks, vs, attn_mask=mask[:, None], enable_gqa=True), 20)
+    # the wrapper's device time (``wrapper_ms``) includes its row_of scatter
+    # and zeroed output (a few small kernels, named in ``kernels_us``); ``ms``
+    # is kernel C's own
+    res.update(device_timing(lambda: packed_prefill_attention_seg(*args, tq=tq),
+                             lambda: F.scaled_dot_product_attention(
+                                 q_seg, ks, vs, attn_mask=mask[:, None], enable_gqa=True)))
+    res["wrapper_ms"] = res["ms"]
+    res["ms"] = sum(us for name, us in res["kernels_us"].items() if "prefill_kernel" in name) / 1e3
+    res["plan"] = window_plan(q_seg.transpose(1, 2), case["k"], "fp")
     # the bound counts each segment's real tokens, not R * tq
     cached, new = case["cached"].tolist(), case["new"].tolist()
     keys = sum(c + i + 1 for c, n in zip(cached, new) for i in range(n))
@@ -695,6 +735,46 @@ def phase_kernels() -> dict:
                 results[f"fused_window_attention@int{quant}"] = resq
         del main
     results["fused_window_attention"] = res
+
+    # kernels A and C at their tile edges, in both dtypes: group 7's flat
+    # rows across 128-row tiles with a row of no key (total 0) and a cached
+    # length mid-page; 8-key pages at hd 64, int4 there too; C with group 7
+    # at hd 64 over 8-key pages, one segment empty
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for label, args in (
+                ("group 7 S=37 ps 64 totals [137, 20, 0]",
+                 (3, 37, 7, 1, 128, 64, [100, 0, 0], [37, 20, 0])),
+                ("group 7 hd 64 ps 8 S=70", (2, 70, 14, 2, 64, 8, [33, 5], [70, 9]))):
+            b, s_w, n_q, n_kv, hd, ps, cached, new = args
+            case = kernel_a_case(rng, dev, b, s_w, n_q, n_kv, hd, ps, cached=cached, new=new,
+                                 dtype=dtype)
+            check(f"kernel A {label} {name}", measure_kernel_a(case, False))
+            for quant in (8, 4):
+                check(f"kernel A int{quant} {label} {name}",
+                      measure_kernel_a(quantized_case(case, quant), False))
+        check(f"kernel C group 7 hd 64 ps 8 segments [70, 19, 0] {name}", measure_kernel_c(
+            kernel_c_case(rng, dev, 14, 2, 64, 8, cached=[33, 0, 5], new=[70, 19, 0], tq=70,
+                          budget=96, dtype=dtype), False))
+
+    # kernel A at the long-context profile's launch: 8 rows recomputing their
+    # last page (S = 128) over 7936 keys, 28/4 heads, hd 128, ps 128; bf16
+    # pages and int8 pages, timed
+    lc = kernel_a_case(rng, dev, 8, 128, 28, 4, 128, 128, cached=[7808] * 8, new=[128] * 8)
+    results["fused_window_attention@longctx"] = check(
+        "kernel A long context B=8 S=128 cached 7808 bfloat16", measure_kernel_a(lc, True))
+    results["fused_window_attention@int8@longctx"] = check(
+        "kernel A int8 long context B=8 S=128 cached 7808 bfloat16",
+        measure_kernel_a(quantized_case(lc, 8), True))
+    del lc
+    # the launch as the engine makes it: padded prefill's window is the
+    # whole prefill_chunk (512), of which the last page's 128 tokens are new
+    lc = kernel_a_case(rng, dev, 8, 512, 28, 4, 128, 128, cached=[7808] * 8, new=[128] * 8)
+    results["fused_window_attention@longctx512"] = check(
+        "kernel A long context B=8 S=512 (128 new) cached 7808 bfloat16",
+        measure_kernel_a(lc, True))
+    del lc
+    torch.cuda.empty_cache()
 
     # kernel B: rank-5 pools, mid-burst staged tail; full precision at
     # layer 1 of 2, int8 at layer 27 of 28 with a staged tail in the
@@ -2017,6 +2097,16 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tup
 B_KERNEL_NAMES = ("split_kernel", "decode_staged_kernel")
 
 
+def kernel_of(key: str) -> str | None:
+    """Kernel A or C of a profiler key: the tensor-core body (one template,
+    PACKED false for A, true for C), or another checkout's earlier kernels."""
+    if "fused_window_kernel" in key or ("prefill_kernel<" in key and "false>" in key):
+        return "A"
+    if "packed_prefill_kernel" in key or ("prefill_kernel<" in key and "true>" in key):
+        return "C"
+    return None
+
+
 def profile_decode(engine, prompts, sp) -> dict:
     """Where a decode-heavy request batch's time goes: the device's idle
     share (one minus kernel time, from a torch.profiler trace of the card
@@ -2028,6 +2118,8 @@ def profile_decode(engine, prompts, sp) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from githubrepostorag_tpu_torch.ops.fused_decode import fused_window_attention
+    from githubrepostorag_tpu_torch.ops.packed_prefill import packed_prefill_attention_seg
     from githubrepostorag_tpu_torch.ops.paged_decode import paged_attention_decode_staged
 
     prefill = []
@@ -2044,6 +2136,8 @@ def profile_decode(engine, prompts, sp) -> dict:
     res = run()
     wall_ms = (time.monotonic() - t0) * 1e3
     launches0 = paged_attention_decode_staged.launches
+    a_launches0 = fused_window_attention.launches
+    c_launches0 = packed_prefill_attention_seg.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         run()
@@ -2058,6 +2152,12 @@ def profile_decode(engine, prompts, sp) -> dict:
         "busy_ms": busy_ms, "idle_pct": 100 * (1 - busy_ms / wall_ms),
         "kernel_b_ms": b_ms,
         "kernel_b_launches": paged_attention_decode_staged.launches - launches0,
+        "kernel_a_ms": sum(e.self_device_time_total for e in kernels
+                           if kernel_of(e.key) == "A") / 1e3,
+        "kernel_a_launches": fused_window_attention.launches - a_launches0,
+        "kernel_c_ms": sum(e.self_device_time_total for e in kernels
+                           if kernel_of(e.key) == "C") / 1e3,
+        "kernel_c_launches": packed_prefill_attention_seg.launches - c_launches0,
         "tpot_ms_p50": 1e3 * sorted(r.decode_time_s / (len(r.output_tokens) - 1)
                                     for r in res)[len(res) // 2],
         "prefill_tokens_per_call": prefill,
@@ -2065,7 +2165,9 @@ def profile_decode(engine, prompts, sp) -> dict:
     log(f"profile: {len(prompts)} rows x {sp.max_tokens} tokens, wall {wall_ms:.1f} ms unprofiled "
         f"({prof_wall_ms:.1f} ms profiled), device busy {busy_ms:.1f} ms, idle "
         f"{stats['idle_pct']:.1f}% of the unprofiled wall; kernel B {b_ms:.2f} ms over "
-        f"{stats['kernel_b_launches']} launches; TPOT p50 {stats['tpot_ms_p50']:.2f} ms; "
+        f"{stats['kernel_b_launches']} launches; kernel A {stats['kernel_a_ms']:.2f} ms over "
+        f"{stats['kernel_a_launches']} launches; kernel C {stats['kernel_c_ms']:.2f} ms over "
+        f"{stats['kernel_c_launches']} launches; TPOT p50 {stats['tpot_ms_p50']:.2f} ms; "
         f"prefill tokens per call {prefill}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
@@ -2211,6 +2313,18 @@ def main() -> int:
         if name == "int4_matmul":
             entry["launches_by_loader"] = {
                 k: runs["int4"]["launches"][f"{name}@{k}"] for k in ("tma", "cp_async", "f32")}
+        if name in (a, c):  # the launch plan of the timed case; the wrapper's host time
+            entry["plan"] = kres[name]["plan"]
+            entry["host_us"] = kres[name]["host_us"]
+        if name == a:
+            # the long-context profile's launch, alone and in the profile
+            entry["long_context"] = {
+                pool: {"launches": longctx[run]["kernel_a_launches"],
+                       "profile_ms": longctx[run]["kernel_a_ms"],
+                       **{k: kres[key][k] for k in keys + ("host_us",)}}
+                for pool, run, key in (("fp", "bf16", a + "@longctx"),
+                                       ("int8", "kv8", a + "@int8@longctx"),
+                                       ("fp_window512", "bf16", a + "@longctx512"))}
         if name in ("paged_attention_decode_staged", "paged_attention_decode"):
             # the split of the timed cases: 4 kv heads, 64 pages of 128 keys
             entry["plan"] = {f"B={bb}": _plan_decode(bb, 4, 64, 128, n_sm)._asdict()

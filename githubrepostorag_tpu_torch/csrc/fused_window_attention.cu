@@ -14,22 +14,25 @@
 // work is ~4 * hd FLOPs per (query, key) pair against 2 * hd * 2 bytes of K/V
 // per key (1 byte per element for int8 pools, half a byte for int4) shared
 // by the 7 * S queries of a kv head, so it sits far above the H100's ~295
-// FLOP/byte ridge: operations bound it.  This first version runs the
-// products on the CUDA cores in f32 (no tensor cores), so it is bound by
-// shared-memory operand traffic of the f32 FMA loops, well below the card's
-// bf16 tensor-core peak.  wgmma / TMA pipelining is later work.
+// FLOP/byte ridge: operations bound it.
 //
 // Design: the TPU kernel kept a [group, S, hd] f32 accumulator in VMEM per
 // (row, kv head); at S = 512, group 7 that is 1.8 MB, eight times a block's
-// shared memory.  Here the block body of window_attention.cuh tiles the
-// flat (window position, group member) rows 64 to a block over the grid
-// (row tiles, kv heads, batch rows).  Pool element types are a template
-// parameter apart from the query type: int8 codes and int4 nibbles are
-// widened (nibbles sign-extended) into the f32 shared-memory tile as they
-// load, the key's page scale is folded into its score and the value's into
-// the value row, as the TPU kernel applies them.  Rows with total == 0
-// (bucket padding) run no tile and write zeros.
+// shared memory.  Here the flat (window position, group member) rows of one
+// kv head are tiled over the grid (row tiles, kv heads, batch rows), and the
+// route is chosen by q's dtype:
+//   - bf16 queries (the engine's path): prefill_attention.cuh's tensor-core
+//     body, 128 rows a block, K/V through a TMA ring, both products on
+//     wgmma, quantized pages widened to bf16 in shared memory, longest
+//     causal walks first;
+//   - f32 queries (the checking path, held to 1e-5): window_attention.cuh's
+//     CUDA-core body, 64 rows a block, pool elements widened to f32 as they
+//     load.
+// A shape either route refuses returns an error before any launch; nothing
+// falls back to the other route.  Rows with total == 0 (bucket padding) run
+// no tile and write zeros.
 
+#include "prefill_attention.cuh"
 #include "window_attention.cuh"
 
 namespace {
@@ -110,14 +113,26 @@ extern "C" int fused_window_attention_launch(
     float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B == 0 || S == 0) return 0;
-#define PORT_LAUNCH(T, HD)                                                           \
-  return launch_pool<T, HD>(pool, q, k_pages, v_pages, out, block_tables, cached_lens, \
-                            new_lens, k_scales, v_scales, B, S, n_q, n_kv, num_pages,  \
-                            page_size, max_pages, scale, st)
-  if (dtype == DTYPE_BF16 && head_dim == 128) PORT_LAUNCH(__nv_bfloat16, 128);
-  if (dtype == DTYPE_BF16 && head_dim == 64) PORT_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == DTYPE_F32 && head_dim == 128) PORT_LAUNCH(float, 128);
-  if (dtype == DTYPE_F32 && head_dim == 64) PORT_LAUNCH(float, 64);
+  if (dtype == DTYPE_BF16) {
+    const prefill::Launch a{q, k_pages, v_pages, out, block_tables, cached_lens, new_lens,
+                            nullptr, k_scales, v_scales, B, S, n_q, n_kv, num_pages,
+                            page_size, max_pages, scale};
+#define PORT_LAUNCH(P, HD) return prefill::launch<P, HD, false>(a, st)
+    if (head_dim == 128 && pool == POOL_FP) PORT_LAUNCH(__nv_bfloat16, 128);
+    if (head_dim == 128 && pool == POOL_INT8) PORT_LAUNCH(int8_t, 128);
+    if (head_dim == 128 && pool == POOL_INT4) PORT_LAUNCH(uint8_t, 128);
+    if (head_dim == 64 && pool == POOL_FP) PORT_LAUNCH(__nv_bfloat16, 64);
+    if (head_dim == 64 && pool == POOL_INT8) PORT_LAUNCH(int8_t, 64);
+    if (head_dim == 64 && pool == POOL_INT4) PORT_LAUNCH(uint8_t, 64);
+#undef PORT_LAUNCH
+    return (int)cudaErrorInvalidValue;
+  }
+#define PORT_LAUNCH(HD)                                                                \
+  return launch_pool<float, HD>(pool, q, k_pages, v_pages, out, block_tables, cached_lens, \
+                                new_lens, k_scales, v_scales, B, S, n_q, n_kv, num_pages,  \
+                                page_size, max_pages, scale, st)
+  if (dtype == DTYPE_F32 && head_dim == 128) PORT_LAUNCH(128);
+  if (dtype == DTYPE_F32 && head_dim == 64) PORT_LAUNCH(64);
 #undef PORT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

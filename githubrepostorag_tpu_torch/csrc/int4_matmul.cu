@@ -240,14 +240,6 @@ __device__ __forceinline__ uint2 lds_bf2_split(const uint8_t* p) {
   return make_uint2(__byte_perm(v, 0, 0x1010), __byte_perm(v, 0, 0x3232));
 }
 
-// pin register operands in place: the compiler may not move their
-// definitions or uses across this point
-template <int N>
-__device__ __forceinline__ void fence_operands(float* d) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // Loader warpgroup, cp.async route: one step's x slots, q rows and s / zs
 // rows into a stage, zeros past the edges; every thread arrives twice on
 // `full` (once now, once when its copies land).
@@ -367,7 +359,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
     const int m0 = (t % p.m_tiles) * BM, n0 = (t / p.m_tiles) * BN;
 #pragma unroll
     for (int i = 0; i < BM / 2; ++i) acc[i] = 0.f;
-    fence_operands<BM / 2>(acc);
+    hopper::fence_regs<BM / 2>(acc);
 
     // One wgmma group: byte rows 16*pi .. 16*pi + 15 for pi = p0, p0 + 1,
     // their low nibbles (slices p0, p0 + 1) and high nibbles (slices p0 +
@@ -451,7 +443,7 @@ __global__ void __launch_bounds__(GEMM_THREADS, 1)
       for (int step = 0; step < n_steps; ++step) step_fn(step, a0, a1);
     }
     hopper::wgmma_wait<0>();
-    fence_operands<BM / 2>(acc);
+    hopper::fence_regs<BM / 2>(acc);
     __syncwarp();
     if (lane == 0) hopper::mbar_arrive(&empty_bar[(it - 1) % C::STAGES]);
 

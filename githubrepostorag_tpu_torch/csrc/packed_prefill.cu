@@ -11,23 +11,25 @@
 //
 // What bounds it on this card: the same work as kernel A per real token --
 // ~4 * hd FLOPs per (query, key) pair over 2 * hd * 2 bytes of K/V per key
-// shared by a segment's 7 * new queries -- so operations bound it, and this
-// first version is bound, like A, by the f32 FMA loops on the CUDA cores.
+// shared by a segment's 7 * new queries -- so operations bound it.
 //
 // Design: the TPU kernel needs rectangular BlockSpec tiles, so its wrapper
 // scatters the packed queries into a segment-major [R * tq] view, runs the
 // kernel there, and gathers the outputs back: two passes over
-// [R * tq, n_q, hd] per layer, with every segment's padding up to tq
-// computed.  Here the kernel reads the packed q [T, n_q, hd] and writes the
-// packed out [T, n_q, hd] directly.  The segment-major view exists only as
-// an int32 index row_of[r * tq + i] = packed token of segment r's i-th new
-// token (the inverse of _segment_scatter_indices), which the wrapper builds
-// with one scatter of T integers on the device.  Grid (row tiles, kv heads,
+// [R * tq, n_q, hd] per layer, with every segment's padding computed.  Here
+// the kernel reads the packed q [T, n_q, hd] and writes the packed out
+// [T, n_q, hd] directly.  The segment-major view exists only as an int32
+// index row_of[r * tq + i] = packed token of segment r's i-th new token (the
+// inverse of _segment_scatter_indices), which the wrapper builds with one
+// scatter of T integers on the device.  Grid (row tiles, kv heads,
 // segments); a tile past group * new_lens[r] exits at once, so a segment
-// costs its real tokens only.  The block body is kernel A's
-// (window_attention.cuh).  Padding tokens are never written: the wrapper
-// hands the kernel a zeroed output.
+// costs its real tokens only.  The block bodies are kernel A's, chosen by
+// q's dtype the same way: bf16 queries take prefill_attention.cuh's
+// tensor-core body, f32 queries window_attention.cuh's CUDA-core body.
+// Padding tokens are never written: the wrapper hands the kernel a zeroed
+// output.
 
+#include "prefill_attention.cuh"
 #include "window_attention.cuh"
 
 namespace {
@@ -88,14 +90,20 @@ extern "C" int packed_prefill_launch(
     int head_dim, int max_pages, int dtype, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (R == 0 || tq == 0) return 0;
-#define PORT_LAUNCH(T, HD)                                                           \
-  return (int)launch<T, HD>(q, k_pages, v_pages, out, block_tables, cached_lens,     \
-                            new_lens, row_of, R, tq, n_q, n_kv, num_pages, page_size, \
-                            max_pages, scale, st)
-  if (dtype == DTYPE_BF16 && head_dim == 128) PORT_LAUNCH(__nv_bfloat16, 128);
-  if (dtype == DTYPE_BF16 && head_dim == 64) PORT_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == DTYPE_F32 && head_dim == 128) PORT_LAUNCH(float, 128);
-  if (dtype == DTYPE_F32 && head_dim == 64) PORT_LAUNCH(float, 64);
+  if (dtype == DTYPE_BF16) {
+    const prefill::Launch a{q, k_pages, v_pages, out, block_tables, cached_lens, new_lens,
+                            row_of, nullptr, nullptr, R, tq, n_q, n_kv, num_pages,
+                            page_size, max_pages, scale};
+    if (head_dim == 128) return prefill::launch<__nv_bfloat16, 128, true>(a, st);
+    if (head_dim == 64) return prefill::launch<__nv_bfloat16, 64, true>(a, st);
+    return (int)cudaErrorInvalidValue;
+  }
+#define PORT_LAUNCH(HD)                                                             \
+  return (int)launch<float, HD>(q, k_pages, v_pages, out, block_tables, cached_lens, \
+                                new_lens, row_of, R, tq, n_q, n_kv, num_pages, page_size, \
+                                max_pages, scale, st)
+  if (dtype == DTYPE_F32 && head_dim == 128) PORT_LAUNCH(128);
+  if (dtype == DTYPE_F32 && head_dim == 64) PORT_LAUNCH(64);
 #undef PORT_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

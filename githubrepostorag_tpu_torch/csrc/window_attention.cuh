@@ -1,6 +1,9 @@
-// The block body shared by kernel A (fused_window_attention.cu) and kernel C
-// (packed_prefill.cu): flash attention of a window of query positions of one
-// kv head against the pages of one block table, causal from a cached base.
+// The CUDA-core block body of kernels A (fused_window_attention.cu) and C
+// (packed_prefill.cu) for f32 queries: the checking path, held to 1e-5
+// against the plain versions, which bf16 tensor cores cannot meet.  bf16
+// queries take prefill_attention.cuh's tensor-core body.  Flash attention
+// of a window of query positions of one kv head against the pages of one
+// block table, causal from a cached base.
 //
 // The (window position t, group member g) pairs of one kv head form one flat
 // row index rr = t * group + g (any group size, 7 included), tiled WIN_ROWS

@@ -15,13 +15,20 @@ float32, as the TPU kernel applies them.
 ``fused_window_attention`` launches the hand-written Hopper kernel
 ``csrc/fused_window_attention.cu`` for CUDA tensors and runs
 ``fused_window_attention_ref``, the plain PyTorch version, for CPU tensors.
+On the card the route follows q's dtype (``_plan_window``): bf16 queries
+run the tensor-core body (``csrc/prefill_attention.cuh``), f32 queries the
+CUDA-core checking body (``csrc/window_attention.cuh``); a shape the plan
+refuses raises before any launch.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from githubrepostorag_tpu_torch import kernels
+from githubrepostorag_tpu_torch.device import sm_count
 from githubrepostorag_tpu_torch.ops.paged_attention import gather_kv
 
 NEG_INF = -1e30
@@ -30,6 +37,78 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 # pool element codes of the C entry points (csrc/common.cuh)
 POOL_CODES = {"fp": 0, "int8": 1, "int4": 2}
+
+# the two block bodies' geometry: csrc/prefill_attention.cuh (tensor cores,
+# bf16 queries) and csrc/window_attention.cuh (CUDA cores, f32 queries)
+WINDOW_TILE_KEYS = 64  # keys per ring stage of the tensor-core body
+WINDOW_STAGES = {"fp": 4, "int8": 3, "int4": 3}  # its ring depth by pool branch
+WINDOW_WIDE_STAGES = 4  # quantized pools: bf16 stages the loader warpgroup widens into
+# two consumer warpgroups and two loader warpgroups at up to 128 registers a thread
+_WGMMA_ROWS, _WGMMA_THREADS, _WGMMA_REGS = 128, 512, 128
+_FMA_ROWS, _FMA_THREADS, _FMA_KEYS = 64, 256, 32
+# an H100 SM's threads and registers, and a block's shared memory
+_SM_THREADS, _SM_REGS, _SM_SMEM = 2048, 65536, 232448
+
+
+class WindowPlan(NamedTuple):
+    route: str  # "wgmma" (bf16 queries, tensor cores) or "fma" (f32 queries, CUDA cores)
+    rows_per_block: int  # flat (window position, group member) rows of one kv head
+    grid: tuple[int, int, int]  # (row tiles, n_kv, B or R)
+    longest_first: bool  # grid.x runs the row tiles in reverse: longest causal walk first
+    stages: int  # K/V ring depth (the CUDA-core body has none)
+    smem_bytes: int  # dynamic shared memory a block
+    blocks_per_sm: int
+    waves: float  # blocks over what the card holds at once
+
+
+def _plan_window(b: int, s: int, n_q: int, n_kv: int, hd: int, page_size: int,
+                 n_sm: int = 132, route: str = "wgmma", pool: str = "fp") -> WindowPlan:
+    """Kernels A's and C's launch from static shapes only: ``b`` rows (A)
+    or segments (C), ``s`` window positions (A's S, C's tq), heads, head
+    dim, page size, SM count, the route (q's dtype) and the pool branch.
+    No row length is read: a tile past a row's real tokens exits on the
+    card.  Raises on what the kernels do not take: head dims other than 64
+    and 128, n_q not a multiple of n_kv, page sizes that are neither a
+    multiple of 64 nor a multiple of 8 dividing 64 (a ring stage holds 64
+    keys of whole pages, as kernel B's), an unknown route or pool.
+
+    wgmma: 128 rows a block (two consumer warpgroups of 64), one block an
+    SM (512 threads at up to 128 registers fill its register file), a ring
+    of ``WINDOW_STAGES[pool]`` stages of 64 K and 64 V rows as the pool holds them,
+    the block's q rows, and for quantized pools ``WINDOW_WIDE_STAGES`` bf16
+    stages that the loader warpgroup widens the codes into.  fma: 64 rows a block, f32 tiles of q, 32 keys and the
+    probabilities; blocks an SM by shared memory."""
+    t = WINDOW_TILE_KEYS
+    _require_plan(route in ("wgmma", "fma"), f"route {route!r}")
+    _require_plan(pool in POOL_CODES, f"pool {pool!r}")
+    _require_plan(hd in _HEAD_DIMS, f"head_dim {hd} not in {_HEAD_DIMS}")
+    _require_plan(n_kv >= 1 and n_q >= n_kv and n_q % n_kv == 0,
+                  f"n_q {n_q} not a multiple of n_kv {n_kv}")
+    _require_plan(page_size > 0 and (page_size % t == 0 or (t % page_size == 0
+                                                            and page_size % 8 == 0)),
+                  f"page size {page_size}: a multiple of {t}, or 8..{t} dividing {t}")
+    _require_plan(b >= 0 and s >= 1, f"B {b}, S {s}")
+    rows_total = (n_q // n_kv) * s
+    if route == "wgmma":
+        rows, stages = _WGMMA_ROWS, WINDOW_STAGES[pool]
+        row_bytes = {"fp": 2 * hd, "int8": hd, "int4": hd // 2}[pool]
+        widened = 0 if pool == "fp" else WINDOW_WIDE_STAGES * 2 * t * 2 * hd
+        smem = 1024 + stages * 2 * t * row_bytes + rows * hd * 2 + widened
+        per_sm = _SM_REGS // (_WGMMA_THREADS * _WGMMA_REGS)
+    else:
+        rows, stages = _FMA_ROWS, 0
+        kt = _FMA_KEYS
+        smem = 4 * (rows * (hd + 1) + kt * (hd + 1) + kt * hd + rows * (kt + 1) + kt)
+        per_sm = min(_SM_THREADS // _FMA_THREADS, _SM_SMEM // smem)
+    grid = (-(-rows_total // rows), n_kv, b)
+    blocks = grid[0] * grid[1] * grid[2]
+    return WindowPlan(route, rows, grid, route == "wgmma", stages, smem, per_sm,
+                      blocks / (n_sm * per_sm))
+
+
+def _require_plan(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"_plan_window: {msg}")
 
 
 def fused_window_attention_ref(q_win, k_pages, v_pages, block_tables, cached_lens,
@@ -109,6 +188,8 @@ def fused_window_attention(q_win, k_pages, v_pages, block_tables, cached_lens, n
              "cached_lens / new_lens must be [B] int32")
     _require(all(x.data_ptr() % 16 == 0 for x in (q_win, k_pages, v_pages)),
              "q and pools must be 16-byte aligned")
+    _plan_window(b, s, n_q, n_kv, hd, page_size, sm_count(q_win.device),
+                 route="wgmma" if q_win.dtype == torch.bfloat16 else "fma", pool=kind)
     out = torch.empty_like(q_win)
     stream = torch.cuda.current_stream(q_win.device).cuda_stream
     err = kernels.launcher("fused_window_attention")(

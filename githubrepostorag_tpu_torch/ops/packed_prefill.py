@@ -22,7 +22,8 @@ Returns [T, n_q, hd] in q.dtype.
 ``packed_prefill_attention`` routes as the JAX function does: quantized
 pools to kernel A (``fused_decode.fused_packed_attention``), full-precision
 pools to kernel C (``packed_prefill_attention_seg``, the hand-written Hopper
-kernel ``csrc/packed_prefill.cu``), and with ``use_kernels=False`` to
+kernel ``csrc/packed_prefill.cu``: kernel A's bodies and plan,
+``fused_decode._plan_window``), and with ``use_kernels=False`` to
 ``packed_prefill_attention_ref``, the XLA path of the JAX function.
 """
 
@@ -31,8 +32,9 @@ from __future__ import annotations
 import torch
 
 from githubrepostorag_tpu_torch import kernels
+from githubrepostorag_tpu_torch.device import sm_count
 from githubrepostorag_tpu_torch.ops.attention import dense_attention
-from githubrepostorag_tpu_torch.ops.fused_decode import fused_packed_attention
+from githubrepostorag_tpu_torch.ops.fused_decode import _plan_window, fused_packed_attention
 from githubrepostorag_tpu_torch.ops.paged_attention import gather_kv
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -119,6 +121,8 @@ def packed_prefill_attention_seg(q, k_pages, v_pages, block_tables, cached_lens,
     _require(tq >= 1, f"tq {tq} must be >= 1")
     _require(all(x.data_ptr() % 16 == 0 for x in (q, k_pages, v_pages)),
              "q and pools must be 16-byte aligned")
+    _plan_window(r, tq, n_q, n_kv, hd, page_size, sm_count(q.device),
+                 route="wgmma" if q.dtype == torch.bfloat16 else "fma")
     dest = _segment_scatter_indices(seg_ids, positions, cached_lens, tq).long()
     # row_of[r * tq + i]: packed token of segment r's i-th new token; the
     # entry past the view takes the padding tokens' writes

@@ -508,3 +508,235 @@ def test_split_combine_matches_kernel_b_and_pallas(quant):
         jnp.asarray([staged_len], jnp.int32), jnp.asarray([layer], jnp.int32),
         *(() if not quant else (jnp.asarray(ks), jnp.asarray(vs))), interpret=True))
     np.testing.assert_allclose(emu.numpy(), j_out, atol=2e-5, rtol=0)
+
+
+# ---- kernels A and C on the card: the prefill plan and its arithmetic -----
+#
+# bf16 queries run the tensor-core body (csrc/prefill_attention.cuh): flat
+# (window position, group member) rows 128 to a block, 64-key stages masked
+# only where they reach past the block's first row's bound, the online
+# softmax in the log2 domain, P entering both products as bf16 p_hi + p_lo,
+# quantized codes widened to bf16 with the K scale on the scores and the V
+# scale on p.  f32 queries run the CUDA-core body.  ``_plan_window`` is pure
+# Python; the arithmetic is emulated here in plain float32 torch and held to
+# the Pallas kernels in interpret mode.
+
+import re  # noqa: E402
+from pathlib import Path  # noqa: E402
+
+from githubrepostorag_tpu_torch.ops.fused_decode import (  # noqa: E402
+    WINDOW_STAGES,
+    WINDOW_TILE_KEYS,
+    WINDOW_WIDE_STAGES,
+    _plan_window,
+)
+
+SMEM_LIMIT = 232448  # a block's shared memory on an H100
+
+
+@pytest.mark.parametrize("args,want", [
+    # the long-context launch: 8 rows x S 128 x group 7 = 7 tiles of 128 rows
+    ((8, 128, 28, 4, 128, 128, "wgmma", "fp"), (128, (7, 4, 8), True, 4, 164864)),
+    ((8, 128, 28, 4, 128, 128, "wgmma", "int8"), (128, (7, 4, 8), True, 3, 214016)),
+    ((4, 512, 28, 4, 128, 128, "wgmma", "int4"), (128, (28, 4, 4), True, 3, 189440)),
+    ((3, 5, 4, 2, 64, 8, "wgmma", "fp"), (128, (1, 2, 3), True, 4, 82944)),
+    ((3, 5, 4, 2, 64, 8, "fma", "fp"), (64, (1, 2, 3), False, 0, 41728)),
+    ((8, 128, 28, 4, 128, 128, "fma", "int8"), (64, (14, 4, 8), False, 0, 74496)),
+    ((5, 512, 28, 4, 128, 128, "wgmma", "fp"), (128, (28, 4, 5), True, 4, 164864)),  # C: R, tq
+])
+def test_window_plan_tiles_flat_rows(args, want):
+    b, s, n_q, n_kv, hd, ps, route, pool = args
+    plan = _plan_window(b, s, n_q, n_kv, hd, ps, 132, route=route, pool=pool)
+    assert (plan.rows_per_block, plan.grid, plan.longest_first, plan.stages,
+            plan.smem_bytes) == want
+    assert plan.grid[0] * plan.rows_per_block >= (n_q // n_kv) * s  # every flat row tiled
+    assert (plan.grid[0] - 1) * plan.rows_per_block < (n_q // n_kv) * s  # no empty tile
+    assert plan.waves == pytest.approx(plan.grid[0] * plan.grid[1] * plan.grid[2]
+                                       / (132 * plan.blocks_per_sm))
+
+
+@pytest.mark.parametrize("route", ["wgmma", "fma"])
+@pytest.mark.parametrize("pool", ["fp", "int8", "int4"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_window_plan_fits_one_block(route, pool, hd):
+    """Every branch's shared memory fits a block, and the tensor-core body
+    holds one block an SM (512 threads at 128 registers)."""
+    plan = _plan_window(4, 512, 28, 4, hd, 128, route=route, pool=pool)
+    assert plan.smem_bytes <= SMEM_LIMIT
+    assert plan.blocks_per_sm == (1 if route == "wgmma" else min(8, SMEM_LIMIT // plan.smem_bytes))
+
+
+def test_window_plan_mirrors_the_kernel():
+    """The plan's geometry is the kernel's: the constants of
+    csrc/prefill_attention.cuh, read from the source."""
+    src = (Path(__file__).resolve().parents[1] / "githubrepostorag_tpu_torch" / "csrc"
+           / "prefill_attention.cuh").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("KT") == WINDOW_TILE_KEYS
+    assert const("ROWS") == _plan_window(1, 1, 1, 1, 64, 64).rows_per_block
+    assert const("WIDE_STAGES") == WINDOW_WIDE_STAGES
+    quant, fp = re.search(r"STAGES_OF = QUANT \? (\d+) : (\d+);", src).groups()
+    assert (int(fp), int(quant)) == (WINDOW_STAGES["fp"], WINDOW_STAGES["int8"])
+    assert WINDOW_STAGES["int4"] == WINDOW_STAGES["int8"]
+    assert (const("LOADER_WGS") + 2) * 128 == 512
+
+
+def test_window_plan_takes_shapes_only():
+    assert all(p.annotation in ("int", "str")
+               for p in inspect.signature(_plan_window).parameters.values())
+    q = torch.empty((8, 128, 28, 128), device="meta", dtype=torch.bfloat16)
+    pool = torch.empty((4, 521, 128, 128), device="meta", dtype=torch.bfloat16)
+    assert _plan_window(q.shape[0], q.shape[1], q.shape[2], pool.shape[0], q.shape[3],
+                        pool.shape[2]) == _plan_window(8, 128, 28, 4, 128, 128)
+
+
+@pytest.mark.parametrize("bad", [
+    dict(page_size=4), dict(page_size=12), dict(page_size=96), dict(page_size=0),
+    dict(hd=32), dict(hd=96), dict(hd=256), dict(n_q=30), dict(pool="int2"),
+    dict(route="mma"), dict(s=0),
+])
+def test_window_plan_refuses(bad):
+    kw = dict(b=4, s=16, n_q=28, n_kv=4, hd=128, page_size=64, route="wgmma", pool="fp")
+    kw.update(bad)
+    with pytest.raises(ValueError, match="_plan_window"):
+        _plan_window(kw["b"], kw["s"], kw["n_q"], kw["n_kv"], kw["hd"], kw["page_size"],
+                     route=kw["route"], pool=kw["pool"])
+
+
+def _widened(pages, quant):
+    """Pool pages as the products read them, in float32: bf16 values, or
+    int8 codes, or int4 nibble planes sign-extended (component c in byte c's
+    low nibble, c + hd / 2 in its high nibble) -- all exact in bf16."""
+    if quant == 4:
+        x = pages.to(torch.int32)
+        return torch.cat([((x & 0xF) ^ 8) - 8, ((x >> 4) ^ 8) - 8], dim=-1).float()
+    return pages.float()
+
+
+def _prefill_tiles(q, kp, vp, bt, cached, new, windows, ks=None, vs=None, quant=0):
+    """Kernels A's and C's tensor-core arithmetic in plain float32 torch.
+    ``windows[z]`` lists the token (row of q [T, n_q, hd]) of each window
+    position of row or segment z.  Per (z, kv head), the flat rows rr =
+    t * group + g are cut into 128-row tiles; a tile walks 64-key stages up
+    to its last row's causal bound, masking only stages that reach past its
+    first row's bound; scores take scale * log2(e) (times the page's K
+    scale) and the online softmax runs in the log2 domain; p times the
+    page's V scale enters P V as bf16 p_hi + p_lo.  Returns out [T, n_q, hd]
+    (0 at tokens no window holds) and the stages walked, and masked."""
+    t_all, n_q, hd = q.shape
+    n_kv, _, ps, _ = kp.shape
+    group, log2e = n_q // n_kv, 1.4426950408889634
+    rows, keys = _plan_window(1, 1, n_q, n_kv, hd, ps).rows_per_block, WINDOW_TILE_KEYS
+    out = torch.zeros((t_all, n_q, hd))
+    walked = masked_stages = 0
+    for z, toks in enumerate(windows):
+        total = int(cached[z]) + int(new[z])
+        rows_total = group * len(toks)
+        for h in range(n_kv):
+            for r0 in range(0, rows_total, rows):
+                rr = torch.arange(r0, min(r0 + rows, rows_total))
+                t, g = rr // group, rr % group
+                qr = q[torch.as_tensor(toks)[t], h * group + g].float()
+                q_pos = int(cached[z]) + t
+                kv_end = min(total, int(cached[z]) + int(t[-1]) + 1, bt.shape[1] * ps)
+                full_end = min(kv_end, int(cached[z]) + int(t[0]) + 1)
+                m = torch.full((len(rr),), NEG)
+                l, acc = torch.zeros(len(rr)), torch.zeros((len(rr), hd))
+                for k0 in range(0, kv_end, keys):
+                    walked += 1
+                    pos = torch.arange(k0, min(k0 + keys, kv_end))
+                    pages = bt[z, pos // ps].long()
+                    k = _widened(kp[h, pages, pos % ps], quant)
+                    v = _widened(vp[h, pages, pos % ps], quant)
+                    mult = (1.0 / hd ** 0.5) * log2e * (ks[h, pages] if quant else 1.0)
+                    x = (qr @ k.T) * mult
+                    if k0 + keys > full_end:  # a stage on the diagonal or past total
+                        masked_stages += 1
+                        ok = pos[None, :] <= q_pos[:, None]
+                    else:
+                        ok = torch.ones_like(x, dtype=torch.bool)
+                    x = torch.where(ok, x, NEG)
+                    mn = torch.maximum(m, x.max(dim=1).values)
+                    a = torch.exp2(m - mn)
+                    p = torch.where(ok, torch.exp2(x - mn[:, None]), 0.0)
+                    l = l * a + p.sum(dim=1)
+                    pv = p * (vs[h, pages] if quant else 1.0)
+                    hi = pv.to(torch.bfloat16).float()
+                    lo = (pv - hi).to(torch.bfloat16).float()
+                    acc = acc * a[:, None] + hi @ v + lo @ v
+                    m = mn
+                res = torch.where(l[:, None] > 0, acc / torch.where(l > 0, l, 1.0)[:, None], 0.0)
+                out[torch.as_tensor(toks)[t], h * group + g] = res
+    return out, walked, masked_stages
+
+
+def _window_case(seed, b, s_w, n_q, n_kv, hd, ps, cached, new, quant=0):
+    """bf16-representable queries and pages (the tensor-core route's
+    operands) in float32, shuffled tables over a pool with holes."""
+    rng = np.random.default_rng(seed)
+    total = [c + n for c, n in zip(cached, new)]
+    need = [-(-t // ps) for t in total]
+    num_pages, max_pages = sum(need) + 3, max(1, max(need))
+    perm, at = rng.permutation(num_pages), 0
+    bt = np.zeros((b, max_pages), dtype=np.int32)
+    for i, n in enumerate(need):
+        bt[i, :n] = perm[at:at + n]
+        at += n
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16).float().numpy()  # noqa: E731
+    q = bf(rng.normal(size=(b, s_w, n_q, hd)).astype(np.float32))
+    if quant:
+        (kp, ks), (vp, vs) = (_quant_pages(rng, (n_kv, num_pages, ps, hd), quant)
+                              for _ in range(2))
+    else:
+        kp, vp = (bf(rng.normal(size=(n_kv, num_pages, ps, hd)).astype(np.float32))
+                  for _ in range(2))
+        ks = vs = None
+    return q, kp, vp, bt, np.asarray(cached, np.int32), np.asarray(new, np.int32), ks, vs
+
+
+@pytest.mark.parametrize("name,args,stages", [
+    # group 7: 259 flat rows over 3 tiles, positions cut mid-tile; cached
+    # 100 mid-page (ps 16); a row with total 0 walks nothing
+    ("group7_S37", (3, 37, 7, 1, 64, 16, [100, 0, 0], [37, 20, 0]), (11, 7)),
+    # group 2: 140 rows over 2 tiles; 8-key pages at hd 64, eight a stage
+    ("group2_ps8", (2, 70, 4, 2, 64, 8, [33, 5], [70, 9]), (12, 10)),
+])
+@pytest.mark.parametrize("quant", [0, 8, 4])
+def test_prefill_tiles_match_kernel_a_pallas(name, args, stages, quant):
+    b, s_w, n_q, n_kv, hd, ps, cached, new = args
+    q, kp, vp, bt, cl, nl, ks, vs = _window_case(len(name) + quant, *args, quant=quant)
+    windows = [list(range(z * s_w, (z + 1) * s_w)) for z in range(b)]
+    t = [torch.from_numpy(x) for x in (kp, vp, bt)]
+    scales = {} if not quant else dict(ks=torch.from_numpy(ks), vs=torch.from_numpy(vs))
+    emu, walked, masked = _prefill_tiles(torch.from_numpy(q).reshape(b * s_w, n_q, hd), *t,
+                                         cl, nl, windows, quant=quant, **scales)
+    assert (walked, masked) == stages  # n_kv * stages walked, and masked, over all tiles
+    emu = emu.reshape(b, s_w, n_q, hd)
+    for z, (c, n) in enumerate(zip(cached, new)):
+        if c + n == 0:  # no valid key: exactly 0, never NaN
+            assert not emu[z].any()
+    jargs = [jnp.asarray(x) for x in (q, kp, vp, bt, cl, nl)]
+    jscales = [] if not quant else [jnp.asarray(ks), jnp.asarray(vs)]
+    j_out = np.asarray(j_window(*jargs, *jscales, interpret=True))
+    # float32 in another order: the log2-domain exponent, p_hi + p_lo, and
+    # for quantized pages the V scale on p (the TPU kernel scales the
+    # product), over values up to 127 * scale there: 2e-5 relative too
+    tol = dict(atol=2e-5, rtol=2e-5 if quant else 0)
+    np.testing.assert_allclose(emu.numpy(), j_out, **tol)
+    # and the port's plain version, on CPU tensors
+    ref = fused_window_attention_ref(*(torch.from_numpy(x) for x in (q, kp, vp, bt, cl, nl)),
+                                     *([] if not quant else [torch.from_numpy(ks),
+                                                             torch.from_numpy(vs)]))
+    np.testing.assert_allclose(emu.numpy(), ref.numpy(), **tol)
+
+
+def test_prefill_p_hi_lo_carries_f32():
+    """p_hi + p_lo holds p to ~2**-16 of itself; p_hi alone only to ~2**-9."""
+    p = torch.rand(4096) * torch.exp2(-torch.randint(0, 20, (4096,)).float())
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    assert ((hi + lo - p).abs() <= 2 ** -16 * p).all()
+    assert ((hi - p).abs() > 2 ** -12 * p).any()

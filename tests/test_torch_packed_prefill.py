@@ -119,3 +119,54 @@ def test_fused_packed_attention_quantized_matches_jax(quant):
     routed = tpp.packed_prefill_attention(*t_args, tq=c["tq"], **scales)
     assert torch.equal(routed, t_out)
     assert (tpp.packed_prefill_attention_seg.launches, fused_window_attention.launches) == before
+
+
+# ---- kernel C on the card: the tensor-core body over the packed buffer ----
+
+from tests.test_torch_attention_kernels import _prefill_tiles  # noqa: E402
+
+
+@pytest.mark.parametrize("group,n_kv,cached,new,tq,budget,stages", [
+    # group 7 at hd 64 over 8-key pages: a 70-token chunk resuming mid-page
+    # (490 flat rows, 4 tiles), a fresh one, an empty segment, padding
+    (7, 1, [33, 0, 5], [70, 19, 0], 70, 96, (9, 7)),
+    (2, 2, [13, 0], [6, 2], 6, 10, (4, 4)),
+])
+def test_prefill_tiles_match_kernel_c_pallas(group, n_kv, cached, new, tq, budget, stages):
+    """Kernel C's arithmetic (kernel A's body, tokens through row_of)
+    emulated in float32 on bf16-representable operands, held to the Pallas
+    kernel in interpret mode on live tokens; padding tokens stay 0."""
+    rng = np.random.default_rng(group)
+    hd, ps, r = 64, 8, len(cached)
+    total = [c + n for c, n in zip(cached, new)]
+    need = [-(-t // ps) for t in total]
+    pages = sum(need) + 2
+    perm, at = rng.permutation(pages), 0
+    bt = np.zeros((r, max(need)), dtype=np.int32)
+    for s, n in enumerate(need):
+        bt[s, :n] = perm[at:at + n]
+        at += n
+    seg, pos = [], []
+    for s in range(r):
+        seg += [s] * new[s]
+        pos += list(range(cached[s], cached[s] + new[s]))
+    seg += [r] * (budget - len(seg))
+    pos += [0] * (budget - len(pos))
+    bf = lambda x: torch.from_numpy(x).to(torch.bfloat16).float().numpy()  # noqa: E731
+    q = bf(rng.normal(size=(budget, n_kv * group, hd)).astype(np.float32))
+    kp, vp = (bf(rng.normal(size=(n_kv, pages, ps, hd)).astype(np.float32)) for _ in range(2))
+    c = dict(q=q, kp=kp, vp=vp, bt=bt, cached=np.asarray(cached, np.int32),
+             new=np.asarray(new, np.int32), seg=np.asarray(seg, np.int32),
+             pos=np.asarray(pos, np.int32))
+    # the kernel's token map: window position i of segment s is packed token row_of[s * tq + i]
+    windows = [[next(j for j in range(budget) if seg[j] == s and pos[j] == cached[s] + i)
+                for i in range(new[s])] for s in range(r)]
+    emu, walked, masked = _prefill_tiles(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp), torch.from_numpy(bt),
+        c["cached"], c["new"], windows)
+    assert (walked, masked) == stages
+    live = c["seg"] < r
+    assert not emu[~torch.from_numpy(live)].any()  # padding tokens are never written
+    j_out = np.asarray(jpp.packed_prefill_attention(*_args(c, jnp.asarray), tq=tq,
+                                                    use_pallas=True))
+    np.testing.assert_allclose(emu.numpy()[live], j_out[live], atol=ATOL, rtol=0)
