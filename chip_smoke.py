@@ -4,6 +4,7 @@
     python3 chip_smoke.py                  # every phase, one card
     python3 chip_smoke.py --only kernels   # device, build and kernel phases
     python3 chip_smoke.py --only longctx   # device, build, long-context profiles
+    python3 chip_smoke.py --only int4      # device, build, E's route, the int4 engine
 
 Phases, each raising on failure:
 
@@ -31,8 +32,15 @@ Phases, each raising on failure:
               staged tail alone), 8-key pages at hd 64, fp and int8; timed
               by device time (torch.profiler, per kernel) and by CUDA
               events, and at every other pages-per-split (each held to the
-              plain version).  Kernel E also at group 256 and N % 4 != 0,
-              and the route on the card: groups 64/128/256 take E, 32/48 D.
+              plain version).  Kernel E (the whole W4A8 route: prologue and
+              tensor-core kernel) at every 7B decode shape for M = 1, 8,
+              64 and 256 (timed at 8 and 64: device time of both kernels,
+              with and without programmatic dependent launch, host time a
+              call), at groups 128 and 256, ragged N, 77 rows and groups
+              48 and 16 (its CUDA-core kernel), its prologue's codes, sxn
+              and R bit for bit against quantize_rows on every case and on
+              .5 ties and an all-zero row; and the route on the card:
+              groups 64/128/256 take E, 32/48 D.
               Kernels A and C (bf16: the tensor-core body; f32: the
               CUDA-core one) also at their tile edges (group 7's flat rows
               across 128-row tiles, a row with no key, 8-key pages at hd
@@ -74,7 +82,11 @@ Phases, each raising on failure:
               the card, layer by layer; the model checks again (prefill
               logits through kernel D, decode logits through kernel E),
               then the engine phase again with the int4 weights (A, B, D
-              and E must all launch, every D launch through TMA).
+              and E must all launch, every D launch through TMA, every E
+              launch through the tensor-core kernel; the profile reports
+              E's total, its prologue's by name).  ``--only int4`` runs E's
+              route times and this engine phase alone, also from another
+              checkout of the port (copy this script there).
 7. summary -- one JSON line per kernel list, then the result line.
 
 There is no CPU fallback: without a card the script exits non-zero.
@@ -142,24 +154,34 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, iters: int = 20) -> dict:
+def device_us(fn, iters: int = 20, tries: int = 5) -> dict:
     """Mean device time (us) per call of each kernel ``fn`` launches, by
-    kernel name, from a torch.profiler trace of the card."""
+    kernel name, from a torch.profiler trace of the card.  The trace can
+    come back short (kernel records of whole calls missing, seen on this
+    card's machine): a trace counts only if it holds records and every
+    kernel name's launch count is a whole multiple of ``iters``; else it is
+    taken again, up to ``tries`` times, and then the function raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    out = {}
-    for e in prof.key_averages():
-        if "CUDA" in str(e.device_type) and e.self_device_time_total > 0:
-            name = e.key.split("<")[0].split("(")[0].split("::")[-1].split(" ")[-1]
-            out[name] = out.get(name, 0.0) + e.self_device_time_total / iters
-    return out
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        out, count = {}, {}
+        for e in prof.key_averages():
+            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0:
+                key = e.key.replace("(anonymous namespace)::", "")
+                name = key.split("<")[0].split("(")[0].split("::")[-1].split(" ")[-1]
+                out[name] = out.get(name, 0.0) + e.self_device_time_total / iters
+                count[name] = count.get(name, 0) + e.count
+        if out and all(c >= iters and c % iters == 0 for c in count.values()):
+            return out
+        log(f"device_us: trace {attempt + 1} of {tries} incomplete, launches {count}")
+    raise RuntimeError(f"the profiler lost kernel records in {tries} traces: {count}")
 
 
 def agreement(out, ref) -> dict:
@@ -1103,8 +1125,9 @@ def dequant_bits(w, label: str) -> None:
 
 
 def w4a8_scale(x, w):
-    """T of the W4A8 route: sxn[m] * sum_g |s[g, o] * p[g, m, o]|, the
-    magnitudes of the group terms kernel E adds."""
+    """T of the W4A8 route: sxn[m] * sum_g (|s[g, o] * p[g, m, o]| +
+    |R[m, g] * zs[g, o]|), the magnitudes of the group terms kernel E adds
+    to its two accumulators (acc and zacc), taken 8 groups at a time."""
     import torch
 
     from githubrepostorag_tpu_torch.ops.int4_matmul import quantize_rows
@@ -1115,42 +1138,133 @@ def w4a8_scale(x, w):
     xq, sxn = quantize_rows(x.reshape(m, k))
     xg = xq.reshape(m, n_g, gsz).transpose(0, 1).float()
     pg = w.q.reshape(n_g, gsz // 2, n)
-    nib = torch.cat([pg & 0xF, pg >> 4], dim=1).float()
-    return (sxn * (torch.bmm(xg, nib).abs() * w.s.float()[:, None, :]).sum(dim=0)).reshape(
-        *x.shape[:-1], n)
+    terms = xq.reshape(m, n_g, gsz).sum(-1).float().abs() @ w.zs.float().abs()
+    for g in range(0, n_g, 8):
+        nib = torch.cat([pg[g:g + 8] & 0xF, pg[g:g + 8] >> 4], dim=1).float()
+        terms += (torch.bmm(xg[g:g + 8], nib).abs() * w.s[g:g + 8].float()[:, None, :]).sum(0)
+    return (sxn * terms).reshape(*x.shape[:-1], n)
 
 
-def measure_w4a8(x, w, w_view, out_dtype, timed: bool) -> dict:
-    """Kernel E's route (w4a8_matmul) on ``w_view`` against the same route
-    through w4a8_matmul_ref on ``w``; timed: kernel E alone on prepared
-    activations, its plain version, the whole route, and the yardsticks."""
+def prologue_bits(x, w, out_dtype):
+    """Kernel E on ``w`` with its prologue checked bit for bit: the codes,
+    sxn and R it wrote into the launch's workspace against quantize_rows
+    and the int32 group sums of the same x.  Returns (out, plan)."""
     import torch
 
     from githubrepostorag_tpu_torch.ops import int4_matmul as ops
 
-    out = ops.w4a8_matmul(x, *w_view, out_dtype)
+    m, k = x.numel() // x.shape[-1], x.shape[-1]
+    n_g = w.s.shape[0]
+    gsz = k // n_g
+    out, ws, plan = ops._w4a8_launch(x, *w, out_dtype)
+    torch.cuda.synchronize()
+    xq, sxn, r = ops.w4a8_prologue_views(ws, plan, m, k, gsz)
+    want_q, want_s = ops.quantize_rows(x.reshape(m, k))
+    want_r = want_q.reshape(m, n_g, gsz).sum(-1, dtype=torch.int32)
+    bad = {"codes": int((xq != want_q).sum()), "R": int((r != want_r).sum()),
+           "sxn": int((sxn.view(torch.int32) != want_s.view(torch.int32)).sum())}
+    if any(bad.values()):
+        raise RuntimeError(f"kernel E's prologue differs from quantize_rows ({plan.kernel}, "
+                           f"M={m} K={k} group {gsz}): {bad}")
+    return out, plan
+
+
+def tie_rows(k: int, gen):
+    """Rows of x on exact .5 ties of x * 127 / amax (amax 127: the scale is
+    1; amax 63.5: it is 2), an all-zero row, a row under the 1e-30 amax
+    clamp, and random rows, float32 on the card."""
+    import torch
+
+    x = torch.randn((7, k), generator=gen, device="cuda")
+    half = torch.randint(-126, 126, (2, k), generator=gen, device="cuda").float() + 0.5
+    x[0], x[1] = half[0], half[1] / 2
+    x[0, 0], x[1, 3], x[2] = 127.0, -63.5, 0.0
+    x[3] *= 1e-31
+    x[4] *= 1e4
+    return x
+
+
+def measure_w4a8(x, w, w_view, out_dtype, timed: bool) -> dict:
+    """Kernel E (w4a8_matmul, the whole W4A8 route) on ``w_view`` with its
+    prologue checked bit for bit, and on ``w``, against the plain route
+    ``_w4a8(..., w4a8_matmul_ref)``; both launches must take the plan's
+    kernel.  Timed: the route's device time (prologue and main kernel, by
+    torch.profiler) as ``ms``, with CUDA events, the wrapper's host time,
+    the plain route, the yardsticks, and the bound over the route's bytes
+    (x, q, s, zs, out)."""
+    import torch
+
+    from githubrepostorag_tpu_torch.ops import int4_matmul as ops
+
+    before = dict(ops.w4a8_matmul.launches_by_kernel)
+    out, plan = prologue_bits(x, w_view, out_dtype)
+    out_own = ops.w4a8_matmul(x, *w, out_dtype)
+    took = {key: c - before[key] for key, c in ops.w4a8_matmul.launches_by_kernel.items()
+            if c != before[key]}
+    if took != {plan.kernel: 2}:
+        raise RuntimeError(f"w4a8_matmul launches by kernel {took}, expected {plan.kernel}: 2")
     ref = ops._w4a8(x, *w, out_dtype, ops.w4a8_matmul_ref)
     torch.cuda.synchronize()
     if not torch.isfinite(out).all():
         raise RuntimeError("w4a8_matmul produced non-finite values")
+    if not torch.equal(out, out_own):
+        raise RuntimeError("w4a8_matmul differs between a stacked layer's view and its own copy")
     res = gemm_agreement(out, ref, w4a8_scale(x, w))
+    res["kernel"], res["plan"] = plan.kernel, dict(plan._asdict(), loader=plan.loader)
     if not timed:
         return res
     m, k = x.numel() // x.shape[-1], x.shape[-1]
     n, n_g = w.q.shape[1], w.s.shape[0]
-    xq, _ = ops.quantize_rows(x.reshape(m, k))
-    xg = xq.reshape(m, n_g, k // n_g).transpose(0, 1).contiguous()
-    res["ms"] = time_ms(lambda: ops._w4a8_acc(xg, w_view.q, w_view.s), 50)
-    res["plain_ms"] = time_ms(lambda: ops.w4a8_matmul_ref(xg, w_view.q, w_view.s), 5, warmup=1)
-    res["route_ms"] = time_ms(lambda: ops.w4a8_matmul(x, *w_view, out_dtype), 50)
+    fn = lambda: ops.w4a8_matmul(x, *w_view, out_dtype)  # noqa: E731
     wb = ops.dequant4(*w, x.dtype)
-    res["library_ms"] = time_ms(lambda: torch.matmul(x, wb), 50)
+    res.update(device_timing(fn, lambda: torch.matmul(x, wb)))
     del wb
+    res["prologue_us"] = sum(v for key, v in res["kernels_us"].items() if "prologue" in key)
+    res["plain_ms"] = time_ms(lambda: ops._w4a8(x, *w_view, out_dtype, ops.w4a8_matmul_ref), 5,
+                              warmup=1)
     pack = int4pack_yardstick(x, w)
     res["library_int4pack_ms"] = time_ms(pack, 50) if pack else None
+    out_bytes = 4 if out_dtype == torch.float32 else 2
     res["bound_ms"], res["bound_by"] = bound(
-        2.0 * m * k * n, m * k + k * n / 2 + n_g * n * 2 + m * n * 4, peak=PEAK_INT8_OPS)
+        2.0 * m * k * n, m * k * x.element_size() + k * n / 2 + 2 * n_g * n * 2 + m * n * out_bytes,
+        peak=PEAK_INT8_OPS)
+    res["bound_share"] = res["bound_ms"] / res["ms"]
     return res
+
+
+def w4a8_route_times(gen) -> dict:
+    """w4a8_matmul at the 7B decode shapes (M = 8; wgu and wd also at M =
+    64), bf16 x, random group-64 weights: the route's device time (every
+    kernel it launches, torch.profiler), CUDA events and the wrapper's host
+    time per call.  Uses only w4a8_matmul's signature, so it times another
+    checkout's route too (copy this script there)."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models.quant import quantize_weight4
+    from githubrepostorag_tpu_torch.ops import int4_matmul as ops
+
+    out = {}
+    for name, ms in (("wqkv", (8,)), ("wo", (8,)), ("wgu", (8, 64)), ("wd", (8, 64)),
+                     ("lm_head", (8,))):
+        k, n = Q7B_SHAPES[name]
+        w = quantize_weight4(torch.randn((k, n), generator=gen, device="cuda") * 0.02, GROUP)
+        out_dtype = torch.float32 if name == "lm_head" else torch.bfloat16
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+            fn = lambda: ops.w4a8_matmul(x, *w, out_dtype)  # noqa: E731
+            res = {"events_ms": time_ms(fn, 50)}
+            t0 = time.perf_counter()
+            for _ in range(200):
+                fn()
+            res["host_us"] = (time.perf_counter() - t0) / 200 * 1e6
+            torch.cuda.synchronize()
+            res["kernels_us"] = device_us(fn)
+            res["ms"] = sum(res["kernels_us"].values()) / 1e3
+            out[f"{name}@M{m}"] = res
+        del w
+        torch.cuda.empty_cache()
+    log(f"w4a8 route times: {json.dumps(out)}")
+    return out
 
 
 def phase_int4_kernels(rng) -> dict:
@@ -1184,16 +1298,28 @@ def phase_int4_kernels(rng) -> dict:
                   measure_int4(x, w, w, dtype, False))
             check(f"kernel E small K={k} N={n} M={m} group {gsz} {str(dtype)[6:]}",
                   measure_w4a8(x, w, w, dtype, False))
-    # kernel E at the shapes the route now sends it: group 256 (AutoAWQ
-    # checkpoints), N % 4 == 2 and odd N (byte loads, a ragged last column
-    # tile), weights 4-byte aligned
+    # kernel E off the 7B path: group 256 (AutoAWQ checkpoints) and 128
+    # (int32 partials across stages, 64 rows in two blocks of 32), N % 4 ==
+    # 2 and odd N (the producer warp's own loads, a ragged last column
+    # tile), rows past one block, and groups the route never sends (48, 16:
+    # the CUDA-core kernel); then the prologue bit for bit on .5 ties, an
+    # all-zero row and a row under the amax clamp
     from githubrepostorag_tpu_torch.ops import int4_matmul as ops
     for k, n, m, gsz in ((1024, 4608, 8, 256), (768, 202, 8, 256), (512, 202, 5, 64),
-                         (512, 131, 8, 128)):
+                         (512, 131, 8, 128), (512, 202, 77, 64), (1024, 4608, 64, 128),
+                         (768, 256, 8, 48), (256, 200, 5, 16)):
         w = quantize_weight4(torch.randn((k, n), generator=gen, device="cuda") * 0.02, gsz)
         for dtype in (torch.float32, torch.bfloat16):
-            check(f"kernel E K={k} N={n} M={m} group {gsz} {str(dtype)[6:]}",
-                  measure_w4a8(randx(m, k, dtype), w, w, dtype, False))
+            res = check(f"kernel E K={k} N={n} M={m} group {gsz} {str(dtype)[6:]}",
+                        measure_w4a8(randx(m, k, dtype), w, w, dtype, False))
+            if res["kernel"] != ("mma" if (gsz // 2) % 32 == 0 else "dp4a"):
+                raise RuntimeError(f"kernel E at group {gsz} took its {res['kernel']} kernel")
+    for gsz in (64, 48):
+        w = quantize_weight4(torch.randn((768, 256), generator=gen, device="cuda") * 0.02, gsz)
+        for dtype in (torch.float32, torch.bfloat16):
+            prologue_bits(tie_rows(768, gen).to(dtype), w, dtype)
+    log("kernel E's prologue bit for bit equal to quantize_rows and the group sums (codes, sxn, "
+        "R) on every case, .5 ties, an all-zero row and a row under the clamp included")
     # the route on the card, as the JAX package takes it on the chip: W4A8
     # (kernel E) for groups with (gsz // 2) % 32 == 0, kernel D otherwise
     for gsz in (32, 48, 64, 128, 256):
@@ -1242,11 +1368,14 @@ def phase_int4_kernels(rng) -> dict:
         out_dtype = torch.float32 if name == "lm_head" else None
         if name == "wqkv":
             dequant_bits(view, "7B wqkv, the stacked layer's view")
-        for m in ((8, 64) if name != "wo" else ()):
+        for m in (1, 8, 64, 256):
             for dtype in (torch.float32, torch.bfloat16):
-                timed = dtype == torch.bfloat16
+                timed = dtype == torch.bfloat16 and m in (8, 64)
                 res = check(f"kernel E {name} M={m} {str(dtype)[6:]}",
                             measure_w4a8(randx(m, k, dtype), w, view, out_dtype or dtype, timed))
+                if res["kernel"] != "mma" or res["plan"]["loader"] != "tma":
+                    raise RuntimeError(f"kernel E at 7B {name} took {res['kernel']} "
+                                       f"{res['plan']['loader']}")
                 if timed:
                     results[f"w4a8_matmul@{name}@M{m}"] = res
         for m in d_rows[name]:
@@ -1946,8 +2075,8 @@ def phase_http(cfg, params) -> dict:
 
 def launch_counters() -> dict:
     """Every kernel wrapper, whose ``launches`` (and A's and B's per pool
-    branch, D's per loader: ``name@int8``, ``int4_matmul@tma`` ...) the
-    engine phases read."""
+    branch, D's per loader, E's per kernel: ``name@int8``,
+    ``int4_matmul@tma``, ``w4a8_matmul@mma`` ...) the engine phases read."""
     from githubrepostorag_tpu_torch.ops.fused_decode import fused_window_attention
     from githubrepostorag_tpu_torch.ops.int4_matmul import int4_matmul, w4a8_matmul
     from githubrepostorag_tpu_torch.ops.packed_prefill import packed_prefill_attention_seg
@@ -1961,8 +2090,9 @@ def launch_counters() -> dict:
             "int4_matmul": int4_matmul, "w4a8_matmul": w4a8_matmul}
 
 
-# per-branch counts beside a wrapper's total: A and B by pool, D by loader
-BRANCH_COUNTS = ("launches_by_pool", "launches_by_loader")
+# per-branch counts beside a wrapper's total: A and B by pool, D by loader,
+# E by kernel
+BRANCH_COUNTS = ("launches_by_pool", "launches_by_loader", "launches_by_kernel")
 
 
 def reset_launches() -> None:
@@ -2097,6 +2227,12 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tup
 B_KERNEL_NAMES = ("split_kernel", "decode_staged_kernel")
 
 
+# kernel E's device kernels by name: the prologue and the main kernels, or
+# another checkout's earlier kernels
+E_KERNEL_NAMES = ("w4a8_prologue", "w4a8_mma_kernel", "w4a8_dp4a_kernel", "w4a8_kernel",
+                  "w4a8_general_kernel")
+
+
 def kernel_of(key: str) -> str | None:
     """Kernel A or C of a profiler key: the tensor-core body (one template,
     PACKED false for A, true for C), or another checkout's earlier kernels."""
@@ -2119,6 +2255,7 @@ def profile_decode(engine, prompts, sp) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from githubrepostorag_tpu_torch.ops.fused_decode import fused_window_attention
+    from githubrepostorag_tpu_torch.ops.int4_matmul import w4a8_matmul
     from githubrepostorag_tpu_torch.ops.packed_prefill import packed_prefill_attention_seg
     from githubrepostorag_tpu_torch.ops.paged_decode import paged_attention_decode_staged
 
@@ -2138,6 +2275,7 @@ def profile_decode(engine, prompts, sp) -> dict:
     launches0 = paged_attention_decode_staged.launches
     a_launches0 = fused_window_attention.launches
     c_launches0 = packed_prefill_attention_seg.launches
+    e_launches0 = w4a8_matmul.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
         run()
@@ -2158,6 +2296,14 @@ def profile_decode(engine, prompts, sp) -> dict:
         "kernel_c_ms": sum(e.self_device_time_total for e in kernels
                            if kernel_of(e.key) == "C") / 1e3,
         "kernel_c_launches": packed_prefill_attention_seg.launches - c_launches0,
+        # kernel E: the prologue and the main kernel by name (another
+        # checkout's earlier kernel E: its kernels alone, without the ~15
+        # torch ops of its route)
+        "kernel_e_prologue_ms": sum(e.self_device_time_total for e in kernels
+                                    if "w4a8_prologue" in e.key) / 1e3,
+        "kernel_e_ms": sum(e.self_device_time_total for e in kernels
+                           if any(n in e.key for n in E_KERNEL_NAMES)) / 1e3,
+        "kernel_e_launches": w4a8_matmul.launches - e_launches0,
         "tpot_ms_p50": 1e3 * sorted(r.decode_time_s / (len(r.output_tokens) - 1)
                                     for r in res)[len(res) // 2],
         "prefill_tokens_per_call": prefill,
@@ -2167,7 +2313,8 @@ def profile_decode(engine, prompts, sp) -> dict:
         f"{stats['idle_pct']:.1f}% of the unprofiled wall; kernel B {b_ms:.2f} ms over "
         f"{stats['kernel_b_launches']} launches; kernel A {stats['kernel_a_ms']:.2f} ms over "
         f"{stats['kernel_a_launches']} launches; kernel C {stats['kernel_c_ms']:.2f} ms over "
-        f"{stats['kernel_c_launches']} launches; TPOT p50 {stats['tpot_ms_p50']:.2f} ms; "
+        f"{stats['kernel_c_launches']} launches; kernel E {stats['kernel_e_ms']:.2f} ms (prologue "
+        f"{stats['kernel_e_prologue_ms']:.2f}) over {stats['kernel_e_launches']} launches; TPOT p50 {stats['tpot_ms_p50']:.2f} ms; "
         f"prefill tokens per call {prefill}")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:6d}x  {e.key[:90]}")
@@ -2200,6 +2347,32 @@ def phase_longctx(cfg, params, label: str, **engine_kw) -> dict:
     return stats
 
 
+def phase_int4_engine(cfg, qparams, earlier_port: bool = False) -> dict:
+    """The engine phase on the int4-weight tree: A, B, D and E must launch,
+    every D launch through TMA and every E launch through the tensor-core
+    kernel.  ``earlier_port`` (``--only int4`` in another checkout whose
+    ``w4a8_matmul`` has no ``launches_by_kernel``) skips the last check,
+    and says so."""
+    from githubrepostorag_tpu_torch.ops.int4_matmul import w4a8_matmul
+
+    a, b = "fused_window_attention", "paged_attention_decode_staged"
+    run = phase_engine(cfg, qparams, "int4", (a, b, "int4_matmul", "w4a8_matmul"))
+    n = run["launches"]
+    if n["int4_matmul@tma"] != n["int4_matmul"]:
+        raise RuntimeError(f"kernel D on the int4 path: {n['int4_matmul']} launches, "
+                           f"{n['int4_matmul@tma']} through the TMA loader")
+    log(f"int4 path: all {n['int4_matmul']} launches of kernel D took the TMA loader")
+    if earlier_port and not hasattr(w4a8_matmul, "launches_by_kernel"):
+        log("int4 path: this checkout's kernel E counts no launches by kernel; "
+            "the tensor-core check is skipped")
+    elif n["w4a8_matmul@mma"] != n["w4a8_matmul"]:
+        raise RuntimeError(f"kernel E on the int4 path: {n['w4a8_matmul']} launches, "
+                           f"{n['w4a8_matmul@mma']} through the tensor-core kernel")
+    else:
+        log(f"int4 path: all {n['w4a8_matmul']} launches of kernel E took the tensor-core kernel")
+    return run
+
+
 SOURCES = {
     "fused_window_attention": ("githubrepostorag_tpu_torch/csrc/fused_window_attention.cu",
                                "githubrepostorag_tpu/ops/fused_decode.py:232"),
@@ -2218,10 +2391,11 @@ SOURCES = {
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["kernels", "longctx"], default=None,
+    parser.add_argument("--only", choices=["kernels", "longctx", "int4"], default=None,
                         help="kernels: the device, build and kernel phases only; longctx: "
                              "the device and build phases and the long-context decode "
-                             "profiles only")
+                             "profiles only; int4: the device and build phases, kernel E's "
+                             "route times, and the int4-weight engine run and its profile")
     args = parser.parse_args()
 
     import torch
@@ -2244,6 +2418,19 @@ def main() -> int:
         cfg, params = make_7b_params()
         for label, kw in (("bf16", {}), ("kv int8", {"kv_quant": 8})):
             log(f"longctx {label}: {json.dumps(phase_longctx(cfg, params, label, **kw))}")
+        log(f"done in {time.monotonic() - t_all:.1f} s")
+        return 0
+    if args.only == "int4":
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(SEED + 5)
+        w4a8_route_times(gen)
+        cfg, params = make_7b_params()
+        qparams = quantize_7b(params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        run = phase_int4_engine(cfg, qparams, earlier_port=True)
+        log(f"int4 engine: {json.dumps(run)}")
         log(f"done in {time.monotonic() - t_all:.1f} s")
         return 0
     kres = {**phase_kernels(), **phase_int4_kernels(np.random.default_rng(SEED + 3))}
@@ -2284,12 +2471,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_model(cfg, qparams, "7B int4")
     phase_decode_logits(cfg, qparams)
-    runs["int4"] = phase_engine(cfg, qparams, "int4", (a, b, "int4_matmul", "w4a8_matmul"))
-    d_runs = runs["int4"]["launches"]
-    if d_runs["int4_matmul@tma"] != d_runs["int4_matmul"]:
-        raise RuntimeError(f"kernel D on the int4 path: {d_runs['int4_matmul']} launches, "
-                           f"{d_runs['int4_matmul@tma']} through the TMA loader")
-    log(f"int4 path: all {d_runs['int4_matmul']} launches of kernel D took the TMA loader")
+    runs["int4"] = phase_int4_engine(cfg, qparams)
 
     # each kernel's (and branch's) launches come from the run whose path it
     # belongs to; A and B carry their pool branches
@@ -2313,6 +2495,14 @@ def main() -> int:
         if name == "int4_matmul":
             entry["launches_by_loader"] = {
                 k: runs["int4"]["launches"][f"{name}@{k}"] for k in ("tma", "cp_async", "f32")}
+        if name == "w4a8_matmul":  # the whole route; every decode shape timed
+            entry["launches_by_kernel"] = {
+                k: runs["int4"]["launches"][f"{name}@{k}"] for k in ("mma", "dp4a")}
+            entry["host_us"] = kres[name]["host_us"]
+            entry["shapes"] = {
+                key.split("@", 1)[1]: {k: r[k] for k in keys + ("bound_share", "events_ms",
+                                                                "prologue_us", "host_us")}
+                for key, r in kres.items() if key.startswith(name + "@")}
         if name in (a, c):  # the launch plan of the timed case; the wrapper's host time
             entry["plan"] = kres[name]["plan"]
             entry["host_us"] = kres[name]["host_us"]

@@ -55,8 +55,10 @@ SIGNATURES = {
     # x, q, s, zs, out, M, K, N, group_size, x dtype, out dtype, loader,
     # block_m, grid, stream
     "int4_matmul": [_P] * 5 + [_I] * 9 + [_P],
-    # xg, q, s, acc, M, K, N, group_size, general (plan), stream
-    "w4a8_matmul": [_P] * 4 + [_I] * 5 + [_P],
+    # x, q, s, zs, out, codes, rsum, sxn, part, counters, M, K, N,
+    # group_size, x dtype, out dtype, kernel, loader, block_m, splits,
+    # groups per split, groups per stage, stages, stream
+    "w4a8_matmul": [_P] * 10 + [_I] * 13 + [_P],
 }
 
 _lock = threading.Lock()

@@ -15,12 +15,15 @@ Stacked [L, ...] leaves reach these functions as one layer's view
   JAX package sends other groups to its bf16-dequant kernel on the chip
   (``takes_w4a8``).  Activations are
   quantized per row to symmetric int8 (f32 amax, ``x * 127 / amax`` rounded
-  half to even, 0 for an all-zero row); kernel E (``csrc/w4a8_matmul.cu``)
-  computes the group-scaled int32 partials (``_plan_w4a8`` holds its
-  preconditions), and the zero-point term and
-  ``sxn * (acc - zs_term)`` are plain torch, as they are plain XLA around
-  the Pallas call.  Results differ from the bf16-dequant math by the
-  activation quantization (about 1e-2 relative).
+  half to even, 0 for an all-zero row); the group-scaled int32 partials,
+  the zero-point term and ``sxn * (acc - zs_term)`` follow.  On the card
+  all of it is kernel E (``csrc/w4a8_matmul.cu``), one launcher call of
+  two kernels: a prologue that quantizes, and a split-K int8 tensor-core
+  GEMM with the epilogue inside (``_plan_w4a8`` plans it from shapes;
+  ``w4a8_matmul.launches_by_kernel`` counts ``mma`` and ``dp4a``, the
+  CUDA-core kernel for groups the route never sends).  Results differ
+  from the bf16-dequant math by the activation quantization (about 1e-2
+  relative).
 - otherwise, or with ``w4a8=False`` (prefill pins it), the exact
   bf16-dequant route: kernel D (``csrc/int4_matmul.cu``), a warp-specialised
   ``wgmma`` GEMM.  ``_plan_int4`` picks its loader (TMA, or ``cp.async`` for
@@ -30,7 +33,8 @@ Stacked [L, ...] leaves reach these functions as one layer's view
   cores).
 
 For CUDA tensors the wrappers launch the kernels or raise; CPU tensors take
-the plain versions ``int4_matmul_ref`` (D) and ``w4a8_matmul_ref`` (E).
+the plain versions ``int4_matmul_ref`` (D) and ``_w4a8(...,
+w4a8_matmul_ref)`` (E's route).
 ``int4_matmul_plain`` takes the same route through the plain versions on
 any device (the comparison path).  The TPU kernel's workarounds (the
 ``& 0xF0`` high nibble with ``s/16``, the pre-split activations, 32-row
@@ -40,6 +44,7 @@ over.
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import NamedTuple
 
@@ -208,18 +213,23 @@ int4_matmul.launches_by_loader = {"tma": 0, "cp_async": 0, "f32": 0}
 def quantize_rows(x2: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-row symmetric int8 of [m, K] activations in f32 math (bf16
     rounding would quantize twice): ``xq`` int8 [m, K] and ``sxn`` f32
-    [m, 1] = rowmax|x| / 127.  An all-zero row quantizes to 0."""
+    [m, 1] = rowmax|x| / 127.  An all-zero row quantizes to 0.  Both
+    divisions are IEEE divisions, as in the JAX route and kernel E's
+    prologue: torch's ``127.0 / t`` is ``reciprocal(t) * 127`` (two
+    roundings), and on CUDA ``t / 127.0`` multiplies by the reciprocal."""
     xf = x2.float()
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    xq = torch.where(amax > 0, torch.round(xf * (127.0 / torch.clamp_min(amax, 1e-30))), 0.0)
-    return xq.to(torch.int8), amax / 127.0
+    inv = torch.full_like(amax, 127.0) / torch.clamp_min(amax, 1e-30)
+    xq = torch.where(amax > 0, torch.round(xf * inv), 0.0)
+    return xq.to(torch.int8), amax / torch.full_like(amax, 127.0)
 
 
 def w4a8_matmul_ref(xg: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel E: xg [n_g, M, gsz] int8, q [K/2, N], s
-    [n_g, N] -> acc [M, N] f32 = sum_g s[g] * (xg[g] @ nib[g]).  The group
-    partials are an f32 product of integers, exact (|p| <= 127*15*gsz <
-    2^24), so it runs on the card too, which has no integer matmul."""
+    """Plain version of kernel E's group partials: xg [n_g, M, gsz] int8, q
+    [K/2, N], s [n_g, N] -> acc [M, N] f32 = sum_g s[g] * (xg[g] @ nib[g]).
+    The group partials are an f32 product of integers, exact (|p| <=
+    127*15*gsz < 2^24), so it runs on the card too, which has no integer
+    matmul."""
     n_g, m, gsz = xg.shape
     pg = q.reshape(n_g, gsz // 2, -1)
     w_int = torch.cat([pg & 0xF, pg >> 4], dim=1).float()  # [n_g, gsz, N]
@@ -227,45 +237,9 @@ def w4a8_matmul_ref(xg: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch
     return (p * s.float()[:, None, :]).sum(dim=0)
 
 
-class W4A8Plan(NamedTuple):
-    general: bool  # the general kernel (groups in pieces, byte loads for ragged N)
-
-
-def _plan_w4a8(m: int, k: int, n: int, gsz: int, q_ptr: int, s_ptr: int) -> W4A8Plan:
-    """Kernel E's launch for xg [k/gsz, m, gsz] int8 against q [k/2, n]
-    and s [k/gsz, n] at these addresses.  E takes any group the route
-    sends it and more: gsz % 16 == 0 up to ``W4A8_MAX_GSZ``, any n >= 1,
-    weights 4-byte aligned as kernel D's wrapper takes them.  Groups up to
-    128 with n % 4 == 0 and s 8-byte aligned take the kernel that stages a
-    whole group with 16-byte copies; every other shape takes the general
-    kernel, which stages a wider group (AutoAWQ's 256) in pieces and reads
-    q and s byte by byte where n % 4 != 0 (a ragged last column tile)."""
-    _require("w4a8_matmul", gsz % 16 == 0 and 0 < gsz <= W4A8_MAX_GSZ and k % gsz == 0,
-             f"group size {gsz} must be a multiple of 16 dividing K {k}, at most {W4A8_MAX_GSZ}")
-    _require("w4a8_matmul", m >= 0 and n >= 1, f"M {m}, N {n}")
-    _require("w4a8_matmul", q_ptr % 4 == 0 and s_ptr % 4 == 0, "weights must be 4-byte aligned")
-    return W4A8Plan(general=not (gsz <= 128 and n % 4 == 0 and s_ptr % 8 == 0))
-
-
-def _w4a8_acc(xg, q, s):
-    """Kernel E for CUDA tensors, its plain version for CPU tensors."""
-    if xg.device.type == "cpu":
-        return w4a8_matmul_ref(xg, q, s)
-    n_g, m, gsz = xg.shape
-    n = q.shape[-1]
-    plan = _plan_w4a8(m, n_g * gsz, n, gsz, q.data_ptr(), s.data_ptr())
-    acc = torch.empty((m, n), dtype=torch.float32, device=xg.device)
-    stream = torch.cuda.current_stream(xg.device).cuda_stream
-    err = kernels.launcher("w4a8_matmul")(
-        xg.data_ptr(), q.data_ptr(), s.data_ptr(), acc.data_ptr(), m, n_g * gsz, n, gsz,
-        int(plan.general), stream)
-    kernels.check_launch("w4a8_matmul", err)
-    w4a8_matmul.launches += 1
-    return acc
-
-
 def _w4a8(x, q, s, zs, out_dtype, acc_fn):
-    """The W4A8 route around ``acc_fn`` (kernel E or its plain version):
+    """The W4A8 route around ``acc_fn`` (w4a8_matmul_ref): the plain
+    version of everything kernel E's launch computes,
 
         y[m, o] = sxn[m] * (acc[m, o] - sum_g R[m, g] * zs[g, o])
 
@@ -282,15 +256,234 @@ def _w4a8(x, q, s, zs, out_dtype, acc_fn):
     return y.to(out_dtype or x.dtype).reshape(*lead, n)
 
 
+# kernel E's kernels and loaders (the C entry point's codes), and its tiles
+W4A8_KERNELS = ("mma", "dp4a")
+W4A8_LOADERS = ("tma", "plain")
+W4A8_BN = 128  # weight columns per tile
+W4A8_MAX_STAGES = 16
+W4A8_RING_BYTES = 48 * 1024  # ring a block aims to keep in flight
+W4A8_GROUPS_PER_STAGE = 4  # group 64: whole groups a stage (one copy of each kind)
+W4A8_RESIDENT = {8: 3, 32: 1}  # blocks an SM at once (the kernel's launch bounds)
+W4A8_SPLIT_COST = 2  # an extra K split (its partials and the merge), in groups of work
+
+
+class W4A8Plan(NamedTuple):
+    kernel: str  # "mma" (int8 tensor cores) or "dp4a" (CUDA cores)
+    loader: str  # mma: "tma" or "plain" (the producer warp's own loads); dp4a: ""
+    block_m: int  # rows of x per block (rows past M are padding)
+    row_blocks: int
+    col_tiles: int  # 128-column tiles
+    splits: int  # K splits: runs of whole groups, merged by each tile's last block
+    groups_per_split: int
+    groups_per_stage: int  # G: whole groups a ring stage holds (group 64; else 1)
+    stages: int  # ring stages (mma)
+    smem: int  # dynamic shared memory a block takes (mma)
+
+    @property
+    def grid(self) -> tuple[int, int, int]:
+        return (self.row_blocks, self.splits, self.col_tiles)
+
+    @property
+    def blocks(self) -> int:
+        return self.row_blocks * self.splits * self.col_tiles
+
+
+def w4a8_stage_bytes(block_m: int, groups: int = 1) -> int:
+    """One ring stage of the tensor-core kernel holding ``groups`` groups
+    of 32 packed rows: the q tile [32 groups][128], then per group the s
+    and zs rows, the codes of both planes [2][block_m][32] and R [block_m]
+    int32, rounded to the 128 bytes a TMA destination needs (``MmaCfg`` in
+    ``csrc/w4a8_matmul.cu``)."""
+    return groups * 32 * W4A8_BN + -(-groups * (4 * W4A8_BN + 68 * block_m) // 128) * 128
+
+
+def w4a8_merge_bytes(block_m: int) -> int:
+    """One group parity's acc and zacc, added through shared memory at the
+    end of a block (``MmaCfg::MERGE``)."""
+    return W4A8_BN * (block_m // 8) * 16 * 4
+
+
+def _plan_w4a8(m: int, k: int, n: int, gsz: int, q_ptr: int, s_ptr: int, zs_ptr: int,
+               n_sm: int = 132) -> W4A8Plan:
+    """Kernel E's launch for x [m, k] against q [k/2, n] and s / zs [k/gsz,
+    n] at these addresses, on a card with ``n_sm`` SMs.  Reads no tensor.
+
+    Groups with (gsz // 2) % 32 == 0 (every group the card's route sends)
+    take the tensor-core kernel; the rest (16, 48, ...) the CUDA-core one.
+    Tensor cores: 8 rows of x a block up to 8 rows, else 32 (64 measured
+    slower at every 7B shape); then K splits of whole groups (the last may
+    hold fewer): at 8 rows (three blocks an SM at once), at least enough
+    for a block on every SM, and among those, while every block fits on
+    the card at once, the count whose busiest SM carries the fewest groups
+    (blocks on one SM share its rate), each extra split costing
+    ``W4A8_SPLIT_COST`` groups; at 32 rows (one block an SM) the most
+    splits that give no SM two blocks (measured: a doubled SM costs more
+    than idle ones).  A stage holds
+    ``W4A8_GROUPS_PER_STAGE`` groups at group 64, and the ring about
+    ``W4A8_RING_BYTES`` (at least the parities' merge buffer).  TMA where q
+    rows and the s / zs rows are whole 16-byte units (n % 16 == 0) and
+    every base is 16-byte aligned, else the producer warp's own loads.  A
+    shape neither kernel takes raises.  Cached by shape and alignment."""
+    _require("w4a8_matmul", all(p % 4 == 0 for p in (q_ptr, s_ptr, zs_ptr)),
+             "weights must be 4-byte aligned")
+    return _plan_w4a8_shape(m, k, n, gsz, all(p % 16 == 0 for p in (q_ptr, s_ptr, zs_ptr)), n_sm)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_w4a8_shape(m: int, k: int, n: int, gsz: int, aligned16: bool, n_sm: int) -> W4A8Plan:
+    _require("w4a8_matmul", gsz % 16 == 0 and 0 < gsz <= W4A8_MAX_GSZ and k % gsz == 0,
+             f"group size {gsz} must be a multiple of 16 dividing K {k}, at most {W4A8_MAX_GSZ}")
+    _require("w4a8_matmul", m >= 0 and n >= 1, f"M {m}, N {n}")
+    n_g, col_tiles = k // gsz, -(-n // W4A8_BN)
+    rows = max(m, 1)
+    if (gsz // 2) % 32:
+        return W4A8Plan("dp4a", "", 8, -(-rows // 8), col_tiles, 1, n_g, 1, 0, 0)
+    block_m = 8 if rows <= 8 else 32
+    tiles = -(-rows // block_m) * col_tiles
+    gps = _split_groups(n_g, tiles, n_sm, W4A8_RESIDENT[block_m])
+    return w4a8_mma_plan(rows, n_g, n, gsz, aligned16, block_m, gps)
+
+
+def w4a8_mma_plan(m: int, n_g: int, n: int, gsz: int, aligned16: bool, block_m: int,
+                  gps: int, groups: int | None = None) -> W4A8Plan:
+    """The tensor-core kernel's plan at ``block_m`` rows a block and ``gps``
+    groups a K split, sized: ``groups`` whole groups a stage (by default
+    ``W4A8_GROUPS_PER_STAGE`` at group 64, else 1), the ring, its shared
+    memory and the loader.  ``_plan_w4a8`` chooses the rows and the split;
+    ``scripts/w4a8_plan_sweep.py`` times other choices through this sizing."""
+    if groups is None:
+        groups = min(W4A8_GROUPS_PER_STAGE, gps) if gsz == 64 else 1
+    stage = w4a8_stage_bytes(block_m, groups)
+    merge = w4a8_merge_bytes(block_m)
+    stages = min(W4A8_MAX_STAGES, max(2, W4A8_RING_BYTES // stage, -(-merge // stage)))
+    tma = n % 16 == 0 and aligned16
+    return W4A8Plan("mma", "tma" if tma else "plain", block_m, -(-max(m, 1) // block_m),
+                    -(-n // W4A8_BN), -(-n_g // gps), gps, groups, stages,
+                    max(stages * stage, merge) + 1024)
+
+
+def _split_groups(n_g: int, tiles: int, n_sm: int, resident: int) -> int:
+    """Groups per K split of the tensor-core kernel (``_plan_w4a8``)."""
+    if resident == 1:
+        return -(-n_g // max(1, min(n_g, n_sm // tiles)))
+    s_min = min(n_g, -(-n_sm // tiles))
+    best = (None, -(-n_g // s_min))
+    for s in range(s_min, n_g + 1):
+        gps = -(-n_g // s)
+        if -(-n_g // gps) != s:  # that split count would leave one empty
+            continue
+        per_sm = -(-tiles * s // n_sm)
+        if per_sm > resident and s > s_min:
+            break
+        cost = per_sm * gps + W4A8_SPLIT_COST * (s - 1)
+        if best[0] is None or cost < best[0]:
+            best = (cost, gps)
+    return best[1]
+
+
+class W4A8Layout(NamedTuple):
+    codes: int  # byte offsets in the workspace
+    rsum: int
+    sxn: int
+    part: int
+    size: int  # bytes
+
+
+@functools.lru_cache(maxsize=4096)
+def _w4a8_layout(plan: W4A8Plan, k: int, gsz: int) -> W4A8Layout:
+    """Kernel E's workspace, 256-byte aligned sections: the prologue's codes
+    (m_pad x K int8), R (K/gsz x m_pad int32) and sxn (m_pad f32), and with
+    K splits every block's partial acc and zacc (f32)."""
+    m_pad = plan.row_blocks * plan.block_m
+
+    def up(v):
+        return -(-v // 256) * 256
+
+    rsum = up(m_pad * k)
+    sxn = up(rsum + 4 * (k // gsz) * m_pad)
+    part = up(sxn + 4 * m_pad)
+    size = part + (plan.blocks * plan.block_m * 1024 if plan.splits > 1 else 0)
+    return W4A8Layout(0, rsum, sxn, part, size)
+
+
+# the tensor-core kernel's code layout: byte j of word i of a 32-byte run
+# holds the k offset i + 8 j (a thread's mma B fragment is one 8-byte load)
+W4A8_MMA_K_ORDER = tuple(i + 8 * j for i in range(8) for j in range(4))
+
+
+def w4a8_prologue_views(ws: torch.Tensor, plan: W4A8Plan, m: int, k: int, gsz: int):
+    """What kernel E's prologue wrote into the workspace ``ws``, in
+    quantize_rows' layout: (xq [m, K] int8, sxn [m, 1] f32, R [m, K/gsz]
+    int32)."""
+    lay = _w4a8_layout(plan, k, gsz)
+    n_g, bm = k // gsz, plan.block_m
+    m_pad = plan.row_blocks * bm
+    raw = ws[lay.codes:lay.codes + m_pad * k].view(torch.int8)
+    if plan.kernel == "mma":  # [row block][group][chunk][plane][bm][32]
+        runs = raw.view(plan.row_blocks, n_g, gsz // 64, 2, bm, 32)
+        nat = torch.empty_like(runs)
+        nat[..., list(W4A8_MMA_K_ORDER)] = runs
+        xq = nat.permute(0, 4, 1, 3, 2, 5).reshape(m_pad, k)
+        rows = bm
+    else:  # [group][m_pad][gsz]
+        xq = raw.view(n_g, m_pad, gsz).transpose(0, 1).reshape(m_pad, k)
+        rows = m_pad
+    rsum = ws[lay.rsum:lay.rsum + 4 * n_g * m_pad].view(torch.int32)
+    rsum = rsum.view(-1, n_g, rows).permute(0, 2, 1).reshape(m_pad, n_g)
+    sxn = ws[lay.sxn:lay.sxn + 4 * m_pad].view(torch.float32)[:, None]
+    return xq[:m], sxn[:m], rsum[:m]
+
+
+def _w4a8_launch(x, q, s, zs, out_dtype, plan: W4A8Plan | None = None):
+    """Kernel E for CUDA tensors, one C call (prologue and main kernel):
+    (out [..., N], workspace, plan).  ``plan`` defaults to ``_plan_w4a8``'s."""
+    from githubrepostorag_tpu_torch.ops.paged_decode import _counters
+
+    k, n, gsz = _check_weights("w4a8_matmul", x, q, s, zs, align=4)
+    _require("w4a8_matmul", x.dtype in _DTYPES and out_dtype in _DTYPES,
+             f"x/out dtypes {x.dtype}/{out_dtype}; need bf16 or f32")
+    lead, m = x.shape[:-1], _rows(x)
+    x2 = x.reshape(m, k).contiguous()
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()
+    if plan is None:
+        plan = _plan_w4a8(m, k, n, gsz, q.data_ptr(), s.data_ptr(), zs.data_ptr(),
+                          sm_count(x.device))
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    if m == 0:
+        return out.reshape(*lead, n), None, plan
+    lay = _w4a8_layout(plan, k, gsz)
+    ws = torch.empty(lay.size, dtype=torch.uint8, device=x.device)
+    base = ws.data_ptr()
+    split = plan.splits > 1
+    counters = _counters(plan.row_blocks * plan.col_tiles, x.device).data_ptr() if split else 0
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = kernels.launcher("w4a8_matmul")(
+        x2.data_ptr(), q.data_ptr(), s.data_ptr(), zs.data_ptr(), out.data_ptr(),
+        base + lay.codes, base + lay.rsum, base + lay.sxn, base + lay.part if split else 0,
+        counters, m, k, n, gsz, _DTYPES[x.dtype], _DTYPES[out_dtype],
+        W4A8_KERNELS.index(plan.kernel), W4A8_LOADERS.index(plan.loader or "tma"),
+        plan.block_m, plan.splits, plan.groups_per_split, plan.groups_per_stage, plan.stages,
+        stream)
+    kernels.check_launch("w4a8_matmul", err)
+    w4a8_matmul.launches += 1
+    w4a8_matmul.launches_by_kernel[plan.kernel] += 1
+    return out.reshape(*lead, n), ws, plan
+
+
 def w4a8_matmul(x, q, s, zs, out_dtype=None):
-    """The W4A8 route of ``int4_matmul``: int8 activations, kernel E for
-    the group partials.  x [..., K] -> [..., N] in ``out_dtype``."""
-    if x.device.type != "cpu":
-        _check_weights("w4a8_matmul", x, q, s, zs, align=4)
-    return _w4a8(x, q, s, zs, out_dtype, _w4a8_acc)
+    """The W4A8 route of ``int4_matmul``: x [..., K] -> [..., N] in
+    ``out_dtype``.  CUDA tensors: kernel E, one launcher call that
+    quantizes the activations and computes the whole route; CPU tensors:
+    its plain version ``_w4a8(..., w4a8_matmul_ref)``."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return _w4a8(x, q, s, zs, out_dtype, w4a8_matmul_ref)
+    return _w4a8_launch(x, q, s, zs, out_dtype)[0]
 
 
 w4a8_matmul.launches = 0  # kernel E launches (CUDA path only)
+w4a8_matmul.launches_by_kernel = {"mma": 0, "dp4a": 0}
 
 
 def int4_matmul_plain(x, q, s, zs, out_dtype=None, w4a8: bool | None = None):

@@ -15,6 +15,9 @@ the wrappers run these plain versions and launch nothing."""
 
 from __future__ import annotations
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -326,14 +329,16 @@ def test_wide_group_w4a8_matches_pallas(gsz):
     assert (ops.int4_matmul.launches, ops.w4a8_matmul.launches) == before
 
 
-@pytest.mark.parametrize("k, n, gsz, s_off, general", [
-    (1024, 4608, 256, 0, True), (768, 202, 256, 0, True), (512, 202, 64, 0, True),
-    (512, 131, 128, 0, True), (3584, 37888, 64, 0, False), (18944, 3584, 128, 0, False),
-    (256, 200, 16, 8, False), (3584, 4608, 64, 4, True), (3584, 4608, 64, 12, True)])
-def test_w4a8_plan_takes_wide_groups_and_ragged_columns(k, n, gsz, s_off, general):
-    # weights 4-byte aligned are enough, as for kernel D; the 7B shapes keep
-    # the kernel that stages a whole group with 16-byte copies
-    assert ops._plan_w4a8(8, k, n, gsz, A16 + 4, A16 + s_off).general is general
+@pytest.mark.parametrize("k, n, gsz, s_off, kernel", [
+    (1024, 4608, 256, 0, "mma"), (768, 202, 256, 0, "mma"), (512, 202, 64, 0, "mma"),
+    (512, 131, 128, 0, "mma"), (3584, 37888, 64, 0, "mma"), (18944, 3584, 128, 0, "mma"),
+    (256, 200, 16, 8, "dp4a"), (3584, 4608, 64, 4, "mma"), (3584, 4608, 64, 12, "mma")])
+def test_w4a8_plan_takes_wide_groups_and_ragged_columns(k, n, gsz, s_off, kernel):
+    # weights 4-byte aligned are enough, as for kernel D: q, s or zs off 16
+    # bytes (or ragged N) take the producer warp's own loads instead of TMA
+    plan = ops._plan_w4a8(8, k, n, gsz, A16 + 4, A16 + s_off, A16)
+    assert plan.kernel == kernel
+    assert plan.loader == ("plain" if kernel == "mma" else "")
 
 
 @pytest.mark.parametrize("k, n, gsz, q_off, s_off", [
@@ -341,4 +346,348 @@ def test_w4a8_plan_takes_wide_groups_and_ragged_columns(k, n, gsz, s_off, genera
     (768, 256, 64, 2, 0), (768, 256, 64, 0, 2), (768, 0, 64, 0, 0)])
 def test_w4a8_plan_refuses_what_kernel_e_cannot_take(k, n, gsz, q_off, s_off):
     with pytest.raises(ValueError, match="w4a8_matmul"):
-        ops._plan_w4a8(8, k, n, gsz, A16 + q_off, A16 + s_off)
+        ops._plan_w4a8(8, k, n, gsz, A16 + q_off, A16 + s_off, A16)
+
+
+# ------------------------------ kernel E's tensor-core design, on the CPU --
+# Kernel E quantizes in a prologue and runs the rest of the route in one
+# int8 tensor-core kernel (``csrc/w4a8_matmul.cu``); the CUDA code runs only
+# on the card.  These hold its plan, its activation quantization (bit for
+# bit), its code layout and fragment mapping, and its arithmetic (a float32
+# emulation in its split and merge order) against the JAX route.
+
+
+@pytest.mark.parametrize("name", sorted(Q7B))
+@pytest.mark.parametrize("m", [1, 8, 64, 256])
+@pytest.mark.parametrize("gsz", [64, 128, 256])
+def test_w4a8_plan_7b_shapes_fill_the_card(name, m, gsz):
+    k, n = Q7B[name]
+    plan = ops._plan_w4a8(m, k, n, gsz, A16, A16, A16)
+    n_g = k // gsz
+    assert (plan.kernel, plan.loader) == ("mma", "tma")
+    assert plan.grid == (plan.row_blocks, plan.splits, plan.col_tiles)
+    tiles = plan.row_blocks * plan.col_tiles
+    if ops.W4A8_RESIDENT[plan.block_m] > 1:  # a block for every SM at least
+        assert plan.blocks >= 132
+    else:  # one block an SM at a time: the most splits that double no SM
+        assert plan.splits == max(1, min(n_g, 132 // tiles))
+    # the splits partition the groups, none empty
+    assert (plan.splits - 1) * plan.groups_per_split < n_g <= plan.splits * plan.groups_per_split
+    assert plan.row_blocks * plan.block_m >= m > (plan.row_blocks - 1) * plan.block_m
+    assert plan.col_tiles * ops.W4A8_BN >= n
+    assert 2 <= plan.stages <= ops.W4A8_MAX_STAGES and plan.smem <= 227 * 1024
+    assert plan.groups_per_stage == (min(ops.W4A8_GROUPS_PER_STAGE, plan.groups_per_split)
+                                     if gsz == 64 else 1)
+    assert plan.stages * ops.w4a8_stage_bytes(plan.block_m, plan.groups_per_stage) + 1024 \
+        <= plan.smem
+    assert plan.block_m == (8 if m <= 8 else 32)
+
+
+def _w4a8_kernel_sizes(block_m: int) -> dict:
+    """The tensor-core kernel's stage layout and launch rules, read from
+    csrc/w4a8_matmul.cu: its constants, ``MmaCfg<BM>``'s sizes (C integer
+    expressions, evaluated here), the launcher's shared-memory rule and the
+    launch bounds' blocks an SM."""
+    src = (Path(__file__).resolve().parents[1] / "githubrepostorag_tpu_torch" / "csrc"
+           / "w4a8_matmul.cu").read_text()
+
+    def value(expr: str, env: dict) -> int:
+        return int(eval(expr.replace("/", "//"), {}, dict(env)))  # noqa: S307
+
+    env = {"BM": block_m}
+    for name in ("BN", "MAX_STAGES", "SMEM_LIMIT", "Q_ROWS"):
+        env[name] = value(re.search(rf"constexpr int {name} = ([^;]+);", src).group(1), env)
+    cfg = src[src.index("struct MmaCfg {"):src.index("struct MmaParams")]
+    for name in ("RT", "X_BYTES", "R_BYTES", "MERGE"):
+        env[name] = value(re.search(rf"static constexpr int {name} = ([^;]+);", cfg).group(1), env)
+    aux = re.search(r"constexpr int aux\(int G\) \{\s*return ([^;]+);", cfg).group(1)
+    assert "const int ring = p.stages * (Q_ROWS * G + C::aux(G));" in src
+    pad = re.search(r"const int smem = \(ring > C::MERGE \? ring : C::MERGE\) \+ (\d+);", src)
+    bounds = re.search(r"__launch_bounds__\(MMA_THREADS, BM == 8 \? (\d+) : (\d+)\)", src)
+    env["aux"] = lambda g: value(aux, {**env, "G": g})
+    env["pad"] = int(pad.group(1))
+    env["resident"] = int(bounds.group(1) if block_m == 8 else bounds.group(2))
+    return env
+
+
+@pytest.mark.parametrize("name", sorted(Q7B))
+@pytest.mark.parametrize("m", [8, 64])
+@pytest.mark.parametrize("gsz", [64, 128])
+def test_w4a8_plan_mirrors_the_kernel(name, m, gsz):
+    """The plan's sizes are the kernel's: the stage and merge bytes, the
+    shared memory the launcher asks for (and does not refuse), the ring's
+    depth limit, the tile's columns and the blocks an SM."""
+    k, n = Q7B[name]
+    plan = ops._plan_w4a8(m, k, n, gsz, A16, A16, A16)
+    c = _w4a8_kernel_sizes(plan.block_m)
+    assert (c["BN"], c["MAX_STAGES"]) == (ops.W4A8_BN, ops.W4A8_MAX_STAGES)
+    assert c["resident"] == ops.W4A8_RESIDENT[plan.block_m]
+    assert c["MERGE"] == ops.w4a8_merge_bytes(plan.block_m)
+    for g in range(1, 9):
+        assert c["Q_ROWS"] * g + c["aux"](g) == ops.w4a8_stage_bytes(plan.block_m, g)
+    g = plan.groups_per_stage
+    ring = plan.stages * (c["Q_ROWS"] * g + c["aux"](g))
+    assert plan.smem == max(ring, c["MERGE"]) + c["pad"] <= c["SMEM_LIMIT"] - 1024
+
+
+@pytest.mark.parametrize("gsz", [16, 32, 48, 64, 128, 192, 256])
+@pytest.mark.parametrize("n", [4608, 202, 131])
+def test_w4a8_plan_picks_the_kernel_by_group(gsz, n):
+    # the tensor cores take every group the card's route sends (k32 steps
+    # of whole planes); the CUDA-core kernel the rest; ragged N: own loads
+    k = 768 if 768 % gsz == 0 else 3 * gsz
+    plan = ops._plan_w4a8(8, k, n, gsz, A16, A16, A16)
+    assert plan.kernel == ("mma" if (gsz // 2) % 32 == 0 else "dp4a")
+    assert ops.takes_w4a8(8, None, gsz, on_card=True) is (plan.kernel == "mma")
+    if plan.kernel == "mma":
+        assert plan.loader == ("tma" if n % 16 == 0 else "plain")
+    else:
+        assert plan.splits == 1 and plan.row_blocks * 8 >= 8
+
+
+def test_w4a8_counts_start_at_zero_and_cpu_launches_nothing(stacked):
+    _, tw = stacked
+    x = torch.from_numpy(np.random.default_rng(15).normal(size=(8, IN)).astype(np.float32))
+    before = (ops.w4a8_matmul.launches, dict(ops.w4a8_matmul.launches_by_kernel))
+    ops.w4a8_matmul(x.bfloat16(), *_layer(tw, 0))
+    assert set(before[1]) == {"mma", "dp4a"}
+    assert (ops.w4a8_matmul.launches, ops.w4a8_matmul.launches_by_kernel) == before
+
+
+def _tie_rows(rng, k):
+    """Rows whose codes sit on exact .5 ties of x * 127 / amax (amax 127:
+    the scale is 1; amax 63.5: it is 2), an all-zero row, a row whose amax
+    is below the 1e-30 clamp, and random rows."""
+    rows = rng.normal(size=(7, k)).astype(np.float32)
+    rows[0] = rng.integers(-126, 126, k) + 0.5
+    rows[0, 0] = 127.0
+    rows[1] = (rng.integers(-126, 126, k) + 0.5) / 2
+    rows[1, 3] = -63.5
+    rows[2] = 0.0
+    rows[3] *= 1e-31
+    rows[4] *= 1e4
+    return rows
+
+
+@pytest.mark.parametrize("gsz", [64, 16])
+def test_quantize_rows_bit_for_bit_with_the_jax_route(gsz):
+    """quantize_rows and the int32 group sums against the JAX route's own
+    expressions (pallas_int4._w4a8_matmul) on the same numpy inputs: the
+    codes, sxn and R equal bit for bit, ties and a zero row included, in
+    float32 and for bf16 values."""
+    k = 256
+    x = _tie_rows(np.random.default_rng(gsz), k)
+    for xs in (x, torch.from_numpy(x).bfloat16().float().numpy()):
+        xf = jnp.asarray(xs)
+        amax = jnp.max(jnp.abs(xf), axis=-1, keepdims=True)
+        jsxn = amax / 127.0
+        jxq = jnp.where(amax > 0, jnp.round(xf * (127.0 / jnp.maximum(amax, 1e-30))), 0.0
+                        ).astype(jnp.int8)
+        jr = jxq.reshape(len(xs), k // gsz, gsz).sum(axis=-1, dtype=jnp.int32)
+        xq, sxn = ops.quantize_rows(torch.from_numpy(xs))
+        r = xq.reshape(len(xs), k // gsz, gsz).sum(dim=-1, dtype=torch.int32)
+        assert np.array_equal(xq.numpy(), np.asarray(jxq))
+        assert np.array_equal(sxn.numpy().view(np.uint32), np.asarray(jsxn).view(np.uint32))
+        assert np.array_equal(r.numpy(), np.asarray(jr))
+    assert (xq[2] == 0).all() and sxn[2] == 0
+    # the ties rounded half to even: 0.5 -> 0, 1.5 -> 2, -2.5 -> -2
+    t = torch.tensor([[127.0, 0.5, 1.5, -2.5, 3.5]])
+    assert ops.quantize_rows(t)[0].tolist() == [[127, 0, 2, -2, 4]]
+
+
+def _byte_perm(x: int, y: int, sel: int) -> int:
+    b = [(x >> (8 * i)) & 255 for i in range(4)] + [(y >> (8 * i)) & 255 for i in range(4)]
+    return sum(b[(sel >> (4 * i)) & 7] << (8 * i) for i in range(4))
+
+
+def _transpose4(rows):  # csrc/w4a8_matmul.cu transpose4, byte for byte
+    a_lo, a_hi = _byte_perm(rows[0], rows[1], 0x5140), _byte_perm(rows[0], rows[1], 0x7362)
+    b_lo, b_hi = _byte_perm(rows[2], rows[3], 0x5140), _byte_perm(rows[2], rows[3], 0x7362)
+    return [_byte_perm(a_lo, b_lo, 0x5410), _byte_perm(a_lo, b_lo, 0x7632),
+            _byte_perm(a_hi, b_hi, 0x5410), _byte_perm(a_hi, b_hi, 0x7632)]
+
+
+def _s8(word: int) -> list[int]:
+    return [((word >> (8 * i)) & 255) - (256 if (word >> (8 * i)) & 128 else 0) for i in range(4)]
+
+
+def _mma_s8(a_regs, b_regs):
+    """mma.m16n8k32.s8 as the PTX ISA lays out its fragments: lane (gid,
+    tig) holds A[gid | gid+8][4 tig + i (+16)], B[4 tig + i (+16)][gid];
+    returns each lane's D {[gid][2tig], [gid][2tig+1], [gid+8][2tig],
+    [gid+8][2tig+1]}."""
+    a, b = np.zeros((16, 32), np.int64), np.zeros((32, 8), np.int64)
+    for lane in range(32):
+        gid, tig = lane >> 2, lane & 3
+        for reg, (r, c) in enumerate(((gid, 0), (gid + 8, 0), (gid, 16), (gid + 8, 16))):
+            a[r, c + 4 * tig:c + 4 * tig + 4] = _s8(a_regs[lane][reg])
+        for reg, c in enumerate((0, 16)):
+            b[c + 4 * tig:c + 4 * tig + 4, gid] = _s8(b_regs[lane][reg])
+    d = a @ b
+    return [[d[lane >> 2, 2 * (lane & 3)], d[lane >> 2, 2 * (lane & 3) + 1],
+             d[(lane >> 2) + 8, 2 * (lane & 3)], d[(lane >> 2) + 8, 2 * (lane & 3) + 1]]
+            for lane in range(32)]
+
+
+@pytest.mark.parametrize("gsz", [64, 128])
+def test_w4a8_mma_fragments_compute_the_group_partials(gsz):
+    """The tensor-core kernel's data movement, lane by lane, on one
+    32-packed-row stage: the prologue's code layout (its write formula,
+    read back by w4a8_prologue_views), the producer's 128-byte-swizzled q
+    tile, each consumer thread's loads, transposes and nibble planes, the
+    PTX fragment layout of mma.m16n8k32.s8 and the epilogue's (row,
+    column) of each D element.  Every (row, column) of the stage gets its
+    exact integer partial, for every column group of the tile."""
+    rng = np.random.default_rng(gsz + 7)
+    bm, m, k = 8, 5, 2 * gsz
+    n_g, kps = k // gsz, gsz // 64
+    codes = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    codes[m - 1] = 0
+    # the prologue's writes (w4a8_prologue, MMA branch), one row at a time
+    plan = ops.W4A8Plan("mma", "tma", bm, 1, 1, 1, n_g, 1, 2, 0)
+    lay = ops._w4a8_layout(plan, k, gsz)
+    ws = np.zeros(lay.size, np.uint8)
+    for row in range(bm):
+        q_row = codes[row] if row < m else np.zeros(k, np.int8)
+        for kb in range(k // 32):
+            g, kb_g = kb // (2 * kps), kb % (2 * kps)
+            to = 2 * (kps * g + kb_g % kps) + kb_g // kps
+            run = q_row[32 * kb:32 * kb + 32]
+            words = [run[[i, i + 8, i + 16, i + 24]] for i in range(8)]
+            off = (to * bm + row) * 32
+            ws[off:off + 32] = np.concatenate(words).view(np.uint8)
+        sums = q_row.astype(np.int32).reshape(n_g, gsz).sum(-1)
+        for g in range(n_g):
+            ws[lay.rsum + 4 * (g * bm + row):lay.rsum + 4 * (g * bm + row) + 4] = \
+                np.array([sums[g]], np.int32).view(np.uint8)
+    xq, _, rsum = ops.w4a8_prologue_views(torch.from_numpy(ws), plan, m, k, gsz)
+    assert np.array_equal(xq.numpy(), codes)
+    assert np.array_equal(rsum.numpy(), codes.astype(np.int32).reshape(m, n_g, gsz).sum(-1))
+
+    q = rng.integers(0, 256, (k // 2, 128)).astype(np.uint8)
+    for g in range(n_g):
+        for ch in range(kps):
+            stage = (g * kps + ch)
+            tile = q[32 * stage:32 * stage + 32]  # packed rows of the stage
+            smem = np.zeros(32 * 128, np.uint8)  # TMA's 128-byte swizzle
+            for r in range(32):
+                for c in range(128):
+                    smem[r * 128 + (((c >> 4) ^ (r & 7)) << 4) + (c & 15)] = tile[r, c]
+            run = ws[stage * 2 * bm * 32:(stage + 1) * 2 * bm * 32]  # [plane][bm][32]
+            # natural codes of the stage: low plane k = g gsz + 32 ch + r,
+            # high plane + gsz / 2, for packed row r
+            lo_k = g * gsz + 32 * ch + np.arange(32)
+            want = (codes[:, lo_k].astype(np.int64) @ (tile & 15).astype(np.int64)
+                    + codes[:, lo_k + gsz // 2].astype(np.int64) @ (tile >> 4).astype(np.int64))
+            got = np.zeros((bm, 128), np.int64)
+            for cg in range(4):
+                alo, ahi, bl, bh = [], [], [], []
+                for lane in range(32):
+                    gid, tig = lane >> 2, lane & 3
+                    c4 = 32 * cg + 4 * gid
+                    off_e = (((c4 >> 4) ^ (2 * tig)) << 4) | (c4 & 15)
+                    off_o = (((c4 >> 4) ^ (2 * tig + 1)) << 4) | (c4 & 15)
+
+                    def word(at):
+                        return int(smem[at:at + 4].view(np.uint32)[0])
+
+                    te = _transpose4([word((2 * tig + 8 * u) * 128 + off_e) for u in range(4)])
+                    to_ = _transpose4([word((2 * tig + 1 + 8 * u) * 128 + off_o) for u in range(4)])
+                    nib = 0x0F0F0F0F
+                    alo.append([[te[2 * t] & nib, te[2 * t + 1] & nib, to_[2 * t] & nib,
+                                 to_[2 * t + 1] & nib] for t in range(2)])
+                    ahi.append([[(te[2 * t] >> 4) & nib, (te[2 * t + 1] >> 4) & nib,
+                                 (to_[2 * t] >> 4) & nib, (to_[2 * t + 1] >> 4) & nib]
+                                for t in range(2)])
+                    xs = gid * 32 + tig * 8
+                    bl.append(run[xs:xs + 8].view(np.uint32).tolist())
+                    bh.append(run[bm * 32 + xs:bm * 32 + xs + 8].view(np.uint32).tolist())
+                for t in range(2):
+                    d = np.array(_mma_s8([a[t] for a in alo], bl)) + np.array(
+                        _mma_s8([a[t] for a in ahi], bh))
+                    for lane in range(32):
+                        gid, tig = lane >> 2, lane & 3
+                        for e in range(4):  # {col 2t, row 0}, {2t, 1}, {2t+1, 0}, {2t+1, 1}
+                            got[2 * tig + (e & 1), 32 * cg + 4 * gid + 2 * t + (e >> 1)] = d[lane][e]
+            assert np.array_equal(got[:m], want)
+
+
+def _emulate_kernel_e(x, w, plan, out_dtype):
+    """Kernel E's arithmetic in float32 numpy, in its order: per block
+    (split), parity p takes every other ring stage of G groups (its groups
+    g with (g - g0) // G % 2 == p, in order; G = ``groups_per_stage``); each group
+    adds fl(float(P) * s) to acc and fl(float(R) * zs) to zacc, P the exact
+    int32 partial; the block is parity 0 + parity 1; with splits the tile's
+    last block sums the splits in split order from 0; y = fl(sxn * fl(acc -
+    zacc)), rounded once to ``out_dtype``."""
+    m, k = x.shape
+    gsz = k // w.s.shape[0]
+    xq, sxn = ops.quantize_rows(torch.from_numpy(x))
+    xq, sxn = xq.numpy().astype(np.int64), sxn.numpy()
+    nib = ops.dequant4(w.q, torch.ones_like(w.s), torch.zeros_like(w.zs), torch.float64
+                       ).numpy().astype(np.int64)
+    s, zs = w.s.float().numpy(), w.zs.float().numpy()
+    n = s.shape[1]
+    total_acc, total_z = np.zeros((m, n), np.float32), np.zeros((m, n), np.float32)
+    for sp in range(plan.splits):
+        g0 = sp * plan.groups_per_split
+        groups = range(g0, min(g0 + plan.groups_per_split, s.shape[0]))
+        par = []
+        for p in (0, 1):
+            acc, z = np.zeros((m, n), np.float32), np.zeros((m, n), np.float32)
+            for g in (g for g in groups if (g - g0) // plan.groups_per_stage % 2 == p):
+                part = xq[:, g * gsz:(g + 1) * gsz] @ nib[g * gsz:(g + 1) * gsz]
+                r = xq[:, g * gsz:(g + 1) * gsz].sum(-1, keepdims=True)
+                acc = acc + part.astype(np.float32) * s[g]
+                z = z + r.astype(np.float32) * zs[g]
+            par.append((acc, z))
+        block_acc, block_z = par[0][0] + par[1][0], par[0][1] + par[1][1]
+        if plan.splits == 1:
+            total_acc, total_z = block_acc, block_z
+        else:
+            total_acc, total_z = total_acc + block_acc, total_z + block_z
+    y = torch.from_numpy(sxn * (total_acc - total_z))
+    return y.to(out_dtype)
+
+
+@pytest.mark.parametrize("gsz, n_sm", [(64, 6), (128, 6), (64, 132)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_kernel_e_arithmetic_matches_jax_and_the_plain_route(gsz, n_sm, out_dtype):
+    """A float32 emulation of kernel E's arithmetic, at a size where the
+    plan splits K (3 or 8 splits, both parities busy, a ragged last
+    split) and the second column tile is ragged (N = 200): against the
+    JAX route (the Pallas W4A8 kernel in interpret mode), rtol 1e-4 and
+    atol 1e-5 as the JAX package's own test; against the port's plain
+    route within 1e-5 relative of each element's sum of |group terms|
+    (f32 sums in another order; bf16 out: one bf16 ulp more)."""
+    rng = np.random.default_rng(gsz + n_sm)
+    k, n, m = 1024, 200, 5
+    jw = j_quantize4(rng.normal(0, 0.02, (k, n)).astype(np.float32), gsz)
+    w = QuantizedLinear4(*(_torch(f) for f in jw))
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    x[2] = 0.0
+    plan = ops._plan_w4a8(m, k, n, gsz, A16, A16, A16, n_sm=n_sm)
+    assert plan.kernel == "mma" and plan.col_tiles == 2 and plan.splits > 1
+    assert plan.groups_per_split >= 2 and (k // gsz) % plan.groups_per_split != 0 or n_sm == 132
+    got = _emulate_kernel_e(x, w, plan, out_dtype)
+    jref = np.asarray(j_int4_matmul(jnp.asarray(x), jw.q, jw.s, jw.zs, interpret=True, w4a8=True,
+                                    out_dtype=jnp.float32))
+    plain = ops._w4a8(torch.from_numpy(x), *w, out_dtype, ops.w4a8_matmul_ref)
+    assert (got[2] == 0).all()
+    np.testing.assert_allclose(got.float().numpy(), jref, rtol=1e-4 if out_dtype == torch.float32
+                               else 2 ** -7, atol=1e-5)
+    xq, sxn = ops.quantize_rows(torch.from_numpy(x))
+    terms = _group_terms(xq, sxn, w, gsz)
+    bf16_ulp = 2 ** -7 * plain.float().abs() if out_dtype == torch.bfloat16 else 0
+    assert ((got.float() - plain.float()).abs() <= 1e-5 * terms + bf16_ulp + 1e-30).all()
+
+
+def _group_terms(xq, sxn, w, gsz):
+    """sxn * sum_g (|s P| + |R zs|): the magnitudes the route adds."""
+    m, k = xq.shape
+    xg = xq.reshape(m, k // gsz, gsz).transpose(0, 1).float()
+    pg = w.q.reshape(k // gsz, gsz // 2, -1)
+    nib = torch.cat([pg & 0xF, pg >> 4], dim=1).float()
+    p = (torch.bmm(xg, nib).abs() * w.s.float()[:, None, :]).sum(0)
+    r = xq.reshape(m, k // gsz, gsz).sum(-1).float().abs() @ w.zs.float().abs()
+    return sxn * (p + r)
