@@ -5,6 +5,7 @@
     python3 chip_smoke.py --only kernels   # device, build and kernel phases
     python3 chip_smoke.py --only longctx   # device, build, long-context profiles
     python3 chip_smoke.py --only int4      # device, build, E's route, the int4 engine
+    python3 chip_smoke.py --only retrieval # device, the retrieval path
 
 Phases, each raising on failure:
 
@@ -50,6 +51,24 @@ Phases, each raising on failure:
    dispatcher -- kernel F's path: paged_attention at S = 1 launches F once
               and nothing else; at S = 512 it launches nothing and equals
               paged_attention_ref.
+   retrieval -- the retrieval path (no kernel of A-F may launch in it):
+              the e5-small BERT encoder at its published widths, random
+              float32 weights from the seed, text tokenised by a stdlib
+              stand-in: embed on the card (allow_tf32 on around it) against
+              the plain path on the CPU in float64 at every length bucket,
+              padded rows leaving real rows unchanged, warmup's shape
+              ladder covering encode, passages/s over 8192 code-like
+              chunks at batch 64, single-query latency; the device index
+              over 258,048 chunks (capacity 262,144 x 384 in float32)
+              against the host store (a 16-query wave with and without
+              filters, a block of duplicated vectors in insertion order,
+              the k > k_bucket fallback), wave latency (wall and device
+              time); 16 threads through RetrieverFactory's coalescer equal
+              to the direct path; a live-index churn through MutationLog
+              and LiveIndexApplier while queries run (every result a prefix
+              of the stream, compaction in place, no whole-table put, no
+              new shape); a snapshot saved and restored into a fresh index,
+              identical in scores and tie order.
    load    -- a full-width Qwen2-7B checkpoint cut to 2 layers, written
               with the port's safetensors writer and loaded onto the card
               by load_qwen2: tensors and prefill logits bit for bit equal
@@ -77,7 +96,8 @@ Phases, each raising on failure:
               (settings from the environment, build_engine, AsyncEngine,
               OpenAIServer, byte tokenizer); stdlib clients send every
               route, a malformed body and a wave of 8 concurrent streamed
-              chats; A and B must launch, nothing else; no page leaks.
+              chats; A and B must launch, nothing else; no page leaks;
+              GET /debug/index without and with a live-index applier.
 6. int4    -- the same 7B tree quantized to group-wise int4 (group 64) on
               the card, layer by layer; the model checks again (prefill
               logits through kernel D, decode logits through kernel E),
@@ -87,7 +107,9 @@ Phases, each raising on failure:
               E's total, its prologue's by name).  ``--only int4`` runs E's
               route times and this engine phase alone, also from another
               checkout of the port (copy this script there).
-7. summary -- one JSON line per kernel list, then the result line.
+7. summary -- whether transformers, prometheus_client and pydantic import
+              here, the retrieval numbers, the card's name and power
+              limit, the kernel list, then the result line.
 
 There is no CPU fallback: without a card the script exits non-zero.
 """
@@ -161,27 +183,50 @@ def device_us(fn, iters: int = 20, tries: int = 5) -> dict:
     card's machine): a trace counts only if it holds records and every
     kernel name's launch count is a whole multiple of ``iters``; else it is
     taken again, up to ``tries`` times, and then the function raises."""
+    for attempt in range(tries):
+        total, count = trace_calls(fn, iters)
+        if total and all(c >= iters and c % iters == 0 for c in count.values()):
+            return {k: t / iters for k, t in total.items()}
+        log(f"device_us: trace {attempt + 1} of {tries} incomplete, launches {count}")
+    raise RuntimeError(f"the profiler lost kernel records in {tries} traces: {count}")
+
+
+def trace_calls(fn, iters: int) -> tuple[dict, dict]:
+    """Device time (us) and record count by kernel name (copies and sets by
+    their kind, "Memcpy HtoD (Pageable -> Device)", ...) over ``iters``
+    calls of ``fn`` after one untraced call, from a torch.profiler trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-        out, count = {}, {}
-        for e in prof.key_averages():
-            if "CUDA" in str(e.device_type) and e.self_device_time_total > 0:
-                key = e.key.replace("(anonymous namespace)::", "")
-                name = key.split("<")[0].split("(")[0].split("::")[-1].split(" ")[-1]
-                out[name] = out.get(name, 0.0) + e.self_device_time_total / iters
-                count[name] = count.get(name, 0) + e.count
-        if out and all(c >= iters and c % iters == 0 for c in count.values()):
-            return out
-        log(f"device_us: trace {attempt + 1} of {tries} incomplete, launches {count}")
-    raise RuntimeError(f"the profiler lost kernel records in {tries} traces: {count}")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total, count = {}, {}
+    for e in prof.key_averages():
+        if "CUDA" in str(e.device_type) and e.self_device_time_total > 0:
+            key = e.key.replace("(anonymous namespace)::", "")
+            if not key.startswith(("Memcpy", "Memset")):
+                key = key.split("<")[0].split("(")[0].split("::")[-1].split(" ")[-1]
+            total[key] = total.get(key, 0.0) + e.self_device_time_total
+            count[key] = count.get(key, 0) + e.count
+    return total, count
+
+
+def call_device_us(fn, iters: int = 20) -> dict:
+    """Device time (us) of one call of ``fn`` by kernel name, and by kind
+    for copies ("Memcpy HtoD (Pageable -> Device)", ...), from one
+    torch.profiler trace of ``iters`` calls.  For calls that copy as well
+    as launch: the trace drops a record now and then on this card's
+    machine, and a pageable copy may come as several records, so a name's
+    time a call is its mean time a record times its records a call,
+    rounded (at least 1), not its total over ``iters``."""
+    total, count = trace_calls(fn, iters)
+    if not total:
+        raise RuntimeError("the profiler recorded no device activity")
+    return {k: total[k] / count[k] * max(1, round(count[k] / iters)) for k in total}
 
 
 def agreement(out, ref) -> dict:
@@ -1877,6 +1922,565 @@ def phase_load() -> dict:
     return stats
 
 
+# ------------------------------------------------------------- retrieval --
+
+# the encoder's float32 rate: the H100 SXM data sheet's figure outside the
+# tensor cores (the encoder runs IEEE float32, no TF32)
+PEAK_F32_FLOPS = 67e12
+RETRIEVAL_TABLE = "embeddings"  # EMBEDDINGS_TABLE_CHUNK's default: the chunk scope's table
+RETRIEVAL_TOL = 1e-5  # index vs host store: scores; ids in order across every clearer gap
+ENCODER_TOL = 1e-4  # card float32 vs CPU float64, every component
+COSINE_FLOOR = 1 - 1e-6
+PAD_TOL = 1e-6  # real rows' vectors with and without padded rows beside them
+_IDENTS = ("index", "store", "query", "vector", "node", "tree", "parse", "token", "batch", "page",
+           "cache", "engine", "request", "result", "config", "worker", "stream", "shard", "table",
+           "score", "filter", "scope", "repo", "module", "chunk", "embed", "decode", "prefill")
+
+
+def percentile(xs, q: float) -> float:
+    """Nearest-rank percentile of ``xs``."""
+    s = sorted(xs)
+    return s[min(len(s) - 1, int(q * len(s)))]
+
+
+class SmokeTokenizer:
+    """A deterministic stdlib stand-in for a BERT WordPiece tokenizer (the
+    card's machine has no vocabulary file and may lack transformers):
+    [CLS] + word pieces of at most 4 characters + [SEP], truncated to
+    ``max_length``; a piece's id is its crc32 over the vocabulary's
+    non-special range.  Called as the HF tokenizers are by the encoder.
+    It is Python and far slower than a compiled tokenizer, so it keeps what
+    it tokenised: a timed ``encode`` of texts tokenised before times the
+    encoder, not this stand-in."""
+
+    def __init__(self, vocab_size: int) -> None:
+        self.vocab_size = vocab_size
+        self._seen: dict[tuple[str, int], list[int]] = {}
+
+    def ids(self, text: str, max_length: int) -> list[int]:
+        import re
+        import zlib
+
+        key = (text, max_length)
+        if key in self._seen:
+            return self._seen[key]
+        out = [101]
+        for word in re.findall(r"\w+|[^\w\s]", text.lower()):
+            for i in range(0, len(word), 4):
+                out.append(1000 + zlib.crc32(word[i:i + 4].encode()) % (self.vocab_size - 1000))
+        self._seen[key] = out = out[: max_length - 1] + [102]
+        return out
+
+    def __call__(self, texts, truncation=True, max_length=512, padding=False):
+        return {"input_ids": [self.ids(t, max_length) for t in texts]}
+
+
+def code_passages(rng, n: int) -> list[str]:
+    """Synthetic code chunks: Python-like functions of 1-60 body lines
+    (geometric, mean 10), so their token lengths (and the encoder's length
+    buckets) span 32 to 512."""
+    out = []
+    for i in range(n):
+        name = "_".join(rng.choice(_IDENTS, 2))
+        lines = [f"def {name}_{i}(self, {rng.choice(_IDENTS)}, limit={int(rng.integers(1, 999))}):"]
+        for _ in range(min(60, int(rng.geometric(0.1)))):
+            a, b, c = rng.choice(_IDENTS, 3)
+            lines.append(f"    {a} = self.{b}.{c}({a}, {int(rng.integers(0, 99))})  # {b} {c}")
+        lines.append(f"    return {rng.choice(_IDENTS)}")
+        out.append("\n".join(lines))
+    return out
+
+
+def chunk_metadata(row: int) -> dict:
+    """The hierarchy's scope keys of chunk ``row``: 128 repositories of 2048
+    chunks, 8 modules of 256 chunks a repository, 8 chunks a file."""
+    repo, module = f"repo{row // 2048}", f"repo{row // 2048}/mod{row // 256 % 8}"
+    return {"namespace": "default", "repo": repo, "module": module,
+            "file_path": f"{module}/file{row // 8 % 32}.py"}
+
+
+def same_ranking(host, dev, tol: float = RETRIEVAL_TOL) -> None:
+    """Raise unless ``dev`` ranks as ``host`` does: the same length, scores
+    within ``tol`` element by element, and the same ids before every gap
+    between adjacent host scores wider than ``tol`` (ids inside a run of
+    scores closer than ``tol`` may come in another order)."""
+    hs, ds = [h.score for h in host], [h.score for h in dev]
+    hi, di = [h.doc.doc_id for h in host], [h.doc.doc_id for h in dev]
+    if len(hi) != len(di):
+        raise RuntimeError(f"{len(di)} hits, the host store gave {len(hi)}")
+    if hs and max(abs(a - b) for a, b in zip(hs, ds)) > tol:
+        raise RuntimeError(f"scores differ beyond {tol}: {hs} vs {ds}")
+    for i in range(len(hi)):
+        clear = i + 1 == len(hi) or hs[i] - hs[i + 1] > tol
+        if clear and set(hi[: i + 1]) != set(di[: i + 1]):
+            raise RuntimeError(f"ids differ before a clear gap at {i}: {hi} vs {di}")
+
+
+def encoder_check(enc, params, cfg, gen) -> dict:
+    """``embed`` on the card (with allow_tf32 switched on around it: the
+    encoder itself must hold IEEE float32) against the plain path on the
+    CPU in float64, 3 real rows in a row bucket of 8 at every length bucket
+    up to 512; the same 3 rows alone must give the same vectors."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models.encoder import embed
+
+    p64 = {k: ({kk: vv.double().cpu() for kk, vv in v.items()} if isinstance(v, dict)
+               else v.double().cpu()) for k, v in params.items()}
+    worst = {"max_abs_err": 0.0, "min_cosine": 1.0, "pad_max_abs": 0.0}
+    for length in enc.length_buckets():
+        ids = torch.randint(1000, cfg.vocab_size, (8, length), generator=gen, device=gen.device)
+        mask = torch.zeros(8, length, dtype=torch.int64, device=gen.device)
+        for row, n in enumerate((length, length // 2 + 1, 1)):
+            mask[row, :n] = 1
+        mask[3:, :3] = 1  # padded rows of the bucket, with a few tokens each
+        saved = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            with torch.inference_mode():
+                card = embed(params, cfg, ids.to(enc.device), mask.to(enc.device))
+                alone = embed(params, cfg, ids[:3].to(enc.device), mask[:3].to(enc.device))
+            if enc.device.type == "cuda":
+                torch.cuda.synchronize()
+            if torch.backends.cuda.matmul.allow_tf32 is not True:
+                raise RuntimeError("the encoder did not restore the caller's allow_tf32")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = saved
+        ref = embed(p64, cfg, ids[:3].cpu(), mask[:3].cpu())
+        got = card[:3].double().cpu()
+        err = (got - ref).abs().max().item()
+        cos = torch.nn.functional.cosine_similarity(got, ref, dim=-1).min().item()
+        pad = (card[:3] - alone).abs().max().item()
+        if not torch.isfinite(card).all() or err > ENCODER_TOL or cos < COSINE_FLOOR or pad > PAD_TOL:
+            raise RuntimeError(f"encoder at length {length}: max |card - f64| {err}, "
+                               f"min cosine {cos}, padded rows moved real rows by {pad}")
+        worst = {"max_abs_err": max(worst["max_abs_err"], err),
+                 "min_cosine": min(worst["min_cosine"], cos),
+                 "pad_max_abs": max(worst["pad_max_abs"], pad)}
+    return worst
+
+
+def encoder_flops(lengths, cfg) -> float:
+    """The operations ``lengths`` need (real tokens only): per token the
+    projections and FFN, 2 (4 d^2 + 2 d ff) a layer, plus attention over its
+    own sequence, 4 n d a layer."""
+    d, ff, layers = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    return sum(n * layers * (2 * (4 * d * d + 2 * d * ff) + 4 * n * d) for n in lengths)
+
+
+def phase_retrieval(device: str = "cuda", cfg=None, rows: int = 258048, passages: int = 8192,
+                    threads: int = 16, per_thread: int = 16, churn_ops: int = 800) -> dict:
+    """The retrieval path on the card at e5-small's published widths (random
+    float32 weights from the seed) and an index of ``rows`` chunks (126
+    repositories of 2048: the 262,144-row capacity bucket, 402.7 MB of
+    corpus on the card): encoder checks and throughput, index parity with
+    the host store (ties, filters, the fallback), coalesced retrieval
+    through RetrieverFactory, a live-index churn with queries running, and
+    a snapshot round trip.  No kernel of A-F may launch."""
+    import shutil
+    import tempfile
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from githubrepostorag_tpu_torch import config, kernels
+    from githubrepostorag_tpu_torch.embedding import TorchBertTextEncoder
+    from githubrepostorag_tpu_torch.ingest.stream import MutationLog
+    from githubrepostorag_tpu_torch.metrics import (
+        DEVICE_INDEX_SEARCHES, RETRIEVAL_WAVE_SIZE, counter_value, histogram_stats)
+    from githubrepostorag_tpu_torch.models.encoder import BertConfig, init_params
+    from githubrepostorag_tpu_torch.retrieval import (
+        DeviceIndexedStore, LiveIndexApplier, RetrieverFactory, restore_replica, save_snapshot)
+    from githubrepostorag_tpu_torch.store.base import Doc
+    from githubrepostorag_tpu_torch.store.memory import MemoryVectorStore
+    from githubrepostorag_tpu_torch.utils import next_bucket
+
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    cfg = cfg or BertConfig.e5_small()
+    stats: dict = {}
+    reset_launches()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED + 21)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+
+    # -- encoder ---------------------------------------------------------
+    params = init_params(cfg, gen, device=dev)
+    tok = SmokeTokenizer(cfg.vocab_size)
+    enc = TorchBertTextEncoder(params, cfg, tok, device=dev, max_length=cfg.max_position_embeddings)
+    stats["encoder_check"] = encoder_check(enc, params, cfg, gen)
+    t0 = time.monotonic()
+    stats["encoder_warmup_shapes"] = enc.warmup()
+    sync()
+    stats["encoder_warmup_s"] = time.monotonic() - t0
+    texts = code_passages(rng, passages)
+    t0 = time.monotonic()
+    lengths = [len(x) for x in tok([("passage: " + t) for t in texts],
+                                   max_length=enc.max_length)["input_ids"]]
+    tokenize_s = time.monotonic() - t0
+    shapes0 = set(enc.shapes)
+    t0 = time.monotonic()
+    vecs = enc.encode(texts, kind="passage")
+    sync()
+    wall = time.monotonic() - t0
+    if enc.shapes != shapes0:
+        raise RuntimeError(f"encode met shapes warmup did not drive: {enc.shapes - shapes0}")
+    if vecs.shape != (passages, cfg.hidden_size) or not np.isfinite(vecs).all():
+        raise RuntimeError(f"passage vectors {vecs.shape}, finite {np.isfinite(vecs).all()}")
+    if np.abs(np.linalg.norm(vecs, axis=1) - 1).max() > 1e-5:
+        raise RuntimeError("passage vectors are not unit length")
+    flops = encoder_flops(lengths, cfg)
+    buckets = {b: 0 for b in enc.length_buckets()}
+    for n in lengths:
+        buckets[min(b for b in buckets if b >= n)] += 1
+    queries_text = [t.splitlines()[1].strip() for t in texts[: threads * per_thread]]
+    lat = []
+    for q in queries_text[:60]:
+        t0 = time.monotonic()
+        enc.encode([q], kind="query")
+        lat.append(time.monotonic() - t0)
+    lat = lat[10:]  # after the first calls' caches fill
+    stats["encoder"] = {
+        "passages": passages, "passages_per_s": passages / wall, "encode_s": wall,
+        "stand_in_tokenize_s": tokenize_s,
+        "tokens": sum(lengths), "token_length_histogram": buckets,
+        "token_length_p50": percentile(lengths, 0.5), "flops": flops,
+        "bound_ms": flops / PEAK_F32_FLOPS * 1e3, "bound_by": "operations",
+        "query_encode_p50_ms": 1e3 * percentile(lat, 0.5),
+        "query_encode_p95_ms": 1e3 * percentile(lat, 0.95)}
+    log(f"retrieval encoder: {json.dumps(stats['encoder'])}")
+
+    # -- index -----------------------------------------------------------
+    inner = MemoryVectorStore()
+    index = DeviceIndexedStore(inner, k_bucket=16, max_wave=16, device=dev)
+    index.reserve(RETRIEVAL_TABLE, rows, dim=cfg.hidden_size)
+    dup = rng.standard_normal(cfg.hidden_size).astype(np.float32)
+    dup_rows = sorted({passages + 1000 + i for i in range(12)}
+                      | {int(r) for r in rng.choice(np.arange(passages, rows), 8, replace=False)})
+    t0 = time.monotonic()
+    index.upsert(RETRIEVAL_TABLE, [Doc(f"c{i:06d}", texts[i], chunk_metadata(i), vecs[i])
+                                   for i in range(passages)])
+    step = 16384
+    for start in range(passages, rows, step):
+        stop = min(rows, start + step)
+        block = rng.standard_normal((stop - start, cfg.hidden_size)).astype(np.float32)
+        block /= np.linalg.norm(block, axis=1, keepdims=True)
+        for r in dup_rows:
+            if start <= r < stop:
+                block[r - start] = dup
+        index.upsert(RETRIEVAL_TABLE, [Doc(f"c{r:06d}", f"chunk {r}", chunk_metadata(r),
+                                           block[r - start]) for r in range(start, stop)])
+    stats["index_upsert_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    index.search(RETRIEVAL_TABLE, dup, 1)  # the first search puts the whole table
+    sync()
+    stats["index_full_put_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    index.warmup()
+    sync()
+    stats["index_warmup_s"] = time.monotonic() - t0
+    warm_shapes = (index.search_program_cache_size(), index.mutation_program_cache_size())
+    health0 = index.health()["device_index"][RETRIEVAL_TABLE]
+    capacity = health0["capacity"]
+    if capacity != next_bucket(rows, 1 << 30, minimum=64) or health0["live_rows"] != rows:
+        raise RuntimeError(f"index table {health0}")
+    corpus = index._tables[RETRIEVAL_TABLE].corpus_dev
+    stats["corpus_mb"] = corpus.numel() * corpus.element_size() / 1e6
+
+    # parity: a 16-query wave of encoded queries (8) and random vectors (8),
+    # without and with filters, against the host store; the duplicated block
+    wave_q = np.concatenate([enc.encode(queries_text[:8], kind="query"),
+                             rng.standard_normal((8, cfg.hidden_size)).astype(np.float32)])
+    filters = [None] * 16
+    filtered = [None if i % 3 == 0 else {"repo": f"repo{i % 4}"} if i % 3 == 1
+                else {"module": f"repo{i % 4}/mod{i % 8}", "namespace": "default"}
+                for i in range(16)]
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True  # the index must hold IEEE float32 itself
+    try:
+        waves = [index.search_batch(RETRIEVAL_TABLE, wave_q, 16, flt) for flt in (filters, filtered)]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    for flt, wave in zip((filters, filtered), waves):
+        for host_hits, dev_hits, f in zip(
+                [inner.search(RETRIEVAL_TABLE, q, 16, filter=f) for q, f in zip(wave_q, flt)],
+                wave, flt):
+            if len(dev_hits) != 16:
+                raise RuntimeError(f"filter {f}: {len(dev_hits)} hits")
+            same_ranking(host_hits, dev_hits)
+    ties = index.search(RETRIEVAL_TABLE, dup, 16)
+    want = [f"c{r:06d}" for r in dup_rows[:16]]
+    if [h.doc.doc_id for h in ties] != want or len({h.score for h in ties}) != 1:
+        raise RuntimeError(f"duplicated vectors: {[(h.doc.doc_id, h.score) for h in ties]}, "
+                           f"expected {want} with one score (bit-equal columns)")
+    before = counter_value(DEVICE_INDEX_SEARCHES, path="fallback")
+    same_ranking(inner.search(RETRIEVAL_TABLE, wave_q[0], 17),
+                 index.search(RETRIEVAL_TABLE, wave_q[0], 17))
+    if counter_value(DEVICE_INDEX_SEARCHES, path="fallback") != before + 1:
+        raise RuntimeError("k > DEVICE_INDEX_K_BUCKET was not counted as a fallback")
+
+    # wave latency: wall per call and device time per call, waves of 1 and 16
+    waves = {}
+    for nq in (1, 16):
+        qs = wave_q[:nq]
+
+        def call(qs=qs):
+            index.search_batch(RETRIEVAL_TABLE, qs, 16)
+
+        call()
+        walls = []
+        for _ in range(30):
+            t0 = time.monotonic()
+            call()
+            walls.append(time.monotonic() - t0)
+        nbytes = (corpus.numel() * 4 + nq * cfg.hidden_size * 4 + nq * capacity  # corpus, q, mask
+                  + nq * 16 * 12)  # top-k values and int64 rows out
+        b_ms, b_by = bound(2.0 * nq * cfg.hidden_size * capacity, nbytes, PEAK_F32_FLOPS)
+        kern = call_device_us(call, iters=10) if cuda else {}
+        waves[nq] = {"wall_p50_ms": 1e3 * percentile(walls, 0.5),
+                     "device_ms": sum(kern.values()) / 1e3, "kernels_us": kern,
+                     "bound_ms": b_ms, "bound_by": b_by}
+    mask = np.ones((16, capacity), dtype=bool)
+    walls = []
+    for _ in range(20):
+        t0 = time.monotonic()
+        torch.from_numpy(mask).to(dev)
+        sync()
+        walls.append(time.monotonic() - t0)
+    waves[16]["mask_h2d_ms"] = 1e3 * percentile(walls, 0.5)
+    stats["search"] = waves
+    log(f"retrieval search: {json.dumps(waves)}")
+
+    # -- coalesced retrieval ---------------------------------------------
+    groups = [queries_text[t * per_thread:(t + 1) * per_thread] for t in range(threads)]
+    direct = RetrieverFactory(index, enc, coalescer=False).for_scope("chunk")
+    want_many = [direct.retrieve_many(g) for g in groups]
+    if config.get_settings().retrieval_coalesce is not True:
+        raise RuntimeError("RETRIEVAL_COALESCE is off in this environment")
+    factory = RetrieverFactory(index, enc)
+    coalesced = factory.for_scope("chunk")
+    barrier = threading.Barrier(threads)
+
+    def many(t):
+        barrier.wait(60)
+        return coalesced.retrieve_many(groups[t])
+
+    with ThreadPoolExecutor(threads) as pool:
+        got_many = list(pool.map(many, range(threads)))
+    for want_g, got_g in zip(want_many, got_many):
+        for a, b in zip(want_g, got_g):
+            if ([d.doc_id for d in a] != [d.doc_id for d in b]
+                    or max((abs(x.score - y.score) for x, y in zip(a, b)), default=0) > RETRIEVAL_TOL):
+                raise RuntimeError("coalesced retrieve_many differs from the direct path")
+    w0 = histogram_stats(RETRIEVAL_WAVE_SIZE)
+
+    def single(t):
+        barrier.wait(60)
+        out = []
+        for q in groups[t]:
+            t0 = time.monotonic()
+            coalesced.retrieve(q)
+            out.append(time.monotonic() - t0)
+        return out
+
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(threads) as pool:
+        lat = [x for xs in pool.map(single, range(threads)) for x in xs]
+    wall = time.monotonic() - t0
+    w1 = histogram_stats(RETRIEVAL_WAVE_SIZE)
+    factory.coalescer.close()
+    stats["coalesced"] = {
+        "threads": threads, "calls": len(lat), "retrieve_p50_ms": 1e3 * percentile(lat, 0.5),
+        "retrieve_p95_ms": 1e3 * percentile(lat, 0.95), "wall_s": wall,
+        "mean_wave": (w1["sum"] - w0["sum"]) / max(1, w1["count"] - w0["count"]),
+        "waves": w1["count"] - w0["count"]}
+    log(f"retrieval coalesced: {json.dumps(stats['coalesced'])}")
+
+    # -- live index: churn with queries running, then a snapshot ----------
+    t = index._tables[RETRIEVAL_TABLE]
+    live_q = rng.standard_normal((3, cfg.hidden_size)).astype(np.float32)
+    live_q /= np.linalg.norm(live_q, axis=1, keepdims=True)
+    host0 = t.host[:rows].copy()  # normalized rows, row = insertion order here
+    near = {int(r) for q in live_q for r in np.argsort(-(host0 @ q))[:24]}
+    pool_ids = sorted(near | {int(r) for r in rng.choice(np.arange(passages, rows), 300,
+                                                          replace=False)})
+    state = {f"c{r:06d}": host0[r].copy() for r in pool_ids}
+    rest = np.ones(rows, dtype=bool)
+    rest[pool_ids] = False
+    base = []  # per query: the best 5 (score, id) of the rows the churn never touches
+    for q in live_q:
+        s = host0 @ q
+        top = np.argsort(-np.where(rest, s, -np.inf))[:5]
+        base.append([(float(s[r]), f"c{r:06d}") for r in top])
+
+    def top5(qi):
+        q = live_q[qi]
+        cand = list(base[qi]) + [(float(v @ q), i) for i, v in state.items() if v is not None]
+        cand.sort(key=lambda p: -p[0])
+        return tuple(i for _, i in cand[:5])
+
+    allowed = [{top5(i)} for i in range(3)]
+    plan, dead = [], []
+    for _ in range(churn_ops):
+        roll = rng.random()
+        live_ids = [i for i, v in state.items() if v is not None]
+        if roll < 0.35:
+            did = live_ids[int(rng.integers(len(live_ids)))]
+            state[did] = None
+            dead.append(did)
+            plan.append(("delete", did, None))
+        else:
+            if dead and roll < 0.6:
+                did = dead.pop(int(rng.integers(len(dead))))
+            else:
+                did = live_ids[int(rng.integers(len(live_ids)))]
+            # near one of the queries, at a spread of distances: scores 0.1-0.9
+            noise = rng.standard_normal(cfg.hidden_size) / np.sqrt(cfg.hidden_size)
+            v = rng.uniform(0.1, 1.0) * live_q[int(rng.integers(3))] + noise
+            v = (v / np.linalg.norm(v)).astype(np.float32)
+            state[did] = v
+            plan.append(("upsert", did, v))
+        for i in range(3):
+            allowed[i].add(top5(i))
+    log_ = MutationLog()
+    applier = LiveIndexApplier(log_, index, apply_batch=64, compact_interval_s=0.05)
+    compact_ms = []
+    compact_table = index._compact_table
+
+    def timed_compact(tab):
+        t0 = time.monotonic()
+        out = compact_table(tab)
+        sync()
+        compact_ms.append(1e3 * (time.monotonic() - t0))
+        return out
+
+    index._compact_table = timed_compact
+    observed = [set() for _ in range(3)]
+    stop, errors = threading.Event(), []
+
+    def query_loop():
+        n = 0
+        try:
+            while not stop.is_set():
+                hits = index.search(RETRIEVAL_TABLE, live_q[n % 3], 5)
+                observed[n % 3].add(tuple(h.doc.doc_id for h in hits))
+                n += 1
+        except BaseException as exc:  # noqa: BLE001 - raised below, after the join
+            errors.append(exc)
+
+    syncs0 = health0["full_syncs"]
+    applier.start()
+    qthreads = [threading.Thread(target=query_loop) for _ in range(2)]
+    t0 = time.monotonic()
+    try:
+        for th in qthreads:
+            th.start()
+        for kind, did, v in plan:
+            if kind == "delete":
+                log_.append_delete(RETRIEVAL_TABLE, [did])
+            else:
+                row = int(did[1:])
+                log_.append_upsert(RETRIEVAL_TABLE, [Doc(did, f"chunk {row}", chunk_metadata(row), v)])
+        if not applier.flush(timeout=300):
+            raise RuntimeError("the applier did not catch up with the log")
+        apply_s = time.monotonic() - t0
+    finally:
+        stop.set()
+        for th in qthreads:
+            th.join(60)
+        applier.stop()
+        index._compact_table = compact_table
+    if errors or any(th.is_alive() for th in qthreads):
+        raise RuntimeError(f"query threads: {errors}")
+    for i in range(3):
+        rogue = observed[i] - allowed[i]
+        if not observed[i] or rogue:
+            raise RuntimeError(f"query {i} saw states that are no prefix of the stream: {rogue}")
+    health1 = index.health()["device_index"][RETRIEVAL_TABLE]
+    if (health1["full_syncs"] != syncs0 or health1["capacity"] != capacity
+            or health1["compactions"] == health0["compactions"]
+            or health1["holes"] >= applier.compact_min_holes):
+        raise RuntimeError(f"churn: {health0} -> {health1}")
+    if (index.search_program_cache_size(), index.mutation_program_cache_size()) != warm_shapes:
+        raise RuntimeError("live traffic dispatched shapes warmup did not")
+    for flt in (filters, filtered):
+        for host_hits, dev_hits in zip(
+                [inner.search(RETRIEVAL_TABLE, q, 16, filter=f) for q, f in zip(wave_q, flt)],
+                index.search_batch(RETRIEVAL_TABLE, wave_q, 16, flt)):
+            same_ranking(host_hits, dev_hits)
+    stats["live"] = {"ops": len(plan), "apply_s": apply_s, "ops_per_s": len(plan) / apply_s,
+                     "compactions": health1["compactions"] - health0["compactions"],
+                     "compaction_ms": [round(x, 1) for x in compact_ms],
+                     "holes_after": health1["holes"], "observed_states": sum(map(len, observed))}
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    snap = tempfile.mkdtemp(prefix="snapshot-", dir=kernels.BUILD_DIR)
+    try:
+        t0 = time.monotonic()
+        manifest = save_snapshot(index, snap, watermark=applier.applied_seq())
+        save_s = time.monotonic() - t0
+        late = rng.standard_normal(cfg.hidden_size).astype(np.float32)
+        log_.append_upsert(RETRIEVAL_TABLE, [Doc("c000123", "late", chunk_metadata(123), late)])
+        log_.append_delete(RETRIEVAL_TABLE, ["c000124"])
+        applier.drain()
+        replica = DeviceIndexedStore(MemoryVectorStore(), k_bucket=16, max_wave=16, device=dev)
+        t0 = time.monotonic()
+        out = restore_replica(snap, replica, log=log_)
+        replica.search(RETRIEVAL_TABLE, dup, 1)  # the whole-table put
+        sync()
+        restore_s = time.monotonic() - t0
+    finally:
+        shutil.rmtree(snap, ignore_errors=True)
+    if out["replayed"] != 2 or replica.count(RETRIEVAL_TABLE) != index.count(RETRIEVAL_TABLE):
+        raise RuntimeError(f"restore replayed {out['replayed']}, "
+                           f"{replica.count(RETRIEVAL_TABLE)} rows vs {index.count(RETRIEVAL_TABLE)}")
+    for flt in (filters, filtered):
+        for a, b in zip(index.search_batch(RETRIEVAL_TABLE, wave_q, 16, flt),
+                        replica.search_batch(RETRIEVAL_TABLE, wave_q, 16, flt)):
+            if [(h.doc.doc_id, h.score) for h in a] != [(h.doc.doc_id, h.score) for h in b]:
+                raise RuntimeError("the restored replica's ranking is not identical")
+    a, b = index.search(RETRIEVAL_TABLE, dup, 16), replica.search(RETRIEVAL_TABLE, dup, 16)
+    if [(h.doc.doc_id, h.score) for h in a] != [(h.doc.doc_id, h.score) for h in b]:
+        raise RuntimeError("the restored replica breaks ties differently")
+    stats["snapshot"] = {"rows": manifest["tables"][0]["count"], "save_s": save_s,
+                         "restore_s": restore_s, "replayed": out["replayed"]}
+    log(f"retrieval live index: {json.dumps(stats['live'])}; snapshot {json.dumps(stats['snapshot'])}")
+
+    launches = read_launches()
+    if any(launches.values()):
+        raise RuntimeError(f"the retrieval path launched kernels: "
+                           f"{ {k: n for k, n in launches.items() if n} }")
+    stats["kernel_launches"] = sum(launches.values())
+    stats["shapes"] = {"search": warm_shapes[0], "mutation": warm_shapes[1]}
+    if cuda:
+        stats["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    stats["phase_s"] = time.monotonic() - t_phase
+    return stats
+
+
+def package_presence() -> dict:
+    """Whether the packages the JAX package's later layers use import here."""
+    import importlib
+
+    out = {}
+    for name in ("transformers", "prometheus_client", "pydantic"):
+        try:
+            importlib.import_module(name)
+            out[name] = True
+        except Exception:  # noqa: BLE001 - any failure to import is "no"
+            out[name] = False
+    return out
+
+
 # /health's key set in the JAX package (its AsyncEngine.stats() plus status)
 HEALTH_KEYS = {
     "status", "role", "running", "waiting", "requests_admitted", "free_pages", "total_pages",
@@ -2006,6 +2610,7 @@ def phase_http(cfg, params) -> dict:
         status, models, _ = _http(port, "GET", "/v1/models")
         if status != 200 or models["data"][0]["id"] != s.qwen_model:
             raise RuntimeError(f"/v1/models: {status} {models}")
+        stats["debug_index"] = debug_index_check(port)
         for path, body in (("/v1/chat/completions", chat(text(200), 32, False)),
                            ("/v1/completions", json.dumps({"prompt": text(300), "max_tokens": 32,
                                                            "temperature": 0}).encode())):
@@ -2047,7 +2652,7 @@ def phase_http(cfg, params) -> dict:
         off = {k: n for k, n in launches.items() if k.split("@")[0] not in (a, b) and n}
         if off:
             raise RuntimeError(f"the HTTP path launched kernels it never reaches: {off}")
-        stats = {
+        stats.update({
             "wave_prompt_bytes": sizes,
             "wave_completion_tokens": tokens,
             "latency_p50_s": latency[len(latency) // 2],
@@ -2061,7 +2666,7 @@ def phase_http(cfg, params) -> dict:
             "wave_wall_s": wall,
             "requests": len(results),
             "launches": launches,
-        }
+        })
     finally:
         run(server.stop())
         loop.call_soon_threadsafe(loop.stop)
@@ -2071,6 +2676,42 @@ def phase_http(cfg, params) -> dict:
         raise RuntimeError("pages leaked after the HTTP server stopped")
     log(f"http server on {torch.cuda.get_device_name(0)}: {json.dumps(stats)}")
     return stats
+
+
+DEBUG_INDEX_KEYS = {"enabled", "watermark", "lag_ops", "ops_applied", "tables", "compaction"}
+
+
+def debug_index_check(port: int, device: str = "cuda") -> dict:
+    """GET /debug/index without a live-index applier registered ({"enabled":
+    false}) and with one that drained 40 upserts and 3 deletes into a device
+    index on the card (its watermarks, tables and compaction settings)."""
+    from githubrepostorag_tpu_torch.ingest.stream import MutationLog
+    from githubrepostorag_tpu_torch.retrieval import (
+        DeviceIndexedStore, LiveIndexApplier, register_live_applier)
+    from githubrepostorag_tpu_torch.store.base import Doc
+    from githubrepostorag_tpu_torch.store.memory import MemoryVectorStore
+
+    status, off, _ = _http(port, "GET", "/debug/index")
+    if status != 200 or off != {"enabled": False}:
+        raise RuntimeError(f"/debug/index with no applier: {status} {off}")
+    rng = np.random.default_rng(SEED + 13)
+    log_ = MutationLog()
+    log_.append_upsert("t", [Doc(f"d{i}", f"doc {i}", {"repo": f"r{i % 4}"},
+                                 rng.standard_normal(384).astype(np.float32)) for i in range(40)])
+    log_.append_delete("t", ["d1", "d2", "d3"])
+    applier = LiveIndexApplier(log_, DeviceIndexedStore(MemoryVectorStore(), device=device))
+    applier.drain()
+    register_live_applier(applier)
+    try:
+        status, on, _ = _http(port, "GET", "/debug/index")
+    finally:
+        register_live_applier(None)
+    if (status != 200 or set(on) != DEBUG_INDEX_KEYS or on["enabled"] is not True
+            or on["watermark"]["applied"] != 43 or on["lag_ops"] != 0
+            or on["tables"]["t"]["live_rows"] != 37 or on["tables"]["t"]["holes"] != 3):
+        raise RuntimeError(f"/debug/index with an applier: {status} {on}")
+    return {"off": off, "on": {"applied": on["watermark"]["applied"],
+                               "tables": on["tables"]}}
 
 
 def launch_counters() -> dict:
@@ -2391,11 +3032,13 @@ SOURCES = {
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["kernels", "longctx", "int4"], default=None,
+    parser.add_argument("--only", choices=["kernels", "longctx", "int4", "retrieval"],
+                        default=None,
                         help="kernels: the device, build and kernel phases only; longctx: "
                              "the device and build phases and the long-context decode "
                              "profiles only; int4: the device and build phases, kernel E's "
-                             "route times, and the int4-weight engine run and its profile")
+                             "route times, and the int4-weight engine run and its profile; "
+                             "retrieval: the device and retrieval phases only")
     args = parser.parse_args()
 
     import torch
@@ -2413,6 +3056,13 @@ def main() -> int:
 
     t_all = time.monotonic()
     device = phase_device()
+    packages = package_presence()
+    if args.only == "retrieval":
+        retrieval = phase_retrieval()
+        log(f"done in {time.monotonic() - t_all:.1f} s")
+        print(json.dumps({"packages": packages}))
+        print(json.dumps({"retrieval": retrieval}), flush=True)
+        return 0
     phase_build()
     if args.only == "longctx":
         cfg, params = make_7b_params()
@@ -2438,6 +3088,9 @@ def main() -> int:
     if args.only == "kernels":
         log(f"done in {time.monotonic() - t_all:.1f} s")
         return 0
+    retrieval = phase_retrieval()
+    gc.collect()
+    torch.cuda.empty_cache()
     phase_load()
     cfg, params = make_7b_params()
     p32 = upcast(params)
@@ -2525,6 +3178,8 @@ def main() -> int:
                                  **{k.split("@")[1]: numbers(k) for k in branches}}
         entries.append(entry)
     log(f"done in {time.monotonic() - t_all:.1f} s")
+    print(json.dumps({"packages": packages}))
+    print(json.dumps({"retrieval": retrieval}))
     print(device["card"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],

@@ -1,10 +1,12 @@
-"""Settings of the port's model server; port of the serving part of
-``githubrepostorag_tpu/config.py``.
+"""Settings of the port's model server and retrieval path; port of the
+serving and retrieval parts of ``githubrepostorag_tpu/config.py``.
 
-The fields are the ones the model server reads: ``serving/__main__.py``
+The fields are the ones the port reads: ``serving/__main__.py``
 (checkpoint, engine geometry and options), ``serving/openai_api.py``
-(the default priority class) and ``serving/tokenizer.py`` (the tokenizer
-backend).  Each reads the same environment variable, with the same
+(the default priority class), ``serving/tokenizer.py`` (the tokenizer
+backend), and the retrieval path: ``embedding.py`` (the encoder),
+``store/factory.py`` (the store chain), ``retrieval/retrievers.py`` (the
+scope tables).  Each reads the same environment variable, with the same
 default and parser, as the JAX package's field of the same name, so a pod
 spec carries over unchanged.  The settings of modes the port does not run
 yet (host tier, preemption, speculation, the fused step, meshes) are kept:
@@ -147,6 +149,52 @@ class Settings:
     mesh_shape: str = _env("MESH_SHAPE", "")  # e.g. "dp:2,tp:4"
     spec_draft_model: str = _env("SPEC_DRAFT_MODEL", "")  # draft checkpoint dir
     ctrl: str = _env("CTRL", "off")  # the fleet controller
+
+    # --- store and retrieval (store/factory.py, embedding.py, retrieval/) ---
+    store_backend: str = _env("STORE_BACKEND", "memory")  # the port serves memory only
+    store_path: str = _env("STORE_PATH", "")  # persistence dir of the memory store
+    # the five-level hierarchy's tables
+    embeddings_table_catalog: str = _env("EMBEDDINGS_TABLE_CATALOG", "embeddings_catalog")
+    embeddings_table_repo: str = _env("EMBEDDINGS_TABLE_REPO", "embeddings_repo")
+    embeddings_table_module: str = _env("EMBEDDINGS_TABLE_MODULE", "embeddings_module")
+    embeddings_table_file: str = _env("EMBEDDINGS_TABLE_FILE", "embeddings_file")
+    embeddings_table_chunk: str = field(
+        default_factory=lambda: os.getenv("EMBEDDINGS_TABLE_CHUNK",
+                                          os.getenv("EMBEDDINGS_TABLE", "embeddings")))
+    # a local BERT checkpoint dir; anything else -> the hashing encoder
+    embed_model: str = _env("EMBED_MODEL", "intfloat/e5-small-v2")
+    embed_dim: int = _int("EMBED_DIM", 384)
+    # "auto" and "on" wrap the store in the device index on the card (the
+    # JAX package's "auto" wraps on TPU only); "off" keeps the host store
+    device_index: str = _env("DEVICE_INDEX", "auto")
+    # concurrent retrieve() calls share one encode + one search per wave
+    retrieval_coalesce: bool = _bool("RETRIEVAL_COALESCE", True)
+    # max queries a wave, and the top query bucket the device index warms
+    retrieval_max_wave: int = _int("RETRIEVAL_MAX_WAVE", 16)
+    # the index's static k; larger k goes to the host store, counted
+    device_index_k_bucket: int = _int("DEVICE_INDEX_K_BUCKET", 16)
+    # "on": writes go through the mutation log, a daemon applies them
+    live_index: str = _env("LIVE_INDEX", "off")
+    # durable JSONL file of the log; empty = memory only
+    # (DATA_DIR/mutation_log.jsonl when DATA_DIR is set)
+    live_index_log_path: str = _env("LIVE_INDEX_LOG_PATH", "")
+    live_index_apply_batch: int = _int("LIVE_INDEX_APPLY_BATCH", 64)
+    # the compactor's idle scan period and its two hole triggers
+    index_compact_interval_s: float = _float("INDEX_COMPACT_INTERVAL_S", 5.0)
+    index_compact_min_holes: int = _int("INDEX_COMPACT_MIN_HOLES", 64)
+    index_compact_max_hole_fraction: float = _float("INDEX_COMPACT_MAX_HOLE_FRACTION", 0.25)
+    data_dir: str = _env("DATA_DIR", "")
+
+    @property
+    def scope_tables(self) -> dict[str, str]:
+        """scope name -> table name, the 5-level hierarchy."""
+        return {
+            "catalog": self.embeddings_table_catalog,
+            "repo": self.embeddings_table_repo,
+            "module": self.embeddings_table_module,
+            "file": self.embeddings_table_file,
+            "chunk": self.embeddings_table_chunk,
+        }
 
 
 _settings: Settings | None = None

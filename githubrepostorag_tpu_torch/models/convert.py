@@ -1,4 +1,4 @@
-"""The JAX package's parameter tree -> the port's tensors.
+"""The JAX package's parameter trees -> the port's tensors.
 
 ``params_from_jax`` takes the nested dict the JAX package's
 ``init_params`` / ``params_from_state_dict`` / ``fuse_projections`` build,
@@ -10,6 +10,9 @@ Quantized leaves (the JAX ``QuantizedLinear``, ``QuantizedLinear4`` and
 ``QuantizedEmbedding`` NamedTuples) become the port's NamedTuples of the
 same name: uint8 and int8 fields stay integer, and bf16 scales keep their
 bits.
+
+``encoder_params_from_jax`` does the same for the BERT encoder's tree
+(``models/encoder.py`` in both packages).
 """
 
 from __future__ import annotations
@@ -66,5 +69,26 @@ def params_from_jax(tree: dict, cfg: Qwen2Config, device=None, dtype=None) -> di
             f"({cfg.vocab_size}, {cfg.hidden_size})"
         )
     if params["layers"]["ln1"].shape[0] != cfg.num_layers:
+        raise ValueError("layer count does not match the config")
+    return params
+
+
+def encoder_params_from_jax(tree: dict, cfg, device=None, dtype=torch.float32) -> dict:
+    """The JAX encoder's tree (``models/encoder.init_params`` /
+    ``params_from_hf_state_dict``; numpy leaves) -> the port's encoder tree
+    on ``device``, same keys, each leaf as ``dtype``."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _tensor(node, dev).to(dtype)
+
+    params = conv(tree)
+    if tuple(params["word_embeddings"].shape) != (cfg.vocab_size, cfg.hidden_size):
+        raise ValueError(
+            f"word_embeddings shape {tuple(params['word_embeddings'].shape)} does not match "
+            f"the config ({cfg.vocab_size}, {cfg.hidden_size})")
+    if params["layers"]["wq"].shape[0] != cfg.num_layers:
         raise ValueError("layer count does not match the config")
     return params

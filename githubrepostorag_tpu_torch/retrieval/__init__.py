@@ -1,0 +1,38 @@
+"""L2: scoped retrieval over the vector store: the device index, the live
+index and its snapshots, the coalescer and the per-scope retrievers."""
+
+from githubrepostorag_tpu_torch.retrieval.coalescer import RetrievalCoalescer
+from githubrepostorag_tpu_torch.retrieval.device_index import DeviceIndexedStore
+from githubrepostorag_tpu_torch.retrieval.live_index import (
+    LiveIndexApplier,
+    LiveIndexedStore,
+    get_live_applier,
+    live_index_payload,
+    register_live_applier,
+)
+from githubrepostorag_tpu_torch.retrieval.retrievers import (
+    RetrievedDoc,
+    RetrieverFactory,
+    ScopeRetriever,
+)
+from githubrepostorag_tpu_torch.retrieval.snapshot import (
+    load_snapshot,
+    restore_replica,
+    save_snapshot,
+)
+
+__all__ = [
+    "DeviceIndexedStore",
+    "LiveIndexApplier",
+    "LiveIndexedStore",
+    "RetrievalCoalescer",
+    "RetrievedDoc",
+    "RetrieverFactory",
+    "ScopeRetriever",
+    "get_live_applier",
+    "live_index_payload",
+    "load_snapshot",
+    "register_live_applier",
+    "restore_replica",
+    "save_snapshot",
+]

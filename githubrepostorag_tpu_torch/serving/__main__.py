@@ -7,8 +7,9 @@ the paged engine from the settings (``config.py``: ``MAX_NUM_SEQS``,
 ``KV_NUM_PAGES``, ``KV_PAGE_SIZE``, ``PREFILL_CHUNK``, ``CONTEXT_WINDOW``,
 ``PREFILL_TOKEN_BUDGET``, ``KV_QUANT``, ``QUANTIZE_WEIGHTS``, ...), warms it
 up and serves the OpenAI-compatible surface (/v1/chat/completions,
-/v1/completions, /v1/models, /health) until SIGTERM or SIGINT.  Worker and
-ingest pods point ``QWEN_ENDPOINT`` here with ``LLM_BACKEND=http``.
+/v1/completions, /v1/models, /health, /debug/index) until SIGTERM or
+SIGINT.  Worker and ingest pods point ``QWEN_ENDPOINT`` here with
+``LLM_BACKEND=http``.
 
     python -m githubrepostorag_tpu_torch.serving --port 8000               # on the card
     python -m githubrepostorag_tpu_torch.serving --device cpu --port 8000  # plain path

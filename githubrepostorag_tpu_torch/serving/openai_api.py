@@ -2,12 +2,14 @@
 ``githubrepostorag_tpu/serving/openai_api.py`` on the standard library.
 
 Endpoints: POST /v1/chat/completions (stream and non-stream),
-POST /v1/completions, GET /v1/models, GET /health.  Request handling --
+POST /v1/completions, GET /v1/models, GET /health, and GET /debug/index
+(the live index's watermarks and compaction, ``live_index_payload``).
+Request handling --
 sampling defaults, stop strings (cut inside a streamed delta too), finish
 reasons, the 400 for malformed bodies and for ``finish_reason == "error"``,
 cancellation on a stop string, a client that goes away, or a cancelled
-task -- follows the JAX server line for line.  The JAX server's /debug/*
-routes read planes the port does not have yet and are not served.
+task -- follows the JAX server line for line.  The JAX server's other
+/debug/* routes read planes the port does not have yet and are not served.
 
 The JAX server runs on aiohttp, which the card's machine does not have, so
 this one speaks HTTP/1.1 itself over ``asyncio`` streams: a request line,
@@ -34,6 +36,7 @@ from email.utils import formatdate
 from http import HTTPStatus
 
 from githubrepostorag_tpu_torch.config import get_settings
+from githubrepostorag_tpu_torch.retrieval.live_index import live_index_payload
 from githubrepostorag_tpu_torch.serving.async_engine import AsyncEngine
 from githubrepostorag_tpu_torch.serving.sampling_params import SamplingParams
 from githubrepostorag_tpu_torch.serving.tokenizer import StreamingDetokenizer, Tokenizer
@@ -173,6 +176,7 @@ class OpenAIServer:
             "/v1/completions": {"POST": self.completions},
             "/v1/models": {"GET": self.models},
             "/health": {"GET": self.health},
+            "/debug/index": {"GET": self.debug_index},
         }
 
     # ------------------------------------------------------------- wiring
@@ -254,6 +258,9 @@ class OpenAIServer:
 
     async def health(self, req: _Request) -> bool:
         return await self._json(req, {"status": "ok", **self.engine.stats()})
+
+    async def debug_index(self, req: _Request) -> bool:
+        return await self._json(req, live_index_payload())
 
     async def models(self, req: _Request) -> bool:
         return await self._json(req, {

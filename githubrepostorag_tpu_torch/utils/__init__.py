@@ -1,0 +1,17 @@
+"""Small shared helpers; port of ``githubrepostorag_tpu/utils/__init__.py``
+(the JSON helpers come with the agent slice)."""
+
+from githubrepostorag_tpu_torch.utils.logging import get_logger
+
+
+def next_bucket(n: int, cap: int, minimum: int = 16) -> int:
+    """Smallest power-of-two >= n (floored at ``minimum``, capped at ``cap``).
+    Shared by every path that pads dynamic lengths into a handful of
+    shapes (encoder batches, index query waves and scatters)."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return min(b, cap)
+
+
+__all__ = ["get_logger", "next_bucket"]

@@ -1,7 +1,8 @@
-"""The port's model-server settings against the JAX package's: for each
-environment below, every field of ``githubrepostorag_tpu_torch.config.Settings``
-equals the JAX ``Settings`` field of the same name (same variable, default
-and parser), and a typo raises on both sides."""
+"""The port's model-server and retrieval settings against the JAX
+package's: for each environment below, every field of
+``githubrepostorag_tpu_torch.config.Settings`` equals the JAX ``Settings``
+field of the same name (same variable, default and parser), and a typo
+raises on both sides."""
 
 from __future__ import annotations
 
@@ -25,6 +26,12 @@ ENVIRONMENTS = {
     "no_prefix_cache": {"PREFIX_CACHING": "0", "PRIORITY_DEFAULT_CLASS": "batch"},
     "unported_modes": {"KV_TIER": "on", "SPEC_K": "8", "PRIORITY_PROTECTED_CLASS": "batch",
                        "MESH_SHAPE": "tp:2", "CTRL": "on"},
+    "retrieval": {"DEVICE_INDEX": "off", "RETRIEVAL_COALESCE": "0", "RETRIEVAL_MAX_WAVE": "4",
+                  "DEVICE_INDEX_K_BUCKET": "32", "LIVE_INDEX": "on", "DATA_DIR": "/data",
+                  "LIVE_INDEX_APPLY_BATCH": "16", "INDEX_COMPACT_MIN_HOLES": "8",
+                  "INDEX_COMPACT_MAX_HOLE_FRACTION": "0.5", "INDEX_COMPACT_INTERVAL_S": "0.5",
+                  "EMBED_MODEL": "/models/e5", "EMBED_DIM": "768", "STORE_PATH": "/store",
+                  "EMBEDDINGS_TABLE": "chunks", "EMBEDDINGS_TABLE_REPO": "repos"},
 }
 
 
@@ -52,6 +59,7 @@ def test_fields_equal_jax(env, name):
     port, jax_side = env(ENVIRONMENTS[name])
     for f in dataclasses.fields(port):
         assert getattr(port, f.name) == getattr(jax_side, f.name), f.name
+    assert port.scope_tables == jax_side.scope_tables
     assert config.get_settings() is port
 
 

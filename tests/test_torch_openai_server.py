@@ -9,7 +9,8 @@ requests to each must give the same text, finish reason and usage, streamed
 and not; stop strings the same truncation; malformed bodies 400 from both.
 Then the port alone: keep-alive, concurrent streams, a client that goes
 away mid-stream (its request is cancelled and its pages freed), HTTP
-errors, and ``stop()`` with the driver mid-step not blocking the loop."""
+errors, and ``stop()`` with the driver mid-step not blocking the loop.
+GET /debug/index renders the same live-index payload as the JAX server's."""
 
 from __future__ import annotations
 
@@ -176,6 +177,55 @@ def test_models_and_health_match_jax(servers):
     assert models[0] == models[1] and models[0]["data"][0]["id"] == NAME
     health = [json.loads(_request(p, "GET", "/health")[2]) for p in (servers.port, servers.jax)]
     assert sorted(health[0]) == sorted(health[1]) and health[0]["status"] == "ok"
+
+
+def test_debug_index_matches_jax(servers):
+    """GET /debug/index: {"enabled": false} from both with no applier
+    registered; with appliers that drained the same ops into device
+    indexes, the same payload, key for key and value for value."""
+    from githubrepostorag_tpu.ingest.stream import MutationLog as JMutationLog
+    from githubrepostorag_tpu.retrieval import live_index as j_live
+    from githubrepostorag_tpu.retrieval.device_index import DeviceIndexedStore as JIndex
+    from githubrepostorag_tpu.store.base import Doc as JDoc
+    from githubrepostorag_tpu.store.memory import MemoryVectorStore as JMemory
+    from githubrepostorag_tpu_torch.ingest.stream import MutationLog
+    from githubrepostorag_tpu_torch.retrieval import live_index
+    from githubrepostorag_tpu_torch.retrieval.device_index import DeviceIndexedStore
+    from githubrepostorag_tpu_torch.store.base import Doc
+    from githubrepostorag_tpu_torch.store.memory import MemoryVectorStore
+
+    def get_both():
+        out = []
+        for port in (servers.port, servers.jax):
+            status, _, data = _request(port, "GET", "/debug/index")
+            assert status == 200
+            out.append(json.loads(data))
+        return out
+
+    assert get_both() == [{"enabled": False}] * 2
+    rng = np.random.default_rng(0)
+    rows = [(f"d{i}", f"text {i}", {"repo": f"r{i % 2}"}, rng.normal(size=8).astype(np.float32))
+            for i in range(10)]
+    appliers = []
+    for log, index, doc in ((MutationLog(),
+                             DeviceIndexedStore(MemoryVectorStore(), max_wave=4, device="cpu"), Doc),
+                            (JMutationLog(), JIndex(JMemory(), max_wave=4), JDoc)):
+        log.append_upsert("t", [doc(i, t, dict(m), v.copy()) for i, t, m, v in rows])
+        log.append_delete("t", ["d3"])
+        appliers.append((log, index))
+    t_app = live_index.LiveIndexApplier(*appliers[0])
+    j_app = j_live.LiveIndexApplier(*appliers[1])
+    assert t_app.drain() == j_app.drain() == 11
+    live_index.register_live_applier(t_app)
+    j_live.register_live_applier(j_app)
+    try:
+        port_payload, jax_payload = get_both()
+    finally:
+        live_index.register_live_applier(None)
+        j_live.register_live_applier(None)
+    assert port_payload == jax_payload
+    assert port_payload["enabled"] is True and port_payload["watermark"]["applied"] == 11
+    assert port_payload["tables"]["t"]["live_rows"] == 9
 
 
 def test_keep_alive_and_http_errors(servers):
