@@ -6,6 +6,7 @@
     python3 chip_smoke.py --only longctx   # device, build, long-context profiles
     python3 chip_smoke.py --only int4      # device, build, E's route, the int4 engine
     python3 chip_smoke.py --only retrieval # device, the retrieval path
+    python3 chip_smoke.py --only rag       # device, build, the question-answering loop
 
 Phases, each raising on failure:
 
@@ -98,6 +99,21 @@ Phases, each raising on failure:
               route, a malformed body and a wave of 8 concurrent streamed
               chats; A and B must launch, nothing else; no page leaks;
               GET /debug/index without and with a live-index applier.
+   rag     -- after the http phase: the question-answering loop through
+              the RAG service's entry points: the engine built by
+              api/__main__ (inprocess_llm over build_engine, the engine
+              phase's geometry, QWEN_MAX_OUTPUT=64, the byte tokenizer),
+              GraphAgent over the retrieval phase's device index plus repo,
+              module, file and catalog docs, RagApi + RagWorker over the
+              memory bus on localhost; 8 jobs posted at once (code and repo
+              questions, one whole-repo architecture question in the
+              long-context mode, one cancelled at its first turn, one whose
+              deadline_ms the engine reaps), every SSE stream read to
+              final, each finished job's trace (agent stages, llm.generate
+              over engine.prefill / engine.decode), /health, /metrics;
+              A and B must launch, nothing else; no page leaks; every index
+              search on the device.  ``--only rag`` builds the index at the
+              same size first.
 6. int4    -- the same 7B tree quantized to group-wise int4 (group 64) on
               the card, layer by layer; the model checks again (prefill
               logits through kernel D, decode logits through kernel E),
@@ -107,9 +123,10 @@ Phases, each raising on failure:
               E's total, its prologue's by name).  ``--only int4`` runs E's
               route times and this engine phase alone, also from another
               checkout of the port (copy this script there).
-7. summary -- whether transformers, prometheus_client and pydantic import
-              here, the retrieval numbers, the card's name and power
-              limit, the kernel list, then the result line.
+7. summary -- whether transformers, prometheus_client, pydantic, psutil and
+              requests import here, the retrieval and rag numbers, the
+              card's name and power limit, the kernel list, then the result
+              line.
 
 There is no CPU fallback: without a card the script exits non-zero.
 """
@@ -2069,14 +2086,16 @@ def encoder_flops(lengths, cfg) -> float:
 
 
 def phase_retrieval(device: str = "cuda", cfg=None, rows: int = 258048, passages: int = 8192,
-                    threads: int = 16, per_thread: int = 16, churn_ops: int = 800) -> dict:
+                    threads: int = 16, per_thread: int = 16, churn_ops: int = 800,
+                    keep: dict | None = None) -> dict:
     """The retrieval path on the card at e5-small's published widths (random
     float32 weights from the seed) and an index of ``rows`` chunks (126
     repositories of 2048: the 262,144-row capacity bucket, 402.7 MB of
     corpus on the card): encoder checks and throughput, index parity with
     the host store (ties, filters, the fallback), coalesced retrieval
     through RetrieverFactory, a live-index churn with queries running, and
-    a snapshot round trip.  No kernel of A-F may launch."""
+    a snapshot round trip.  No kernel of A-F may launch.  ``keep``, when
+    given, receives the index and the encoder (the rag phase's store)."""
     import shutil
     import tempfile
     import threading
@@ -2464,6 +2483,8 @@ def phase_retrieval(device: str = "cuda", cfg=None, rows: int = 258048, passages
     if cuda:
         stats["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     stats["phase_s"] = time.monotonic() - t_phase
+    if keep is not None:
+        keep.update(index=index, encoder=enc)
     return stats
 
 
@@ -2472,7 +2493,7 @@ def package_presence() -> dict:
     import importlib
 
     out = {}
-    for name in ("transformers", "prometheus_client", "pydantic"):
+    for name in ("transformers", "prometheus_client", "pydantic", "psutil", "requests"):
         try:
             importlib.import_module(name)
             out[name] = True
@@ -2493,10 +2514,15 @@ HEALTH_KEYS = {
 }
 
 
+# the engine phase's geometry, as the entry points read it
+ENGINE_GEOMETRY = {"MAX_NUM_SEQS": "8", "KV_NUM_PAGES": "256", "KV_PAGE_SIZE": "128",
+                   "PREFILL_CHUNK": "512", "CONTEXT_WINDOW": "11712"}
+
+
 def _http(port: int, method: str, path: str, body: bytes | None = None):
-    """(status, parsed JSON body or SSE events, (start, end) monotonic
-    times) of one request on a fresh connection; SSE bodies become a list
-    of parsed events ending in "[DONE]"."""
+    """(status, parsed JSON body, SSE events or text, (start, end)
+    monotonic times) of one request on a fresh connection; SSE bodies
+    become a list of parsed events ending in "[DONE]"."""
     import http.client
 
     t0 = time.monotonic()
@@ -2515,6 +2541,8 @@ def _http(port: int, method: str, path: str, body: bytes | None = None):
                 payload = block[len("data: "):]
                 events.append(payload if payload == "[DONE]" else json.loads(payload))
             return resp.status, events, (t0, time.monotonic())
+        if resp.getheader("Content-Type", "").startswith("text/plain"):
+            return resp.status, data.decode(), (t0, time.monotonic())
         return resp.status, json.loads(data), (t0, time.monotonic())
     finally:
         conn.close()
@@ -2540,8 +2568,7 @@ def phase_http(cfg, params) -> dict:
     from githubrepostorag_tpu_torch.serving.openai_api import OpenAIServer
     from githubrepostorag_tpu_torch.serving.tokenizer import ByteTokenizer
 
-    os.environ.update(MAX_NUM_SEQS="8", KV_NUM_PAGES="256", KV_PAGE_SIZE="128",
-                      PREFILL_CHUNK="512", CONTEXT_WINDOW="11712")
+    os.environ.update(ENGINE_GEOMETRY)
     s = config.reload_settings()
     engine = build_engine(s, params, cfg, "cuda")
     t0 = time.monotonic()
@@ -2712,6 +2739,374 @@ def debug_index_check(port: int, device: str = "cuda") -> dict:
         raise RuntimeError(f"/debug/index with an applier: {status} {on}")
     return {"off": off, "on": {"applied": on["watermark"]["applied"],
                                "tables": on["tables"]}}
+
+
+# -- the question-answering loop ------------------------------------------
+
+RAG_MAX_OUTPUT = 64  # QWEN_MAX_OUTPUT: a random 7B model rarely emits EOS
+RAG_DEADLINE_MS = 600  # the reaped job's budget: its first engine call outlives it
+REPO_CHUNKS = 2048  # chunks a repository (chunk_metadata)
+
+
+def rag_index(dev, cfg=None, rows: int = 258048, passages: int = 1024):
+    """The retrieval phase's deployment at the same size, for ``--only
+    rag``: e5-small-width encoder (random float32 weights from the seed),
+    ``passages`` encoded code chunks and random unit vectors for the rest
+    of ``rows`` chunks in the device index."""
+    from githubrepostorag_tpu_torch.embedding import TorchBertTextEncoder
+    from githubrepostorag_tpu_torch.models.encoder import BertConfig, init_params
+    from githubrepostorag_tpu_torch.retrieval import DeviceIndexedStore
+    from githubrepostorag_tpu_torch.store.base import Doc
+    from githubrepostorag_tpu_torch.store.memory import MemoryVectorStore
+
+    import torch
+
+    cfg = cfg or BertConfig.e5_small()
+    rng = np.random.default_rng(SEED + 21)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 21)
+    enc = TorchBertTextEncoder(init_params(cfg, gen, device=dev), cfg,
+                               SmokeTokenizer(cfg.vocab_size), device=dev,
+                               max_length=cfg.max_position_embeddings)
+    enc.warmup()
+    texts = code_passages(rng, passages)
+    vecs = enc.encode(texts, kind="passage")
+    index = DeviceIndexedStore(MemoryVectorStore(), k_bucket=16, max_wave=16, device=dev)
+    index.reserve(RETRIEVAL_TABLE, rows, dim=cfg.hidden_size)
+    index.upsert(RETRIEVAL_TABLE, [Doc(f"c{i:06d}", texts[i], chunk_metadata(i), vecs[i])
+                                   for i in range(passages)])
+    for start in range(passages, rows, 16384):
+        stop = min(rows, start + 16384)
+        block = rng.standard_normal((stop - start, cfg.hidden_size)).astype(np.float32)
+        block /= np.linalg.norm(block, axis=1, keepdims=True)
+        index.upsert(RETRIEVAL_TABLE, [Doc(f"c{r:06d}", f"chunk {r}", chunk_metadata(r),
+                                           block[r - start]) for r in range(start, stop)])
+    index.search(RETRIEVAL_TABLE, vecs[0], 1)  # the first search puts the whole table
+    index.warmup()
+    return index, enc, passages
+
+
+def rag_hierarchy(index, enc, rows: int, seed: int = SEED + 31) -> dict:
+    """Repo-, module- and file-level docs (and the namespace's catalog doc)
+    for the chunk table's repositories, so that every rung of the agent's
+    scope ladder has rows: summaries of repositories and modules encoded,
+    file docs with random unit vectors.  Returns the rows a table."""
+    from githubrepostorag_tpu_torch import config
+    from githubrepostorag_tpu_torch.store.base import Doc
+
+    rng = np.random.default_rng(seed)
+    tables = config.get_settings().scope_tables
+    repos = -(-rows // REPO_CHUNKS)
+    md = [chunk_metadata(r * REPO_CHUNKS) for r in range(repos)]
+    repo_texts = [f"{m['repo']}: a code repository of 8 modules ({', '.join(_IDENTS[:4])}) "
+                  f"and 256 files" for m in md]
+    mods = [(m["repo"], f"{m['repo']}/mod{j}") for m in md for j in range(8)]
+    mod_texts = [f"module {mod} of {repo}: {' '.join(rng.choice(_IDENTS, 6))}"
+                 for repo, mod in mods]
+    vecs = enc.encode([f"catalog of {repos} repositories"] + repo_texts + mod_texts,
+                      kind="passage")
+    dim = vecs.shape[1]
+    ns = {"namespace": "default"}
+    docs = {
+        "catalog": [Doc("catalog:default", f"catalog of {repos} repositories",
+                        {**ns, "scope": "catalog"}, vecs[0])],
+        "repo": [Doc(f"repo:{m['repo']}", t, {**ns, "scope": "repo", "repo": m["repo"]}, v)
+                 for m, t, v in zip(md, repo_texts, vecs[1:1 + repos])],
+        "module": [Doc(f"module:{mod}", t, {**ns, "scope": "module", "repo": repo,
+                                            "module": mod}, v)
+                   for (repo, mod), t, v in zip(mods, mod_texts, vecs[1 + repos:])],
+    }
+    files = [(repo, mod, f"{mod}/file{k}.py") for repo, mod in mods for k in range(32)]
+    fvec = rng.standard_normal((len(files), dim)).astype(np.float32)
+    fvec /= np.linalg.norm(fvec, axis=1, keepdims=True)
+    docs["file"] = [Doc(f"file:{path}", f"file {path}: {' '.join(rng.choice(_IDENTS, 5))}",
+                        {**ns, "scope": "file", "repo": repo, "module": mod,
+                         "file_path": path}, v)
+                    for (repo, mod, path), v in zip(files, fvec)]
+    for scope, rows_ in docs.items():
+        index.upsert(tables[scope], rows_)
+    index.warmup([tables[s] for s in docs])
+    return {scope: len(rows_) for scope, rows_ in docs.items()}
+
+
+def rag_job(port: int, body: dict, cancel_on_turn: bool = False) -> dict:
+    """POST one job, read its SSE stream to its terminal event (cancelling
+    the job at its first ``turn`` event when asked), then GET its result.
+    The API ends a stream at ``final`` or, for a failed job, at the
+    ``error`` event the worker emits just before its empty ``final`` (as
+    the JAX API does).  Returns the reply, the events and the POST ->
+    terminal event wall time."""
+    import http.client
+
+    t0 = time.monotonic()
+    status, reply, _ = _http(port, "POST", "/rag/jobs", json.dumps(body).encode())
+    if status != 200:
+        raise RuntimeError(f"POST /rag/jobs {body}: {status} {reply}")
+    job_id = reply["job_id"]
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    events, cancelled_at = [], None
+    try:
+        conn.request("GET", f"/rag/jobs/{job_id}/events")
+        resp = conn.getresponse()
+        for raw in resp:
+            line = raw.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            events.append(json.loads(line[len("data: "):]))
+            if cancel_on_turn and cancelled_at is None and events[-1]["event"] == "turn":
+                status, ack, _ = _http(port, "POST", f"/rag/jobs/{job_id}/cancel")
+                if status != 200 or ack != {"job_id": job_id, "cancelled": True}:
+                    raise RuntimeError(f"cancel {job_id}: {status} {ack}")
+                cancelled_at = len(events)
+            if events[-1]["event"] in ("final", "error"):
+                break
+    finally:
+        conn.close()
+    wall = time.monotonic() - t0
+    if not events or events[-1]["event"] not in ("final", "error"):
+        raise RuntimeError(f"job {job_id} ({body['query']!r}) ended without a terminal event: "
+                           f"{events[-3:]}")
+    status, result, _ = _http(port, "GET", f"/rag/jobs/{job_id}/result")
+    if status != 200:
+        raise RuntimeError(f"GET result of {job_id}: {status} {result}")
+    return {"body": body, "reply": reply, "events": events, "wall_s": wall, "result": result,
+            "cancelled_at": cancelled_at}
+
+
+def _spans_by_id(trace: dict) -> dict:
+    return {sp["span_id"]: sp for sp in trace["spans"]}
+
+
+def synthesis_ttft(trace: dict) -> dict:
+    """The synthesis call's engine time to first token (queue wait +
+    prefill, the engine's submit -> first token) and its prefill alone,
+    from the engine spans under the synthesis stage's ``llm.generate``."""
+    spans = _spans_by_id(trace)
+
+    def under(sp, stage):
+        while sp is not None:
+            if sp["name"] == stage:
+                return True
+            sp = spans.get(sp["parent_id"])
+        return False
+
+    gens = [sp for sp in trace["spans"] if sp["name"] == "llm.generate"
+            and (under(sp, "agent.synthesize") or under(sp, "agent.longctx"))]
+    if not gens:
+        raise RuntimeError(f"trace {trace['trace_id']}: no synthesis llm.generate")
+    gen = gens[0]
+    kids = {sp["name"]: sp for sp in trace["spans"] if sp["parent_id"] == gen["span_id"]}
+    if "engine.prefill" not in kids:
+        raise RuntimeError(f"trace {trace['trace_id']}: the synthesis call has no engine.prefill")
+    wait = kids["engine.queue_wait"]["duration_s"] if "engine.queue_wait" in kids else 0.0
+    return {"ttft_s": wait + kids["engine.prefill"]["duration_s"],
+            "prefill_s": kids["engine.prefill"]["duration_s"],
+            "prompt_tokens": kids["engine.prefill"]["attrs"]["prompt_tokens"]}
+
+
+def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages: int = 8192,
+              rows: int = 258048, geometry: dict | None = None) -> dict:
+    """The question-answering loop on the card through the port's entry
+    points: the in-process engine built by ``api/__main__`` (its
+    ``inprocess_llm`` over the model server's ``build_engine``, settings
+    from the environment: the engine phase's geometry, QWEN_MAX_OUTPUT
+    set to RAG_MAX_OUTPUT), the agent over the retrieval phase's device
+    index (plus repo, module, file and catalog docs), and ``RagApi`` +
+    ``RagWorker`` in one process over the memory bus, on localhost.
+    Eight jobs posted at once: code questions, repo questions, one
+    whole-repo architecture question (the assembler's long-context mode),
+    one cancelled at its first turn, one whose ``deadline_ms`` the engine
+    reaps.  Every launch count is set to 0 just before the jobs and read
+    just after they all reach ``final``."""
+    import os
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from githubrepostorag_tpu_torch import config
+    from githubrepostorag_tpu_torch.agent import GraphAgent
+    from githubrepostorag_tpu_torch.api.__main__ import inprocess_llm
+    from githubrepostorag_tpu_torch.api.app import RagApi
+    from githubrepostorag_tpu_torch.events import MemoryBus, MemoryCancelFlags, MemoryJobQueue
+    from githubrepostorag_tpu_torch.llm import set_llm
+    from githubrepostorag_tpu_torch.metrics import (
+        DEVICE_INDEX_SEARCHES, JOBS_TOTAL, MeteredLLM, counter_value)
+    from githubrepostorag_tpu_torch.retrieval import RetrieverFactory
+    from githubrepostorag_tpu_torch.serving.tokenizer import ByteTokenizer
+    from githubrepostorag_tpu_torch.store import set_store
+    from githubrepostorag_tpu_torch.worker import RagWorker
+
+    cuda = torch.device(device).type == "cuda"
+    t_phase = time.monotonic()
+    os.environ.update(geometry or ENGINE_GEOMETRY, QWEN_MAX_OUTPUT=str(RAG_MAX_OUTPUT),
+                      LLM_BACKEND="inprocess")
+    s = config.reload_settings()
+    log(f"rag: QWEN_MAX_OUTPUT={s.qwen_max_output}, CONTEXT_WINDOW={s.context_window}, "
+        f"{s.max_num_seqs} rows x {s.kv_num_pages} pages of {s.kv_page_size}")
+    if index is None:
+        t0 = time.monotonic()
+        index, enc, passages = rag_index(device, rows=rows)
+        log(f"rag index: {rows} chunks built in {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    hierarchy = rag_hierarchy(index, enc, rows)
+    log(f"rag hierarchy docs {hierarchy} in {time.monotonic() - t0:.1f} s")
+
+    t0 = time.monotonic()
+    llm = inprocess_llm(s, params, cfg, ByteTokenizer(), device)
+    if cuda:
+        torch.cuda.synchronize()
+    warmup_s = time.monotonic() - t0
+    engine = llm.engine.engine
+    if engine.max_seq_len != s.context_window:
+        raise RuntimeError(f"engine max_seq_len {engine.max_seq_len} != CONTEXT_WINDOW")
+    set_llm(llm)  # /health reads the engine's stats from the shared LLM
+    set_store(index)  # and probes the process-wide store
+    agent = GraphAgent(MeteredLLM(llm), RetrieverFactory(index, enc), namespace="default")
+    bus, flags, queue = MemoryBus(), MemoryCancelFlags(), MemoryJobQueue()
+    api = RagApi(bus, flags, queue)
+    worker = RagWorker(agent, bus, flags, queue)
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="rag-service", daemon=True)
+    thread.start()
+
+    def run(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(600)
+
+    # repositories 0.. hold the encoded code chunks; from `short` on every
+    # chunk is a one-line stand-in, so one repository's whole text fits the
+    # long-context budget
+    short = -(-passages // REPO_CHUNKS)
+    jobs = [
+        ({"query": "what does the function parse_tree return in repo: repo0?"}, False),
+        ({"query": "why does index_query raise an exception in repo: repo1?"}, False),
+        ({"query": "how is the token batch retry implemented?"}, False),
+        ({"query": f"tell me about repo: repo{short + 1}"}, False),
+        ({"query": "what projects exist in this workspace?"}, False),
+        ({"query": f"explain the architecture of repo: repo{short} and how the pieces "
+                   "fit together"}, False),
+        ({"query": f"describe the modules of repo: repo{short + 2}"}, True),
+        ({"query": f"summarize repo: repo{short + 3}", "deadline_ms": RAG_DEADLINE_MS}, False),
+    ]
+    port = run(api.start("127.0.0.1", 0))
+    task = asyncio.run_coroutine_threadsafe(worker.run_forever(), loop)
+    stats: dict = {"qwen_max_output": s.qwen_max_output, "engine_warmup_s": warmup_s,
+                   "hierarchy_docs": hierarchy}
+    try:
+        free0 = engine._allocator.free_count
+        reaps0 = engine.deadline_reaps
+        searches0 = {p: counter_value(DEVICE_INDEX_SEARCHES, path=p) for p in ("device", "fallback")}
+        jobs0 = {st: counter_value(JOBS_TOTAL, status=st) for st in ("ok", "cancelled", "timeout")}
+        reset_launches()
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            done = list(pool.map(lambda j: rag_job(port, *j), jobs))
+        traffic_s = time.monotonic() - t0
+        deadline = time.monotonic() + 120
+        while engine.has_work() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if cuda:
+            torch.cuda.synchronize()
+        launches = read_launches()
+
+        finished, walls, ttfts, calls = [], [], [], []
+        for job in done:
+            kinds = [e["event"] for e in job["events"]]
+            final = job["events"][-1]["data"]
+            q = job["body"]["query"]
+            if job["cancelled_at"] is not None:
+                if (kinds[-1] != "final" or final.get("cancelled") is not True
+                        or job["result"].get("cancelled") is not True):
+                    raise RuntimeError(f"cancelled job {q!r}: final {final}")
+                continue
+            if "deadline_ms" in job["body"]:
+                if (kinds[-1] != "error" or "deadline" not in final["error"]
+                        or job["result"] != {"answer": "", "sources": [], "error": final["error"]}):
+                    raise RuntimeError(f"deadline job {q!r}: events {kinds}, result {job['result']}")
+                continue
+            if kinds[:2] != ["started", "iteration"] or "error" in kinds or "retrieval" not in kinds:
+                raise RuntimeError(f"job {q!r}: events {kinds}")
+            if job["result"].get("answer") != final["answer"] or not final["sources"]:
+                raise RuntimeError(f"job {q!r}: result {job['result']} vs final {final}")
+            status, trace, _ = _http(port, "GET", f"/debug/traces/{job['reply']['trace_id']}")
+            if status != 200:
+                raise RuntimeError(f"job {q!r}: GET its trace -> {status}")
+            names = [sp["name"] for sp in trace["spans"]]
+            spans = _spans_by_id(trace)
+            want = {"worker.job", "agent.run", "agent.plan", "llm.generate", "engine.prefill",
+                    "engine.decode"}
+            if not want <= set(names) or not ({"agent.synthesize", "agent.longctx"} & set(names)):
+                raise RuntimeError(f"job {q!r}: trace spans {sorted(set(names))}")
+            for sp in trace["spans"]:
+                if sp["name"] in ("engine.prefill", "engine.decode"):
+                    parent = spans.get(sp["parent_id"])
+                    if parent is None or parent["name"] != "llm.generate":
+                        raise RuntimeError(f"job {q!r}: {sp['name']} outside llm.generate")
+            turns = [t["stage"] for t in job["events"][[e["event"] for e in job["events"]]
+                                                        .index("retrieval")]["data"]["turns"]]
+            finished.append({"query": q, "turns": turns, "llm_calls": names.count("llm.generate"),
+                             "sources": len(final["sources"]), "answer_chars": len(final["answer"]),
+                             "wall_s": job["wall_s"], **synthesis_ttft(trace)})
+            walls.append(job["wall_s"])
+            ttfts.append(finished[-1]["ttft_s"])
+            calls.append(finished[-1]["llm_calls"])
+        longctx = [f for f in finished if "assemble" in f["turns"]]
+        if len(finished) != 6 or len(longctx) != 1 or "architecture" not in longctx[0]["query"]:
+            raise RuntimeError(f"finished jobs {[(f['query'], f['turns']) for f in finished]}")
+        reaped = engine.deadline_reaps - reaps0
+        if reaped < 1:
+            raise RuntimeError("the deadline job's row was not reaped by the engine")
+        searches = {p: counter_value(DEVICE_INDEX_SEARCHES, path=p) - searches0[p]
+                    for p in searches0}
+        if searches["device"] <= 0 or searches["fallback"] != 0:
+            raise RuntimeError(f"index searches in the phase: {searches}")
+        jobs_total = {st: counter_value(JOBS_TOTAL, status=st) - jobs0[st] for st in jobs0}
+        if jobs_total != {"ok": 6, "cancelled": 1, "timeout": 1}:
+            raise RuntimeError(f"rag_jobs_total moved by {jobs_total}")
+        a, b = "fused_window_attention", "paged_attention_decode_staged"
+        if cuda:
+            if launches[a] <= 0 or launches[b] <= 0:
+                raise RuntimeError(f"the RAG path launched A {launches[a]}, B {launches[b]} times")
+            off = {k: n for k, n in launches.items() if k.split("@")[0] not in (a, b) and n}
+            if off:
+                raise RuntimeError(f"the RAG path launched kernels it never reaches: {off}")
+        if engine.has_work() or engine._allocator.free_count != free0:
+            raise RuntimeError(f"pages leaked: {engine._allocator.free_count} free, "
+                               f"{free0} before the jobs")
+        status, health, _ = _http(port, "GET", "/health")
+        if status != 200 or health["status"] != "UP":
+            raise RuntimeError(f"/health: {status} {health}")
+        llm_health = health["components"]["llm"]["details"]
+        if llm_health["free_pages"] != llm_health["total_pages"]:
+            raise RuntimeError(f"/health llm: {llm_health}")
+        status, metrics, _ = _http(port, "GET", "/metrics")
+        if status != 200 or 'rag_jobs_total{status="cancelled"}' not in metrics:
+            raise RuntimeError(f"/metrics: {status}")
+        stats.update({
+            "jobs": len(done), "finished": finished, "traffic_wall_s": traffic_s,
+            "job_wall_p50_s": percentile(walls, 0.5), "job_wall_p95_s": percentile(walls, 0.95),
+            "synth_ttft_p50_s": percentile(ttfts, 0.5),
+            "synth_prefill_p50_s": percentile([f["prefill_s"] for f in finished], 0.5),
+            "llm_calls_per_job": calls, "llm_calls_mean": sum(calls) / len(calls),
+            "cancelled_after_events": [j["cancelled_at"] for j in done if j["cancelled_at"]],
+            "deadline_reaps": reaped, "index_searches": searches, "jobs_total": jobs_total,
+            "kernel_a_launches": launches[a], "kernel_b_launches": launches[b],
+            "launches": launches,
+        })
+    finally:
+        worker.stop()
+        task.cancel()
+        run(api.stop())
+        llm.close()
+        set_llm(None)
+        set_store(None)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+        loop.close()
+    stats["phase_s"] = time.monotonic() - t_phase
+    log(f"rag on {torch.cuda.get_device_name(0) if cuda else 'cpu'}: {json.dumps(stats)}")
+    return stats
+
 
 
 def launch_counters() -> dict:
@@ -3032,13 +3427,15 @@ SOURCES = {
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["kernels", "longctx", "int4", "retrieval"],
+    parser.add_argument("--only", choices=["kernels", "longctx", "int4", "retrieval", "rag"],
                         default=None,
                         help="kernels: the device, build and kernel phases only; longctx: "
                              "the device and build phases and the long-context decode "
                              "profiles only; int4: the device and build phases, kernel E's "
                              "route times, and the int4-weight engine run and its profile; "
-                             "retrieval: the device and retrieval phases only")
+                             "retrieval: the device and retrieval phases only; rag: the "
+                             "device and build phases and the question-answering loop (its "
+                             "index built at the retrieval phase's size)")
     args = parser.parse_args()
 
     import torch
@@ -3064,6 +3461,14 @@ def main() -> int:
         print(json.dumps({"retrieval": retrieval}), flush=True)
         return 0
     phase_build()
+    if args.only == "rag":
+        cfg, params = make_7b_params()
+        rag = phase_rag(cfg, params)
+        log(f"done in {time.monotonic() - t_all:.1f} s")
+        print(json.dumps({"packages": packages}))
+        print(device["card"])
+        print(json.dumps({"rag": rag}), flush=True)
+        return 0
     if args.only == "longctx":
         cfg, params = make_7b_params()
         for label, kw in (("bf16", {}), ("kv int8", {"kv_quant": 8})):
@@ -3088,7 +3493,8 @@ def main() -> int:
     if args.only == "kernels":
         log(f"done in {time.monotonic() - t_all:.1f} s")
         return 0
-    retrieval = phase_retrieval()
+    store = {}  # the retrieval phase's index and encoder, for the rag phase
+    retrieval = phase_retrieval(keep=store)
     gc.collect()
     torch.cuda.empty_cache()
     phase_load()
@@ -3104,6 +3510,7 @@ def main() -> int:
     runs = {
         "bf16": phase_engine(cfg, params, "bf16", (a, b), (c,)),
         "http": phase_http(cfg, params),
+        "rag": phase_rag(cfg, params, index=store.pop("index"), enc=store.pop("encoder")),
         # packed prefill over bf16 pools never reaches kernel A
         "packed": phase_engine(cfg, params, "packed bf16", (c, b), (a,),
                                prefill_token_budget=2048),
@@ -3180,6 +3587,7 @@ def main() -> int:
     log(f"done in {time.monotonic() - t_all:.1f} s")
     print(json.dumps({"packages": packages}))
     print(json.dumps({"retrieval": retrieval}))
+    print(json.dumps({"rag": runs["rag"]}))
     print(device["card"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],

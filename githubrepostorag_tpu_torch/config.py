@@ -1,12 +1,16 @@
-"""Settings of the port's model server and retrieval path; port of the
-serving and retrieval parts of ``githubrepostorag_tpu/config.py``.
+"""Settings of the port's model server, retrieval path and RAG service;
+port of the matching parts of ``githubrepostorag_tpu/config.py``.
 
 The fields are the ones the port reads: ``serving/__main__.py``
 (checkpoint, engine geometry and options), ``serving/openai_api.py``
 (the default priority class), ``serving/tokenizer.py`` (the tokenizer
-backend), and the retrieval path: ``embedding.py`` (the encoder),
+backend), the retrieval path: ``embedding.py`` (the encoder),
 ``store/factory.py`` (the store chain), ``retrieval/retrievers.py`` (the
-scope tables).  Each reads the same environment variable, with the same
+scope tables), and the question-answering loop: ``llm.py`` (the backend
+and its sampling defaults), ``agent/`` (the loop's budgets),
+``events/``, ``worker/`` and ``api/`` (jobs, queue bound, SSE),
+``resilience/`` (retries, breakers, ``FAULTS``) and ``obs/`` (traces,
+the log format).  Each reads the same environment variable, with the same
 default and parser, as the JAX package's field of the same name, so a pod
 spec carries over unchanged.  The settings of modes the port does not run
 yet (host tier, preemption, speculation, the fused step, meshes) are kept:
@@ -97,6 +101,56 @@ class Settings:
     """The model server's knobs, read from the environment when built."""
 
     log_level: str = _env("LOG_LEVEL", "INFO")
+    # json (trace-stamped structured lines) | plain (human format)
+    log_format: str = _env("LOG_FORMAT", "json")
+
+    # --- event bus and job queue (events/, worker/, api/) ---
+    sse_ping_seconds: int = _int("SSE_PING_SECONDS", 15)
+    # API-side SSE heartbeat: a ``: heartbeat`` comment whenever the bus
+    # stream stays silent this long
+    sse_heartbeat_seconds: float = _float("SSE_HEARTBEAT_SECONDS", 15.0)
+    # POST /rag/jobs sheds with 429 + Retry-After at this many queued jobs
+    job_queue_max_depth: int = _int("JOB_QUEUE_MAX_DEPTH", 256)
+    default_namespace: str = _env("DEFAULT_NAMESPACE", "default")
+    worker_max_jobs: int = _int("WORKER_MAX_JOBS", 10)
+    job_timeout_seconds: int = _int("JOB_TIMEOUT_SECONDS", 300)
+    keep_result_seconds: int = _int("KEEP_RESULT_SECONDS", 3600)
+
+    # --- resilience (resilience/) ---
+    # jittered exponential backoff: delay(n) = uniform(d/2, d),
+    # d = min(cap, base * 2^n)
+    retry_max_attempts: int = _int("RETRY_MAX_ATTEMPTS", 4)
+    retry_base_seconds: float = _float("RETRY_BASE_SECONDS", 0.05)
+    retry_cap_seconds: float = _float("RETRY_CAP_SECONDS", 2.0)
+    # per-dependency breakers: open after N consecutive failures, probe
+    # again after reset_seconds
+    breaker_failure_threshold: int = _int("BREAKER_FAILURE_THRESHOLD", 5)
+    breaker_reset_seconds: float = _float("BREAKER_RESET_SECONDS", 30.0)
+    # fault injection spec, e.g. "llm.complete:delay=2;bus.emit:drop@3"
+    faults: str = _env("FAULTS", "")
+    faults_seed: int = _int("FAULTS_SEED", 0)
+
+    # --- the agent loop (agent/) ---
+    max_rag_attempts: int = _int("MAX_RAG_ATTEMPTS", 3)
+    router_top_k: int = _int("ROUTER_TOP_K", 5)
+    # architecture-class questions read the assembled repo as one prompt
+    agent_longctx: bool = _bool("AGENT_LONGCTX", True)
+    # 0 = the context window minus QWEN_MAX_OUTPUT (retrieval/assembler.py)
+    longctx_token_budget: int = _int("LONGCTX_TOKEN_BUDGET", 0)
+
+    # --- the LLM backend (llm.py) ---
+    llm_backend: str = _env("LLM_BACKEND", "inprocess")  # inprocess|http|fake
+    qwen_endpoint: str = _env("QWEN_ENDPOINT", "http://qwen:8000")  # LLM_BACKEND=http
+    qwen_max_output: int = _int("QWEN_MAX_OUTPUT", 4096)
+    qwen_temperature: float = _float("QWEN_TEMPERATURE", 0.7)
+    qwen_top_p: float = _float("QWEN_TOP_P", 0.9)
+
+    # --- traces (obs/) ---
+    # sampling rate [0, 1]; 0 creates no root span at all
+    trace_sample: float = _float("TRACE_SAMPLE", 1.0)
+    # the flight recorder's ring bounds
+    trace_max_traces: int = _int("TRACE_MAX_TRACES", 256)
+    trace_max_spans: int = _int("TRACE_MAX_SPANS", 128)
 
     # --- checkpoint and the served model ---
     qwen_model: str = _env("QWEN_MODEL", "Qwen/Qwen2.5-3B-Instruct")  # /v1/models id

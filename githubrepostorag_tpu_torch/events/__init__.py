@@ -1,0 +1,46 @@
+"""L4: job queue + progress event bus + cancel flags; port of
+``githubrepostorag_tpu/events/__init__.py``.
+
+Protocol-compatible with the reference's Redis pub/sub bus
+(rag_shared/bus.py:8-40): channel ``job:{id}:events`` carries JSON frames
+``{"event": <name>, "data": {...}}`` rendered to SSE as ``data: <json>\n\n``
+with ``: ping\n\n`` keepalives; cancellation is a flag key ``job:{id}:cancel``
+with a 3600 s TTL.
+
+Implementations:
+  - ``MemoryBus`` / ``MemoryCancelFlags`` / ``MemoryJobQueue`` — in-process,
+    for tests and single-pod deployments (no Redis needed at all).
+  - The JAX package's Redis bus (``events/redis.py`` over its RESP client,
+    ``events/resp.py``) serves split API / worker deployments; it comes to
+    the port with that deployment (ROADMAP queue 1).
+"""
+
+from githubrepostorag_tpu_torch.events.base import (
+    CancelFlags,
+    EnqueuedJob,
+    JobQueue,
+    ProgressBus,
+    sse_frame,
+    PING_FRAME,
+)
+from githubrepostorag_tpu_torch.events.memory import (
+    MemoryBus,
+    MemoryCancelFlags,
+    MemoryJobQueue,
+    get_memory_hub,
+    reset_memory_hub,
+)
+
+__all__ = [
+    "ProgressBus",
+    "CancelFlags",
+    "JobQueue",
+    "EnqueuedJob",
+    "sse_frame",
+    "PING_FRAME",
+    "MemoryBus",
+    "MemoryCancelFlags",
+    "MemoryJobQueue",
+    "get_memory_hub",
+    "reset_memory_hub",
+]

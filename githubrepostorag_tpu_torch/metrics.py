@@ -1,20 +1,32 @@
-"""The retrieval slice's metric series; port of the matching part of
-``githubrepostorag_tpu/metrics.py`` on the standard library.
+"""Prometheus metrics shared across the API, worker and retrieval path;
+port of ``githubrepostorag_tpu/metrics.py`` on the standard library.
 
-The JAX package registers these with ``prometheus_client``.  Nothing
-records that the card's machine has that package, so the port keeps its
-own ``Counter`` / ``Gauge`` / ``Histogram`` with the same ``labels(**kw)``,
-``inc`` / ``set`` / ``observe`` surface, and the series keep the JAX
-package's names, label names and help text.  ``counter_value`` and
-``histogram_stats`` read them back (tests, the health report, the chip
-script).  The ``/metrics`` exposition comes with the observability slice
-(ROADMAP queue 1 item 6).
+The JAX package registers its series with ``prometheus_client``.  The port
+keeps its own ``Counter`` / ``Gauge`` / ``Histogram`` with the same
+``labels(...)``, ``inc`` / ``dec`` / ``set`` / ``observe`` surface, and
+``render()`` writes them in the Prometheus text format (version 0.0.4)
+for ``GET /metrics``, the families and samples ``prometheus_client``
+writes for the same series (its ``_created`` samples left out).  The series
+are the ones the port's layers touch -- the API, worker, resilience,
+LLM and retrieval series -- with the JAX package's names, label names,
+help text and buckets.  The engine-owned series (TTFT, decode tokens,
+SLO, KV tier, fleet) come with the observability slice (ROADMAP queue 1
+item 6); of those only the two that ``MeteredLLM`` observes with
+``replica="api"`` are here.  ``counter_value`` and ``histogram_stats``
+read the series back (tests, the health report, the chip script).
 """
 
 from __future__ import annotations
 
 import bisect
+import math
 import threading
+import time
+from typing import Iterator
+
+# prometheus_client's default histogram buckets
+DEFAULT_BUCKETS = (.005, .01, .025, .05, .075, .1, .25, .5, .75, 1.0, 2.5, 5.0, 7.5, 10.0)
+
 
 class _Value:
     """One labelled child: a float under the metric's lock."""
@@ -43,6 +55,14 @@ class _GaugeChild(_Value):
         with self._metric._lock:
             self.value = float(value)
 
+    def inc(self, amount: float = 1.0) -> None:
+        with self._metric._lock:
+            self.value += amount
+
+    def dec(self, amount: float = 1.0) -> None:
+        with self._metric._lock:
+            self.value -= amount
+
 
 class _HistogramChild:
     __slots__ = ("_metric", "counts", "sum", "count")
@@ -61,8 +81,12 @@ class _HistogramChild:
             self.count += 1
 
 
+REGISTRY: list["_Metric"] = []
+
+
 class _Metric:
     _child = _Value
+    kind = "untyped"
 
     def __init__(self, name: str, documentation: str, labelnames=()) -> None:
         self.name = name
@@ -70,8 +94,14 @@ class _Metric:
         self.labelnames = tuple(labelnames)
         self._lock = threading.Lock()
         self._children: dict[tuple[str, ...], object] = {}
+        REGISTRY.append(self)
 
-    def labels(self, **labels):
+    def labels(self, *values, **labels):
+        """The child of one label set, by position or by name."""
+        if values:
+            if labels or len(values) != len(self.labelnames):
+                raise ValueError(f"{self.name}: labels {values} != {list(self.labelnames)}")
+            labels = dict(zip(self.labelnames, values))
         if set(labels) != set(self.labelnames):
             raise ValueError(f"{self.name}: labels {sorted(labels)} != {list(self.labelnames)}")
         key = tuple(str(labels[n]) for n in self.labelnames)
@@ -89,26 +119,97 @@ class _Metric:
         return [c for key, c in items
                 if all(dict(zip(self.labelnames, key)).get(k) == v for k, v in want.items())]
 
+    def _unlabelled(self):
+        if self.labelnames:
+            raise ValueError(f"{self.name} has labels {list(self.labelnames)}: use labels()")
+        return self.labels()
+
+    def samples(self) -> list[tuple[str, tuple[tuple[str, str], ...], float]]:
+        """(sample name, labels, value) in exposition order.  A metric
+        without labels always has its one sample, as prometheus_client
+        writes it."""
+        if not self.labelnames:
+            self._unlabelled()
+        with self._lock:
+            items = sorted(self._children.items())
+        out = []
+        for key, child in items:
+            out.extend(self._child_samples(tuple(zip(self.labelnames, key)), child))
+        return out
+
+    def _child_samples(self, labels, child):
+        return [(self.name, labels, child.value)]
+
+
 class Counter(_Metric):
     _child = _CounterChild
+    kind = "counter"
+
+    def inc(self, amount: float = 1.0) -> None:
+        self._unlabelled().inc(amount)
 
 
 class Gauge(_Metric):
     _child = _GaugeChild
+    kind = "gauge"
+
+    def set(self, value: float) -> None:
+        self._unlabelled().set(value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        self._unlabelled().inc(amount)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self._unlabelled().dec(amount)
 
 
 class Histogram(_Metric):
-    """Bucket counts (upper bounds ``buckets``, then +Inf), sum and count.
-    The retrieval histograms carry no labels: ``observe`` on the metric."""
+    """Bucket counts (upper bounds ``buckets``, then +Inf), sum and count."""
 
     _child = _HistogramChild
+    kind = "histogram"
 
-    def __init__(self, name: str, documentation: str, buckets, labelnames=()) -> None:
+    def __init__(self, name: str, documentation: str, labelnames=(),
+                 buckets=DEFAULT_BUCKETS) -> None:
         self.buckets = tuple(sorted(float(b) for b in buckets))
         super().__init__(name, documentation, labelnames)
 
     def observe(self, value: float) -> None:
-        self.labels().observe(value)
+        self._unlabelled().observe(value)
+
+    def _child_samples(self, labels, child):
+        out, total = [], 0
+        for bound, n in zip(self.buckets + (math.inf,), child.counts):
+            total += n
+            out.append((self.name + "_bucket", labels + (("le", _number(bound)),), total))
+        out.append((self.name + "_count", labels, child.count))
+        out.append((self.name + "_sum", labels, child.sum))
+        return out
+
+
+def _number(value: float) -> str:
+    if value == math.inf:
+        return "+Inf"
+    return repr(float(value))
+
+
+def _escape(value: str) -> str:
+    return value.replace("\\", "\\\\").replace("\n", "\\n").replace('"', '\\"')
+
+
+def render() -> bytes:
+    """Every series in the Prometheus text format."""
+    lines = []
+    for metric in REGISTRY:
+        family = metric.name
+        doc = metric.documentation.replace("\\", "\\\\").replace("\n", "\\n")
+        lines.append(f"# HELP {family} {doc}")
+        lines.append(f"# TYPE {family} {metric.kind}")
+        for name, labels, value in metric.samples():
+            label_text = ",".join(f'{k}="{_escape(v)}"' for k, v in labels)
+            lines.append(f"{name}{{{label_text}}} {_number(value)}" if labels
+                         else f"{name} {_number(value)}")
+    return ("\n".join(lines) + "\n").encode("utf-8")
 
 
 def counter_value(metric: _Metric, **labels) -> float:
@@ -123,6 +224,23 @@ def histogram_stats(metric: Histogram, **labels) -> dict:
     return {"count": sum(c.count for c in kids), "sum": sum(c.sum for c in kids)}
 
 
+HTTP_REQUESTS = Counter(
+    "rag_api_requests_total", "API requests", ["method", "path", "status"]
+)
+HTTP_LATENCY = Histogram(
+    "rag_api_request_seconds", "API request latency", ["method", "path"]
+)
+JOBS_TOTAL = Counter("rag_jobs_total", "RAG jobs processed", ["status"])
+JOB_DURATION = Histogram(
+    "rag_job_seconds", "RAG job wall-clock",
+    buckets=(0.5, 1, 2, 5, 10, 30, 60, 120, 300),
+)
+LLM_CALLS = Counter("rag_llm_calls_total", "LLM completions", ["status"])
+LLM_LATENCY = Histogram("rag_llm_call_seconds", "LLM completion latency")
+RETRIEVAL_HITS = Histogram(
+    "rag_retrieval_hits", "Docs returned per retrieval",
+    buckets=(0, 1, 2, 3, 5, 8, 10, 20),
+)
 RETRIEVAL_SECONDS = Histogram(
     "rag_retrieval_seconds",
     "Per-request retrieval latency through the coalescer (queue + encode + search)",
@@ -186,3 +304,122 @@ INDEX_OPS_APPLIED = Counter(
     "Mutation ops the live-index apply loop drained into the store",
     ["table", "kind"],
 )
+# MeteredLLM's API-side observations (replica="api"); the engine's own
+# children of these series come with the observability slice
+TTFT = Histogram(
+    "rag_ttft_seconds", "Time to first generated token", ["replica"],
+    buckets=(0.1, 0.25, 0.5, 1.0, 1.5, 2.0, 3.0, 5.0, 10.0),
+)
+DECODE_TOKENS = Counter("rag_decode_tokens_total", "Generated tokens", ["replica"])
+WORKER_DEQUEUE_ERRORS = Counter(
+    "rag_worker_dequeue_errors_total",
+    "queue.dequeue() failures survived by the worker's backoff loop",
+)
+JOBS_SHED = Counter(
+    "rag_jobs_shed_total",
+    "Jobs rejected with 429 by the bounded-queue admission check",
+)
+JOBS_IN_FLIGHT = Gauge("rag_jobs_in_flight", "Jobs currently executing in this worker")
+EVENT_EMIT_DROPS = Counter(
+    "rag_bus_emit_drops_total",
+    "Progress events dropped after the supervised emit exhausted retries",
+    ["event"],
+)
+FAULTS_INJECTED = Counter(
+    "rag_faults_injected_total",
+    "Faults fired by the FAULTS injection registry",
+    ["site", "action"],
+)
+BREAKER_TRANSITIONS = Counter(
+    "rag_breaker_transitions_total",
+    "Circuit breaker state transitions",
+    ["dep", "to_state"],
+)
+ADMISSION_FAILOPEN = Counter(
+    "rag_admission_failopen_total",
+    "Admission decisions that failed open (the SLO-plane provider raised "
+    "or returned garbage; the request was accepted anyway)",
+)
+
+
+class MeteredLLM:
+    """LLM wrapper recording call counts + latency (worker.py:73-88), and a
+    ``llm.complete``/``llm.stream`` span per call when a trace is active."""
+
+    def __init__(self, inner) -> None:
+        self._inner = inner
+
+    def complete(self, prompt, **kw) -> str:
+        from githubrepostorag_tpu_torch.obs.trace import span as trace_span
+
+        with trace_span("llm.complete", prompt_chars=len(prompt)) as sp:
+            start = time.monotonic()
+            text = self._inner.complete(prompt, **kw)
+            LLM_LATENCY.observe(time.monotonic() - start)
+            status = "error" if text.startswith("Error:") else "ok"
+            LLM_CALLS.labels(status=status).inc()
+            if status != "ok":
+                sp.set_status("error: llm")
+            sp.set_attr("completion_chars", len(text))
+        return text
+
+    def complete_batch(self, prompts, **kw) -> list[str]:
+        from githubrepostorag_tpu_torch.obs.trace import span as trace_span
+
+        batch = getattr(self._inner, "complete_batch", None)
+        with trace_span("llm.complete_batch", batch_size=len(prompts)) as sp:
+            start = time.monotonic()
+            if callable(batch):
+                out = batch(prompts, **kw)
+            else:
+                out = [self._inner.complete(p, **kw) for p in prompts]
+            LLM_LATENCY.observe(time.monotonic() - start)
+            errors = 0
+            for text in out:
+                bad = text.startswith("Error:")
+                errors += bad
+                LLM_CALLS.labels(status="error" if bad else "ok").inc()
+            if errors:
+                sp.set_status("error: llm")
+                sp.set_attr("errors", errors)
+        return out
+
+    def stream_complete(self, prompt, **kw) -> Iterator[str]:
+        from githubrepostorag_tpu_torch.obs.trace import current_context
+        from githubrepostorag_tpu_torch.obs.trace import Span as TraceSpan
+
+        # a generator's body runs lazily on the consumer's schedule, so the
+        # span is managed by hand (opened under the caller's context at
+        # first pull) instead of via the contextmanager
+        ctx = current_context()
+        sp = TraceSpan("llm.stream", ctx) if ctx is not None and ctx.sampled else None
+        start = time.monotonic()
+        first = True
+        status = "ok"
+        deltas = 0
+        try:
+            for delta in self._inner.stream_complete(prompt, **kw):
+                if first:
+                    TTFT.labels(replica="api").observe(time.monotonic() - start)
+                    first = False
+                if delta.startswith("Error:"):
+                    # backends yield errors as text, never raise -- an
+                    # "Error:" delta IS the failure signal
+                    status = "error"
+                deltas += 1
+                DECODE_TOKENS.labels(replica="api").inc()
+                yield delta
+        except GeneratorExit:
+            status = "cancelled"  # consumer closed the stream early
+            raise
+        except BaseException:
+            status = "error"
+            raise
+        finally:
+            LLM_LATENCY.observe(time.monotonic() - start)
+            LLM_CALLS.labels(status=status).inc()
+            if sp is not None:
+                sp.set_attr("deltas", deltas)
+                if status != "ok":
+                    sp.set_status(f"error: stream {status}")
+                sp.finish()

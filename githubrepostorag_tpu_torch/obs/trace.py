@@ -14,10 +14,8 @@ hand-off discipline as ``deadline_scope``).
 
 ``Span`` is the recorder: name, attrs, events, status, and monotonic
 start/end (wall clocks drift and step backwards; every duration here is
-``time.monotonic``).  The JAX package hands finished spans to its flight
-recorder (``obs/recorder.py``); that comes to the port with the
-observability slice (ROADMAP queue 1 item 6), and until then a finished
-span is not kept.
+``time.monotonic``).  Finished spans are handed to the flight recorder
+(obs/recorder.py).
 
 Cost discipline: with no active scope — TRACE_SAMPLE=0, or simply
 nothing upstream opened a trace — ``span()`` is one contextvar read and
@@ -176,6 +174,9 @@ class Span:
         if self.end is not None:
             return  # idempotent: generators may finalize twice
         self.end = time.monotonic() if end is None else end
+        from githubrepostorag_tpu_torch.obs.recorder import get_recorder
+
+        get_recorder().record(self)
 
 
 class _NoopSpan:

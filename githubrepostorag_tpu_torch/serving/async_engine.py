@@ -131,7 +131,9 @@ class AsyncEngine:
         """Submit a request and yield its token events, then the final
         event.  ``deadline_s`` (absolute time.monotonic()) lets the engine
         reap the request once its caller's budget is gone; ``priority`` is
-        its SLO class (the engine's default class when None)."""
+        its SLO class (the engine's default class when None).  A stream
+        closed before its final event cancels the request (the JAX version
+        leaves the row decoding to its end)."""
         await self.start()
         if self.driver_error is not None:
             raise RuntimeError(f"engine driver is dead: {self.driver_error}")
@@ -148,14 +150,20 @@ class AsyncEngine:
         self._submit(rid, lambda: self.engine.add_request(
             prompt_ids, sampling, on_token=on_token, request_id=rid, deadline_s=deadline_s,
             priority=priority))
+        done = False
         try:
             while True:
                 event = await q.get()
+                done = event.type == "final"
                 yield event
-                if event.type == "final":
+                if done:
                     return
         finally:
             self._queues.pop(rid, None)
+            if not done:
+                # the consumer left first (its task was cancelled or it
+                # closed the stream): end the row so its pages come back
+                self._submit(rid, lambda: self.engine.cancel(rid))
 
     async def generate(
         self,

@@ -1,6 +1,6 @@
-"""Small shared helpers; port of ``githubrepostorag_tpu/utils/__init__.py``
-(the JSON helpers come with the agent slice)."""
+"""Small shared helpers; port of ``githubrepostorag_tpu/utils/__init__.py``."""
 
+from githubrepostorag_tpu_torch.utils.json_utils import extract_choice, extract_json
 from githubrepostorag_tpu_torch.utils.logging import get_logger
 
 
@@ -14,4 +14,4 @@ def next_bucket(n: int, cap: int, minimum: int = 16) -> int:
     return min(b, cap)
 
 
-__all__ = ["get_logger", "next_bucket"]
+__all__ = ["extract_json", "extract_choice", "get_logger", "next_bucket"]

@@ -1,8 +1,7 @@
-"""Stdlib logging setup honoring LOG_LEVEL; port of
-``githubrepostorag_tpu/utils/logging.py``.  The JAX package's default
-``LOG_FORMAT=json`` formatter stamps trace ids from its observability
-layer, which comes to the port with that layer (ROADMAP queue 1 item 6);
-until then every line has the plain format."""
+"""Stdlib logging setup honoring LOG_LEVEL and LOG_FORMAT; port of
+``githubrepostorag_tpu/utils/logging.py``.  ``json`` (the default) routes
+through the trace-stamped JSON formatter (``obs/logging.py``) so every
+line carries trace_id/span_id; ``plain`` keeps the human-format lines."""
 
 from __future__ import annotations
 
@@ -15,9 +14,15 @@ _configured = False
 def get_logger(name: str) -> logging.Logger:
     global _configured
     if not _configured:
-        logging.basicConfig(
-            level=os.getenv("LOG_LEVEL", "INFO").upper(),
-            format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-        )
+        level = os.getenv("LOG_LEVEL", "INFO").upper()
+        if os.getenv("LOG_FORMAT", "json").strip().lower() == "json":
+            from githubrepostorag_tpu_torch.obs.logging import configure_json_logging
+
+            configure_json_logging(level)
+        else:
+            logging.basicConfig(
+                level=level,
+                format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+            )
         _configured = True
     return logging.getLogger(name)

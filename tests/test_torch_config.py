@@ -1,5 +1,5 @@
-"""The port's model-server and retrieval settings against the JAX
-package's: for each environment below, every field of
+"""The port's model-server, retrieval and RAG-service settings against
+the JAX package's: for each environment below, every field of
 ``githubrepostorag_tpu_torch.config.Settings`` equals the JAX ``Settings``
 field of the same name (same variable, default and parser), and a typo
 raises on both sides."""
@@ -32,6 +32,18 @@ ENVIRONMENTS = {
                   "INDEX_COMPACT_MAX_HOLE_FRACTION": "0.5", "INDEX_COMPACT_INTERVAL_S": "0.5",
                   "EMBED_MODEL": "/models/e5", "EMBED_DIM": "768", "STORE_PATH": "/store",
                   "EMBEDDINGS_TABLE": "chunks", "EMBEDDINGS_TABLE_REPO": "repos"},
+    "rag_service": {"LLM_BACKEND": "http", "QWEN_ENDPOINT": "http://model:8000",
+                    "QWEN_MAX_OUTPUT": "64", "QWEN_TEMPERATURE": "0", "QWEN_TOP_P": "0.5",
+                    "JOB_TIMEOUT_SECONDS": "30", "JOB_QUEUE_MAX_DEPTH": "4",
+                    "WORKER_MAX_JOBS": "2", "KEEP_RESULT_SECONDS": "60",
+                    "SSE_PING_SECONDS": "3", "SSE_HEARTBEAT_SECONDS": "0.5",
+                    "FAULTS": "llm.complete:drop@3", "FAULTS_SEED": "7",
+                    "RETRY_MAX_ATTEMPTS": "2", "RETRY_BASE_SECONDS": "0.01",
+                    "RETRY_CAP_SECONDS": "0.1", "BREAKER_FAILURE_THRESHOLD": "2",
+                    "BREAKER_RESET_SECONDS": "1", "TRACE_SAMPLE": "0.5",
+                    "TRACE_MAX_TRACES": "8", "TRACE_MAX_SPANS": "16", "LOG_FORMAT": "plain",
+                    "MAX_RAG_ATTEMPTS": "2", "ROUTER_TOP_K": "3", "AGENT_LONGCTX": "0",
+                    "LONGCTX_TOKEN_BUDGET": "2048", "DEFAULT_NAMESPACE": "team"},
 }
 
 
