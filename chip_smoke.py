@@ -7,6 +7,8 @@
     python3 chip_smoke.py --only int4      # device, build, E's route, the int4 engine
     python3 chip_smoke.py --only retrieval # device, the retrieval path
     python3 chip_smoke.py --only rag       # device, build, the question-answering loop
+    python3 chip_smoke.py --only ingest    # device, build, the ingest pipeline
+    python3 chip_smoke.py --only options   # device, build, the engine options in pairs
 
 Phases, each raising on failure:
 
@@ -49,6 +51,12 @@ Phases, each raising on failure:
               64, int4 there), and A at the long-context profile's launch
               (B=8, S=128 over 7936 keys; bf16 and int8 pages); A and C are
               timed by device time, with the wrapper's host time per call.
+              Kernel A also at the width ladder's S = 256 (B=4, contexts to
+              3,300; f32 and bf16, fp and int8 pages, timed in bf16), and
+              its rows at S = 128 and 256 bit for bit equal to S = 512;
+              and which 7B bf16 projections give a row other bits when the
+              GEMM has fewer rows (cuBLAS's choice): none may from 512 rows
+              on, the engine's prefill row floor.
    dispatcher -- kernel F's path: paged_attention at S = 1 launches F once
               and nothing else; at S = 512 it launches nothing and equals
               paged_attention_ref.
@@ -86,7 +94,12 @@ Phases, each raising on failure:
               kernel (or pool branch) of the path must have launched, and
               kernels the path never reaches must not have.  Four runs:
               bf16 pages; packed prefill (prefill_token_budget=2048);
-              int8 pages; int4 pages with packed prefill.
+              int8 pages; int4 pages with packed prefill.  Right after the
+              bf16 run the same traffic again with prefill_widths=3 and
+              prefill_priority: every greedy row's tokens identical to the
+              bf16 run's, kernel A launched at windows 512, 256 and 128
+              (both runs then serve one more request, resuming 100 tokens
+              past the cached prefix, outside the traffic's numbers).
    longctx -- after the four runs: long-context decode (8 rows of distinct
               7936-token prompts, 17 greedy tokens, an engine of its own
               with 520 pages) profiled as above, bf16 and int8 pages:
@@ -114,6 +127,28 @@ Phases, each raising on failure:
               A and B must launch, nothing else; no page leaks; every index
               search on the device.  ``--only rag`` builds the index at the
               same size first.
+   ingest  -- after the rag phase: a seeded synthetic repository (three
+              modules and a root README, Python, JavaScript, Markdown, a
+              notebook, a skipped image) ingested through
+              ingest.__main__.main (--local) with the rag phase's engine
+              behind set_llm, the retrieval phase's encoder, the memory
+              store in the device index, DATA_DIR / STORE_PATH in a temp
+              dir: every scope written with the counts the tree implies,
+              the LLM prompts the tree implies (each one engine request),
+              no extractor stage on its exception path, device rows equal
+              to host rows, 8 queries ranked alike by index and host store,
+              the run record and .ingest_complete, the saved store reloaded
+              with the same counts; A and B must launch, nothing else; no
+              page held.  Then one code question through RagApi + RagWorker
+              over the ingested store reaches final with sources from the
+              tree.  Then the vector write at one repository's size (2048
+              enriched chunk nodes into a fresh device-indexed store, the
+              encoder alone beside it).  Prints {"ingest": ...}.
+   options -- ``--only options`` alone (measurement): the long-context
+              bf16 profile with prefill_widths 1 / 3 / 3 / 1, small waves'
+              TTFT and device time with prefill_widths 1, 3, and 3 without
+              the row floor, and the rag phase's jobs with
+              PREFILL_PRIORITY off / on / on / off.
 6. int4    -- the same 7B tree quantized to group-wise int4 (group 64) on
               the card, layer by layer; the model checks again (prefill
               logits through kernel D, decode logits through kernel E),
@@ -124,9 +159,9 @@ Phases, each raising on failure:
               route times and this engine phase alone, also from another
               checkout of the port (copy this script there).
 7. summary -- whether transformers, prometheus_client, pydantic, psutil and
-              requests import here, the retrieval and rag numbers, the
-              card's name and power limit, the kernel list, then the result
-              line.
+              requests import here, the retrieval, rag, engine-options and
+              ingest numbers, the card's name and power limit, the kernel
+              list, then the result line.
 
 There is no CPU fallback: without a card the script exits non-zero.
 """
@@ -135,7 +170,9 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import gc
+import io
 import json
 import subprocess
 import sys
@@ -769,6 +806,61 @@ def measure_kernel_c(case, timed: bool) -> dict:
     return res
 
 
+def window_rows_invariant(rng, dev) -> None:
+    """Kernel A gives a row's real positions bit for bit the same output
+    at every window of the width ladder: the same rows (a row resuming
+    past 1024 cached keys, one from 0, one at the long-context 7808) at S
+    = 128 and 256 against S = 512, bf16 and int8 pages."""
+    import torch
+
+    from githubrepostorag_tpu_torch.ops.fused_decode import fused_window_attention
+
+    new = [100, 100, 100]
+    base = kernel_a_case(rng, dev, 3, 512, 28, 4, 128, 128, cached=[1024, 0, 7808], new=new)
+    for case in (base, quantized_case(base, 8)):
+        args = [case[k] for k in ("k", "v", "bt", "cached", "new")] + [case.get("ks"),
+                                                                      case.get("vs")]
+        full = fused_window_attention(case["q"], *args)
+        for s in (256, 128):
+            out = fused_window_attention(case["q"][:, :s].contiguous(), *args)
+            if any(not torch.equal(out[i, :n], full[i, :n]) for i, n in enumerate(new)):
+                raise RuntimeError(f"kernel A rows differ at S = {s} from S = 512 "
+                                   f"({'int8' if 'ks' in case else 'fp'} pages)")
+    log("kernel A: rows at S = 128 and 256 equal S = 512 bit for bit (fp and int8 pages)")
+
+
+def gemm_row_invariance(floor: int = 512) -> dict:
+    """Which 7B bf16 projections give a row another result when the GEMM
+    has fewer rows: ``x[:m] @ w`` against the first m rows of ``x @ w`` at
+    4096 rows, for m from 128 to 2048 (rows whose output differs in any
+    bit).  cuBLAS picks its algorithm by shape.  The engine keeps every
+    padded prefill dispatch at ``prefill_row_floor`` (= ``prefill_chunk``,
+    512 in the engine phases) tokens or more, so that a wave's rows do not
+    depend on its width: raises if any row differs at ``floor`` rows or
+    more.  Below the floor, the count is what the floor avoids."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 17)
+    out = {}
+    for name, (k, n) in {"wqkv": (3584, 4608), "wo": (3584, 3584), "wgu": (3584, 37888),
+                         "wd": (18944, 3584)}.items():
+        w = torch.randn(k, n, generator=gen, device="cuda", dtype=torch.bfloat16) * 0.02
+        x = torch.randn(4096, k, generator=gen, device="cuda", dtype=torch.bfloat16)
+        ref = x @ w
+        out[name] = {m: int((x[:m] @ w != ref[:m]).any(dim=1).sum())
+                     for m in (128, 256, 384, 512, 1024, 2048)}
+        del w, x, ref
+    torch.cuda.empty_cache()
+    log(f"bf16 GEMM rows differing from the 4096-row result, by rows: {json.dumps(out)}")
+    moved = {name: {m: n for m, n in by_m.items() if m >= floor and n}
+             for name, by_m in out.items()}
+    if any(moved.values()):
+        raise RuntimeError(f"bf16 GEMM rows differ from the 4096-row result at {floor} rows "
+                           f"or more, where the engine's prefill row floor needs none: {moved}")
+    return out
+
+
 def phase_kernels() -> dict:
     import torch
 
@@ -858,6 +950,23 @@ def phase_kernels() -> dict:
         "kernel A long context B=8 S=512 (128 new) cached 7808 bfloat16",
         measure_kernel_a(lc, True))
     del lc
+    # the width ladder's middle window (prefill_widths=3): S = 256 for a
+    # wave whose longest pending chunk is 129..256 tokens, here ragged last
+    # chunks of extractor-sized prompts (to ~3,300 tokens); float32 for the
+    # tight limit, bf16 timed, full-precision and int8 pages
+    for dtype in (torch.float32, torch.bfloat16):
+        w256 = kernel_a_case(rng, dev, 4, 256, 28, 4, 128, 128, cached=[3072, 2560, 1024, 0],
+                             new=[228, 256, 180, 256], dtype=dtype)
+        timed, name = dtype == torch.bfloat16, str(dtype)[6:]
+        res = check(f"kernel A B=4 S=256 ctx<=3300 {name}", measure_kernel_a(w256, timed))
+        resq = check(f"kernel A int8 B=4 S=256 ctx<=3300 {name}",
+                     measure_kernel_a(quantized_case(w256, 8), timed))
+        if timed:
+            results["fused_window_attention@S256"] = res
+            results["fused_window_attention@int8@S256"] = resq
+        del w256
+    window_rows_invariant(rng, dev)
+    results["gemm_rows"] = gemm_row_invariance()
     torch.cuda.empty_cache()
 
     # kernel B: rank-5 pools, mid-burst staged tail; full precision at
@@ -2748,27 +2857,36 @@ RAG_DEADLINE_MS = 600  # the reaped job's budget: its first engine call outlives
 REPO_CHUNKS = 2048  # chunks a repository (chunk_metadata)
 
 
-def rag_index(dev, cfg=None, rows: int = 258048, passages: int = 1024):
-    """The retrieval phase's deployment at the same size, for ``--only
-    rag``: e5-small-width encoder (random float32 weights from the seed),
-    ``passages`` encoded code chunks and random unit vectors for the rest
-    of ``rows`` chunks in the device index."""
+def e5_encoder(dev, cfg=None):
+    """The retrieval phase's encoder: e5-small widths (``cfg`` for a smaller
+    rehearsal), random float32 weights from the seed, the stdlib stand-in
+    tokenizer; warmed up.  Returns (encoder, cfg)."""
     from githubrepostorag_tpu_torch.embedding import TorchBertTextEncoder
     from githubrepostorag_tpu_torch.models.encoder import BertConfig, init_params
-    from githubrepostorag_tpu_torch.retrieval import DeviceIndexedStore
-    from githubrepostorag_tpu_torch.store.base import Doc
-    from githubrepostorag_tpu_torch.store.memory import MemoryVectorStore
 
     import torch
 
     cfg = cfg or BertConfig.e5_small()
-    rng = np.random.default_rng(SEED + 21)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 21)
     enc = TorchBertTextEncoder(init_params(cfg, gen, device=dev), cfg,
                                SmokeTokenizer(cfg.vocab_size), device=dev,
                                max_length=cfg.max_position_embeddings)
     enc.warmup()
+    return enc, cfg
+
+
+def rag_index(dev, cfg=None, rows: int = 258048, passages: int = 1024):
+    """The retrieval phase's deployment at the same size, for ``--only
+    rag``: e5-small-width encoder (random float32 weights from the seed),
+    ``passages`` encoded code chunks and random unit vectors for the rest
+    of ``rows`` chunks in the device index."""
+    from githubrepostorag_tpu_torch.retrieval import DeviceIndexedStore
+    from githubrepostorag_tpu_torch.store.base import Doc
+    from githubrepostorag_tpu_torch.store.memory import MemoryVectorStore
+
+    rng = np.random.default_rng(SEED + 21)
+    enc, cfg = e5_encoder(dev, cfg)
     texts = code_passages(rng, passages)
     vecs = enc.encode(texts, kind="passage")
     index = DeviceIndexedStore(MemoryVectorStore(), k_bucket=16, max_wave=16, device=dev)
@@ -2905,7 +3023,8 @@ def synthesis_ttft(trace: dict) -> dict:
 
 
 def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages: int = 8192,
-              rows: int = 258048, geometry: dict | None = None) -> dict:
+              rows: int = 258048, geometry: dict | None = None,
+              prefill_priority: bool = False) -> dict:
     """The question-answering loop on the card through the port's entry
     points: the in-process engine built by ``api/__main__`` (its
     ``inprocess_llm`` over the model server's ``build_engine``, settings
@@ -2917,7 +3036,8 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
     whole-repo architecture question (the assembler's long-context mode),
     one cancelled at its first turn, one whose ``deadline_ms`` the engine
     reaps.  Every launch count is set to 0 just before the jobs and read
-    just after they all reach ``final``."""
+    just after they all reach ``final``.  ``prefill_priority`` sets
+    PREFILL_PRIORITY for the engine (``--only options``)."""
     import os
     import threading
     from concurrent.futures import ThreadPoolExecutor
@@ -2928,7 +3048,8 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
     from githubrepostorag_tpu_torch.agent import GraphAgent
     from githubrepostorag_tpu_torch.api.__main__ import inprocess_llm
     from githubrepostorag_tpu_torch.api.app import RagApi
-    from githubrepostorag_tpu_torch.events import MemoryBus, MemoryCancelFlags, MemoryJobQueue
+    from githubrepostorag_tpu_torch.events import (
+        MemoryBus, MemoryCancelFlags, MemoryJobQueue, reset_memory_hub)
     from githubrepostorag_tpu_torch.llm import set_llm
     from githubrepostorag_tpu_torch.metrics import (
         DEVICE_INDEX_SEARCHES, JOBS_TOTAL, MeteredLLM, counter_value)
@@ -2940,10 +3061,11 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
     cuda = torch.device(device).type == "cuda"
     t_phase = time.monotonic()
     os.environ.update(geometry or ENGINE_GEOMETRY, QWEN_MAX_OUTPUT=str(RAG_MAX_OUTPUT),
-                      LLM_BACKEND="inprocess")
+                      LLM_BACKEND="inprocess", PREFILL_PRIORITY=str(int(prefill_priority)))
     s = config.reload_settings()
     log(f"rag: QWEN_MAX_OUTPUT={s.qwen_max_output}, CONTEXT_WINDOW={s.context_window}, "
-        f"{s.max_num_seqs} rows x {s.kv_num_pages} pages of {s.kv_page_size}")
+        f"{s.max_num_seqs} rows x {s.kv_num_pages} pages of {s.kv_page_size}, "
+        f"PREFILL_PRIORITY={int(s.prefill_priority)}")
     if index is None:
         t0 = time.monotonic()
         index, enc, passages = rag_index(device, rows=rows)
@@ -2963,6 +3085,9 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
     set_llm(llm)  # /health reads the engine's stats from the shared LLM
     set_store(index)  # and probes the process-wide store
     agent = GraphAgent(MeteredLLM(llm), RetrieverFactory(index, enc), namespace="default")
+    # a fresh hub: the process-wide one's job queue is bound to the event
+    # loop of the phase that used it last
+    reset_memory_hub()
     bus, flags, queue = MemoryBus(), MemoryCancelFlags(), MemoryJobQueue()
     api = RagApi(bus, flags, queue)
     worker = RagWorker(agent, bus, flags, queue)
@@ -2991,6 +3116,7 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
     port = run(api.start("127.0.0.1", 0))
     task = asyncio.run_coroutine_threadsafe(worker.run_forever(), loop)
     stats: dict = {"qwen_max_output": s.qwen_max_output, "engine_warmup_s": warmup_s,
+                   "prefill_priority": s.prefill_priority,
                    "hierarchy_docs": hierarchy}
     try:
         free0 = engine._allocator.free_count
@@ -3086,6 +3212,7 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
             "jobs": len(done), "finished": finished, "traffic_wall_s": traffic_s,
             "job_wall_p50_s": percentile(walls, 0.5), "job_wall_p95_s": percentile(walls, 0.95),
             "synth_ttft_p50_s": percentile(ttfts, 0.5),
+            "whole_repo_ttft_s": longctx[0]["ttft_s"],
             "synth_prefill_p50_s": percentile([f["prefill_s"] for f in finished], 0.5),
             "llm_calls_per_job": calls, "llm_calls_mean": sum(calls) / len(calls),
             "cancelled_after_events": [j["cancelled_at"] for j in done if j["cancelled_at"]],
@@ -3109,6 +3236,463 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
 
 
 
+INGEST_REPO = "smokerepo"
+# the prompt kinds of one ingest run, by the first words of each prompt
+INGEST_PROMPTS = (("summary", "Summarize"), ("title", "Give a short"), ("keywords", "List up to"),
+                  ("file", "Write a 200-300 word"), ("module", "Write a technical summary"),
+                  ("repo", "Write a comprehensive"), ("readme_judge", "Is this README"),
+                  ("catalog", "Describe"))
+
+
+def _py_source(rng, n_funcs: int, tag: str) -> str:
+    """A Python module of ``n_funcs`` functions over the smoke identifiers."""
+    parts = [f'"""The {tag} module."""', "import os\nfrom typing import Any"]
+    for i in range(n_funcs):
+        a, b = rng.choice(_IDENTS, 2)
+        body = []
+        for _ in range(int(rng.integers(5, 12))):
+            x, y, z = rng.choice(_IDENTS, 3)
+            body.append(f"    {x} = self.{y}.{z}({x}, {int(rng.integers(0, 99))})  # {y} {z}")
+        parts.append(f"def {tag}_{a}_{b}_{i}(self, {a}, limit={int(rng.integers(1, 999))}):\n"
+                     + "\n".join(body) + f"\n    return {b}")
+    return "\n\n\n".join(parts) + "\n"
+
+
+def _js_source(rng, n_funcs: int, tag: str) -> str:
+    parts = ["const express = require('express');"]
+    for i in range(n_funcs):
+        a, b = rng.choice(_IDENTS, 2)
+        body = [f"  const {x} = {y}.{z}({int(rng.integers(0, 99))});"
+                for x, y, z in (rng.choice(_IDENTS, 3) for _ in range(int(rng.integers(3, 8))))]
+        parts.append(f"function {tag}{a.title()}{b.title()}{i}(req, res) {{\n" + "\n".join(body)
+                     + f"\n  return res.json({a});\n}}")
+    return "\n\n".join(parts) + "\n"
+
+
+def ingest_tree(root) -> dict[str, str]:
+    """A synthetic repository written under ``root``, the same on every run
+    (seeded): three top-level modules (core/, api/, docs/) and a root
+    README; Python and JavaScript sources, Markdown, one notebook with a
+    setup cell and a log-heavy output, and one image preprocess skips.
+    Returns path -> text of every file written."""
+    import os
+
+    rng = np.random.default_rng(SEED + 41)
+    readme = ("# smokerepo\n\nA code-RAG service in three modules. `core/` holds the index, "
+              "the store and the query planner; `api/` serves HTTP routes over them; `docs/` "
+              "explains deployment.\n\n" + "\n".join(
+                  f"- {a}: the {b} {c} path" for a, b, c in (rng.choice(_IDENTS, 3)
+                                                           for _ in range(18))))
+    notebook = json.dumps({"nbformat": 4, "cells": [
+        {"cell_type": "markdown", "source": ["# Index analysis\n", "Recall of the store."]},
+        {"cell_type": "code", "source": "!pip install pandas\n%matplotlib inline", "outputs": []},
+        {"cell_type": "code", "source": "df = load_index()\ndf.describe()", "outputs": [
+            {"output_type": "stream",
+             "text": "2026-01-01 10:00:00 INFO loading shard\n" * 40}]},
+        {"cell_type": "code", "source": ["recall = evaluate(df)\n", "print(recall)"],
+         "outputs": [{"output_type": "stream", "text": "recall@10 = 0.91\n"}]},
+    ]})
+    guide = "# Deployment guide\n\n" + "\n\n".join(
+        f"## Step {i}\n\n" + " ".join(rng.choice(_IDENTS, 60)) for i in range(9))
+    files = {
+        "README.md": readme,
+        "core/index.py": _py_source(rng, 11, "index"),
+        "core/store.py": _py_source(rng, 10, "store"),
+        "core/query.py": _py_source(rng, 11, "query"),
+        "api/server.py": _py_source(rng, 10, "server"),
+        "api/routes.py": _py_source(rng, 11, "routes"),
+        "api/client.js": _js_source(rng, 6, "client"),
+        "api/views.js": _js_source(rng, 5, "views"),
+        "docs/guide.md": guide,
+        "docs/deploy.md": "# Deploy\n\n" + " ".join(rng.choice(_IDENTS, 150)),
+        "docs/analysis.ipynb": notebook,
+        "docs/diagram.png": "\\x89PNG not text",
+    }
+    for rel, text in files.items():
+        path = os.path.join(root, rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as fh:
+            fh.write(text)
+    return files
+
+
+def ingest_expectations(root) -> dict:
+    """What one ingest of the tree at ``root`` must write and ask, computed
+    on the host with the port's readers, preprocess and chunker: the kept
+    files, chunks, modules (top directories of kept files; a root file's is
+    "(root)") and the LLM prompts of each kind the tree implies."""
+    from githubrepostorag_tpu_torch.ingest.chunker import split_document
+    from githubrepostorag_tpu_torch.ingest.hierarchy import top_directory
+    from githubrepostorag_tpu_torch.ingest.preprocess import prepare_repo_documents
+    from githubrepostorag_tpu_torch.ingest.sources import LocalRepoReader
+
+    docs = LocalRepoReader(root).load()
+    prepared = prepare_repo_documents(docs)
+    chunks = {d.path: len(split_document(d.text, d.metadata.get("language"))) for d in prepared}
+    files = [p for p, n in chunks.items() if n]
+    modules = sorted({top_directory(p) for p in files})
+    n = sum(chunks.values())
+    return {"source_docs": len(docs), "files": files, "chunks": n, "modules": modules,
+            "prompts": {"summary": n, "title": n, "keywords": n, "file": len(files),
+                        "module": len(modules), "repo": 1, "readme_judge": 1}}
+
+
+class CountingLLM:
+    """The LLM protocol over an ``InProcessLLM``, recording every call: its
+    prompts' kinds (``INGEST_PROMPTS``), its max_tokens, its wall time, and
+    the tokens its engine committed meanwhile (the calls come one at a
+    time, so the engine's count moves for this call alone)."""
+
+    def __init__(self, inner, engine) -> None:
+        self.inner, self.engine, self.calls = inner, engine, []
+
+    @staticmethod
+    def kind(prompt: str) -> str:
+        return next((k for k, head in INGEST_PROMPTS if prompt.startswith(head)), "other")
+
+    def _record(self, prompts, max_tokens, call):
+        t0, tok0 = time.monotonic(), self.engine.committed_tokens
+        out = call()
+        self.calls.append({"kinds": [self.kind(p) for p in prompts], "max_tokens": max_tokens,
+                           "s": time.monotonic() - t0,
+                           "generated": self.engine.committed_tokens - tok0})
+        return out
+
+    def complete(self, prompt, **kw):
+        return self._record([prompt], kw.get("max_tokens"),
+                            lambda: self.inner.complete(prompt, **kw))
+
+    def complete_batch(self, prompts, **kw):
+        return self._record(list(prompts), kw.get("max_tokens"),
+                            lambda: self.inner.complete_batch(prompts, **kw))
+
+    def stream_complete(self, prompt, **kw):
+        return self.inner.stream_complete(prompt, **kw)
+
+
+def repo_vector_write(enc, device: str = "cuda", runs: int = 2) -> dict:
+    """The vector write at one repository's size: ``REPO_CHUNKS`` chunk
+    nodes (the retrieval phase's code passages, the scope keys of
+    ``chunk_metadata``), enriched by ``enrich_nodes`` with a scripted
+    ``FakeLLM`` (a summary, a title and keywords each, no engine), written
+    by ``write_nodes_per_scope`` through ``enc`` into a fresh device-indexed
+    memory store, ``runs`` times: each run's seconds and passages/s, and the
+    first search's seconds (it copies the new rows to the card); then the
+    encoder's seconds alone on the same batches.  Raises
+    unless every row reaches the host store and the device index."""
+    import re
+
+    import torch
+
+    from githubrepostorag_tpu_torch.config import get_settings
+    from githubrepostorag_tpu_torch.ingest.extractors import enrich_nodes
+    from githubrepostorag_tpu_torch.ingest.types import Node
+    from githubrepostorag_tpu_torch.ingest.vector_write import WRITE_BATCH, write_nodes_per_scope
+    from githubrepostorag_tpu_torch.llm import FakeLLM
+    from githubrepostorag_tpu_torch.retrieval import DeviceIndexedStore
+    from githubrepostorag_tpu_torch.store.memory import MemoryVectorStore
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    s = get_settings()
+    texts = code_passages(np.random.default_rng(SEED + 53), REPO_CHUNKS)
+    nodes = [Node(text, {**chunk_metadata(i), "language": "python", "span": f"{i % 8 * 40 + 1}"})
+             for i, text in enumerate(texts)]
+
+    def name(prompt):
+        return re.search(r"def (\w+)", prompt).group(1)
+
+    llm = FakeLLM({
+        r"Summary:$": lambda p: f"{name(p)} reads its arguments, updates the store and "
+                                f"returns the result. It is called once a batch.",
+        r"Title:$": lambda p: f"The {name(p).replace('_', ' ')} helper",
+        r"Keywords:$": lambda p: ", ".join(name(p).split("_")[:3] + ["python", "store"]),
+    })
+    enrich_nodes(llm, nodes)
+    if not all("keywords" in n.metadata for n in nodes):
+        raise RuntimeError("the scripted extractors left chunk nodes unenriched")
+    table = s.scope_tables["chunk"]
+    out = []
+    for _ in range(runs):
+        store = DeviceIndexedStore(MemoryVectorStore(), k_bucket=s.device_index_k_bucket,
+                                   max_wave=s.retrieval_max_wave, device=device)
+        sync()
+        t0 = time.monotonic()
+        written = write_nodes_per_scope({"chunk": nodes}, store=store, encoder=enc)
+        sync()
+        wall = time.monotonic() - t0
+        # the device copy takes the dirty rows at the first search
+        t0 = time.monotonic()
+        store.search(table, enc.encode([texts[0]], kind="query")[0], 8)
+        sync()
+        sync_s = time.monotonic() - t0
+        rows = store.health()["device_index"].get(table, {}).get("rows")
+        if written != {"chunk": REPO_CHUNKS} or store.inner.count(table) != REPO_CHUNKS \
+                or rows != REPO_CHUNKS:
+            raise RuntimeError(f"repository-size vector write: {written}, host "
+                               f"{store.inner.count(table)}, device {rows} rows")
+        out.append({"s": wall, "passages_per_s": REPO_CHUNKS / wall,
+                    "first_search_s": sync_s})
+        del store
+    # then the encoder alone on the same batches of WRITE_BATCH
+    sync()
+    t0 = time.monotonic()
+    for start in range(0, REPO_CHUNKS, WRITE_BATCH):
+        enc.encode([n.text for n in nodes[start:start + WRITE_BATCH]], kind="passage")
+    sync()
+    encode_s = time.monotonic() - t0
+    stats = {"passages": REPO_CHUNKS, "encode_s": encode_s,
+             "encode_passages_per_s": REPO_CHUNKS / encode_s, "runs": out}
+    log(f"vector write at one repository's size: {json.dumps(stats)}")
+    return stats
+
+
+def phase_ingest(cfg, params, enc=None, device: str = "cuda", geometry: dict | None = None,
+                 enc_cfg=None) -> dict:
+    """Ingest on the card through the CLI's entry point: the synthetic tree
+    (``ingest_tree``) read by ``LocalRepoReader``, the extractors, catalog
+    and hierarchy summaries through ``InProcessLLM.complete_batch`` on the
+    engine ``api/__main__.inprocess_llm`` builds (the engine phase's
+    geometry, the byte tokenizer, the 7B tree), the vector write through
+    the retrieval phase's encoder into ``get_store()``: the memory store in
+    the device index (STORE_BACKEND=memory, DEVICE_INDEX=auto), DATA_DIR
+    and STORE_PATH in a temp dir.  Every launch count is set to 0 just
+    before ``ingest.__main__.main`` and read just after.  Then one code
+    question about a function of the tree through ``RagApi`` + ``RagWorker``
+    over the ingested store."""
+    import logging
+    import os
+    import tempfile
+    import threading
+
+    import torch
+
+    from githubrepostorag_tpu_torch import config
+    from githubrepostorag_tpu_torch.agent import GraphAgent
+    from githubrepostorag_tpu_torch.api.__main__ import inprocess_llm
+    from githubrepostorag_tpu_torch.api.app import RagApi
+    from githubrepostorag_tpu_torch.embedding import set_encoder
+    from githubrepostorag_tpu_torch.events import (
+        MemoryBus, MemoryCancelFlags, MemoryJobQueue, reset_memory_hub)
+    from githubrepostorag_tpu_torch.ingest.__main__ import main as ingest_main
+    from githubrepostorag_tpu_torch.llm import set_llm
+    from githubrepostorag_tpu_torch.metrics import MeteredLLM
+    from githubrepostorag_tpu_torch.retrieval import DeviceIndexedStore, RetrieverFactory
+    from githubrepostorag_tpu_torch.serving.tokenizer import ByteTokenizer
+    from githubrepostorag_tpu_torch.store import get_store, reset_store
+    from githubrepostorag_tpu_torch.store.memory import MemoryVectorStore
+    from githubrepostorag_tpu_torch.worker import RagWorker
+
+    cuda = torch.device(device).type == "cuda"
+    t_phase = time.monotonic()
+    if enc is None:
+        enc, _ = e5_encoder(device, enc_cfg)
+    tmp = tempfile.TemporaryDirectory(prefix="ingest_smoke_")
+    root = os.path.join(tmp.name, INGEST_REPO)
+    data_dir, store_dir = os.path.join(tmp.name, "data"), os.path.join(tmp.name, "store")
+    os.makedirs(data_dir)
+    files = ingest_tree(root)
+    want = ingest_expectations(root)
+    log(f"ingest tree: {len(files)} files written, {len(want['files'])} kept, "
+        f"{want['chunks']} chunks, modules {want['modules']}")
+    os.environ.update(geometry or ENGINE_GEOMETRY, QWEN_MAX_OUTPUT=str(RAG_MAX_OUTPUT),
+                      LLM_BACKEND="inprocess", STORE_BACKEND="memory", DEVICE_INDEX="auto",
+                      LIVE_INDEX="off", DATA_DIR=data_dir, STORE_PATH=store_dir,
+                      PREFILL_PRIORITY="0", PREFILL_WIDTHS="1")
+    s = config.reload_settings()
+    reset_store()
+    t0 = time.monotonic()
+    raw_llm = inprocess_llm(s, params, cfg, ByteTokenizer(), device)
+    warmup_s = time.monotonic() - t0
+    engine = raw_llm.engine.engine
+    llm = CountingLLM(raw_llm, engine)
+    prompt_tokens = [0]
+    ids_of = raw_llm._prompt_ids
+
+    def counted_ids(prompt, system):
+        ids = ids_of(prompt, system)
+        prompt_tokens[0] += len(ids)
+        return ids
+
+    raw_llm._prompt_ids = counted_ids
+    set_llm(llm)
+    set_encoder(enc)
+    # an extractor stage that raises logs this warning and leaves its nodes as they were
+    stage_failures: list[str] = []
+
+    class StageFailures(logging.Handler):
+        def emit(self, record):
+            if "failed" in record.getMessage():
+                stage_failures.append(record.getMessage())
+
+    handler = StageFailures(logging.WARNING)
+    ext_logger = logging.getLogger("githubrepostorag_tpu_torch.ingest.extractors")
+    ext_logger.addHandler(handler)
+    loop = thread = None
+    stats: dict = {"engine_warmup_s": warmup_s}
+    try:
+        admitted0, committed0 = engine.requests_admitted, engine.committed_tokens
+        prefill0 = engine.prefill_tokens
+        reset_launches()
+        t0 = time.monotonic()
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):  # the CLI prints the run's record
+            rc = ingest_main(["--local", root, "--repo", INGEST_REPO,
+                              *([] if cuda else ["--device", "cpu"])])
+        ingest_s = time.monotonic() - t0
+        if rc != 0:
+            raise RuntimeError(f"the ingest CLI returned {rc}")
+        deadline = time.monotonic() + 60
+        while engine.has_work() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        if cuda:
+            torch.cuda.synchronize()
+        launches = read_launches()
+        store = get_store()
+        if not isinstance(store, DeviceIndexedStore):
+            raise RuntimeError(f"get_store() built {type(store).__name__}, not the device index")
+        tables = s.scope_tables
+        written = {scope: store.count(tables[scope]) for scope in tables}
+        expect = {"catalog": 1, "repo": 1, "module": len(want["modules"]),
+                  "file": len(want["files"]), "chunk": want["chunks"]}
+        if written != expect:
+            raise RuntimeError(f"rows written per scope {written}, the tree implies {expect}")
+        records = [json.loads(line) for line in
+                   open(os.path.join(data_dir, "ingest_runs.jsonl")).read().splitlines()]
+        if (len(records) != 1 or records[0]["repo"] != INGEST_REPO
+                or records[0]["written"] != expect):
+            raise RuntimeError(f"ingest_runs.jsonl: {records}")
+        record = records[0]
+        if json.loads(printed.getvalue())["run_id"] != record["run_id"]:
+            raise RuntimeError("the CLI printed another run than ingest_runs.jsonl holds")
+        if not os.path.exists(os.path.join(data_dir, ".ingest_complete")):
+            raise RuntimeError(".ingest_complete was not written")
+        # the LLM calls the tree implies, and the engine served each of them
+        kinds: dict[str, int] = {}
+        for call in llm.calls:
+            for k in call["kinds"]:
+                kinds[k] = kinds.get(k, 0) + 1
+        catalog_calls = kinds.pop("catalog", 0)
+        if kinds != want["prompts"] or catalog_calls > 2:
+            raise RuntimeError(f"LLM prompts by kind {kinds} (+{catalog_calls} catalog), "
+                               f"the tree implies {want['prompts']}")
+        n_prompts = sum(len(c["kinds"]) for c in llm.calls)
+        admitted = engine.requests_admitted - admitted0
+        if admitted != n_prompts:
+            raise RuntimeError(f"the engine admitted {admitted} requests for {n_prompts} prompts")
+        if stage_failures:
+            raise RuntimeError(f"extractor stages took their exception path: {stage_failures}")
+        # the device index against the host store: rows per table, rankings
+        dev_rows = {t: h["rows"] for t, h in store.health()["device_index"].items()}
+        for table in tables.values():
+            if dev_rows.get(table) != store.inner.count(table):
+                raise RuntimeError(f"{table}: {dev_rows.get(table)} device rows, host "
+                                   f"{store.inner.count(table)}")
+        rng = np.random.default_rng(SEED + 43)
+        idents = sorted({w for text in files.values() for w in text.replace("(", " ").split()
+                         if w.count("_") >= 2 and w.isidentifier()})
+        queries = [f"{q} {a}" for q, a in zip(rng.choice(idents, 8), rng.choice(_IDENTS, 8))]
+        qv = enc.encode(queries, kind="query")
+        for table, k in ((tables["chunk"], 8), (tables["file"], 5), (tables["module"], 3)):
+            for v in qv:
+                same_ranking(store.inner.search(table, v, k), store.search(table, v, k))
+        saved = MemoryVectorStore(persist_dir=store_dir)
+        if {t: saved.count(t) for t in saved.tables()} != {t: store.count(t)
+                                                           for t in store.tables()}:
+            raise RuntimeError("the saved store reloads with other counts")
+        chunk_docs = store.inner.find_by_metadata(tables["chunk"], {}, limit=10_000)
+        enriched = {key: sum(1 for d in chunk_docs if key in d.metadata)
+                    for key in ("summary", "title", "keywords")}
+        a, b = "fused_window_attention", "paged_attention_decode_staged"
+        if cuda:
+            if launches[a] <= 0 or launches[b] <= 0:
+                raise RuntimeError(f"ingest launched A {launches[a]}, B {launches[b]} times")
+            off = {k: n for k, n in launches.items() if k.split("@")[0] not in (a, b) and n}
+            if off:
+                raise RuntimeError(f"ingest launched kernels it never reaches: {off}")
+        if engine.has_work() or engine._allocator.free_count != engine._allocator.num_pages:
+            raise RuntimeError(f"KV pages held after ingest: {engine._allocator.free_count} free "
+                               f"of {engine._allocator.num_pages}")
+        timings = record["timings"]
+        ext = [c for c in llm.calls if c["kinds"][0] in ("summary", "title", "keywords")]
+        ext_s = sum(c["s"] for c in ext)
+        generated = engine.committed_tokens - committed0
+        stats.update({
+            "files_written": len(files), "files": len(want["files"]), "chunks": want["chunks"],
+            "modules": want["modules"], "written": written, "llm_calls": n_prompts,
+            "llm_calls_by_kind": {**kinds, "catalog": catalog_calls},
+            "enriched_chunks": enriched, "timings": timings,
+            "total_s": record["total_seconds"], "cli_wall_s": ingest_s,
+            "prompt_tokens": prompt_tokens[0], "prefill_tokens": engine.prefill_tokens - prefill0,
+            "generated_tokens": generated,
+            "extractor_prompts_per_s": sum(len(c["kinds"]) for c in ext) / ext_s,
+            "extractor_generated_tok_per_s": sum(c["generated"] for c in ext) / ext_s,
+            "generated_tok_per_s": generated / sum(c["s"] for c in llm.calls),
+            "kernel_a_launches": launches[a], "kernel_b_launches": launches[b],
+            "kernel_a_launches_by_window": {k.split("@S")[1]: n for k, n in launches.items()
+                                            if k.startswith(a + "@S") and n},
+            "launches": launches, "device_rows": dev_rows,
+        })
+        log(f"ingest: {json.dumps(stats)}")
+
+        # ingest -> retrieve -> generate: one code question over this store
+        fn = next(w for w in idents if w.startswith("index_"))
+        agent = GraphAgent(MeteredLLM(raw_llm), RetrieverFactory(store, enc), namespace="default")
+        reset_memory_hub()  # the rag phase's hub is bound to its own loop
+        bus, flags, queue = MemoryBus(), MemoryCancelFlags(), MemoryJobQueue()
+        api = RagApi(bus, flags, queue)
+        worker = RagWorker(agent, bus, flags, queue)
+        loop = asyncio.new_event_loop()
+        thread = threading.Thread(target=loop.run_forever, name="ingest-rag", daemon=True)
+        thread.start()
+        port = asyncio.run_coroutine_threadsafe(api.start("127.0.0.1", 0), loop).result(60)
+        task = asyncio.run_coroutine_threadsafe(worker.run_forever(), loop)
+        try:
+            reset_launches()
+            job = rag_job(port, {"query": f"what does the function {fn} return in repo: "
+                                          f"{INGEST_REPO}?"})
+            if cuda:
+                torch.cuda.synchronize()
+            rag_launches = read_launches()
+        finally:
+            worker.stop()
+            task.cancel()
+            asyncio.run_coroutine_threadsafe(api.stop(), loop).result(60)
+        final = job["events"][-1]
+        sources = final["data"].get("sources", []) if final["event"] == "final" else []
+        paths = {src.get("file_path") for src in sources}
+        if final["event"] != "final" or not sources or not paths & set(want["files"]):
+            raise RuntimeError(f"RAG job over the ingested store: {final['event']}, "
+                               f"source files {sorted(p for p in paths if p)}")
+        if cuda and (rag_launches[a] <= 0 or rag_launches[b] <= 0):
+            raise RuntimeError(f"the RAG job launched A {rag_launches[a]}, B {rag_launches[b]}")
+        stats.update({"rag_question": job["body"]["query"], "rag_job_wall_s": job["wall_s"],
+                      "rag_sources": len(sources),
+                      "rag_source_files": sorted(p for p in paths if p in want["files"])})
+        # the tree's vector write is 34 rows; the rate at one repository's size
+        stats["vector_write_repo"] = repo_vector_write(enc, device)
+    finally:
+        ext_logger.removeHandler(handler)
+        if loop is not None:
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(30)
+            loop.close()
+        raw_llm.close()
+        set_llm(None)
+        set_encoder(None)
+        reset_store()
+        for name in ("STORE_BACKEND", "DEVICE_INDEX", "LIVE_INDEX", "DATA_DIR", "STORE_PATH",
+                     "PREFILL_PRIORITY", "PREFILL_WIDTHS"):
+            os.environ.pop(name, None)
+        config.reload_settings()
+        tmp.cleanup()
+    stats["phase_s"] = time.monotonic() - t_phase
+    log(f"ingest on {torch.cuda.get_device_name(0) if cuda else 'cpu'}: {json.dumps(stats)}")
+    return stats
+
+
 def launch_counters() -> dict:
     """Every kernel wrapper, whose ``launches`` (and A's and B's per pool
     branch, D's per loader, E's per kernel: ``name@int8``,
@@ -3128,7 +3712,13 @@ def launch_counters() -> dict:
 
 # per-branch counts beside a wrapper's total: A and B by pool, D by loader,
 # E by kernel
-BRANCH_COUNTS = ("launches_by_pool", "launches_by_loader", "launches_by_kernel")
+BRANCH_COUNTS = ("launches_by_pool", "launches_by_loader", "launches_by_kernel",
+                 "launches_by_window")
+
+
+def _branch_key(name: str, attr: str, kind) -> str:
+    """``name@kind``; A's window counts read ``name@S<window>``."""
+    return f"{name}@S{kind}" if attr == "launches_by_window" else f"{name}@{kind}"
 
 
 def reset_launches() -> None:
@@ -3145,16 +3735,19 @@ def read_launches() -> dict:
         out[name] = fn.launches
         for attr in BRANCH_COUNTS:
             for kind, n in getattr(fn, attr, {}).items():
-                out[f"{name}@{kind}"] = n
+                out[_branch_key(name, attr, kind)] = n
     return out
 
 
 def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tuple[str, ...] = (),
-                 profile: bool = True, **engine_kw) -> dict:
+                 profile: bool = True, tail: bool = False, **engine_kw) -> dict:
     """Serve the traffic below through AsyncEngine(Engine(params,
     **engine_kw)); every kernel's launch count is set to 0 just before and
     read just after: each kernel (or ``kernel@branch``) in ``required``
-    must have launched, each in ``absent`` must not have."""
+    must have launched, each in ``absent`` must not have.  ``tail``: then
+    one more greedy request, resuming 100 tokens past the cached prefix
+    (the width ladder's narrowest window, 128, on its own), outside the
+    traffic's numbers and launches (``tail_launches``)."""
     import torch
 
     from githubrepostorag_tpu_torch.serving import AsyncEngine, Engine, SamplingParams
@@ -3175,6 +3768,7 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tup
     second = prefix + rng.integers(0, cfg.vocab_size, 300).tolist()
     # decode wave: 8 rows prefill in one chunk together, then only decode
     decode_wave = [rng.integers(0, cfg.vocab_size, 256).tolist() for _ in range(8)]
+    tail_prompt = prefix + rng.integers(0, cfg.vocab_size, 100).tolist()
     n_new, n_decode = 32, 64
     greedy = SamplingParams(temperature=0.0, max_tokens=n_new)
     sampled = SamplingParams(temperature=0.7, top_p=0.9, max_tokens=n_new)
@@ -3195,19 +3789,22 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tup
                 else:
                     last = ev.result
             decoded = await asyncio.gather(*(aeng.generate(p, long_greedy) for p in decode_wave))
-            return first, last, streamed, decoded, t_start, t_mid
+            counted = read_launches(), engine._allocator.hit_tokens - hits_before
+            tail_res = await aeng.generate(tail_prompt, greedy) if tail else None
+            return first, last, streamed, decoded, t_start, t_mid, counted, tail_res
         finally:
             await aeng.stop()
 
     reset_launches()
     hits_before = engine._allocator.hit_tokens
     packed_before = (engine.packed_prefill_tokens, engine.packed_prefill_padding)
-    first, last, streamed, decoded, t_start, t_mid = asyncio.run(serve())
+    first, last, streamed, decoded, t_start, t_mid, (launches, hit), tail_res = asyncio.run(serve())
     torch.cuda.synchronize()
-    launches = read_launches()
-    hit = engine._allocator.hit_tokens - hits_before
+    served = read_launches()  # the traffic's launches and the tail's
 
-    for res, want in [(r, n_new) for r in first + [last]] + [(r, n_decode) for r in decoded]:
+    tails = [tail_res] if tail else []
+    for res, want in ([(r, n_new) for r in first + [last] + tails]
+                      + [(r, n_decode) for r in decoded]):
         if res.finish_reason != "length" or len(res.output_tokens) != want:
             raise RuntimeError(f"{res.request_id}: {res.finish_reason} after "
                                f"{len(res.output_tokens)} tokens ({res.error})")
@@ -3218,11 +3815,11 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tup
     if hit < 1024:
         raise RuntimeError(f"prefix cache hit {hit} tokens, expected >= 1024")
     for name in required:
-        if launches[name] <= 0:
+        if served.get(name, 0) <= 0:
             raise RuntimeError(f"{name} never launched on the {label} path")
     for name in absent:
-        if launches[name] != 0:
-            raise RuntimeError(f"{name} launched {launches[name]} times on the {label} path, "
+        if served.get(name, 0) != 0:
+            raise RuntimeError(f"{name} launched {served[name]} times on the {label} path, "
                                "which never reaches it")
     if engine._allocator.free_count != engine._allocator.num_pages:
         raise RuntimeError("pages leaked after the engine drained")
@@ -3251,6 +3848,12 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tup
         stats["packed_prefill_tokens"] = engine.packed_prefill_tokens - packed_before[0]
         stats["packed_prefill_padding"] = engine.packed_prefill_padding - packed_before[1]
     log(f"{label} engine on {torch.cuda.get_device_name(0)}: {json.dumps(stats)}")
+    # the greedy rows' tokens (the sampled row aside), for run-to-run identity
+    stats["greedy_tokens"] = ([r.output_tokens for i, r in enumerate(first) if i != 2]
+                              + [last.output_tokens] + [r.output_tokens for r in decoded]
+                              + [r.output_tokens for r in tails])
+    if tail:
+        stats["tail_launches"] = {k: n - launches.get(k, 0) for k, n in served.items()}
     if profile:
         stats["profile"] = profile_decode(engine, decode_wave,
                                           SamplingParams(temperature=0.0, max_tokens=17))
@@ -3267,6 +3870,29 @@ B_KERNEL_NAMES = ("split_kernel", "decode_staged_kernel")
 # another checkout's earlier kernels
 E_KERNEL_NAMES = ("w4a8_prologue", "w4a8_mma_kernel", "w4a8_dp4a_kernel", "w4a8_kernel",
                   "w4a8_general_kernel")
+
+
+def check_options_run(base: dict, run: dict) -> dict:
+    """The bf16 engine run with ``prefill_widths=3`` and ``prefill_priority``
+    against the default bf16 run on the same traffic: every greedy row's
+    tokens identical, and kernel A launched at windows 512, 256 and 128."""
+    a = "fused_window_attention"
+    if run["greedy_tokens"] != base["greedy_tokens"]:
+        diff = [i for i, (x, y) in enumerate(zip(run["greedy_tokens"], base["greedy_tokens"]))
+                if x != y]
+        raise RuntimeError(f"greedy rows {diff} differ with prefill_widths=3 and "
+                           "prefill_priority from the default run")
+    windows = {k.split("@S")[1]: n + run["tail_launches"].get(k, 0)
+               for k, n in run["launches"].items() if k.startswith(a + "@S")}
+    windows = {w: n for w, n in windows.items() if n}
+    if not all(windows.get(w, 0) > 0 for w in ("512", "256", "128")):
+        raise RuntimeError(f"kernel A launches by window {windows}: 512, 256 and 128 must appear")
+    out = {"greedy_rows_identical": len(run["greedy_tokens"]), "a_launches_by_window": windows,
+           "a_launches": run["launches"][a], "a_launches_default": base["launches"][a],
+           "ttft_p50_s": run["ttft_p50_s"], "ttft_p50_s_default": base["ttft_p50_s"],
+           "tpot_ms_p50": run["tpot_ms_p50"], "tpot_ms_p50_default": base["tpot_ms_p50"]}
+    log(f"engine options on the card: {json.dumps(out)}")
+    return out
 
 
 def kernel_of(key: str) -> str | None:
@@ -3310,6 +3936,7 @@ def profile_decode(engine, prompts, sp) -> dict:
     wall_ms = (time.monotonic() - t0) * 1e3
     launches0 = paged_attention_decode_staged.launches
     a_launches0 = fused_window_attention.launches
+    a_windows0 = dict(fused_window_attention.launches_by_window)
     c_launches0 = packed_prefill_attention_seg.launches
     e_launches0 = w4a8_matmul.launches
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3329,6 +3956,10 @@ def profile_decode(engine, prompts, sp) -> dict:
         "kernel_a_ms": sum(e.self_device_time_total for e in kernels
                            if kernel_of(e.key) == "A") / 1e3,
         "kernel_a_launches": fused_window_attention.launches - a_launches0,
+        "kernel_a_launches_by_window": {
+            str(w): n - a_windows0.get(w, 0)
+            for w, n in fused_window_attention.launches_by_window.items()
+            if n - a_windows0.get(w, 0)},
         "kernel_c_ms": sum(e.self_device_time_total for e in kernels
                            if kernel_of(e.key) == "C") / 1e3,
         "kernel_c_launches": packed_prefill_attention_seg.launches - c_launches0,
@@ -3425,9 +4056,109 @@ SOURCES = {
 }
 
 
+def small_wave_ttft(cfg, params, reps: int = 16, device: str = "cuda") -> list[dict]:
+    """What the width ladder and its row floor cost or save on small waves,
+    where the floor binds: TTFT (``generate`` with one new token, its wall
+    and the result's ``ttft_s``, medians of ``reps`` fresh prompt sets) of
+    one and of two 100-token prompts (short queries) and of one and of two
+    612-token prompts (a 512-token chunk, then a ragged 100-token one, as
+    an extractor prompt's last chunk), on the engine phase's geometry
+    without prefix caching (every repeat prefills its whole prompt).  Three
+    variants, in the order 1, 3, 3 unfloored, 3 unfloored, 3, 1:
+    prefill_widths 1, prefill_widths 3, and prefill_widths 3 with
+    ``prefill_row_floor`` 0 (the floor's cost).  Each pass records whether
+    its first tokens equal prefill_widths 1's, and on the card the device's
+    busy time in one more call of each case (torch.profiler, kernels
+    only): the floor's cost on the device, apart from the host's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from githubrepostorag_tpu_torch.serving import Engine, SamplingParams
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    rng = np.random.default_rng(SEED + 47)
+    cases = {f"{n}x{plen}": [[rng.integers(0, cfg.vocab_size, plen).tolist() for _ in range(n)]
+                             for _ in range(reps)]
+             for n, plen in ((1, 100), (2, 100), (1, 612), (2, 612))}
+    engines = {}
+    for widths in (1, 3):
+        engines[widths] = Engine(params, cfg, page_size=128, num_pages=256, max_num_seqs=8,
+                                 prefill_chunk=512, decode_burst=8, max_seq_len=11712,
+                                 prefix_caching=False, device=device, prefill_widths=widths)
+        engines[widths].warmup()
+    one = SamplingParams(temperature=0.0, max_tokens=1)
+    first_tokens: dict = {}
+    passes = []
+    for variant in ("1", "3", "3 unfloored", "3 unfloored", "3", "1"):
+        engine = engines[int(variant[0])]
+        engine.prefill_row_floor = 0 if variant.endswith("unfloored") else engine.prefill_chunk
+        row = {"prefill_widths": int(variant[0]), "row_floor": engine.prefill_row_floor}
+        for case, sets in cases.items():
+            engine.generate(sets[0], one)  # same shapes, so the timed calls are warm
+            walls, ttfts, toks = [], [], []
+            for prompts in sets:
+                sync()
+                t0 = time.monotonic()
+                res = engine.generate(prompts, one)
+                walls.append((time.monotonic() - t0) * 1e3)
+                ttfts += [r.ttft_s * 1e3 for r in res]
+                toks.append([r.output_tokens for r in res])
+            first_tokens.setdefault(case, toks)
+            row[case] = {"wall_ms_p50": sorted(walls)[len(walls) // 2],
+                         "ttft_ms_p50": sorted(ttfts)[len(ttfts) // 2],
+                         "first_tokens_equal_widths_1": toks == first_tokens[case]}
+            if device == "cuda":
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    engine.generate(sets[0], one)
+                    sync()
+                row[case]["device_busy_ms"] = sum(
+                    e.self_device_time_total for e in prof.key_averages()
+                    if "CUDA" in str(e.device_type)) / 1e3
+        passes.append(row)
+        log(f"small waves, prefill_widths={variant}: {json.dumps(row)}")
+    del engines
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return passes
+
+
+def phase_options(cfg, params, index, enc) -> dict:
+    """``--only options``: the two engine options measured in pairs in one
+    call, off / on / on / off (engine numbers spread up to 2x between
+    calls): the long-context bf16 profile with prefill_widths 1 and 3 (A's
+    total and launches by window), small waves' TTFT with prefill_widths 1
+    and 3 and without the row floor (``small_wave_ttft``), and the rag
+    phase's eight jobs with PREFILL_PRIORITY off and on (job wall,
+    synthesis TTFT, the whole-repo job's TTFT)."""
+    import torch
+
+    out: dict = {"longctx_prefill_widths": [], "rag_prefill_priority": []}
+    out["small_wave_ttft"] = small_wave_ttft(cfg, params)
+    for widths in (1, 3, 3, 1):
+        st = phase_longctx(cfg, params, f"bf16, prefill_widths={widths}", prefill_widths=widths)
+        out["longctx_prefill_widths"].append({"prefill_widths": widths, **{
+            k: st[k] for k in ("kernel_a_ms", "kernel_a_launches", "kernel_a_launches_by_window",
+                               "kernel_b_ms", "busy_ms", "wall_ms", "idle_pct", "tpot_ms_p50",
+                               "prefill_tokens_per_call")}})
+    for priority in (False, True, True, False):
+        st = phase_rag(cfg, params, index=index, enc=enc, prefill_priority=priority)
+        out["rag_prefill_priority"].append({k: st[k] for k in (
+            "prefill_priority", "job_wall_p50_s", "job_wall_p95_s", "synth_ttft_p50_s",
+            "whole_repo_ttft_s", "traffic_wall_s", "kernel_a_launches", "kernel_b_launches")})
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"options: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--only", choices=["kernels", "longctx", "int4", "retrieval", "rag"],
+    parser.add_argument("--only", choices=["kernels", "longctx", "int4", "retrieval", "rag",
+                                           "ingest", "options"],
                         default=None,
                         help="kernels: the device, build and kernel phases only; longctx: "
                              "the device and build phases and the long-context decode "
@@ -3435,7 +4166,10 @@ def main() -> int:
                              "route times, and the int4-weight engine run and its profile; "
                              "retrieval: the device and retrieval phases only; rag: the "
                              "device and build phases and the question-answering loop (its "
-                             "index built at the retrieval phase's size)")
+                             "index built at the retrieval phase's size); ingest: the device "
+                             "and build phases and the ingest phase; options: the device and "
+                             "build phases and the engine options measured in pairs "
+                             "(long-context profiles, rag jobs)")
     args = parser.parse_args()
 
     import torch
@@ -3468,6 +4202,23 @@ def main() -> int:
         print(json.dumps({"packages": packages}))
         print(device["card"])
         print(json.dumps({"rag": rag}), flush=True)
+        return 0
+    if args.only == "ingest":
+        cfg, params = make_7b_params()
+        ingest = phase_ingest(cfg, params)
+        log(f"done in {time.monotonic() - t_all:.1f} s")
+        print(device["card"])
+        print(json.dumps({"ingest": ingest}), flush=True)
+        return 0
+    if args.only == "options":
+        cfg, params = make_7b_params()
+        t0 = time.monotonic()
+        index, enc, _ = rag_index("cuda")
+        log(f"rag index built in {time.monotonic() - t0:.1f} s")
+        options = phase_options(cfg, params, index, enc)
+        log(f"done in {time.monotonic() - t_all:.1f} s")
+        print(device["card"])
+        print(json.dumps({"options": options}), flush=True)
         return 0
     if args.only == "longctx":
         cfg, params = make_7b_params()
@@ -3507,10 +4258,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     a, b, c = "fused_window_attention", "paged_attention_decode_staged", "packed_prefill_attention_seg"
-    runs = {
-        "bf16": phase_engine(cfg, params, "bf16", (a, b), (c,)),
+    enc = store.pop("encoder")
+    runs = {"bf16": phase_engine(cfg, params, "bf16", (a, b), (c,), tail=True)}
+    # the same traffic with the width ladder and prefill priority on
+    runs["options"] = phase_engine(cfg, params, "bf16 prefill_widths=3 prefill_priority",
+                                   (a, b, a + "@S512", a + "@S256", a + "@S128"), (c,),
+                                   profile=False, tail=True, prefill_widths=3,
+                                   prefill_priority=True)
+    options = check_options_run(runs["bf16"], runs["options"])
+    # cuBLAS's rows by GEMM row count: the engine's prefill row floor needs
+    # none to differ from 512 rows on (checked in the kernel phase)
+    options["gemm_rows_differing_by_m"] = kres["gemm_rows"]
+    runs.update({
         "http": phase_http(cfg, params),
-        "rag": phase_rag(cfg, params, index=store.pop("index"), enc=store.pop("encoder")),
+        "rag": phase_rag(cfg, params, index=store.pop("index"), enc=enc),
+        "ingest": phase_ingest(cfg, params, enc=enc),
         # packed prefill over bf16 pools never reaches kernel A
         "packed": phase_engine(cfg, params, "packed bf16", (c, b), (a,),
                                prefill_token_budget=2048),
@@ -3519,7 +4281,7 @@ def main() -> int:
         # int4 pages decode on the gather path, so kernel B never launches
         "kv4": phase_engine(cfg, params, "kv int4 packed", (a + "@int4",), (b, c),
                             profile=False, kv_quant=4, prefill_token_budget=2048),
-    }
+    })
     gc.collect()
     torch.cuda.empty_cache()
     longctx = {"bf16": phase_longctx(cfg, params, "bf16"),
@@ -3567,6 +4329,12 @@ def main() -> int:
             entry["plan"] = kres[name]["plan"]
             entry["host_us"] = kres[name]["host_us"]
         if name == a:
+            # the width ladder's S = 256 window, alone; the options run's
+            # launches by window
+            entry["window_256"] = {pool: {k: kres[key][k] for k in keys + ("host_us",)}
+                                   for pool, key in (("fp", a + "@S256"),
+                                                     ("int8", a + "@int8@S256"))}
+            entry["launches_by_window_options_run"] = options["a_launches_by_window"]
             # the long-context profile's launch, alone and in the profile
             entry["long_context"] = {
                 pool: {"launches": longctx[run]["kernel_a_launches"],
@@ -3588,6 +4356,8 @@ def main() -> int:
     print(json.dumps({"packages": packages}))
     print(json.dumps({"retrieval": retrieval}))
     print(json.dumps({"rag": runs["rag"]}))
+    print(json.dumps({"engine_options": options}))
+    print(json.dumps({"ingest": runs["ingest"]}))
     print(device["card"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],

@@ -9,8 +9,9 @@ backend), the retrieval path: ``embedding.py`` (the encoder),
 scope tables), and the question-answering loop: ``llm.py`` (the backend
 and its sampling defaults), ``agent/`` (the loop's budgets),
 ``events/``, ``worker/`` and ``api/`` (jobs, queue bound, SSE),
-``resilience/`` (retries, breakers, ``FAULTS``) and ``obs/`` (traces,
-the log format).  Each reads the same environment variable, with the same
+``resilience/`` (retries, breakers, ``FAULTS``), ``obs/`` (traces,
+the log format) and ``ingest/`` (GitHub, branch and collection, DEV_MODE,
+the Pushgateway, ``EXTENSION_TO_LANGUAGE``).  Each reads the same environment variable, with the same
 default and parser, as the JAX package's field of the same name, so a pod
 spec carries over unchanged.  The settings of modes the port does not run
 yet (host tier, preemption, speculation, the fused step, meshes) are kept:
@@ -239,6 +240,15 @@ class Settings:
     index_compact_max_hole_fraction: float = _float("INDEX_COMPACT_MAX_HOLE_FRACTION", 0.25)
     data_dir: str = _env("DATA_DIR", "")
 
+    # --- ingest (ingest/) ---
+    github_token: str = _env("GITHUB_TOKEN", "")
+    github_user: str = _env("GITHUB_USER", "")
+    default_branch: str = _env("DEFAULT_BRANCH", "main")
+    default_collection: str = _env("DEFAULT_COLLECTION", "misc")
+    dev_force_standalone: bool = _bool("DEV_MODE", False)
+    # stage gauges go to this Pushgateway when set (ingest/controller.py)
+    pushgateway_url: str = _env("PUSHGATEWAY_URL", "")
+
     @property
     def scope_tables(self) -> dict[str, str]:
         """scope name -> table name, the 5-level hierarchy."""
@@ -249,6 +259,44 @@ class Settings:
             "file": self.embeddings_table_file,
             "chunk": self.embeddings_table_chunk,
         }
+
+
+# file extension -> language name for the chunker and preprocess
+# (ingest/src/app/config.py:50-84 in the reference)
+EXTENSION_TO_LANGUAGE: dict[str, str] = {
+    ".js": "javascript",
+    ".jsx": "javascript",
+    ".ts": "typescript",
+    ".tsx": "typescript",
+    ".py": "python",
+    ".java": "java",
+    ".cpp": "cpp",
+    ".cc": "cpp",
+    ".cxx": "cpp",
+    ".c": "c",
+    ".h": "c",
+    ".cs": "c_sharp",
+    ".php": "php",
+    ".rb": "ruby",
+    ".go": "go",
+    ".rs": "rust",
+    ".swift": "swift",
+    ".kt": "kotlin",
+    ".scala": "scala",
+    ".sh": "bash",
+    ".bash": "bash",
+    ".sql": "sql",
+    ".html": "html",
+    ".htm": "html",
+    ".css": "css",
+    ".json": "json",
+    ".xml": "xml",
+    ".yaml": "yaml",
+    ".yml": "yaml",
+    ".toml": "toml",
+    ".md": "markdown",
+    ".dockerfile": "dockerfile",
+}
 
 
 _settings: Settings | None = None

@@ -203,12 +203,15 @@ def fused_window_attention(q_win, k_pages, v_pages, block_tables, cached_lens, n
     kernels.check_launch("fused_window_attention", err)
     fused_window_attention.launches += 1
     fused_window_attention.launches_by_pool[kind] += 1
+    by_window = fused_window_attention.launches_by_window
+    by_window[s] = by_window.get(s, 0) + 1
     return out
 
 
-# kernel launches (CUDA path only), in all and per pool branch
+# kernel launches (CUDA path only), in all, per pool branch and per window S
 fused_window_attention.launches = 0
 fused_window_attention.launches_by_pool = dict.fromkeys(POOL_CODES, 0)
+fused_window_attention.launches_by_window = {}
 
 
 def fused_paged_attention(q, k_pages, v_pages, block_tables, cached_lens, new_lens,

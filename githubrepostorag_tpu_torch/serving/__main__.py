@@ -39,10 +39,10 @@ logger = logging.getLogger("githubrepostorag_tpu_torch.serving")
 # settings that need planes the port does not have yet -> ROADMAP.md item
 _NOT_SERVED = (
     ("MESH_SHAPE", lambda s: bool(s.mesh_shape),
-     "queue 1 item 10 (parallel layers: meshes and dp replicas)"),
+     "queue 1 item 8 (parallel layers: meshes and dp replicas)"),
     ("SPEC_DRAFT_MODEL", lambda s: bool(s.spec_draft_model),
-     "queue 1 item 8 (off-default engine modes: draft-model speculation)"),
-    ("CTRL", lambda s: s.ctrl == "on", "queue 1 item 9 (fleet: the controller)"),
+     "queue 1 item 5 (off-default engine modes: draft-model speculation)"),
+    ("CTRL", lambda s: s.ctrl == "on", "queue 1 item 7 (fleet: the controller)"),
 )
 
 

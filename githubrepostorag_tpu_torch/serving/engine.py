@@ -13,6 +13,19 @@ path, as in the JAX package).  Scheduling -- admission, page allocation,
 who prefills and who decodes -- is host-side Python; compute stays on the
 device.
 
+Prefill widths (``prefill_widths``): a padded wave dispatches at the
+smallest width of the ladder ``prefill_chunk``, ``/2``, ... (never below
+one page, nor below 16) that covers its longest pending chunk, so a
+ragged last chunk runs kernel A at a narrower window.  Unlike the JAX
+engine, a narrow wave keeps at least ``prefill_chunk`` padded tokens
+(more rows, padding: ``prefill_row_floor``), so its projections run GEMMs
+of a row count the default engine also runs, and every row's prefill, and
+its greedy tokens, are the same at every width.  Prefill priority (``prefill_priority``): a step
+whose prefill chunk ran while prompts are still admitting runs no decode
+burst; once no chunk can run, decode runs (which also frees pages).
+``layer_unroll`` is kept as an attribute and changes nothing: the port
+runs no layer scan to unroll.
+
 Pipelining: while only decoding, burst k+1 is dispatched before burst k's
 tokens are read, so the device->host read overlaps the next burst's
 compute.  A prefill wave that completes prompts while other rows run keeps
@@ -23,8 +36,7 @@ result is the sync point, at the same places the JAX engine fetches.
 
 Every other mode of the JAX engine (sequence-parallel ring prefill,
 n-gram / draft / fused-step speculation, the host KV tier, preemption,
-prefill priority, width buckets, meshes) is rejected at construction: it
-is not ported yet.
+meshes) is rejected at construction: it is not ported yet.
 """
 
 from __future__ import annotations
@@ -79,12 +91,9 @@ def _bucket(n: int, cap: int, minimum: int = 16) -> int:
 # value raises at construction, so the port is stricter than the JAX engine,
 # which ignores a mode's tuning while the mode is off.
 _UNPORTED_OPTIONS = {
-    "prefill_widths": 1,
-    "layer_unroll": 1,
     "mesh": None,
     "kv_tier": "off",
     "kv_host_pool_pages": 0,
-    "prefill_priority": False,
     "sp_prefill_threshold": None,
     "spec_ngram_k": 0,
     "spec_burst_iters": 0,
@@ -156,6 +165,8 @@ class Engine:
         page_size: int = 16,
         max_seq_len: int = 2048,
         prefill_chunk: int = 512,
+        prefill_widths: int = 1,  # widths of the padded dispatch ladder:
+        # prefill_chunk, /2, ... (the packed path ignores it)
         prefill_token_budget: int | None = None,  # token-budget packed
         # prefill: every prefilling row's next chunk (whole, or split where
         # the budget runs out) back to back in one [budget] buffer, so the
@@ -166,7 +177,11 @@ class Engine:
         # int4 (kv_cache.quant_bits)
         rng_seed: int = 0,
         decode_burst: int = 8,
+        layer_unroll: int = 1,  # the JAX burst's layer-scan unroll; no
+        # effect here (no scan), kept for the settings' sake
         prefix_caching: bool = True,
+        prefill_priority: bool = False,  # no decode burst on a step whose
+        # prefill chunk ran while prompts are still admitting
         default_priority: str = "interactive",  # class stamped on
         # unlabeled add_request calls (PRIORITY_DEFAULT_CLASS)
         device: str | torch.device | None = None,
@@ -195,6 +210,23 @@ class Engine:
         self.max_seq_len = max_seq_len
         self.max_pages_per_seq = pages_needed(max_seq_len, page_size)
         self.prefill_chunk = prefill_chunk
+        # dispatch-width buckets, largest first: [chunk, chunk/2, ...],
+        # never below the page size (slot mappings stay page-aligned) nor 16
+        self.prefill_width_buckets = [prefill_chunk]
+        for _ in range(max(1, prefill_widths) - 1):
+            half = self.prefill_width_buckets[-1] // 2
+            if half < max(page_size, 16):
+                break
+            self.prefill_width_buckets.append(half)
+        # padded tokens a narrow wave keeps at least (rows, padding): with
+        # prefill_chunk, every GEMM the ladder runs has as many rows as one
+        # the default engine runs (prefill_chunk times a power of two), so
+        # the ladder adds no GEMM shape and a row's prefill, and its greedy
+        # tokens, stay those of the full-width dispatch.  cuBLAS picks its
+        # algorithm by shape: on an H100 it splits K of the 18944 -> 3584
+        # down projection at 256 rows or fewer, and every row then differs
+        # in its last bits.  0 turns the floor off (to measure its cost).
+        self.prefill_row_floor = prefill_chunk
         if prefill_token_budget is not None and prefill_token_budget < 1:
             raise ValueError("prefill_token_budget must be >= 1 when set")
         self.prefill_token_budget = prefill_token_budget
@@ -204,6 +236,8 @@ class Engine:
         self.packed_prefill_tokens = 0  # stats: real tokens dispatched packed
         self.packed_prefill_padding = 0  # stats: unused budget slots
         self.decode_burst = max(1, decode_burst)
+        self.layer_unroll = max(1, layer_unroll)
+        self.prefill_priority = prefill_priority
         self.default_priority = default_priority
 
         # 0 off, 8 int8, 4 nibble-packed int4
@@ -318,6 +352,13 @@ class Engine:
         return len(self._row_req)
 
     @property
+    def is_admitting(self) -> bool:
+        """True while a prompt wave is still being admitted: requests are
+        queued or mid-prefill (what prefill priority reads)."""
+        return bool(self._waiting) or any(
+            r.state == "prefilling" for r in self._row_req.values())
+
+    @property
     def num_waiting(self) -> int:
         return len(self._waiting)
 
@@ -337,9 +378,14 @@ class Engine:
         self._reap_cancelled(finished)
 
         t_pf = time.monotonic()
-        self._try_prefill(finished)
+        prefilled = self._try_prefill(finished)
         self.prefill_seconds_total += time.monotonic() - t_pf
-        if any(r.state == "running" for r in self._row_req.values()):
+        # prefill priority: a chunk ran and prompts remain, so the next step
+        # goes to admission, not to a burst.  Nothing starves: once no chunk
+        # can run, ``prefilled`` is False and decode runs.  The in-flight
+        # burst and queued first-token waves stay on the device until then.
+        skip_decode = self.prefill_priority and prefilled and self.is_admitting
+        if not skip_decode and any(r.state == "running" for r in self._row_req.values()):
             t_run = time.monotonic()
             self._decode_step(finished)
             self.decode_seconds_total += time.monotonic() - t_run
@@ -478,8 +524,10 @@ class Engine:
             return
         others_running = any(r.state == "running" for r in self._row_req.values())
         n = len(reqs)
-        rb = _bucket(n, self.max_num_seqs, minimum=1)
-        width = self.prefill_chunk
+        width = self._dispatch_width(
+            max(min(len(r.prompt) - r.prefill_pos, self.prefill_chunk) for r in reqs))
+        # a narrow wave keeps at least prefill_row_floor padded tokens
+        rb = max(_bucket(n, self.max_num_seqs, minimum=1), -(-self.prefill_row_floor // width))
 
         ids = np.zeros((rb, width), dtype=np.int32)
         pos = np.zeros((rb, width), dtype=np.int32)
@@ -513,6 +561,16 @@ class Engine:
         row_idx[:n] = [r.row for r in reqs]
         self._finish_prefill_wave(list(zip(reqs, valids)), rb, row_idx, ids_d, new_lens_d,
                                   logits, others_running, finished)
+
+    def _dispatch_width(self, longest_chunk: int) -> int:
+        """The padded dispatch width of a wave whose longest pending chunk
+        is ``longest_chunk``: the smallest width bucket covering it.  The
+        only width rule; ``warmup`` runs each width through it."""
+        width = self.prefill_chunk
+        for w in self.prefill_width_buckets:  # largest -> smallest
+            if w >= longest_chunk:
+                width = w
+        return width
 
     def _run_prefill(self, fn, ids, pos, *args, **kwargs) -> torch.Tensor:
         """Run ``forward_paged`` or ``forward_paged_packed`` over the
@@ -858,16 +916,30 @@ class Engine:
 
     def warmup(self) -> None:
         """Build the kernels and touch every path live traffic takes --
-        prefill at full chunk width (packed when a token budget is set),
-        a greedy and a sampled decode burst -- through the public step loop,
-        leaving the engine state clean."""
+        prefill at each dispatch width (packed at the budget when one is
+        set), a greedy and a sampled decode burst -- through the public step
+        loop, leaving the engine state clean.  Each wave's prompt holds
+        another token, so no wave resumes from an earlier one's cached
+        pages."""
         if self.device.type == "cuda":
             from githubrepostorag_tpu_torch import kernels
 
             kernels.build()
-        plen = max(1, min(self.prefill_chunk, self.max_seq_len - 3))
-        self.generate([[2] * plen], SamplingParams(max_tokens=2, temperature=0.0))
-        self.generate([[3] * 3], SamplingParams(max_tokens=2, temperature=0.7, top_p=0.9))
+        greedy = SamplingParams(max_tokens=2, temperature=0.0)
+        widths = [self.prefill_chunk] if self.prefill_token_budget else self.prefill_width_buckets
+        seen: set[int] = set()
+        wave = 0
+        for w in widths:
+            plen = max(1, min(w, self.max_seq_len - 3))
+            dw = self._dispatch_width(min(plen, self.prefill_chunk))
+            if dw in seen:
+                continue
+            seen.add(dw)
+            wave += 1
+            self.generate([[2 + wave % max(2, self.cfg.vocab_size - 2)] * plen], greedy)
+        wave += 1
+        self.generate([[2 + wave % max(2, self.cfg.vocab_size - 2)] * 3],
+                      SamplingParams(max_tokens=2, temperature=0.7, top_p=0.9))
         logger.info("engine warmup complete")
 
     def generate(self, prompts: list[list[int]],

@@ -3,15 +3,20 @@
 
 The JAX package serves both on aiohttp, which the card's machine does not
 have, so the port speaks HTTP/1.1 itself over ``asyncio`` streams: a
-request line, headers and a ``Content-Length`` body (a chunked request
-body gets 411, a body of ``MAX_BODY`` bytes or more 413, as aiohttp's
-default ``client_max_size`` refuses it).  Replies with a body carry
-``Content-Length`` and keep the connection alive; streamed replies (SSE)
-go out with ``Transfer-Encoding: chunked``.  Routes are path patterns
-whose ``{name}`` segments match one path segment each, as aiohttp's
-``{name}`` resources do; an unknown path gets a JSON 404 and a known path
-with another method a JSON 405, in the server's own error shape.  A
-server runs on the event loop ``listen()`` ran on.
+request line, headers and a body of ``Content-Length`` bytes or in
+``Transfer-Encoding: chunked`` chunks (extensions and trailers read and
+dropped), as aiohttp reads them.  A body of ``MAX_BODY`` bytes or more
+gets 413, as aiohttp's default ``client_max_size`` refuses it; any other
+transfer coding, or one beside ``Content-Length``, 400.  On ``Expect:
+100-continue`` an HTTP/1.1 request gets ``100 Continue`` before its body
+is read, and another ``Expect`` value 417, as aiohttp's default expect
+handler answers them (for every path, known or not).  Replies with a
+body carry ``Content-Length`` and keep the connection alive; streamed
+replies (SSE) go out with ``Transfer-Encoding: chunked``.  Routes are
+path patterns whose ``{name}`` segments match one path segment each, as
+aiohttp's ``{name}`` resources do; an unknown path gets a JSON 404 and a
+known path with another method a JSON 405, in the server's own error
+shape.  A server runs on the event loop ``listen()`` ran on.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from urllib.parse import unquote
 logger = logging.getLogger(__name__)
 
 MAX_BODY = 1024 ** 2  # aiohttp's client_max_size default, which the JAX servers run with
+_DRAIN_LIMIT = 4 * MAX_BODY  # chunked bytes read (and dropped) before a 413 at most
 _MAX_HEADERS = 100
 
 
@@ -99,19 +105,77 @@ async def read_request(reader: asyncio.StreamReader,
         headers[name.strip().lower()] = value.strip()
     else:
         raise HTTPError(400, f"more than {_MAX_HEADERS} headers")
-    if "transfer-encoding" in headers:
-        raise HTTPError(411, "chunked request bodies are not accepted; send Content-Length")
+    coding = headers.get("transfer-encoding")
+    if coding is not None:
+        if "content-length" in headers:
+            raise HTTPError(400, "Content-Length can't be present with Transfer-Encoding")
+        if coding.strip().lower() != "chunked":
+            raise HTTPError(400, f"unsupported Transfer-Encoding {coding!r}")
     try:
         length = int(headers.get("content-length", "0"))
     except ValueError as exc:
         raise HTTPError(400, f"bad Content-Length {headers['content-length']!r}") from exc
     if length < 0:
         raise HTTPError(400, f"bad Content-Length {length}")
+    expect = headers.get("expect")
+    if expect and version == "HTTP/1.1":
+        if expect.lower() != "100-continue":
+            raise HTTPError(417, f"Unknown Expect: {expect}")
+        writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
+        await writer.drain()
     if length >= MAX_BODY:
         raise HTTPError(413, f"request body of {length} bytes; the limit is under {MAX_BODY}")
-    body = await reader.readexactly(length) if length else b""
+    if coding is not None:
+        body = await _read_chunked(reader)
+    else:
+        body = await reader.readexactly(length) if length else b""
     return Request(method=method, path=unquote(target.split("?", 1)[0]), version=version,
                    headers=headers, body=body, reader=reader, writer=writer)
+
+
+async def _read_chunked(reader: asyncio.StreamReader) -> bytes:
+    """A ``Transfer-Encoding: chunked`` body: hex sizes (chunk extensions
+    dropped), each chunk's data and CRLF, a zero size, then trailer lines
+    up to an empty one (dropped).  A body that reaches ``MAX_BODY`` gets
+    413 once the rest of it is read and dropped (up to ``_DRAIN_LIMIT``
+    bytes in all), so that the client reads the reply, not a reset."""
+    body = bytearray()
+    seen = 0
+    while True:
+        line = await _body_line(reader)
+        size_text = line.split(b";", 1)[0].strip()
+        if not size_text or size_text.strip(b"0123456789abcdefABCDEF"):
+            raise HTTPError(400, f"invalid chunk size {line[:80]!r}")
+        size = int(size_text, 16)
+        if size == 0:
+            break
+        seen += size
+        if seen > _DRAIN_LIMIT:
+            raise HTTPError(413, f"request body over {_DRAIN_LIMIT} bytes")
+        data = await reader.readexactly(size)
+        if len(body) < MAX_BODY:
+            body += data
+        if await reader.readexactly(2) != b"\r\n":
+            raise HTTPError(400, "chunk data not followed by CRLF")
+    for _ in range(_MAX_HEADERS):
+        if await _body_line(reader) == b"":
+            break
+    else:
+        raise HTTPError(400, f"more than {_MAX_HEADERS} trailer lines")
+    if len(body) >= MAX_BODY:
+        raise HTTPError(413, f"request body of {seen} bytes; the limit is under {MAX_BODY}")
+    return bytes(body)
+
+
+async def _body_line(reader: asyncio.StreamReader) -> bytes:
+    """One CRLF-terminated line of a chunked body, without its ending."""
+    try:
+        line = await reader.readline()
+    except ValueError as exc:
+        raise HTTPError(400, f"chunk line too long: {exc}") from exc
+    if not line.endswith(b"\n"):
+        raise asyncio.IncompleteReadError(line, None)
+    return line.rstrip(b"\r\n")
 
 
 def head(status: int, headers: list[tuple[str, str]]) -> bytes:

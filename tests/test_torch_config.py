@@ -44,6 +44,10 @@ ENVIRONMENTS = {
                     "TRACE_MAX_TRACES": "8", "TRACE_MAX_SPANS": "16", "LOG_FORMAT": "plain",
                     "MAX_RAG_ATTEMPTS": "2", "ROUTER_TOP_K": "3", "AGENT_LONGCTX": "0",
                     "LONGCTX_TOKEN_BUDGET": "2048", "DEFAULT_NAMESPACE": "team"},
+    "ingest": {"GITHUB_TOKEN": "t0k", "GITHUB_USER": "octo", "DEFAULT_BRANCH": "trunk",
+               "DEFAULT_COLLECTION": "tools", "DEV_MODE": "yes",
+               "PUSHGATEWAY_URL": "http://pushgw:9091", "DATA_DIR": "/data"},
+    "ingest_dev_mode_off": {"DEV_MODE": "0"},
 }
 
 
@@ -81,3 +85,8 @@ def test_typo_raises_on_both_sides(env, var, value):
         env({var: value})
     with pytest.raises(ValueError, match=var):
         j_config.reload_settings()
+
+
+def test_extension_languages_equal_jax():
+    assert config.EXTENSION_TO_LANGUAGE == j_config.EXTENSION_TO_LANGUAGE
+    assert list(config.EXTENSION_TO_LANGUAGE) == list(j_config.EXTENSION_TO_LANGUAGE)

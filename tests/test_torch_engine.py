@@ -177,15 +177,15 @@ def test_engine_int4_greedy_tokens_match_jax(int4_weights, monkeypatch):
     _check_greedy_tokens(*int4_weights)
 
 
-def _check_greedy_tokens(jcfg, cfg, jp, tp, **mode):
+def _check_greedy_tokens(jcfg, cfg, jp, tp, engines=None, **mode):
     rng = np.random.default_rng(1)
     prefix = rng.integers(0, cfg.vocab_size, 24).tolist()
     # mixed lengths, one longer than prefill_chunk, one carrying a prefix
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (5, 17, 45)]
     prompts.append(prefix + rng.integers(0, cfg.vocab_size, 5).tolist())
     later = [prefix + rng.integers(0, cfg.vocab_size, 7).tolist()]  # hits the cache
-    je = JEngine(jp, jcfg, kv_dtype=jnp.float32, **ENGINE_KW, **mode)
-    te = _torch_engine(cfg, tp, **mode)
+    je, te = engines or (JEngine(jp, jcfg, kv_dtype=jnp.float32, **ENGINE_KW, **mode),
+                         _torch_engine(cfg, tp, **mode))
     j_sp = JSamplingParams(temperature=0.0, max_tokens=10)
     t_sp = SamplingParams(temperature=0.0, max_tokens=10)
     for batch in (prompts, later):
@@ -259,7 +259,7 @@ def test_engine_defaults_to_the_card(weights):
 
 
 @pytest.mark.parametrize("option", [
-    {"spec_burst_iters": 2}, {"prefill_priority": True}, {"spec_ngram_k": 4},
+    {"spec_burst_iters": 2}, {"kv_host_pool_pages": 16}, {"spec_ngram_k": 4},
     {"fused_step": True}, {"kv_tier": "on"}, {"preempt": "on"}, {"sp_prefill_threshold": 64},
     {"mesh": object()},
     # a mode's tuning away from its JAX default is refused like the mode
@@ -380,3 +380,128 @@ def test_out_of_vocabulary_prompt_ids_are_refused_where_jax_admits_them(weights)
     je = JEngine(jp, jcfg, kv_dtype=jnp.float32, **ENGINE_KW)
     j_res = je.generate([prompt], JSamplingParams(temperature=0.0, max_tokens=3))[0]
     assert j_res.finish_reason != "error" and len(j_res.output_tokens) == 3
+
+
+def _record_widths(engine) -> list[tuple[int, int]]:
+    """(longest chunk, width) of every ``_dispatch_width`` call on ``engine``."""
+    seen, real = [], engine._dispatch_width
+
+    def spy(longest):
+        width = real(longest)
+        seen.append((longest, width))
+        return width
+
+    engine._dispatch_width = spy
+    return seen
+
+
+@pytest.mark.parametrize("mode", [{"prefill_widths": 3}, {"prefill_priority": True},
+                                  {"layer_unroll": 4}])
+def test_engine_options_greedy_tokens_match_jax(weights, mode):
+    """ROADMAP queue 1 item 1: the width ladder, prefill priority and
+    layer_unroll, each against the JAX engine with the same option on
+    (mixed prompt lengths, a ragged second chunk, a prefix-cache hit).  The
+    width each padded wave dispatches at is JAX's ``_dispatch_width``."""
+    jcfg, cfg, jp, tp = weights
+    je = JEngine(jp, jcfg, kv_dtype=jnp.float32, **ENGINE_KW, **mode)
+    te = _torch_engine(cfg, tp, **mode)
+    assert te.prefill_width_buckets == je.prefill_width_buckets
+    assert (te.layer_unroll, te.prefill_priority) == (je.layer_unroll, je.prefill_priority)
+    j_widths, t_widths = _record_widths(je), _record_widths(te)
+    shapes, run_prefill = [], te._run_prefill
+
+    def spy(fn, ids, *args, **kw):
+        shapes.append(tuple(ids.shape))
+        return run_prefill(fn, ids, *args, **kw)
+
+    te._run_prefill = spy
+    _check_greedy_tokens(jcfg, cfg, jp, tp, engines=(je, te))
+    assert t_widths == j_widths
+    assert [w for _, w in shapes] == [w for _, w in t_widths]
+    # a narrow wave keeps at least prefill_chunk padded tokens (more rows)
+    assert all(rows * w >= ENGINE_KW["prefill_chunk"] for rows, w in shapes)
+    if "prefill_widths" in mode:
+        assert te.prefill_width_buckets == [32, 16]
+        assert {w for _, w in t_widths} == {32, 16}
+    assert te.step_dispatches_total == je.step_dispatches_total
+
+
+def test_unfloored_ladder_dispatches_jax_rows(weights):
+    """With ``prefill_row_floor`` 0 (how ``chip_smoke.py`` measures the
+    floor's cost), every padded wave dispatches JAX's ``[_bucket(n), w]``,
+    narrow waves run fewer than ``prefill_chunk`` tokens, and greedy tokens
+    still equal the JAX engine's with ``prefill_widths=3`` (on the CPU no
+    GEMM changes algorithm with its rows)."""
+    from githubrepostorag_tpu_torch.serving.engine import _bucket
+
+    jcfg, cfg, jp, tp = weights
+    je = JEngine(jp, jcfg, kv_dtype=jnp.float32, **ENGINE_KW, prefill_widths=3)
+    te = _torch_engine(cfg, tp, prefill_widths=3)
+    assert te.prefill_row_floor == ENGINE_KW["prefill_chunk"]
+    te.prefill_row_floor = 0
+    waves, shapes = [], []
+    prefill_batch, run_prefill = te._prefill_batch, te._run_prefill
+
+    def batch_spy(reqs, finished):
+        waves.append(len(reqs))
+        return prefill_batch(reqs, finished)
+
+    def run_spy(fn, ids, *args, **kw):
+        shapes.append(tuple(ids.shape))
+        return run_prefill(fn, ids, *args, **kw)
+
+    te._prefill_batch, te._run_prefill = batch_spy, run_spy
+    _check_greedy_tokens(jcfg, cfg, jp, tp, engines=(je, te))
+    assert [rows for rows, _ in shapes] == [_bucket(n, ENGINE_KW["max_num_seqs"], 1)
+                                            for n in waves]
+    assert any(rows * w < ENGINE_KW["prefill_chunk"] for rows, w in shapes)
+
+
+def test_prefill_priority_skips_bursts_while_a_wave_admits_as_jax(weights):
+    """A wave of two 45-token prompts (two chunks each) admitted beside two
+    running rows: with prefill priority the step that runs their first
+    chunk runs no decode burst, on both engines; every token equals the
+    JAX engine's, and after the wave decode resumes and drains."""
+    jcfg, cfg, jp, tp = weights
+    rng = np.random.default_rng(5)
+    short = [rng.integers(0, cfg.vocab_size, 5).tolist() for _ in range(2)]
+    long = [rng.integers(0, cfg.vocab_size, 45).tolist() for _ in range(2)]
+    out = {}
+    for side, eng, sp in (
+            ("jax", JEngine(jp, jcfg, kv_dtype=jnp.float32, prefill_priority=True, **ENGINE_KW),
+             JSamplingParams(temperature=0.0, max_tokens=12)),
+            ("port", _torch_engine(cfg, tp, prefill_priority=True),
+             SamplingParams(temperature=0.0, max_tokens=12))):
+        decodes, real = [], eng._decode_step
+
+        def spy(finished, real=real, decodes=decodes):
+            decodes.append(len(decodes))
+            return real(finished)
+
+        eng._decode_step = spy
+        rids = [eng.add_request(p, sp) for p in short]
+        done, trace = {}, []
+        for _ in range(3):
+            done.update({r.request_id: r for r in eng.step()})
+        rids += [eng.add_request(p, sp) for p in long]
+        while eng.has_work():
+            before = len(decodes)
+            admitting = eng.is_admitting
+            done.update({r.request_id: r for r in eng.step()})
+            trace.append((admitting, len(decodes) - before))
+        out[side] = ([done[r].output_tokens for r in rids], trace, eng.step_dispatches_total)
+        assert eng._allocator.free_count == eng._allocator.num_pages
+    assert out["port"] == out["jax"]
+    trace = out["port"][1]
+    assert trace[0] == (True, 0)  # the wave's first chunk ran; no burst beside it
+    assert any(n for _, n in trace[1:])  # decode resumed once the wave was in
+
+
+def test_engine_warmup_runs_each_width(weights):
+    _, cfg, _, tp = weights
+    te = _torch_engine(cfg, tp, prefill_widths=3)
+    widths = _record_widths(te)
+    te.warmup()
+    assert sorted({w for _, w in widths}) == [16, 32]
+    assert te._allocator.free_count == te._allocator.num_pages and not te.has_work()
+    assert _torch_engine(cfg, tp, layer_unroll=0).layer_unroll == 1

@@ -122,10 +122,10 @@ def test_server_serves_a_chat_from_a_checkpoint(checkpoint):
 @pytest.mark.parametrize("env,message", [
     ({}, "requires MODEL_WEIGHTS_PATH"),
     ({"MODEL_WEIGHTS_PATH": "/nonexistent", "MESH_SHAPE": "tp:2"},
-     "MESH_SHAPE is set.*queue 1 item 10"),
+     "MESH_SHAPE is set.*queue 1 item 8 "),
     ({"MODEL_WEIGHTS_PATH": "/nonexistent", "SPEC_DRAFT_MODEL": "/draft"},
-     "SPEC_DRAFT_MODEL is set.*queue 1 item 8"),
-    ({"MODEL_WEIGHTS_PATH": "/nonexistent", "CTRL": "on"}, "CTRL is set.*queue 1 item 9"),
+     "SPEC_DRAFT_MODEL is set.*queue 1 item 5 "),
+    ({"MODEL_WEIGHTS_PATH": "/nonexistent", "CTRL": "on"}, "CTRL is set.*queue 1 item 7 "),
 ])
 def test_main_refuses_what_it_cannot_serve(monkeypatch, env, message):
     for name in ("MODEL_WEIGHTS_PATH", "MESH_SHAPE", "SPEC_DRAFT_MODEL", "CTRL"):
