@@ -9,6 +9,7 @@
     python3 chip_smoke.py --only rag       # device, build, the question-answering loop
     python3 chip_smoke.py --only ingest    # device, build, the ingest pipeline
     python3 chip_smoke.py --only options   # device, build, the engine options in pairs
+    python3 chip_smoke.py --only split     # device, build, the rag phase, the split deployment
 
 Phases, each raising on failure:
 
@@ -127,7 +128,29 @@ Phases, each raising on failure:
               A and B must launch, nothing else; no page leaks; every index
               search on the device.  ``--only rag`` builds the index at the
               same size first.
-   ingest  -- after the rag phase: a seeded synthetic repository (three
+   split   -- right after the rag phase, on its engine: the split
+              deployment over stand-ins on localhost (tests/miniredis.py,
+              tests/torch_minicassandra.py: Python servers, in a process
+              of their own, with the prefix cache emptied first): the rag
+              phase's scope docs and one repository's chunk rows written
+              through the port's CassandraVectorStore (rows/s), a device
+              index seeded from it (seconds); the API pod
+              (api --redis --no-worker, a subprocess; no card memory);
+              worker (a), RagWorker in this process over RedisBus /
+              RedisCancelFlags / RedisJobQueue and that index: the rag
+              phase's eight jobs through the API pod, terminal states
+              equal to the rag phase's, the cancel through the Redis
+              flag, every result read back, the frames each stream
+              missed counted (pub/sub has no replay); A and B must
+              launch, nothing else; no page leaks; every search on the
+              device.  Worker (b), python -m githubrepostorag_tpu_torch.
+              worker over a full-width 2-layer checkpoint with
+              STORE_BACKEND=cassandra and DEVICE_INDEX=on: start to ready,
+              two jobs, /metrics, exit 0 on SIGTERM, then MiniRedis.stop()
+              within 5 s.  Then the native store (built into _build/) over
+              the chunk rows against the memory store.  Prints
+              {"split": ...}; ``--only split`` builds the rag index first.
+   ingest  -- after the split phase: a seeded synthetic repository (three
               modules and a root README, Python, JavaScript, Markdown, a
               notebook, a skipped image) ingested through
               ingest.__main__.main (--local) with the rag phase's engine
@@ -159,8 +182,8 @@ Phases, each raising on failure:
               route times and this engine phase alone, also from another
               checkout of the port (copy this script there).
 7. summary -- whether transformers, prometheus_client, pydantic, psutil and
-              requests import here, the retrieval, rag, engine-options and
-              ingest numbers, the card's name and power limit, the kernel
+              requests import here, the retrieval, rag, engine-options,
+              ingest and split numbers, the card's name and power limit, the kernel
               list, then the result line.
 
 There is no CPU fallback: without a card the script exits non-zero.
@@ -1939,6 +1962,40 @@ def hf_state_dict(params: dict, cfg) -> dict:
     return sd
 
 
+def write_checkpoint(root, params, cfg) -> int:
+    """``params`` as a Hugging Face Qwen2 checkpoint in ``root`` (the
+    port's safetensors writer, config.json); returns the weights' bytes."""
+    from githubrepostorag_tpu_torch.models.safetensors_io import save_file
+
+    save_file(hf_state_dict(params, cfg), root / "model.safetensors")
+    (root / "config.json").write_text(json.dumps({
+        "model_type": "qwen2", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+        "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+        "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+        "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
+        "max_position_embeddings": cfg.max_position_embeddings,
+        "tie_word_embeddings": False, "torch_dtype": "bfloat16"}))
+    return (root / "model.safetensors").stat().st_size
+
+
+def write_byte_tokenizer(root, vocab_size: int) -> None:
+    """A byte-level BPE ``tokenizer.json`` with no merges (the 256 byte
+    tokens) and Qwen2's three ChatML specials at the top of the vocab, for
+    a checkpoint an entry point loads with ``make_tokenizer``."""
+    from githubrepostorag_tpu_torch.serving.bpe_native import _byte_to_unicode
+
+    b2u = _byte_to_unicode()
+    specials = ["<|endoftext|>", "<|im_start|>", "<|im_end|>"]
+    first = min(151643, vocab_size - len(specials))
+    (root / "tokenizer.json").write_text(json.dumps({
+        "model": {"type": "BPE", "vocab": {b2u[b]: b for b in range(256)}, "merges": []},
+        "added_tokens": [{"id": first + i, "content": t, "special": True}
+                         for i, t in enumerate(specials)],
+        "pre_tokenizer": {"type": "ByteLevel", "add_prefix_space": False, "use_regex": True},
+    }))
+    (root / "tokenizer_config.json").write_text(json.dumps({"eos_token": "<|im_end|>"}))
+
+
 def phase_load() -> dict:
     """A full-width Qwen2-7B checkpoint cut to 2 layers (depth cut only to
     keep the write short), random bf16 weights from the seed, written with
@@ -1946,7 +2003,6 @@ def phase_load() -> dict:
     every tensor equal to the one written, forward_paged logits equal bit
     for bit to those of the same tensors built in memory; loaded again with
     quantize=4, whose prefill runs kernel D."""
-    import dataclasses
     import shutil
     import tempfile
     from pathlib import Path
@@ -1956,27 +2012,15 @@ def phase_load() -> dict:
     from githubrepostorag_tpu_torch import kernels
     from githubrepostorag_tpu_torch.models.hf_loader import load_qwen2
     from githubrepostorag_tpu_torch.models.quant import fuse_projections
-    from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config, init_params
-    from githubrepostorag_tpu_torch.models.safetensors_io import save_file
+    from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config
 
-    cfg = dataclasses.replace(Qwen2Config.qwen2_7b(), num_layers=2)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(SEED + 9)
-    params = init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
+    cfg, params = load_phase_tree()
     kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     root = Path(tempfile.mkdtemp(prefix="ckpt-", dir=kernels.BUILD_DIR))
     stats = {}
     try:
         t0 = time.monotonic()
-        save_file(hf_state_dict(params, cfg), root / "model.safetensors")
-        (root / "config.json").write_text(json.dumps({
-            "model_type": "qwen2", "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
-            "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
-            "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
-            "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
-            "max_position_embeddings": cfg.max_position_embeddings,
-            "tie_word_embeddings": False, "torch_dtype": "bfloat16"}))
-        nbytes = (root / "model.safetensors").stat().st_size
+        nbytes = write_checkpoint(root, params, cfg)
         stats["checkpoint_gb"] = nbytes / 1e9
         stats["write_s"] = time.monotonic() - t0
 
@@ -2905,15 +2949,26 @@ def rag_index(dev, cfg=None, rows: int = 258048, passages: int = 1024):
 
 
 def rag_hierarchy(index, enc, rows: int, seed: int = SEED + 31) -> dict:
+    """``rag_hierarchy_docs`` written into ``index`` and warmed up.
+    Returns the rows a table."""
+    from githubrepostorag_tpu_torch import config
+
+    tables = config.get_settings().scope_tables
+    docs = rag_hierarchy_docs(enc, rows, seed)
+    for scope, rows_ in docs.items():
+        index.upsert(tables[scope], rows_)
+    index.warmup([tables[s] for s in docs])
+    return {scope: len(rows_) for scope, rows_ in docs.items()}
+
+
+def rag_hierarchy_docs(enc, rows: int, seed: int = SEED + 31) -> dict:
     """Repo-, module- and file-level docs (and the namespace's catalog doc)
     for the chunk table's repositories, so that every rung of the agent's
     scope ladder has rows: summaries of repositories and modules encoded,
-    file docs with random unit vectors.  Returns the rows a table."""
-    from githubrepostorag_tpu_torch import config
+    file docs with random unit vectors.  Returns the docs by scope."""
     from githubrepostorag_tpu_torch.store.base import Doc
 
     rng = np.random.default_rng(seed)
-    tables = config.get_settings().scope_tables
     repos = -(-rows // REPO_CHUNKS)
     md = [chunk_metadata(r * REPO_CHUNKS) for r in range(repos)]
     repo_texts = [f"{m['repo']}: a code repository of 8 modules ({', '.join(_IDENTS[:4])}) "
@@ -2941,10 +2996,7 @@ def rag_hierarchy(index, enc, rows: int, seed: int = SEED + 31) -> dict:
                         {**ns, "scope": "file", "repo": repo, "module": mod,
                          "file_path": path}, v)
                     for (repo, mod, path), v in zip(files, fvec)]
-    for scope, rows_ in docs.items():
-        index.upsert(tables[scope], rows_)
-    index.warmup([tables[s] for s in docs])
-    return {scope: len(rows_) for scope, rows_ in docs.items()}
+    return docs
 
 
 def rag_job(port: int, body: dict, cancel_on_turn: bool = False) -> dict:
@@ -2984,7 +3036,14 @@ def rag_job(port: int, body: dict, cancel_on_turn: bool = False) -> dict:
     if not events or events[-1]["event"] not in ("final", "error"):
         raise RuntimeError(f"job {job_id} ({body['query']!r}) ended without a terminal event: "
                            f"{events[-3:]}")
-    status, result, _ = _http(port, "GET", f"/rag/jobs/{job_id}/result")
+    # the worker emits the terminal event, then keeps the result: over
+    # Redis the stream can outrun the SET
+    deadline = time.monotonic() + 10
+    while True:
+        status, result, _ = _http(port, "GET", f"/rag/jobs/{job_id}/result")
+        if status != 404 or time.monotonic() > deadline:
+            break
+        time.sleep(0.02)
     if status != 200:
         raise RuntimeError(f"GET result of {job_id}: {status} {result}")
     return {"body": body, "reply": reply, "events": events, "wall_s": wall, "result": result,
@@ -3022,9 +3081,67 @@ def synthesis_ttft(trace: dict) -> dict:
             "prompt_tokens": kids["engine.prefill"]["attrs"]["prompt_tokens"]}
 
 
+def rag_settings(geometry: dict | None = None, prefill_priority: bool = False):
+    """The rag phase's settings, put into the environment (the entry
+    points read them there): the engine phase's geometry, QWEN_MAX_OUTPUT
+    set to RAG_MAX_OUTPUT, the in-process LLM backend."""
+    import os
+
+    from githubrepostorag_tpu_torch import config
+
+    os.environ.update(geometry or ENGINE_GEOMETRY, QWEN_MAX_OUTPUT=str(RAG_MAX_OUTPUT),
+                      LLM_BACKEND="inprocess", PREFILL_PRIORITY=str(int(prefill_priority)))
+    return config.reload_settings()
+
+
+def rag_llm(cfg, params, device: str = "cuda"):
+    """The rag phase's LLM: ``api/__main__.inprocess_llm`` over the model
+    server's ``build_engine`` with the settings ``rag_settings`` put in
+    place and the byte tokenizer, warmed up.  Returns (llm, seconds to
+    build and warm up)."""
+    import torch
+
+    from githubrepostorag_tpu_torch.api.__main__ import inprocess_llm
+    from githubrepostorag_tpu_torch.config import get_settings
+    from githubrepostorag_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    t0 = time.monotonic()
+    llm = inprocess_llm(get_settings(), params, cfg, ByteTokenizer(), device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return llm, time.monotonic() - t0
+
+
+def rag_jobs(short: int, code_repos: tuple[str, str] = ("repo0", "repo1")) -> list:
+    """The rag phase's eight jobs: (body, cancel at the first turn).  Code
+    questions on ``code_repos``, repo questions on the repositories from
+    ``short`` on, the whole-repo architecture question on ``short``, one
+    job cancelled at its first turn, one whose deadline the engine reaps."""
+    return [
+        ({"query": f"what does the function parse_tree return in repo: {code_repos[0]}?"}, False),
+        ({"query": f"why does index_query raise an exception in repo: {code_repos[1]}?"}, False),
+        ({"query": "how is the token batch retry implemented?"}, False),
+        ({"query": f"tell me about repo: repo{short + 1}"}, False),
+        ({"query": "what projects exist in this workspace?"}, False),
+        ({"query": f"explain the architecture of repo: repo{short} and how the pieces "
+                   "fit together"}, False),
+        ({"query": f"describe the modules of repo: repo{short + 2}"}, True),
+        ({"query": f"summarize repo: repo{short + 3}", "deadline_ms": RAG_DEADLINE_MS}, False),
+    ]
+
+
+def terminal_state(job: dict) -> str:
+    """How a job of ``rag_job`` ended: "cancelled", "deadline" (its
+    ``error`` event names the deadline), "error" or "final"."""
+    last = job["events"][-1]
+    if last["event"] == "error":
+        return "deadline" if "deadline" in last["data"].get("error", "") else "error"
+    return "cancelled" if last["data"].get("cancelled") is True else "final"
+
+
 def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages: int = 8192,
               rows: int = 258048, geometry: dict | None = None,
-              prefill_priority: bool = False) -> dict:
+              prefill_priority: bool = False, llm=None) -> dict:
     """The question-answering loop on the card through the port's entry
     points: the in-process engine built by ``api/__main__`` (its
     ``inprocess_llm`` over the model server's ``build_engine``, settings
@@ -3037,16 +3154,15 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
     one cancelled at its first turn, one whose ``deadline_ms`` the engine
     reaps.  Every launch count is set to 0 just before the jobs and read
     just after they all reach ``final``.  ``prefill_priority`` sets
-    PREFILL_PRIORITY for the engine (``--only options``)."""
-    import os
+    PREFILL_PRIORITY for the engine (``--only options``).  ``llm`` (from
+    ``rag_llm``, with the same settings) is used and left open, for the
+    split phase; without it the phase builds its own and closes it."""
     import threading
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
-    from githubrepostorag_tpu_torch import config
     from githubrepostorag_tpu_torch.agent import GraphAgent
-    from githubrepostorag_tpu_torch.api.__main__ import inprocess_llm
     from githubrepostorag_tpu_torch.api.app import RagApi
     from githubrepostorag_tpu_torch.events import (
         MemoryBus, MemoryCancelFlags, MemoryJobQueue, reset_memory_hub)
@@ -3054,15 +3170,12 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
     from githubrepostorag_tpu_torch.metrics import (
         DEVICE_INDEX_SEARCHES, JOBS_TOTAL, MeteredLLM, counter_value)
     from githubrepostorag_tpu_torch.retrieval import RetrieverFactory
-    from githubrepostorag_tpu_torch.serving.tokenizer import ByteTokenizer
     from githubrepostorag_tpu_torch.store import set_store
     from githubrepostorag_tpu_torch.worker import RagWorker
 
     cuda = torch.device(device).type == "cuda"
     t_phase = time.monotonic()
-    os.environ.update(geometry or ENGINE_GEOMETRY, QWEN_MAX_OUTPUT=str(RAG_MAX_OUTPUT),
-                      LLM_BACKEND="inprocess", PREFILL_PRIORITY=str(int(prefill_priority)))
-    s = config.reload_settings()
+    s = rag_settings(geometry, prefill_priority)
     log(f"rag: QWEN_MAX_OUTPUT={s.qwen_max_output}, CONTEXT_WINDOW={s.context_window}, "
         f"{s.max_num_seqs} rows x {s.kv_num_pages} pages of {s.kv_page_size}, "
         f"PREFILL_PRIORITY={int(s.prefill_priority)}")
@@ -3074,11 +3187,10 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
     hierarchy = rag_hierarchy(index, enc, rows)
     log(f"rag hierarchy docs {hierarchy} in {time.monotonic() - t0:.1f} s")
 
-    t0 = time.monotonic()
-    llm = inprocess_llm(s, params, cfg, ByteTokenizer(), device)
-    if cuda:
-        torch.cuda.synchronize()
-    warmup_s = time.monotonic() - t0
+    own_llm = llm is None
+    warmup_s = None
+    if own_llm:
+        llm, warmup_s = rag_llm(cfg, params, device)
     engine = llm.engine.engine
     if engine.max_seq_len != s.context_window:
         raise RuntimeError(f"engine max_seq_len {engine.max_seq_len} != CONTEXT_WINDOW")
@@ -3102,17 +3214,7 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
     # chunk is a one-line stand-in, so one repository's whole text fits the
     # long-context budget
     short = -(-passages // REPO_CHUNKS)
-    jobs = [
-        ({"query": "what does the function parse_tree return in repo: repo0?"}, False),
-        ({"query": "why does index_query raise an exception in repo: repo1?"}, False),
-        ({"query": "how is the token batch retry implemented?"}, False),
-        ({"query": f"tell me about repo: repo{short + 1}"}, False),
-        ({"query": "what projects exist in this workspace?"}, False),
-        ({"query": f"explain the architecture of repo: repo{short} and how the pieces "
-                   "fit together"}, False),
-        ({"query": f"describe the modules of repo: repo{short + 2}"}, True),
-        ({"query": f"summarize repo: repo{short + 3}", "deadline_ms": RAG_DEADLINE_MS}, False),
-    ]
+    jobs = rag_jobs(short)
     port = run(api.start("127.0.0.1", 0))
     task = asyncio.run_coroutine_threadsafe(worker.run_forever(), loop)
     stats: dict = {"qwen_max_output": s.qwen_max_output, "engine_warmup_s": warmup_s,
@@ -3218,13 +3320,14 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
             "cancelled_after_events": [j["cancelled_at"] for j in done if j["cancelled_at"]],
             "deadline_reaps": reaped, "index_searches": searches, "jobs_total": jobs_total,
             "kernel_a_launches": launches[a], "kernel_b_launches": launches[b],
-            "launches": launches,
+            "launches": launches, "terminal_states": [terminal_state(j) for j in done],
         })
     finally:
         worker.stop()
         task.cancel()
         run(api.stop())
-        llm.close()
+        if own_llm:
+            llm.close()
         set_llm(None)
         set_store(None)
         loop.call_soon_threadsafe(loop.stop)
@@ -3370,33 +3473,17 @@ class CountingLLM:
         return self.inner.stream_complete(prompt, **kw)
 
 
-def repo_vector_write(enc, device: str = "cuda", runs: int = 2) -> dict:
-    """The vector write at one repository's size: ``REPO_CHUNKS`` chunk
-    nodes (the retrieval phase's code passages, the scope keys of
-    ``chunk_metadata``), enriched by ``enrich_nodes`` with a scripted
-    ``FakeLLM`` (a summary, a title and keywords each, no engine), written
-    by ``write_nodes_per_scope`` through ``enc`` into a fresh device-indexed
-    memory store, ``runs`` times: each run's seconds and passages/s, and the
-    first search's seconds (it copies the new rows to the card); then the
-    encoder's seconds alone on the same batches.  Raises
-    unless every row reaches the host store and the device index."""
+def repo_chunk_nodes() -> tuple[list[str], list]:
+    """One repository's ``REPO_CHUNKS`` chunk nodes: the retrieval phase's
+    code passages with the scope keys of ``chunk_metadata``, enriched by
+    ``enrich_nodes`` with a scripted ``FakeLLM`` (a summary, a title and
+    keywords each, no engine).  Returns (texts, nodes)."""
     import re
 
-    import torch
-
-    from githubrepostorag_tpu_torch.config import get_settings
     from githubrepostorag_tpu_torch.ingest.extractors import enrich_nodes
     from githubrepostorag_tpu_torch.ingest.types import Node
-    from githubrepostorag_tpu_torch.ingest.vector_write import WRITE_BATCH, write_nodes_per_scope
     from githubrepostorag_tpu_torch.llm import FakeLLM
-    from githubrepostorag_tpu_torch.retrieval import DeviceIndexedStore
-    from githubrepostorag_tpu_torch.store.memory import MemoryVectorStore
 
-    def sync():
-        if torch.device(device).type == "cuda":
-            torch.cuda.synchronize()
-
-    s = get_settings()
     texts = code_passages(np.random.default_rng(SEED + 53), REPO_CHUNKS)
     nodes = [Node(text, {**chunk_metadata(i), "language": "python", "span": f"{i % 8 * 40 + 1}"})
              for i, text in enumerate(texts)]
@@ -3413,6 +3500,32 @@ def repo_vector_write(enc, device: str = "cuda", runs: int = 2) -> dict:
     enrich_nodes(llm, nodes)
     if not all("keywords" in n.metadata for n in nodes):
         raise RuntimeError("the scripted extractors left chunk nodes unenriched")
+    return texts, nodes
+
+
+def repo_vector_write(enc, device: str = "cuda", runs: int = 2) -> dict:
+    """The vector write at one repository's size: ``REPO_CHUNKS`` chunk
+    nodes (the retrieval phase's code passages, the scope keys of
+    ``chunk_metadata``), enriched by ``enrich_nodes`` with a scripted
+    ``FakeLLM`` (a summary, a title and keywords each, no engine), written
+    by ``write_nodes_per_scope`` through ``enc`` into a fresh device-indexed
+    memory store, ``runs`` times: each run's seconds and passages/s, and the
+    first search's seconds (it copies the new rows to the card); then the
+    encoder's seconds alone on the same batches.  Raises
+    unless every row reaches the host store and the device index."""
+    import torch
+
+    from githubrepostorag_tpu_torch.config import get_settings
+    from githubrepostorag_tpu_torch.ingest.vector_write import WRITE_BATCH, write_nodes_per_scope
+    from githubrepostorag_tpu_torch.retrieval import DeviceIndexedStore
+    from githubrepostorag_tpu_torch.store.memory import MemoryVectorStore
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    s = get_settings()
+    texts, nodes = repo_chunk_nodes()
     table = s.scope_tables["chunk"]
     out = []
     for _ in range(runs):
@@ -3691,6 +3804,586 @@ def phase_ingest(cfg, params, enc=None, device: str = "cuda", geometry: dict | N
     stats["phase_s"] = time.monotonic() - t_phase
     log(f"ingest on {torch.cuda.get_device_name(0) if cuda else 'cpu'}: {json.dumps(stats)}")
     return stats
+
+
+# ------------------------------------------------------------------ split --
+
+SPLIT_STOP_S = 5  # MiniRedis.stop() once every connection is closed
+SPLIT_POD_STOP_S = 30  # a pod's exit after SIGTERM
+NATIVE_TOL = 1e-6  # native vs memory store scores
+
+
+class Pod:
+    """An entry point run as a subprocess (a pod of the split deployment),
+    its output collected line by line by a thread."""
+
+    def __init__(self, name: str, args: list[str], env: dict) -> None:
+        import threading
+        from pathlib import Path
+
+        self.name = name
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen([sys.executable, *args], env=env,
+                                     cwd=Path(__file__).resolve().parent,
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines: list[str] = []
+        self.arrived: list[float] = []  # seconds from the start, a line each
+        self._cv = threading.Condition()
+        self._reader = threading.Thread(target=self._drain, name=f"{name}-output", daemon=True)
+        self._reader.start()
+
+    def _drain(self) -> None:
+        for line in self.proc.stdout:
+            with self._cv:
+                self.lines.append(line.rstrip("\n"))
+                self.arrived.append(time.monotonic() - self.t0)
+                self._cv.notify_all()
+        with self._cv:
+            self._cv.notify_all()
+
+    def tail(self, n: int = 20) -> str:
+        with self._cv:
+            return "\n".join(self.lines[-n:])
+
+    def wait_for_line(self, text: str, timeout: float) -> float:
+        """Seconds from the start until the first line holding ``text``
+        arrived; raises if the pod exits or ``timeout`` passes first."""
+        deadline = time.monotonic() + timeout
+        with self._cv:
+            while True:
+                hit = next((i for i, line in enumerate(self.lines) if text in line), None)
+                if hit is not None:
+                    return self.arrived[hit]
+                left = deadline - time.monotonic()
+                if self.proc.poll() is not None or left <= 0:
+                    raise RuntimeError(f"{self.name} pod: no {text!r} line (exit "
+                                       f"{self.proc.poll()}):\n{chr(10).join(self.lines[-20:])}")
+                self._cv.wait(min(left, 0.5))
+
+    def terminate(self, timeout: float) -> tuple[int, float]:
+        """SIGTERM, then (exit code, seconds to exit)."""
+        import signal
+
+        t0 = time.monotonic()
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout)
+        self._reader.join(5)
+        return rc, time.monotonic() - t0
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+
+
+def stand_in(name: str):
+    """``tests/<name>.py`` loaded from its path: an installed package may
+    own the top-level name ``tests``."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tests" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"chip_smoke_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def serve_stand_ins() -> None:
+    """The split phase's stand-ins in a process of their own, so that their
+    Python work never holds the engine process's interpreter lock:
+    MiniRedis on an asyncio loop, the CQL stand-in on its threads.  Prints
+    both ports; on SIGTERM stops MiniRedis, bounded by SPLIT_STOP_S, and
+    prints how long that took (or that it timed out: a client left a
+    connection open)."""
+    import signal
+
+    redis = stand_in("miniredis").MiniRedis()
+    cass = stand_in("torch_minicassandra").MiniCassandra()
+
+    async def serve():
+        stop = asyncio.Event()
+        asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop.set)
+        print(f"stand-ins redis={await redis.start()} cassandra={cass.start()}", flush=True)
+        await stop.wait()
+        t0 = time.monotonic()
+        try:
+            await asyncio.wait_for(redis.stop(), SPLIT_STOP_S)
+            print(f"redis stopped in {time.monotonic() - t0} s", flush=True)
+        except TimeoutError:
+            print("redis stop timed out", flush=True)
+        cass.stop()
+
+    asyncio.run(serve())
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _maps_libcuda(pid: int) -> bool | None:
+    """Whether the process has the CUDA driver library mapped (None where
+    /proc does not say)."""
+    try:
+        with open(f"/proc/{pid}/maps") as fh:
+            return "libcuda.so" in fh.read()
+    except OSError:
+        return None
+
+
+def stream_missed(emitted: list[str], events: list[dict]) -> int:
+    """Frames of a job the SSE stream missed: the worker's emitted events
+    up to the one the stream ended on, less those the stream read.  Raises
+    unless what it read is that sequence's tail (pub/sub has no replay, so
+    a stream that subscribes after the job started loses its head, never
+    a frame in between)."""
+    got = [e["event"] for e in events]
+    if not got or got[-1] not in emitted:
+        raise RuntimeError(f"stream ended on {got[-1:]}, the worker emitted {emitted}")
+    upto = emitted[:len(emitted) - emitted[::-1].index(got[-1])]
+    if upto[len(upto) - len(got):] != got:
+        raise RuntimeError(f"the stream read {got}, not a tail of the emitted {upto}")
+    return len(upto) - len(got)
+
+
+def native_store_check(docs: list, enc, queries: list[str], device: str) -> dict:
+    """STORE_BACKEND=native with DEVICE_INDEX=off through the factory: the
+    native store over ``docs`` (built into the port's _build/) against the
+    memory store: every query with and without a module filter ranked
+    alike (scores within NATIVE_TOL, ids in order across every clearer
+    gap, exact ties in insertion order); query p50 of both."""
+    import os
+
+    from githubrepostorag_tpu_torch import config
+    from githubrepostorag_tpu_torch.store import factory
+    from githubrepostorag_tpu_torch.store.memory import MemoryVectorStore
+    from githubrepostorag_tpu_torch.store.native import NativeVectorStore
+
+    table = config.get_settings().scope_tables["chunk"]
+    saved = {k: os.environ.get(k) for k in ("STORE_BACKEND", "DEVICE_INDEX", "STORE_PATH")}
+    os.environ.update(STORE_BACKEND="native", DEVICE_INDEX="off", STORE_PATH="")
+    config.reload_settings()
+    factory.reset_store()
+    try:
+        native = factory.get_store(device=device)
+        if type(native) is not NativeVectorStore or native.backend != "native":
+            raise RuntimeError(f"STORE_BACKEND=native gave {type(native).__name__} "
+                               f"({getattr(native, 'backend', None)})")
+        memory = MemoryVectorStore()
+        for store in (native, memory):
+            store.upsert(table, docs)
+        order = {d.doc_id: i for i, d in enumerate(docs)}
+        qvecs = enc.encode(queries, kind="query")
+        times = {"native": [], "memory": []}
+        for q, vec in zip(queries, qvecs):
+            for flt in (None, {"module": docs[order_hint(q, len(docs))].metadata["module"]}):
+                hits = {}
+                for name, store in (("native", native), ("memory", memory)):
+                    t0 = time.perf_counter()
+                    hits[name] = store.search(table, vec, 10, flt)
+                    times[name].append(time.perf_counter() - t0)
+                if not hits["memory"]:
+                    raise RuntimeError(f"no hits for {q!r} ({flt})")
+                same_ranking(hits["memory"], hits["native"], NATIVE_TOL)
+                for a, b in zip(hits["native"], hits["native"][1:]):
+                    if a.score == b.score and order[a.doc.doc_id] > order[b.doc.doc_id]:
+                        raise RuntimeError(f"tied native hits out of insertion order: "
+                                           f"{a.doc.doc_id}, {b.doc.doc_id}")
+        return {"backend": native.backend, "rows": len(docs), "queries": len(times["native"]),
+                "native_query_p50_ms": percentile(times["native"], 0.5) * 1e3,
+                "memory_query_p50_ms": percentile(times["memory"], 0.5) * 1e3}
+    finally:
+        factory.reset_store()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        config.reload_settings()
+
+
+def order_hint(query: str, n: int) -> int:
+    """A row whose module filters ``query``'s search (stable across runs)."""
+    return sum(map(ord, query)) % n
+
+
+def phase_split(cfg, llm, rag: dict, enc, device: str = "cuda", rows: int = 258048,
+                passages: int = 8192, worker_ckpt: tuple | None = None) -> dict:
+    """The split deployment on the card: the reference's topology of a
+    rag-api pod and rag-worker pods joined by Redis, vectors in Cassandra.
+
+    Stand-ins on localhost, in a process of their own
+    (``serve_stand_ins``): ``tests/miniredis.py`` (RESP2) and
+    ``tests/torch_minicassandra.py`` (CQL native protocol v4 on the port's
+    codec), Python servers whose rates say nothing of Redis or Cassandra.
+    The rag phase's repo, module, file and catalog docs and one
+    repository's chunk rows (``repo_chunk_nodes`` through
+    ``write_nodes_per_scope`` and ``enc``, repo0) are written into the CQL
+    stand-in by the port's ``CassandraVectorStore``, and the one-line
+    chunks of the repository the whole-repo question reads (as in the rag
+    phase's index, so that it fits the long-context budget); a device
+    index over a second ``CassandraVectorStore`` seeds itself from them.
+
+    The API pod is ``python -m githubrepostorag_tpu_torch.api --redis
+    --no-worker`` (no engine: the card's free memory must not drop by a
+    context).  Worker (a) is ``RagWorker`` in this process over
+    ``RedisBus`` / ``RedisCancelFlags`` / ``RedisJobQueue``, the agent over
+    ``llm`` (the rag phase's engine) and the Cassandra-seeded device index.
+    The rag phase's eight jobs go to the API pod at once; every stream is
+    read through the API pod (the frames it missed counted against what
+    the worker emitted), every result through GET /rag/jobs/{id}/result;
+    terminal states must equal the rag phase's, the cancel must travel as
+    the Redis flag, A and B must launch and nothing else, no page may
+    leak, every search must run on the device.  Worker (b) is the worker
+    pod's own entry point, ``python -m githubrepostorag_tpu_torch.worker``
+    over ``worker_ckpt`` (a (cfg, params) written as a checkpoint with a
+    byte tokenizer; the load phase's full-width 2-layer tree by default)
+    with STORE_BACKEND=cassandra and DEVICE_INDEX=on: two jobs to final,
+    /metrics, exit 0 on SIGTERM, then MiniRedis.stop() within
+    SPLIT_STOP_S (no connection left open).  Last, the native store
+    against the memory store over the same chunk rows."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    from collections import defaultdict
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import torch
+
+    from githubrepostorag_tpu_torch import config, kernels
+    from githubrepostorag_tpu_torch.agent import GraphAgent
+    from githubrepostorag_tpu_torch.api.__main__ import close_events
+    from githubrepostorag_tpu_torch.events.redis import RedisBus, RedisCancelFlags, RedisJobQueue
+    from githubrepostorag_tpu_torch.ingest.vector_write import write_nodes_per_scope
+    from githubrepostorag_tpu_torch.llm import set_llm
+    from githubrepostorag_tpu_torch.metrics import (
+        DEVICE_INDEX_SEARCHES, JOBS_TOTAL, MeteredLLM, counter_value)
+    from githubrepostorag_tpu_torch.obs import get_recorder
+    from githubrepostorag_tpu_torch.retrieval import DeviceIndexedStore, RetrieverFactory
+    from githubrepostorag_tpu_torch.store.base import Doc
+    from githubrepostorag_tpu_torch.store.cassandra import CassandraVectorStore
+    from githubrepostorag_tpu_torch.worker import RagWorker
+
+    cuda = torch.device(device).type == "cuda"
+    t_phase = time.monotonic()
+    s = config.get_settings()
+    tables = s.scope_tables
+
+    class CountingBus(RedisBus):
+        """The worker's bus, noting each job's emitted events in order."""
+
+        def __init__(self, url: str) -> None:
+            super().__init__(url)
+            self.emitted: dict[str, list[str]] = defaultdict(list)
+
+        async def emit(self, job_id: str, event: str, data: dict) -> None:
+            await super().emit(job_id, event, data)
+            self.emitted[job_id].append(event)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="split-worker", daemon=True)
+    thread.start()
+
+    def run(coro, timeout=600):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result(timeout)
+
+    servers = Pod("stand-ins", ["-c", "import chip_smoke; chip_smoke.serve_stand_ins()"],
+                  dict(os.environ))
+    pods: list[Pod] = [servers]
+    servers.wait_for_line("stand-ins redis=", 60)
+    ports = dict(kv.split("=") for kv in next(
+        ln for ln in servers.lines if ln.startswith("stand-ins ")).split()[1:])
+    url, cass_port = f"redis://127.0.0.1:{ports['redis']}/0", int(ports["cassandra"])
+    dim = int(enc.encode(["dimension"], kind="query").shape[1])
+    cass_env = {"STORE_BACKEND": "cassandra", "CASSANDRA_HOST": "127.0.0.1",
+                "CASSANDRA_PORT": str(cass_port), "REDIS_URL": url, "LOG_FORMAT": "plain",
+                "EMBED_DIM": str(dim)}
+    dev_flag = [] if cuda else ["--device", "cpu"]
+    sessions = []
+    stats: dict = {"cassandra_stand_in": "tests/torch_minicassandra.py (a Python server)",
+                   "redis_stand_in": "tests/miniredis.py (a Python server)",
+                   "stand_ins_process": "separate"}
+    worker_a = None
+    ckpt = None
+    try:
+        # ---- seed the CQL stand-in through the port's Cassandra store
+        def cassandra():
+            store = CassandraVectorStore(["127.0.0.1"], port=cass_port,
+                                         keyspace=s.cassandra_keyspace, embed_dim=dim)
+            sessions.append(store._session)
+            return store
+
+        seed = cassandra()
+        docs = rag_hierarchy_docs(enc, rows)
+        short = -(-passages // REPO_CHUNKS)  # the whole-repo question's repository
+        block = np.random.default_rng(SEED + 61).standard_normal((REPO_CHUNKS, dim))
+        block = (block / np.linalg.norm(block, axis=1, keepdims=True)).astype(np.float32)
+        first = short * REPO_CHUNKS
+        docs["chunk"] = [Doc(f"c{r:06d}", f"chunk {r}", chunk_metadata(r), block[r - first])
+                         for r in range(first, first + REPO_CHUNKS)]
+        texts, nodes = repo_chunk_nodes()
+        t0 = time.monotonic()
+        written = write_nodes_per_scope({"chunk": nodes}, store=seed, encoder=enc)
+        sync()
+        chunk_s = time.monotonic() - t0
+        chunk_docs = seed.find_by_metadata(tables["chunk"], {"repo": "repo0"}, limit=REPO_CHUNKS)
+
+        # ---- the API pod (--redis --no-worker: no engine) boots while the
+        # scope docs go in: host work only, so the card's free memory moves
+        # only if the pod takes some
+        api_port = _free_port()
+        if cuda:
+            torch.cuda.empty_cache()
+            sync()
+            free0 = torch.cuda.mem_get_info()[0]
+        api = Pod("api", ["-m", "githubrepostorag_tpu_torch.api", "--redis", "--no-worker",
+                          "--host", "127.0.0.1", "--port", str(api_port), *dev_flag],
+                  {**os.environ, **cass_env, "DEVICE_INDEX": "off"})
+        pods.append(api)
+        n_docs = sum(len(d) for d in docs.values())
+        t0 = time.monotonic()
+        for scope, rows_ in docs.items():
+            seed.upsert(tables[scope], rows_)
+        upsert_s = time.monotonic() - t0
+        counts = {scope: seed.count(tables[scope]) for scope in docs}
+        want = {**{scope: len(d) for scope, d in docs.items()}, "chunk": 2 * REPO_CHUNKS}
+        if written != {"chunk": REPO_CHUNKS} or counts != want:
+            raise RuntimeError(f"the CQL stand-in holds {counts}, {want} were written")
+        stats["cassandra_rows"] = counts
+        stats["cassandra_seed_rows_per_s"] = n_docs / upsert_s
+        stats["cassandra_seed_s"] = upsert_s
+        stats["cassandra_chunk_write_rows_per_s"] = REPO_CHUNKS / chunk_s  # encode + upsert
+
+        stats["api_pod_start_s"] = api.wait_for_line("service up", 120)
+        status, health, _ = _http(api_port, "GET", "/health")
+        if status != 200 or health["components"]["vectorStore"]["details"]["backend"] != "cassandra":
+            raise RuntimeError(f"API pod /health: {status} {health}")
+        if cuda:
+            # another context on the card takes hundreds of MiB
+            stats["api_pod_card_mib"] = (free0 - torch.cuda.mem_get_info()[0]) / 2 ** 20
+            if stats["api_pod_card_mib"] > 128:
+                raise RuntimeError(f"the API pod took {stats['api_pod_card_mib']:.0f} MiB of "
+                                   "the card: it built an engine or a context")
+        stats["api_pod_libcuda_mapped"] = _maps_libcuda(api.proc.pid)
+
+        # ---- the device index, seeded from the stand-in
+        t0 = time.monotonic()
+        index = DeviceIndexedStore(cassandra(), k_bucket=s.device_index_k_bucket,
+                                   max_wave=s.retrieval_max_wave, device=device)
+        sync()
+        stats["device_index_seed_s"] = time.monotonic() - t0
+        dev_rows = {t: h["rows"] for t, h in index.health()["device_index"].items()}
+        if dev_rows != {tables[scope]: n for scope, n in want.items()}:
+            raise RuntimeError(f"the device index seeded {dev_rows}, the stand-in holds {want}")
+        index.warmup()
+
+        # ---- worker (a): this process, the rag phase's engine, Redis
+        bus, flags, queue = CountingBus(url), RedisCancelFlags(url), RedisJobQueue(url)
+        agent = GraphAgent(MeteredLLM(llm), RetrieverFactory(index, enc), namespace="default")
+        worker = RagWorker(agent, bus, flags, queue)
+        set_llm(llm)
+
+        async def start():
+            return asyncio.create_task(worker.run_forever())
+
+        worker_a = (worker, run(start()), (bus, flags, queue))
+        engine = llm.engine.engine
+        # the rag phase's prompts sit in the engine's prefix cache (the
+        # whole-repo prompt is the same one): take every free page, which
+        # evicts the cached ones, and give them back uncached, so that the
+        # jobs compare the buses and not a warm cache with a cold one
+        alloc = engine._allocator
+        alloc.release(alloc.allocate(alloc.free_count))
+        hits0 = getattr(alloc, "hit_tokens", 0)
+        free_pages = alloc.free_count
+        reaps0 = engine.deadline_reaps
+        searches0 = {p: counter_value(DEVICE_INDEX_SEARCHES, path=p) for p in ("device", "fallback")}
+        jobs0 = {st: counter_value(JOBS_TOTAL, status=st) for st in ("ok", "cancelled", "timeout")}
+        jobs = rag_jobs(short, code_repos=("repo0", "repo0"))  # repo0's code chunks
+        reset_launches()
+        t0 = time.monotonic()
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            done = list(pool.map(lambda j: rag_job(api_port, *j), jobs))
+        traffic_s = time.monotonic() - t0
+        deadline = time.monotonic() + 120
+        while engine.has_work() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        sync()
+        launches = read_launches()
+
+        states = [terminal_state(j) for j in done]
+        if states != rag["terminal_states"]:
+            raise RuntimeError(f"terminal states over Redis {states}, over the memory bus "
+                               f"{rag['terminal_states']}")
+        missed, walls, ttfts, turns = [], [], [], {}
+        for job, state in zip(done, states):
+            job_id, final = job["reply"]["job_id"], job["events"][-1]["data"]
+            missed.append(stream_missed(bus.emitted[job_id], job["events"]))
+            if state == "cancelled":
+                flag = run(flags.is_cancelled(job_id))
+                if job["result"].get("cancelled") is not True or not flag:
+                    raise RuntimeError(f"cancelled job: result {job['result']}, the Redis "
+                                       f"flag {'set' if flag else 'unset'}")
+                continue
+            if state == "deadline":
+                if job["result"] != {"answer": "", "sources": [], "error": final["error"]}:
+                    raise RuntimeError(f"deadline job: result {job['result']}")
+                continue
+            if job["result"].get("answer") != final["answer"] or not final["sources"]:
+                raise RuntimeError(f"job {job['body']['query']!r}: result {job['result']} vs "
+                                   f"final {final}")
+            trace = get_recorder().trace_payload(job["reply"]["trace_id"])
+            if trace is None:
+                raise RuntimeError(f"job {job_id}: the worker recorded no trace")
+            retrieval = [e for e in job["events"] if e["event"] == "retrieval"]
+            turns[job["body"]["query"]] = [t["stage"] for t in retrieval[0]["data"]["turns"]] \
+                if retrieval else None
+            walls.append(job["wall_s"])
+            ttfts.append(synthesis_ttft(trace)["ttft_s"])
+            if "architecture" in job["body"]["query"]:
+                stats["whole_repo_ttft_s"] = ttfts[-1]
+        longctx = [q for q, t in turns.items() if t and "assemble" in t]
+        if len(longctx) != 1 or "architecture" not in longctx[0]:
+            raise RuntimeError(f"the whole-repo question's turns over Redis: {turns}")
+        reaped = engine.deadline_reaps - reaps0
+        searches = {p: counter_value(DEVICE_INDEX_SEARCHES, path=p) - searches0[p]
+                    for p in searches0}
+        jobs_total = {st: counter_value(JOBS_TOTAL, status=st) - jobs0[st] for st in jobs0}
+        if reaped < 1 or jobs_total != {"ok": 6, "cancelled": 1, "timeout": 1}:
+            raise RuntimeError(f"deadline reaps {reaped}, rag_jobs_total moved by {jobs_total}")
+        if searches["device"] <= 0 or searches["fallback"] != 0:
+            raise RuntimeError(f"index searches in the split phase: {searches}")
+        a, b = "fused_window_attention", "paged_attention_decode_staged"
+        if cuda:
+            if launches[a] <= 0 or launches[b] <= 0:
+                raise RuntimeError(f"the split path launched A {launches[a]}, B {launches[b]} times")
+            off = {k: n for k, n in launches.items() if k.split("@")[0] not in (a, b) and n}
+            if off:
+                raise RuntimeError(f"the split path launched kernels it never reaches: {off}")
+        if engine.has_work() or engine._allocator.free_count != free_pages:
+            raise RuntimeError(f"pages leaked: {engine._allocator.free_count} free, "
+                               f"{free_pages} before the jobs")
+        stats.update({
+            "jobs": len(done), "terminal_states": states, "traffic_wall_s": traffic_s,
+            "job_wall_p50_s": percentile(walls, 0.5), "job_wall_p95_s": percentile(walls, 0.95),
+            "synth_ttft_p50_s": percentile(ttfts, 0.5),
+            "memory_bus_job_wall_p50_s": rag["job_wall_p50_s"],
+            "memory_bus_job_wall_p95_s": rag["job_wall_p95_s"],
+            "memory_bus_synth_ttft_p50_s": rag["synth_ttft_p50_s"],
+            "memory_bus_whole_repo_ttft_s": rag["whole_repo_ttft_s"],
+            "prefix_cache_hit_tokens": getattr(alloc, "hit_tokens", 0) - hits0,
+            "stream_frames_missed": missed, "stream_frames_missed_total": sum(missed),
+            "frames_emitted": sum(len(bus.emitted[j["reply"]["job_id"]]) for j in done),
+            "deadline_reaps": reaped, "index_searches": searches, "jobs_total": jobs_total,
+            "kernel_a_launches": launches[a], "kernel_b_launches": launches[b],
+            "launches": launches,
+        })
+
+        async def stop_a(worker, task, parts):
+            worker.stop()
+            task.cancel()
+            await asyncio.gather(task, return_exceptions=True)
+            await close_events(*parts)
+
+        run(stop_a(*worker_a))
+        worker_a = None
+        set_llm(None)
+
+        # ---- worker (b): the worker pod's entry point over a checkpoint
+        ckpt = Path(tempfile.mkdtemp(prefix="ckpt-", dir=kernels.BUILD_DIR))
+        wcfg, wparams = worker_ckpt or load_phase_tree()
+        write_checkpoint(ckpt, wparams, wcfg)
+        write_byte_tokenizer(ckpt, wcfg.vocab_size)
+        del wparams
+        metrics_port = _free_port()
+        wb = Pod("worker", ["-m", "githubrepostorag_tpu_torch.worker", "--host", "127.0.0.1",
+                            *dev_flag],
+                 {**os.environ, **cass_env, "DEVICE_INDEX": "on", "LLM_BACKEND": "inprocess",
+                  "MODEL_WEIGHTS_PATH": str(ckpt), "METRICS_PORT": str(metrics_port)})
+        pods.append(wb)
+        stats["worker_pod_start_to_ready_s"] = wb.wait_for_line("worker ready", 300)
+        with ThreadPoolExecutor(2) as pool:
+            pod_jobs = list(pool.map(lambda q: rag_job(api_port, {"query": q}), (
+                "what does the function parse_tree return in repo: repo0?",
+                "tell me about repo: repo1")))
+        if [terminal_state(j) for j in pod_jobs] != ["final", "final"]:
+            raise RuntimeError(f"worker pod jobs: {[j['events'][-3:] for j in pod_jobs]}")
+        stats["worker_pod_job_wall_s"] = [j["wall_s"] for j in pod_jobs]
+        status, text, _ = _http(metrics_port, "GET", "/metrics")
+        if status != 200 or 'rag_jobs_total{status="ok"} 2.0' not in text:
+            raise RuntimeError(f"worker pod /metrics: {status} "
+                               f"{[ln for ln in str(text).splitlines() if 'rag_jobs_total' in ln]}")
+        rc, stats["worker_pod_stop_s"] = wb.terminate(SPLIT_POD_STOP_S)
+        if rc != 0 or not any("RAG worker stopped" in ln for ln in wb.lines):
+            raise RuntimeError(f"worker pod exit {rc} on SIGTERM:\n{wb.tail()}")
+        rc, stats["api_pod_stop_s"] = api.terminate(SPLIT_POD_STOP_S)
+        if rc != 0:
+            raise RuntimeError(f"API pod exit {rc} on SIGTERM:\n{api.tail()}")
+        servers.terminate(SPLIT_STOP_S + 10)
+        stopped = [ln for ln in servers.lines if ln.startswith("redis stop")]
+        if not stopped or "timed out" in stopped[0]:
+            raise RuntimeError(f"MiniRedis.stop() waited over {SPLIT_STOP_S} s: a connection "
+                               f"was left open ({stopped})")
+        stats["redis_stop_s"] = float(stopped[0].split()[3])
+
+        # ---- the native store over the same chunk rows
+        stats["native"] = native_store_check(chunk_docs, enc, texts[:8], device)
+    finally:
+        if worker_a is not None:
+            worker, task, _ = worker_a
+            worker.stop()
+            task.cancel()
+        for session in sessions:
+            session.close()
+        for pod in pods:
+            pod.kill()
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(30)
+        loop.close()
+        set_llm(None)
+        if ckpt is not None:
+            shutil.rmtree(ckpt, ignore_errors=True)
+    stats["phase_s"] = time.monotonic() - t_phase
+    log(f"split on {torch.cuda.get_device_name(0) if cuda else 'cpu'}: {json.dumps(stats)}")
+    return stats
+
+
+def rag_and_split(cfg, params, index, enc, passages: int = 8192) -> tuple[dict, dict]:
+    """The rag phase over the memory bus, then the split phase over Redis,
+    both on one engine (``rag_llm``)."""
+    rag_settings()
+    llm, warmup_s = rag_llm(cfg, params)
+    try:
+        rag = phase_rag(cfg, params, index=index, enc=enc, passages=passages, llm=llm)
+        rag["engine_warmup_s"] = warmup_s
+        return rag, phase_split(cfg, llm, rag, enc, passages=passages)
+    finally:
+        llm.close()
+
+
+def load_phase_tree(layers: int = 2):
+    """The load phase's tree: Qwen2-7B at full width cut to ``layers``,
+    random bf16 weights from its seed, on the card.  Returns (cfg, params)."""
+    import dataclasses
+
+    import torch
+
+    from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config, init_params
+
+    cfg = dataclasses.replace(Qwen2Config.qwen2_7b(), num_layers=layers)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 9)
+    return cfg, init_params(cfg, gen, device="cuda", dtype=torch.bfloat16)
 
 
 def launch_counters() -> dict:
@@ -4158,7 +4851,7 @@ def phase_options(cfg, params, index, enc) -> dict:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["kernels", "longctx", "int4", "retrieval", "rag",
-                                           "ingest", "options"],
+                                           "ingest", "options", "split"],
                         default=None,
                         help="kernels: the device, build and kernel phases only; longctx: "
                              "the device and build phases and the long-context decode "
@@ -4169,7 +4862,9 @@ def main() -> int:
                              "index built at the retrieval phase's size); ingest: the device "
                              "and build phases and the ingest phase; options: the device and "
                              "build phases and the engine options measured in pairs "
-                             "(long-context profiles, rag jobs)")
+                             "(long-context profiles, rag jobs); split: the device and build "
+                             "phases, the rag phase and the split deployment (API pod, "
+                             "Redis, Cassandra, the worker pod, the native store)")
     args = parser.parse_args()
 
     import torch
@@ -4202,6 +4897,19 @@ def main() -> int:
         print(json.dumps({"packages": packages}))
         print(device["card"])
         print(json.dumps({"rag": rag}), flush=True)
+        return 0
+    if args.only == "split":
+        cfg, params = make_7b_params()
+        t0 = time.monotonic()
+        index, enc, passages = rag_index("cuda")
+        log(f"rag index built in {time.monotonic() - t0:.1f} s")
+        rag, split = rag_and_split(cfg, params, index, enc, passages)
+        log(f"done in {time.monotonic() - t_all:.1f} s")
+        print(json.dumps({"rag": rag}))
+        print(json.dumps({"split": split}))
+        print(device["card"])
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
+                                                 "count": device["count"]}}), flush=True)
         return 0
     if args.only == "ingest":
         cfg, params = make_7b_params()
@@ -4269,9 +4977,9 @@ def main() -> int:
     # cuBLAS's rows by GEMM row count: the engine's prefill row floor needs
     # none to differ from 512 rows on (checked in the kernel phase)
     options["gemm_rows_differing_by_m"] = kres["gemm_rows"]
+    runs["http"] = phase_http(cfg, params)
+    runs["rag"], runs["split"] = rag_and_split(cfg, params, store.pop("index"), enc)
     runs.update({
-        "http": phase_http(cfg, params),
-        "rag": phase_rag(cfg, params, index=store.pop("index"), enc=enc),
         "ingest": phase_ingest(cfg, params, enc=enc),
         # packed prefill over bf16 pools never reaches kernel A
         "packed": phase_engine(cfg, params, "packed bf16", (c, b), (a,),
@@ -4358,6 +5066,7 @@ def main() -> int:
     print(json.dumps({"rag": runs["rag"]}))
     print(json.dumps({"engine_options": options}))
     print(json.dumps({"ingest": runs["ingest"]}))
+    print(json.dumps({"split": runs["split"]}))
     print(device["card"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],

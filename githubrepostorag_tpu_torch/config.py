@@ -5,10 +5,11 @@ The fields are the ones the port reads: ``serving/__main__.py``
 (checkpoint, engine geometry and options), ``serving/openai_api.py``
 (the default priority class), ``serving/tokenizer.py`` (the tokenizer
 backend), the retrieval path: ``embedding.py`` (the encoder),
-``store/factory.py`` (the store chain), ``retrieval/retrievers.py`` (the
+``store/factory.py`` (the store chain and its backends), ``retrieval/retrievers.py`` (the
 scope tables), and the question-answering loop: ``llm.py`` (the backend
 and its sampling defaults), ``agent/`` (the loop's budgets),
-``events/``, ``worker/`` and ``api/`` (jobs, queue bound, SSE),
+``events/``, ``worker/`` and ``api/`` (jobs, queue bound, SSE, the Redis
+URL of the split deployment, the worker pod's metrics port),
 ``resilience/`` (retries, breakers, ``FAULTS``), ``obs/`` (traces,
 the log format) and ``ingest/`` (GitHub, branch and collection, DEV_MODE,
 the Pushgateway, ``EXTENSION_TO_LANGUAGE``).  Each reads the same environment variable, with the same
@@ -106,6 +107,8 @@ class Settings:
     log_format: str = _env("LOG_FORMAT", "json")
 
     # --- event bus and job queue (events/, worker/, api/) ---
+    # the split deployment's bus, cancel flags and queue (api --redis, worker)
+    redis_url: str = _env("REDIS_URL", "redis://redis-master:6379/0")
     sse_ping_seconds: int = _int("SSE_PING_SECONDS", 15)
     # API-side SSE heartbeat: a ``: heartbeat`` comment whenever the bus
     # stream stays silent this long
@@ -113,6 +116,8 @@ class Settings:
     # POST /rag/jobs sheds with 429 + Retry-After at this many queued jobs
     job_queue_max_depth: int = _int("JOB_QUEUE_MAX_DEPTH", 256)
     default_namespace: str = _env("DEFAULT_NAMESPACE", "default")
+    # the worker pod's /metrics (python -m githubrepostorag_tpu_torch.worker)
+    metrics_port: int = _int("METRICS_PORT", 9000)
     worker_max_jobs: int = _int("WORKER_MAX_JOBS", 10)
     job_timeout_seconds: int = _int("JOB_TIMEOUT_SECONDS", 300)
     keep_result_seconds: int = _int("KEEP_RESULT_SECONDS", 3600)
@@ -206,8 +211,14 @@ class Settings:
     ctrl: str = _env("CTRL", "off")  # the fleet controller
 
     # --- store and retrieval (store/factory.py, embedding.py, retrieval/) ---
-    store_backend: str = _env("STORE_BACKEND", "memory")  # the port serves memory only
-    store_path: str = _env("STORE_PATH", "")  # persistence dir of the memory store
+    store_backend: str = _env("STORE_BACKEND", "memory")  # memory|native|cassandra
+    store_path: str = _env("STORE_PATH", "")  # persistence dir of the memory / native store
+    # STORE_BACKEND=cassandra: one contact point, plain-text auth, the keyspace
+    cassandra_host: str = _env("CASSANDRA_HOST", "localhost")
+    cassandra_port: int = _int("CASSANDRA_PORT", 9042)
+    cassandra_username: str = _env("CASSANDRA_USERNAME", "cassandra")
+    cassandra_password: str = _env("CASSANDRA_PASSWORD", "cassandra")
+    cassandra_keyspace: str = _env("CASSANDRA_KEYSPACE", "vector_store")
     # the five-level hierarchy's tables
     embeddings_table_catalog: str = _env("EMBEDDINGS_TABLE_CATALOG", "embeddings_catalog")
     embeddings_table_repo: str = _env("EMBEDDINGS_TABLE_REPO", "embeddings_repo")

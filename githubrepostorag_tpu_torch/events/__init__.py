@@ -10,9 +10,11 @@ with a 3600 s TTL.
 Implementations:
   - ``MemoryBus`` / ``MemoryCancelFlags`` / ``MemoryJobQueue`` — in-process,
     for tests and single-pod deployments (no Redis needed at all).
-  - The JAX package's Redis bus (``events/redis.py`` over its RESP client,
-    ``events/resp.py``) serves split API / worker deployments; it comes to
-    the port with that deployment (ROADMAP queue 1).
+  - ``events.redis`` (``RedisBus`` / ``RedisCancelFlags`` /
+    ``RedisJobQueue``) — the same wire behavior against a real Redis via
+    the in-tree RESP client (``events/resp.py``); the split deployment's
+    API and worker pods share them (``api --redis``, ``worker``).
+    Imported lazily, so the single-pod service never loads them.
 """
 
 from githubrepostorag_tpu_torch.events.base import (

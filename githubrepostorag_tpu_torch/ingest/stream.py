@@ -22,7 +22,7 @@ bit-exactly), which keeps replayed scores identical to the original's.
 :class:`StreamSink` is the producer adapter: it quacks like the two
 store methods the ingest pipeline actually calls (``upsert`` /
 ``delete``), so an ingest pipeline streams through the log unchanged
-(the pipeline itself comes to the port with ROADMAP queue 1 item 4).
+(``ingest/vector_write.py`` through ``get_store()``).
 """
 
 from __future__ import annotations

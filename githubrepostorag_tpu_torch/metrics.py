@@ -325,6 +325,10 @@ EVENT_EMIT_DROPS = Counter(
     "Progress events dropped after the supervised emit exhausted retries",
     ["event"],
 )
+BUS_RECONNECTS = Counter(
+    "rag_bus_reconnects_total",
+    "SSE subscriber re-subscribes after a bus connection loss",
+)
 FAULTS_INJECTED = Counter(
     "rag_faults_injected_total",
     "Faults fired by the FAULTS injection registry",

@@ -9,12 +9,10 @@ Qwen2 ``tokenizer.json``), split in two:
     byte<->unicode vocabulary transcoding, special-token splitting, and the
     chat template.
   - C++ owns the hot loop: the heap-driven merge algorithm over each
-    pre-tokenized segment (the repository's ``native/bpe.cpp`` via ctypes).
-    The port builds it with the host C++ compiler into its own build
-    directory, ``githubrepostorag_tpu_torch/_build/``, under a name hashed
-    from the source and flags, through a temporary file renamed into place
-    (two processes may build at once).  A pure-Python merge fallback keeps
-    the tokenizer working when no compiler is available.
+    pre-tokenized segment (the repository's ``native/bpe.cpp`` via ctypes,
+    built into the port's ``_build/`` by ``utils/host_build.py``).  A
+    pure-Python merge fallback keeps the tokenizer working when no
+    compiler is available.
 
 Satisfies the serving ``Tokenizer`` protocol (serving/tokenizer.py), so it
 drops into the OpenAI server wherever ``HFTokenizer`` would -- without
@@ -24,23 +22,18 @@ importing transformers at all.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import json
 import logging
-import os
-import shutil
 import subprocess
 from functools import lru_cache
 from pathlib import Path
 from typing import Sequence
 
+from githubrepostorag_tpu_torch.utils.host_build import NATIVE_DIR, build_library, library_path
+
 logger = logging.getLogger(__name__)
 
-_SOURCE = Path(__file__).resolve().parents[2] / "native" / "bpe.cpp"
-_BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-# native/Makefile's flags without -march=native: a checkout (and its build
-# directory) may be copied to another host, whose CPU must still run it
-_CXXFLAGS = ["-O3", "-fopenmp-simd", "-fPIC", "-shared", "-std=c++17", "-Wall"]
+_SOURCE = NATIVE_DIR / "bpe.cpp"
 
 # GPT-2's pre-tokenization pattern; Qwen2's tokenizer.json carries its own
 # variant in a Split pre-tokenizer, which the loader prefers when present.
@@ -77,27 +70,7 @@ def _token_str_to_bytes(token: str) -> bytes:
 
 
 def _library_path() -> Path:
-    digest = hashlib.sha256(_SOURCE.read_bytes())
-    digest.update(" ".join(_CXXFLAGS).encode())
-    return _BUILD_DIR / f"libbpe-{digest.hexdigest()[:12]}.so"
-
-
-def _build_library() -> Path:
-    """Compile ``native/bpe.cpp`` into the port's build directory unless a
-    library of the same source and flags is there; returns its path."""
-    target = _library_path()
-    if target.exists():
-        return target
-    cxx = os.environ.get("CXX") or shutil.which("g++") or "c++"
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    try:
-        subprocess.run([cxx, *_CXXFLAGS, "-o", str(tmp), str(_SOURCE)],
-                       check=True, capture_output=True, timeout=120)
-        os.replace(tmp, target)
-    finally:
-        tmp.unlink(missing_ok=True)
-    return target
+    return library_path(_SOURCE, "libbpe")
 
 
 @lru_cache(maxsize=1)
@@ -105,7 +78,7 @@ def _load_library() -> ctypes.CDLL | None:
     """The merge core, built at first use; None (the pure-Python merges)
     when it cannot be built or loaded."""
     try:
-        lib_path = _build_library()
+        lib_path = build_library(_SOURCE, "libbpe")
     except (subprocess.SubprocessError, OSError) as exc:
         logger.warning("native bpe build failed, using python merges: %s", exc)
         return None

@@ -1,9 +1,11 @@
-"""Store backend selection; port of ``githubrepostorag_tpu/store/factory.py``.
+"""Store backend selection (STORE_BACKEND: memory | native | cassandra);
+port of ``githubrepostorag_tpu/store/factory.py``.
 
-``STORE_BACKEND=memory`` is the backend the port serves; ``native`` and
-``cassandra`` exit naming the ROADMAP item that brings them.  The chain
-is the JAX package's: the backend, wrapped in the device index
+The chain is the JAX package's: the backend, wrapped in the device index
 (``DEVICE_INDEX``), wrapped in the live-index front (``LIVE_INDEX=on``).
+The device index seeds itself from the backend's rows
+(``find_by_metadata(table, {}, limit)``), so a fresh worker pod over
+``cassandra`` loads its index from Cassandra.
 
 One divergence by design: the JAX package's ``DEVICE_INDEX=auto`` wraps
 the store on a TPU only and keeps the host store elsewhere.  The port
@@ -20,11 +22,6 @@ from githubrepostorag_tpu_torch.config import get_settings
 from githubrepostorag_tpu_torch.store.base import VectorStore
 
 _store: VectorStore | None = None
-
-_NOT_SERVED = {
-    "native": "the native store",
-    "cassandra": "the Cassandra store",
-}
 
 
 def get_store(device=None) -> VectorStore:
@@ -62,14 +59,27 @@ def _device_index_enabled(s) -> bool:
 def _build(device=None) -> VectorStore:
     s = get_settings()
     backend = s.store_backend.lower()
-    if backend in _NOT_SERVED:
-        raise SystemExit(f"STORE_BACKEND={backend} is not served by the torch port yet; "
-                         f"ROADMAP.md queue 1 item 4 brings {_NOT_SERVED[backend]}")
-    if backend != "memory":
-        raise ValueError(f"Unknown STORE_BACKEND: {s.store_backend!r}")
-    from githubrepostorag_tpu_torch.store.memory import MemoryVectorStore
+    if backend == "memory":
+        from githubrepostorag_tpu_torch.store.memory import MemoryVectorStore
 
-    store: VectorStore = MemoryVectorStore(persist_dir=s.store_path or None)
+        store: VectorStore = MemoryVectorStore(persist_dir=s.store_path or None)
+    elif backend == "native":
+        from githubrepostorag_tpu_torch.store.native import NativeVectorStore
+
+        store = NativeVectorStore(persist_dir=s.store_path or None)
+    elif backend == "cassandra":
+        from githubrepostorag_tpu_torch.store.cassandra import CassandraVectorStore
+
+        store = CassandraVectorStore(
+            hosts=[s.cassandra_host],
+            port=s.cassandra_port,
+            username=s.cassandra_username,
+            password=s.cassandra_password,
+            keyspace=s.cassandra_keyspace,
+            embed_dim=s.embed_dim,
+        )
+    else:
+        raise ValueError(f"Unknown STORE_BACKEND: {s.store_backend!r}")
     if _device_index_enabled(s):
         from githubrepostorag_tpu_torch.retrieval.device_index import DeviceIndexedStore
 

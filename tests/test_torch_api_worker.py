@@ -437,12 +437,29 @@ def test_sse_heartbeat_while_the_agent_thinks(services, monkeypatch):
     assert json.loads([ln for ln in lines if ln.startswith("data: ")][-1][6:])["event"] == "final"
 
 
-def test_api_main_refuses_the_split_deployment():
-    from githubrepostorag_tpu_torch.api.__main__ import main
+def test_api_main_refuses_the_split_deployment(monkeypatch, capsys):
+    """The split deployment's flag rules: ``--no-worker`` needs
+    ``--redis`` (a parser error, as in JAX), and an API pod with
+    ``--redis --no-worker`` serves the API over Redis and builds no LLM."""
+    from githubrepostorag_tpu_torch.api import __main__ as api_main
+    from githubrepostorag_tpu_torch.events.redis import RedisBus, RedisJobQueue
 
-    for flag in ("--redis", "--no-worker"):
-        with pytest.raises(SystemExit, match="queue 1 item 4"):
-            main([flag])
+    with pytest.raises(SystemExit) as exc:
+        api_main.main(["--no-worker"])
+    assert exc.value.code == 2 and "--no-worker requires --redis" in capsys.readouterr().err
+    served = []
+
+    async def fake_serve(host, port, device, use_redis, run_worker):
+        bus, flags, queue = api_main.bus_flags_queue(use_redis)
+        served.append((use_redis, run_worker, type(bus), type(queue)))
+
+    def no_llm(device=None):
+        raise AssertionError("an API pod with --no-worker built an LLM")
+
+    monkeypatch.setattr(api_main, "serve", fake_serve)
+    monkeypatch.setattr(api_main, "_build_llm", no_llm)
+    assert api_main.main(["--redis", "--no-worker"]) == 0
+    assert served == [(True, False, RedisBus, RedisJobQueue)]
 
 
 def test_build_llm_runs_on_the_card_unless_asked(monkeypatch, tmp_path):

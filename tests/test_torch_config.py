@@ -48,6 +48,11 @@ ENVIRONMENTS = {
                "DEFAULT_COLLECTION": "tools", "DEV_MODE": "yes",
                "PUSHGATEWAY_URL": "http://pushgw:9091", "DATA_DIR": "/data"},
     "ingest_dev_mode_off": {"DEV_MODE": "0"},
+    "split_deployment": {"REDIS_URL": "redis://:s3cret@redis:6380/2", "METRICS_PORT": "9100",
+                         "STORE_BACKEND": "cassandra", "CASSANDRA_HOST": "cassandra-0",
+                         "CASSANDRA_PORT": "19042", "CASSANDRA_USERNAME": "rag",
+                         "CASSANDRA_PASSWORD": "pw", "CASSANDRA_KEYSPACE": "vectors"},
+    "split_deployment_bad_ports": {"METRICS_PORT": "nine", "CASSANDRA_PORT": ""},
 }
 
 

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: no file of githubrepostorag_tpu_torch (nor
-chip_smoke.py) imports jax or the JAX package.  Checked on the source's AST,
+chip_smoke.py, nor its CQL stand-in tests/torch_minicassandra.py) imports
+jax or the JAX package.  Checked on the source's AST,
 not on sys.modules: the test process itself imports jax."""
 
 from __future__ import annotations
@@ -10,7 +11,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "githubrepostorag_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+# chip_smoke.py imports tests/torch_minicassandra.py, its CQL stand-in
+PORT_FILES = sorted((ROOT / "githubrepostorag_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "tests" / "torch_minicassandra.py"]
 FORBIDDEN = ("jax", "jaxlib", "githubrepostorag_tpu")
 
 

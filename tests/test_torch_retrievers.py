@@ -250,11 +250,28 @@ def test_factory_device_index_rule(monkeypatch):
 
 
 def test_factory_backends_and_live_front(monkeypatch, tmp_path):
-    for backend in ("native", "cassandra"):
-        monkeypatch.setenv("STORE_BACKEND", backend)
-        config.reload_settings()
-        with pytest.raises(SystemExit, match="queue 1 item 4"):
-            factory.get_store(device="cpu")
+    from githubrepostorag_tpu_torch.store.cassandra import CassandraVectorStore
+    from githubrepostorag_tpu_torch.store.native import NativeVectorStore
+    from tests.torch_minicassandra import MiniCassandra
+
+    monkeypatch.setenv("DEVICE_INDEX", "off")
+    monkeypatch.setenv("STORE_BACKEND", "native")
+    config.reload_settings()
+    factory.reset_store()
+    assert type(factory.get_store(device="cpu")) is NativeVectorStore
+    factory.reset_store()
+    server = MiniCassandra()
+    monkeypatch.setenv("STORE_BACKEND", "cassandra")
+    monkeypatch.setenv("CASSANDRA_HOST", "127.0.0.1")
+    monkeypatch.setenv("CASSANDRA_PORT", str(server.start()))
+    config.reload_settings()
+    try:
+        store = factory.get_store(device="cpu")
+        assert type(store) is CassandraVectorStore and store.health()["status"] == "UP"
+    finally:
+        factory.reset_store()
+        server.stop()
+    monkeypatch.setenv("DEVICE_INDEX", "on")
     monkeypatch.setenv("STORE_BACKEND", "mystery")
     config.reload_settings()
     with pytest.raises(ValueError, match="Unknown STORE_BACKEND"):
