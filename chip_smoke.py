@@ -10,6 +10,7 @@
     python3 chip_smoke.py --only ingest    # device, build, the ingest pipeline
     python3 chip_smoke.py --only options   # device, build, the engine options in pairs
     python3 chip_smoke.py --only split     # device, build, the rag phase, the split deployment
+    python3 chip_smoke.py --only modes     # device, build, A's verify window, the engine modes
 
 Phases, each raising on failure:
 
@@ -172,6 +173,35 @@ Phases, each raising on failure:
               TTFT and device time with prefill_widths 1, 3, and 3 without
               the row floor, and the rag phase's jobs with
               PREFILL_PRIORITY off / on / on / off.
+   modes   -- after the long-context profiles: the engine's speculative and
+              host-tier modes at Qwen2-7B (random bf16 weights, 256 pages
+              of 128, 8 rows, chunk 512), each engine built by the model
+              server's build_engine from its settings and warmed up: the
+              modes traffic (5 RAG-quoting prompts of 512-2048 tokens x 32
+              tokens, then a decode wave of 8 x 64) through AsyncEngine with
+              the default engine, SPEC_NGRAM_K=4, +SPEC_BURST_ITERS=4,
+              +FUSED_STEP=1 with PREFILL_TOKEN_BUDGET=2048, the fused step
+              again with two sampled rows (temperature 0.8, top-p 0.9) over
+              bf16 and over int4 pages, and the int4 pages' gather path:
+              launches pinned (A at S = 5 in every spec run, C in the fused
+              bf16 runs, never B in a spec run), TPOT, decode tok/s, tokens
+              per main-model dispatch, proposed / accepted, a profiled
+              decode window (A's total, idle share); greedy rows against the
+              default run's, any divergence a near tie (the teacher-forced
+              logits of the two tokens within 2 D, D the run's own gap
+              between S = 1 and S = 5 logits of the same positions); float32
+              identity at 2 layers (default, spec, burst, fused: every token
+              equal); one spec burst and one fused step under
+              torch.cuda.set_sync_debug_mode("error"); the host tier (48
+              device pages, 256 host pages, four 2048-token prefixes, the
+              first faulted back in: same tokens, byte-equal pages;
+              migration and fault-in ms per page and GB/s beside a plain
+              pinned copy); preempt-to-host (two rows, 20 pages: one park,
+              one resume, no prompt token recomputed, no leak; the
+              interactive TTFT with PREEMPT off and on).  Kernel A is also
+              held at the verify window in the kernel phase (B=8, S=5, new
+              0-5, contexts to 2048, fp / int8 / int4 pages).  Prints
+              {"modes": ...}.
 6. int4    -- the same 7B tree quantized to group-wise int4 (group 64) on
               the card, layer by layer; the model checks again (prefill
               logits through kernel D, decode logits through kernel E),
@@ -183,7 +213,7 @@ Phases, each raising on failure:
               checkout of the port (copy this script there).
 7. summary -- whether transformers, prometheus_client, pydantic, psutil and
               requests import here, the retrieval, rag, engine-options,
-              ingest and split numbers, the card's name and power limit, the kernel
+              ingest, split and modes numbers, the card's name and power limit, the kernel
               list, then the result line.
 
 There is no CPU fallback: without a card the script exits non-zero.
@@ -988,6 +1018,7 @@ def phase_kernels() -> dict:
             results["fused_window_attention@S256"] = res
             results["fused_window_attention@int8@S256"] = resq
         del w256
+    results.update(verify_window_cases(rng, dev, check))
     window_rows_invariant(rng, dev)
     results["gemm_rows"] = gemm_row_invariance()
     torch.cuda.empty_cache()
@@ -1088,6 +1119,34 @@ def phase_kernels() -> dict:
         raise RuntimeError(f"kernel and plain version disagree beyond {limits}: {bad}")
     log(f"kernels agree with their plain versions element-wise within {limits}")
     return results
+
+
+def verify_window_cases(rng, dev, check) -> dict:
+    """Kernel A at the speculative verify window: B=8 rows, S = k+1 = 5,
+    28/4 heads, hd 128, 128-key pages, contexts to 2048; new tokens 5, 5,
+    4, 3, 2 and 1 (short or no drafts), 0 on a row at its page limit
+    (cached 2000) and 0 on a bucket padding row (no key, a zero block
+    table: its output must be exactly 0).  fp, int8 and int4 pools, float32
+    for the tight limit, bf16 timed against its bound and SDPA."""
+    import torch
+
+    out = {}
+    cached, new = [2043, 1500, 777, 128, 64, 1, 2000, 0], [5, 5, 4, 3, 2, 1, 0, 0]
+    for dtype in (torch.float32, torch.bfloat16):
+        case = kernel_a_case(rng, dev, 8, 5, 28, 4, 128, 128, cached=cached, new=new,
+                             dtype=dtype)
+        timed, name = dtype == torch.bfloat16, str(dtype)[6:]
+        for quant, key in ((0, "fused_window_attention@S5"),
+                           (8, "fused_window_attention@int8@S5"),
+                           (4, "fused_window_attention@int4@S5")):
+            qcase = case if quant == 0 else quantized_case(case, quant)
+            label = "" if quant == 0 else f" int{quant}"
+            res = check(f"kernel A{label} verify window B=8 S=5 new 0..5 ctx<=2048 {name}",
+                        measure_kernel_a(qcase, timed))
+            if timed:
+                out[key] = res
+        del case
+    return out
 
 
 def phase_dispatcher() -> dict:
@@ -4848,10 +4907,664 @@ def phase_options(cfg, params, index, enc) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ modes --
+
+# the engine modes of the modes phase, as the model server's settings
+MODE_RUNS = (
+    ("default", {}),
+    ("spec", {"SPEC_NGRAM_K": "4"}),
+    ("burst", {"SPEC_NGRAM_K": "4", "SPEC_BURST_ITERS": "4"}),
+    ("fused", {"SPEC_NGRAM_K": "4", "SPEC_BURST_ITERS": "4", "FUSED_STEP": "1",
+               "PREFILL_TOKEN_BUDGET": "2048"}),
+)
+MODE_KEYS = ("SPEC_NGRAM_K", "SPEC_BURST_ITERS", "FUSED_STEP", "PREFILL_TOKEN_BUDGET",
+             "PREFILL_PRIORITY", "PREFILL_WIDTHS", "KV_QUANT", "KV_TIER",
+             "KV_HOST_POOL_PAGES", "PREEMPT", *ENGINE_GEOMETRY)
+
+
+def mode_settings(env: dict | None = None):
+    """The engine phase's geometry and ``env`` in the environment, every
+    other mode setting unset (its default), settings reloaded: what
+    ``python -m githubrepostorag_tpu_torch.serving`` reads."""
+    import os
+
+    from githubrepostorag_tpu_torch import config
+
+    for key in MODE_KEYS:
+        os.environ.pop(key, None)
+    os.environ.update(ENGINE_GEOMETRY)
+    os.environ.update(env or {})
+    return config.reload_settings()
+
+
+def mode_engine(cfg, params, env: dict):
+    """The model server's engine for ``env`` (``serving/__main__.build_engine``
+    over the settings), warmed up."""
+    from githubrepostorag_tpu_torch.serving.__main__ import build_engine
+
+    engine = build_engine(mode_settings(env), params, cfg, "cuda")
+    engine.warmup()
+    return engine
+
+
+def quoting_prompts(rng, vocab: int, lens: list[int], span: int = 128) -> list[list[int]]:
+    """RAG-shaped prompts (``tests/test_spec_decode.py::
+    test_rag_quoting_construction``'s idea): shuffled retrieved chunks of
+    ``span`` random tokens, then the first 8 tokens of one of them, where
+    an answer quoting that chunk begins, so the n-gram drafter finds the
+    rest of the span."""
+    out = []
+    for n in lens:
+        chunks = [rng.integers(0, vocab, span).tolist() for _ in range(max(1, n // span))]
+        body = [t for c in chunks for t in c][: n - 8]
+        out.append(body + chunks[int(rng.integers(len(chunks)))][:8])
+    return out
+
+
+def modes_traffic(cfg) -> dict:
+    """The modes phase's traffic: a 5-request wave of quoting prompts (512
+    to 2048 tokens, 32 greedy tokens each) and a decode wave of 8 x 64
+    greedy tokens over 256-token quoting prompts."""
+    rng = np.random.default_rng(SEED + 53)
+    return {"wave": quoting_prompts(rng, cfg.vocab_size, [512, 900, 1300, 2048, 700]),
+            "decode": quoting_prompts(rng, cfg.vocab_size, [256] * 8), "n_new": 32,
+            "n_decode": 64}
+
+
+def serve_modes_traffic(engine, traffic: dict, sampled: tuple[int, ...] = ()) -> dict:
+    """Serve ``traffic`` through AsyncEngine(engine), every launch count set
+    to 0 just before and read just after: the wave at once (rows in
+    ``sampled`` at temperature 0.8, top-p 0.9), then the decode wave at
+    once.  Returns the results, launches, and the engine's dispatch and
+    speculation counters over the decode wave."""
+    import torch
+
+    from githubrepostorag_tpu_torch.serving import AsyncEngine, SamplingParams
+
+    greedy = SamplingParams(temperature=0.0, max_tokens=traffic["n_new"])
+    sampled_sp = SamplingParams(temperature=0.8, top_p=0.9, max_tokens=traffic["n_new"])
+    long_greedy = SamplingParams(temperature=0.0, max_tokens=traffic["n_decode"])
+    sps = [sampled_sp if i in sampled else greedy for i in range(len(traffic["wave"]))]
+
+    def counters():
+        return (engine.step_dispatches_total, engine.spec_proposed, engine.spec_accepted,
+                engine.fused_steps_total)
+
+    async def serve():
+        aeng = AsyncEngine(engine)
+        await aeng.start()
+        try:
+            t0 = time.monotonic()
+            first = await asyncio.gather(*(aeng.generate(p, sp)
+                                           for p, sp in zip(traffic["wave"], sps)))
+            t1 = time.monotonic()
+            c0 = counters()
+            decoded = await asyncio.gather(*(aeng.generate(p, long_greedy)
+                                             for p in traffic["decode"]))
+            return first, decoded, t1 - t0, c0, counters()
+        finally:
+            await aeng.stop()
+
+    reset_launches()
+    c_start = counters()
+    first, decoded, wave_s, c0, c1 = asyncio.run(serve())
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for res in first + decoded:
+        want = traffic["n_decode"] if res in decoded else traffic["n_new"]
+        if res.finish_reason != "length" or len(res.output_tokens) != want:
+            raise RuntimeError(f"{res.request_id}: {res.finish_reason} after "
+                               f"{len(res.output_tokens)} tokens ({res.error})")
+        if not all(0 <= t < engine.cfg.vocab_size for t in res.output_tokens):
+            raise RuntimeError(f"{res.request_id}: token outside the vocabulary")
+    if engine._allocator.free_count != engine._allocator.num_pages:
+        raise RuntimeError("pages leaked after the modes traffic")
+    first_tok = max(r.timings["first_token_t"] for r in decoded)
+    done = max(r.timings["done_t"] for r in decoded)
+    decode_tokens = sum(len(r.output_tokens) - 1 for r in decoded)
+    dispatches = c1[0] - c0[0]
+    return {
+        "results": first + decoded, "greedy_rows": [i for i in range(len(first + decoded))
+                                                    if i not in sampled],
+        "launches": launches, "wave_wall_s": wave_s,
+        "ttft_p50_s": sorted(r.ttft_s for r in first)[len(first) // 2],
+        "decode_tok_s": decode_tokens / (done - first_tok),
+        "tpot_ms_p50": 1e3 * sorted(r.decode_time_s / (len(r.output_tokens) - 1)
+                                    for r in decoded)[len(decoded) // 2],
+        "decode_dispatches": dispatches,
+        "tokens_per_dispatch": sum(len(r.output_tokens) for r in decoded) / max(1, dispatches),
+        "spec_proposed": c1[1] - c_start[1], "spec_accepted": c1[2] - c_start[2],
+        "decode_proposed": c1[1] - c0[1], "decode_accepted": c1[2] - c0[2],
+        "fused_steps": c1[3] - c_start[3],
+        "a_launches_per_token": 0.0,  # filled below
+    }
+
+
+def pin_mode_launches(label: str, n: dict, required: tuple[str, ...],
+                      absent: tuple[str, ...]) -> None:
+    for name in required:
+        if n.get(name, 0) <= 0:
+            raise RuntimeError(f"{name} never launched on the {label} path")
+    for name in absent:
+        if n.get(name, 0) != 0:
+            raise RuntimeError(f"{name} launched {n[name]} times on the {label} path, "
+                               "which never reaches it")
+
+
+def teacher_logits(params, cfg, rows: list[tuple[list[int], list[int]]], widths: tuple[int, ...],
+                   n_rows: int = 8, device: str = "cuda") -> list:
+    """Teacher-forced logits of each row's output positions, one float32
+    tensor [len(rows), n_out, V] for each window width in ``widths``: every
+    row's prompt prefilled (512-token chunks, one row at a time), then the
+    rows' given outputs fed together, ``width`` tokens a row a forward,
+    padded to ``n_rows`` rows: the GEMM shape of the path compared (8 rows
+    x 1 token is the decode burst's, 8 x 5 a verify window's).  Every width
+    starts from the same prefix K/V and rewrites the output positions'."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models.qwen2 import forward_paged
+    from githubrepostorag_tpu_torch.serving.kv_cache import make_page_pools
+
+    ps, dev = 128, torch.device(device)
+    n_out = len(rows[0][1])
+    per_row = max(-(-(len(p) + len(o)) // ps) for p, o in rows)
+    pools = make_page_pools(cfg, per_row * n_rows, ps, dtype=params["norm"].dtype, device=dev)
+    bt = torch.arange(per_row * n_rows, dtype=torch.int32, device=dev).reshape(n_rows, per_row)
+
+    def run(row_ids, starts, lens_new, w, logits_at=None):
+        r = len(row_ids)
+        ids = torch.zeros((r, w), dtype=torch.int32)
+        pos = torch.zeros((r, w), dtype=torch.int32)
+        for i, (toks, s0) in enumerate(zip(row_ids, starts)):
+            ids[i, : len(toks)] = torch.tensor(toks, dtype=torch.int32)
+            pos[i] = s0 + torch.arange(w, dtype=torch.int32)
+        valid = torch.arange(w)[None, :] < torch.tensor(lens_new)[:, None]
+        tbl = bt[: r].cpu()
+        slots = torch.where(valid, tbl.gather(1, (pos // ps).clamp(max=per_row - 1)) * ps + pos % ps,
+                            -1)
+        t = [x.to(dev) for x in (ids, pos, slots)]
+        return forward_paged(params, cfg, t[0], t[1], pools.k, pools.v, t[2], bt[: r],
+                             torch.tensor(starts, dtype=torch.int32, device=dev),
+                             torch.tensor(lens_new, dtype=torch.int32, device=dev),
+                             logits_at=logits_at)[0]
+
+    seqs = [p + o for p, o in rows]
+    starts = [len(p) - 1 for p, _ in rows]
+    for i, (p, _) in enumerate(rows):  # each prompt but its last token
+        for c in range(0, starts[i], 512):
+            n = min(512, starts[i] - c)
+            toks = [[]] * i + [p[c: c + n]]
+            run(toks, [0] * i + [c], [0] * i + [n], 512,
+                torch.tensor([0] * i + [n - 1], dtype=torch.int32, device=dev))
+    pad = n_rows - len(rows)
+    out = []
+    for w in widths:
+        chunks = []
+        for t in range(0, n_out, w):
+            n = min(w, n_out - t)
+            logits = run([seq[s0 + t: s0 + t + n] for seq, s0 in zip(seqs, starts)] + [[]] * pad,
+                         [s0 + t for s0 in starts] + [0] * pad, [n] * len(rows) + [0] * pad, w)
+            chunks.append(logits[: len(rows), :n].float())
+        out.append(torch.cat(chunks, dim=1))
+    del pools
+    return out
+
+
+def check_bf16_divergence(params, cfg, groups: list[list[int]], prompts: list[list[int]],
+                          plain: list[list[int]], runs: dict, device: str = "cuda") -> dict:
+    """Greedy rows of each bf16 spec run against the default run's.  Where
+    a row's tokens first differ, at position p, the divergence must be a
+    near tie.  The default run's outputs are teacher-forced per group of
+    rows that decoded together (``groups``: the wave, the decode wave),
+    once through 8 x 1-token windows (the decode burst's GEMM rows) and
+    once through 8 x 5-token windows (a verify window's); D is the largest
+    gap between the two logits of any output position of the row up to
+    p.  If each path's logits lie within D of the other's, two different
+    argmaxes are at most 2 D apart: the teacher-forced logits of the two
+    tokens at p must be within 2 D."""
+    import torch
+
+    out = {"rows_compared": 0, "divergent": [], "largest_bound": None}
+    forced: dict = {}
+    for name, rows in runs.items():
+        for i, other in rows.items():
+            out["rows_compared"] += 1
+            ref = plain[i]
+            p = next((j for j, (x, y) in enumerate(zip(ref, other)) if x != y), None)
+            if p is None:
+                continue
+            group = next(g for g in groups if i in g)
+            if group[0] not in forced:
+                l1, l5 = teacher_logits(params, cfg, [(prompts[j], plain[j]) for j in group],
+                                        (1, 5), device=device)
+                forced[group[0]] = (l1, (l1 - l5).abs().amax(dim=-1), l5.argmax(dim=-1))
+                del l5
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+            l1, d, arg5 = forced[group[0]]
+            k = group.index(i)
+            bound = 2 * float(d[k, : p + 1].max())
+            a, b = ref[p], other[p]
+            gap = float((l1[k, p, a] - l1[k, p, b]).abs())
+            top2 = torch.topk(l1[k, p], 2).values
+            entry = {"run": name, "row": i, "position": p, "tokens": [a, b],
+                     "logit_gap": gap, "bound_2D": bound,
+                     "top1_top2_margin": float(top2[0] - top2[1]),
+                     "forced_s1_argmax": int(l1[k, p].argmax()), "forced_s5_argmax": int(arg5[k, p])}
+            out["divergent"].append(entry)
+            if gap > bound:
+                raise RuntimeError(f"bf16 {name} row {i} diverges from the default run at "
+                                   f"token {p} where the logit gap {gap:.4f} exceeds the "
+                                   f"bound 2D = {bound:.4f}: not a near tie ({entry})")
+    if out["divergent"]:
+        out["largest_bound"] = max(e["bound_2D"] for e in out["divergent"])
+        out["largest_gap"] = max(e["logit_gap"] for e in out["divergent"])
+    return out
+
+
+def narrator_params(params: dict) -> dict:
+    """The JAX package's quoting construction at Qwen2-7B's shapes
+    (``tests/test_spec_decode.py::test_rag_quoting_construction``): every
+    layer's weights zero (norms one) and an untied lm_head whose column o
+    is the embedding's row o - 1, so greedy decoding narrates t -> t + 1
+    through all 28 layers, with wide margins; the same kernels and GEMM
+    shapes run as with random weights."""
+    import torch
+
+    layers = {k: (v if k in ("ln1", "ln2") else torch.zeros_like(v))
+              for k, v in params["layers"].items()}
+    return {**params, "layers": layers,
+            "lm_head": torch.roll(params["embed"], 1, dims=0).t().contiguous()}
+
+
+def narrator_traffic(cfg) -> dict:
+    """Prompts of shuffled consecutive-token chunks ending with one chunk's
+    first token: the narrator continues that chunk, the bigram drafter
+    finds it in the prompt, and drafts are accepted up to the chunk's end
+    (partial acceptance).  5 x 32 tokens, then 8 x 64."""
+    rng = np.random.default_rng(SEED + 67)
+
+    def prompt(span: int, n_chunks: int) -> list[int]:
+        s0 = int(rng.integers(0, cfg.vocab_size - span * n_chunks))
+        chunks = [list(range(s0 + span * j, s0 + span * (j + 1))) for j in range(n_chunks)]
+        return [t for j in rng.permutation(n_chunks) for t in chunks[j]] + [s0]
+
+    return {"wave": [prompt(48, 8) for _ in range(5)], "decode": [prompt(64, 4) for _ in range(8)],
+            "n_new": 32, "n_decode": 64}
+
+
+def sync_free_bursts(engine, traffic: dict) -> dict:
+    """One spec burst and one fused step (with a packed prefill phase) on
+    the engine's rows with ``torch.cuda.set_sync_debug_mode("error")``:
+    any host sync inside raises.  The inputs are made before; the rows are
+    cancelled after (the bursts' KV writes past the rows' lengths are
+    overwritten by later tokens)."""
+    import torch
+
+    from githubrepostorag_tpu_torch.serving import SamplingParams
+    from githubrepostorag_tpu_torch.serving.fused_step import fused_step_burst
+    from githubrepostorag_tpu_torch.serving.spec_burst import spec_decode_burst
+
+    rids = [engine.add_request(p, SamplingParams(temperature=0.0, max_tokens=64))
+            for p in traffic["decode"]]
+    while any(r.state == "waiting" or r.state == "prefilling"
+              for r in engine._requests.values()):
+        engine.step()
+    running = [r for r in engine._row_req.values() if r.state == "running"]
+    w = engine._spec_window_rows(running)
+    t = engine._tensor
+    args = [t(w[k]) for k in ("hist", "hlens", "lens")]
+    rest = [t(w[k]) for k in ("bt", "limits", "active")]
+    engine._push_sampling()
+    rows = t(w["row_idx"])
+    rl = rows.long()
+    samp = [engine._temp_d[rl], engine._top_p_d[rl], engine._top_k_d[rl], engine._rep_pen_d[rl]]
+    budget = 2048
+    pf = (torch.zeros((1, budget), dtype=torch.int32, device="cuda"),
+          torch.zeros((1, budget), dtype=torch.int32, device="cuda"),
+          torch.full((budget,), -1, dtype=torch.int32, device="cuda"),
+          torch.zeros((8, engine.max_pages_per_seq), dtype=torch.int32, device="cuda"),
+          torch.zeros((8,), dtype=torch.int32, device="cuda"),
+          torch.zeros((8,), dtype=torch.int32, device="cuda"),
+          torch.full((budget,), 8, dtype=torch.int32, device="cuda"),
+          torch.zeros((8,), dtype=torch.int32, device="cuda"))
+    spec_ok = t(w["spec_ok"])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, prop, *_ = spec_decode_burst(engine.params, engine.cfg, *args, engine._k_pages,
+                                           engine._v_pages, *rest, n_iters=4, k=4)
+        ftoks, fprop, *_ = fused_step_burst(
+            engine.params, engine.cfg, *args, engine._k_pages, engine._v_pages, *rest, spec_ok,
+            rows, engine._presence, engine._gen, *samp, *pf, n_iters=4, k=4, tq=512,
+            filter_sampling=True, has_prefill=True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    block = torch.cat([toks.flatten(), ftoks.flatten()]).cpu()
+    for rid in rids:
+        engine.cancel(rid)
+    while engine.has_work():
+        engine.step()
+    if not ((block >= -1) & (block < engine.cfg.vocab_size)).all():
+        raise RuntimeError("a burst under sync-debug mode returned tokens outside the vocabulary")
+    return {"rows": len(running), "spec_burst_tokens": int((toks >= 0).sum()),
+            "fused_tokens": int((ftoks >= 0).sum()), "host_syncs": 0}
+
+
+def f32_identity(cfg, params) -> dict:
+    """Exact identity in float32: Qwen2-7B at full width cut to 2 layers,
+    float32 weights and pages (kernel A's f32 route), TF32 off; default,
+    spec, burst and fused engines on the modes traffic, every greedy token
+    equal to the default engine's."""
+    import dataclasses
+
+    import torch
+
+    from githubrepostorag_tpu_torch.serving import Engine, SamplingParams
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    p2 = upcast({**params, "layers": {k: v[:2] for k, v in params["layers"].items()}})
+    traffic = modes_traffic(cfg)
+    kw = dict(page_size=128, num_pages=256, max_num_seqs=8, prefill_chunk=512, decode_burst=8,
+              max_seq_len=11712, kv_dtype=torch.float32, device="cuda")
+    env_kw = {"default": {}, "spec": {"spec_ngram_k": 4},
+              "burst": {"spec_ngram_k": 4, "spec_burst_iters": 4},
+              "fused": {"spec_ngram_k": 4, "spec_burst_iters": 4, "fused_step": True,
+                        "prefill_token_budget": 2048}}
+    tokens, launches = {}, {}
+    for name, mode in env_kw.items():
+        engine = Engine(p2, cfg2, **kw, **mode)
+        reset_launches()
+        res = engine.generate(traffic["wave"] + traffic["decode"],
+                              SamplingParams(temperature=0.0, max_tokens=traffic["n_new"]))
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+        tokens[name] = [r.output_tokens for r in res]
+        del engine
+    for name in ("spec", "burst", "fused"):
+        diff = [i for i, (x, y) in enumerate(zip(tokens[name], tokens["default"])) if x != y]
+        if diff:
+            raise RuntimeError(f"float32 {name} rows {diff} differ from the default engine's")
+        pin_mode_launches(f"f32 {name}", launches[name], ("fused_window_attention",
+                                                          "fused_window_attention@S5"),
+                          ("paged_attention_decode_staged",))
+    out = {"rows_identical": len(tokens["default"]),
+           "tokens_each": sum(len(t) for t in tokens["default"])}
+    log(f"modes, float32 (2 layers): {json.dumps(out)}")
+    del p2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def tier_run(cfg, params) -> dict:
+    """The host KV tier at 7B: a 48-page device pool (350 MB of bf16 KV)
+    behind a 256-page host pool; four distinct 2048-token prefixes served
+    one after another (the later ones reclaim the first's pages after
+    their writeback), then the first again: it must fault in, give its
+    first serve's tokens, and its faulted pages must hold its written-back
+    bytes exactly.  Then the engine's own migration calls timed on 15
+    pages each way (device time with a sync, GB/s) beside a plain pinned
+    copy of the same bytes in the same run."""
+    import torch
+
+    from githubrepostorag_tpu_torch.ops.page_migration import gather_pages, scatter_pages
+    from githubrepostorag_tpu_torch.serving import SamplingParams
+    from githubrepostorag_tpu_torch.serving.kv_cache import page_hashes
+
+    engine = mode_engine(cfg, params, {"KV_TIER": "on", "KV_HOST_POOL_PAGES": "256",
+                                       "KV_NUM_PAGES": "48"})
+    rng = np.random.default_rng(SEED + 59)
+    prefixes = [rng.integers(0, cfg.vocab_size, 2048).tolist() for _ in range(4)]
+    sp = SamplingParams(temperature=0.0, max_tokens=32)
+    al = engine._allocator
+    # the first prefix's shareable pages: every full page but the last token's
+    hashes = page_hashes(prefixes[0], 128)[: (len(prefixes[0]) - 1) // 128]
+    first = engine.generate([prefixes[0]], sp)[0]
+    engine.flush_kv_migrations()
+    pages = [al._hash_to_page[h] for h in hashes]
+    idx = torch.tensor(pages, dtype=torch.int32, device="cuda")
+    before = [x.cpu() for x in gather_pages(engine._k_pages, engine._v_pages, idx)[:2]]
+    t0 = time.monotonic()
+    for p in prefixes[1:]:
+        engine.generate([p], sp)
+        engine.flush_kv_migrations()
+    if any(h in al._hash_to_page for h in hashes):
+        raise RuntimeError("the first prefix kept device pages after three others")
+    again = engine.generate([prefixes[0]], sp)[0]
+    torch.cuda.synchronize()
+    traffic_s = time.monotonic() - t0
+    if again.faulted_pages <= 0:
+        raise RuntimeError("the evicted prefix did not fault in")
+    if again.output_tokens != first.output_tokens:
+        raise RuntimeError("the faulted-in prefix's tokens differ from its first serve's")
+    pages2 = [al._hash_to_page[h] for h in hashes]
+    after = [x.cpu() for x in gather_pages(engine._k_pages, engine._v_pages,
+                                           torch.tensor(pages2, dtype=torch.int32,
+                                                        device="cuda"))[:2]]
+    if not all(torch.equal(a, b) for a, b in zip(before, after)):
+        raise RuntimeError("round-tripped KV pages are not byte-equal")
+    if al.free_count != al.num_pages:
+        raise RuntimeError("pages leaked after the tier run")
+
+    # the migration calls alone, 15 pages each way, and a plain pinned copy
+    n = len(hashes)
+    idx = torch.tensor(pages2, dtype=torch.int32, device="cuda")  # written back as read
+    page_bytes = 2 * engine._k_pages[:, :, 0].numel() * engine._k_pages.element_size()
+    times = {"writeback": [], "fault_in": [], "pinned_d2h": [], "pinned_h2d": []}
+    flat = torch.empty(n * page_bytes // 2, dtype=torch.bfloat16, device="cuda")
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    vals = None
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        bufs = gather_pages(engine._k_pages, engine._v_pages, idx)
+        hb, ev = engine._to_host(bufs)
+        ev.synchronize()
+        times["writeback"].append(time.perf_counter() - t)
+        vals = hb
+        t = time.perf_counter()
+        dev = [x.to("cuda", non_blocking=True) for x in vals[:2]]
+        scatter_pages(engine._k_pages, engine._v_pages, idx, dev[0], v_vals=dev[1])
+        torch.cuda.synchronize()
+        times["fault_in"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        host.copy_(flat, non_blocking=True)
+        torch.cuda.synchronize()
+        times["pinned_d2h"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        flat.copy_(host, non_blocking=True)
+        torch.cuda.synchronize()
+        times["pinned_h2d"].append(time.perf_counter() - t)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    out = {
+        "device_pages": al.num_pages, "host_pool_pages": al.host_pool_pages,
+        "prefix_pages": n, "faulted_pages": again.faulted_pages,
+        "writebacks": al.writebacks, "tier_drops": al.tier_drops, "fault_ins": al.fault_ins,
+        "kv_migrations": engine.kv_migrations, "kv_fault_dispatches": engine.kv_fault_dispatches,
+        "migration_host_s": engine.migration_seconds_total,
+        "fault_in_host_s": engine.fault_in_seconds_total, "traffic_s": traffic_s,
+        "tokens_equal_first_serve": True, "pages_byte_equal": n,
+        "page_mb": page_bytes / 2 ** 20,
+        **{f"{k}_ms_per_page": 1e3 * v / n for k, v in med.items()},
+        **{f"{k}_gb_s": n * page_bytes / v / 1e9 for k, v in med.items()},
+    }
+    log(f"modes, host tier: {json.dumps(out)}")
+    del engine, vals, host, flat
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def preempt_run(cfg, params) -> dict:
+    """Preempt-to-host at 7B: two rows (MAX_NUM_SEQS=2) over a 20-page
+    device pool; two batch requests (1024-token prompts, 96 tokens) fill
+    it, then an interactive one (512 tokens, 16) arrives.  With PREEMPT=on
+    exactly one batch row parks and resumes with no prompt token
+    recomputed and no page leaked; its TTFT beside the same traffic with
+    PREEMPT=off, where it waits for a row."""
+    import torch
+
+    from githubrepostorag_tpu_torch.serving import SamplingParams
+
+    rng = np.random.default_rng(SEED + 61)
+    batch = [rng.integers(0, cfg.vocab_size, 1024).tolist() for _ in range(2)]
+    hot = rng.integers(0, cfg.vocab_size, 512).tolist()
+    out = {}
+    for preempt in ("off", "on"):
+        engine = mode_engine(cfg, params, {"KV_TIER": "on", "KV_HOST_POOL_PAGES": "256",
+                                           "KV_NUM_PAGES": "20", "MAX_NUM_SEQS": "2",
+                                           "PREEMPT": preempt})
+        results = []
+        rids = [engine.add_request(p, SamplingParams(temperature=0.0, max_tokens=96),
+                                   priority="batch") for p in batch]
+        while engine.num_running < 2 or any(r.state != "running"
+                                            for r in engine._row_req.values()):
+            results += engine.step()
+        results += engine.step()
+        hot_id = engine.add_request(hot, SamplingParams(temperature=0.0, max_tokens=16))
+        steps = 0
+        while engine.has_work():
+            results += engine.step()
+            steps += 1
+            if steps > 2000:
+                raise RuntimeError("preempt run wedged")
+        engine.flush_kv_migrations()
+        torch.cuda.synchronize()
+        by_id = {r.request_id: r for r in results}
+        if any(by_id[r].finish_reason != "length" for r in rids + [hot_id]):
+            raise RuntimeError(f"preempt={preempt}: a request did not finish by length")
+        if engine._allocator.free_count != engine._allocator.num_pages:
+            raise RuntimeError(f"preempt={preempt}: pages leaked")
+        out[preempt] = {
+            "hot_ttft_s": by_id[hot_id].ttft_s,
+            "batch_tokens": [by_id[r].output_tokens for r in rids],
+            "preemptions": engine.preemptions, "preempt_resumes": engine.preempt_resumes,
+            "preempted_pages": engine.preempted_pages,
+            "resume_faulted_pages": engine.resume_faulted_pages,
+            "resume_recomputed_tokens": engine.resume_recomputed_tokens,
+            "resume_recomputed_prompt_tokens": engine.resume_recomputed_prompt_tokens,
+            "parked": [by_id[r].preempted for r in rids],
+        }
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    on = out["on"]
+    if on["preemptions"] != 1 or on["preempt_resumes"] != 1:
+        raise RuntimeError(f"preempt run: {on['preemptions']} parks, {on['preempt_resumes']} "
+                           "resumes; expected one of each")
+    if on["resume_recomputed_prompt_tokens"] != 0:
+        raise RuntimeError("the resumed victim recomputed prompt tokens")
+    if out["off"]["preemptions"] != 0:
+        raise RuntimeError("PREEMPT=off parked a request")
+    res = {"hot_ttft_s_preempt_off": out["off"]["hot_ttft_s"],
+           "hot_ttft_s_preempt_on": on["hot_ttft_s"],
+           "batch_rows_equal_unpreempted": sum(a == b for a, b in zip(
+               on["batch_tokens"], out["off"]["batch_tokens"])),
+           **{k: v for k, v in on.items() if k != "batch_tokens"}}
+    log(f"modes, preempt: {json.dumps(res)}")
+    return res
+
+
+def phase_modes(cfg, params) -> dict:
+    """The engine's speculative and host-tier modes at Qwen2-7B (random
+    bf16 weights), each engine built by the model server's ``build_engine``
+    from its settings: default, SPEC_NGRAM_K=4, +SPEC_BURST_ITERS=4,
+    +FUSED_STEP=1 with PREFILL_TOKEN_BUDGET=2048 on the modes traffic (bf16
+    pages), then the fused step and the gather path over int4 pages (two
+    sampled rows in the fused runs); launches pinned (A at S = 5, C in the
+    fused bf16 run, never B in a spec run); bf16 divergences only at near
+    ties; float32 identity at 2 layers; one burst and one fused step with no
+    host sync; the host tier and preempt-to-host runs."""
+    import torch
+
+    from githubrepostorag_tpu_torch.serving import SamplingParams
+
+    a, b, c = "fused_window_attention", "paged_attention_decode_staged", "packed_prefill_attention_seg"
+    t_phase = time.monotonic()
+    traffic = modes_traffic(cfg)
+    prompts = traffic["wave"] + traffic["decode"]
+    runs, tokens = {}, {}
+    # the fused runs carry two sampled rows of the wave
+    plan = [(name, env, (1, 3) if name == "fused" else (), params, traffic)
+            for name, env in MODE_RUNS] + [
+        ("fused_int4", {**MODE_RUNS[3][1], "KV_QUANT": "int4"}, (1, 3), params, traffic),
+        ("default_int4", {"KV_QUANT": "int4"}, (), params, traffic)]
+    narr, narr_traffic = narrator_params(params), narrator_traffic(cfg)
+    plan += [(f"quoting_{name}", env, (), narr, narr_traffic)
+             for name, env in MODE_RUNS if name in ("default", "burst", "fused")]
+    sync_check = None
+    for name, env, sampled, tree, tr in plan:
+        t0 = time.monotonic()
+        engine = mode_engine(cfg, tree, env)
+        warm_s = time.monotonic() - t0
+        run = serve_modes_traffic(engine, tr, sampled)
+        n = run["launches"]
+        spec = "SPEC_NGRAM_K" in env
+        if not spec:
+            pin_mode_launches(name, n, (a,), ())
+        else:
+            pin_mode_launches(name, n, (a, a + "@S5"), (b,))
+        if name == "default":
+            pin_mode_launches(name, n, (b,), ())
+        if name == "fused":
+            pin_mode_launches(name, n, (c,), ())
+        if "int4" in name:
+            pin_mode_launches(name, n, (a + "@int4",), (b, c))
+        run["a_launches_per_token"] = n.get(a, 0) / max(1, sum(
+            len(r.output_tokens) for r in run["results"]))
+        if name in ("default", "spec", "burst", "fused", "fused_int4", "quoting_burst"):
+            run["profile"] = profile_decode(engine, tr["decode"],
+                                            SamplingParams(temperature=0.0, max_tokens=17))
+        if name == "burst":
+            sync_check = sync_free_bursts(engine, traffic)
+        tokens[name] = {i: run["results"][i].output_tokens for i in run["greedy_rows"]}
+        run["warmup_s"] = warm_s
+        run["seconds"] = time.monotonic() - t0
+        run["launches"] = {k: v for k, v in n.items() if v}
+        del run["results"]
+        runs[name] = run
+        log(f"modes, {name}: {json.dumps({k: v for k, v in run.items() if k != 'greedy_rows'})}")
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    del narr
+    gc.collect()
+    torch.cuda.empty_cache()
+    quoting = {k: tokens[f"quoting_{k}"] for k in ("default", "burst", "fused")}
+    if not quoting["burst"] == quoting["fused"] == quoting["default"]:
+        raise RuntimeError("the quoting model's greedy tokens differ between the default, "
+                           "burst and fused engines")
+    for k in ("quoting_burst", "quoting_fused"):
+        if runs[k]["spec_accepted"] <= 0:
+            raise RuntimeError(f"{k}: no draft accepted on the quoting traffic")
+    plain = tokens["default"]
+    n_wave = len(traffic["wave"])
+    groups = [list(range(n_wave)), list(range(n_wave, len(prompts)))]
+    divergence = check_bf16_divergence(
+        params, cfg, groups, prompts, plain, {k: tokens[k] for k in ("spec", "burst", "fused")})
+    log(f"modes, bf16 divergence: {json.dumps(divergence)}")
+    out = {"runs": {k: {kk: vv for kk, vv in v.items() if kk != "greedy_rows"}
+                    for k, v in runs.items()},
+           "bf16_divergence": divergence, "sync_free_bursts": sync_check,
+           "identical_to_default": {k: sum(tokens[k][i] == plain[i] for i in tokens[k])
+                                    for k in ("spec", "burst", "fused")},
+           "quoting_rows_identical": len(quoting["default"]),
+           "int4_fused_vs_gather_tpot_ms": [runs["fused_int4"]["tpot_ms_p50"],
+                                            runs["default_int4"]["tpot_ms_p50"]]}
+    out["f32"] = f32_identity(cfg, params)
+    out["tier"] = tier_run(cfg, params)
+    out["preempt"] = preempt_run(cfg, params)
+    mode_settings()
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"modes phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["kernels", "longctx", "int4", "retrieval", "rag",
-                                           "ingest", "options", "split"],
+                                           "ingest", "options", "split", "modes"],
                         default=None,
                         help="kernels: the device, build and kernel phases only; longctx: "
                              "the device and build phases and the long-context decode "
@@ -4864,7 +5577,9 @@ def main() -> int:
                              "build phases and the engine options measured in pairs "
                              "(long-context profiles, rag jobs); split: the device and build "
                              "phases, the rag phase and the split deployment (API pod, "
-                             "Redis, Cassandra, the worker pod, the native store)")
+                             "Redis, Cassandra, the worker pod, the native store); modes: "
+                             "the device and build phases, kernel A at the verify window "
+                             "and the engine modes phase")
     args = parser.parse_args()
 
     import torch
@@ -4907,6 +5622,25 @@ def main() -> int:
         log(f"done in {time.monotonic() - t_all:.1f} s")
         print(json.dumps({"rag": rag}))
         print(json.dumps({"split": split}))
+        print(device["card"])
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
+                                                 "count": device["count"]}}), flush=True)
+        return 0
+    if args.only == "modes":
+        checks = []
+        def check(label, res):
+            checks.append((label, res))
+            log(f"{label}: {json.dumps(res)}")
+            return res
+
+        verify = verify_window_cases(np.random.default_rng(SEED), torch.device("cuda"), check)
+        if any(r["limit_share"] > 1.0 for _, r in checks):
+            raise RuntimeError("kernel A disagrees with its plain version at the verify window")
+        cfg, params = make_7b_params()
+        modes = phase_modes(cfg, params)
+        log(f"done in {time.monotonic() - t_all:.1f} s")
+        print(json.dumps({"kernel_a_verify_window": verify}))
+        print(json.dumps({"modes": modes}))
         print(device["card"])
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                                  "count": device["count"]}}), flush=True)
@@ -4995,6 +5729,9 @@ def main() -> int:
     longctx = {"bf16": phase_longctx(cfg, params, "bf16"),
                "kv8": phase_longctx(cfg, params, "kv int8", kv_quant=8)}
     log(f"long-context decode profiles: {json.dumps(longctx)}")
+    modes = phase_modes(cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
     qparams = quantize_7b(params)
     del params  # the bf16 tree and engines are gone before the int4 phases
     gc.collect()
@@ -5051,6 +5788,15 @@ def main() -> int:
                 for pool, run, key in (("fp", "bf16", a + "@longctx"),
                                        ("int8", "kv8", a + "@int8@longctx"),
                                        ("fp_window512", "bf16", a + "@longctx512"))}
+            # the speculative verify window (S = k+1 = 5), alone, and its
+            # launches per committed token in the modes runs
+            entry["verify_window"] = {pool: {k: kres[key][k] for k in keys + ("host_us",)}
+                                      for pool, key in (("fp", a + "@S5"),
+                                                        ("int8", a + "@int8@S5"),
+                                                        ("int4", a + "@int4@S5"))}
+            entry["verify_window"]["launches_per_token"] = {
+                run: modes["runs"][run]["a_launches_per_token"]
+                for run in ("default", "spec", "burst", "fused", "fused_int4")}
         if name in ("paged_attention_decode_staged", "paged_attention_decode"):
             # the split of the timed cases: 4 kv heads, 64 pages of 128 keys
             entry["plan"] = {f"B={bb}": _plan_decode(bb, 4, 64, 128, n_sm)._asdict()
@@ -5067,6 +5813,7 @@ def main() -> int:
     print(json.dumps({"engine_options": options}))
     print(json.dumps({"ingest": runs["ingest"]}))
     print(json.dumps({"split": runs["split"]}))
+    print(json.dumps({"modes": modes}))
     print(device["card"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],

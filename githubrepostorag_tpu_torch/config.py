@@ -15,9 +15,10 @@ the log format) and ``ingest/`` (GitHub, branch and collection, DEV_MODE,
 the Pushgateway, ``EXTENSION_TO_LANGUAGE``).  Each reads the same environment variable, with the same
 default and parser, as the JAX package's field of the same name, so a pod
 spec carries over unchanged.  The settings of modes the port does not run
-yet (host tier, preemption, speculation, the fused step, meshes) are kept:
-setting one reaches ``Engine``, which refuses it, or ``__main__``, which
-exits naming the roadmap item that brings it.  ``SP_PREFILL_THRESHOLD``
+yet (draft-model speculation and its controller's tuning, the
+sequence-parallel ring, meshes) are kept: setting one reaches ``Engine``,
+which refuses it, or ``__main__``, which exits naming the roadmap item
+that brings it.  ``SP_PREFILL_THRESHOLD``
 means nothing on one card (the JAX server resolves it to off there) and
 comes with the sequence-parallel layer.
 """
@@ -182,12 +183,12 @@ class Settings:
     # --- priority classes ---
     # SLO class stamped on requests that arrive unlabeled
     priority_default_class: str = _env("PRIORITY_DEFAULT_CLASS", "interactive")
-    # the class headroom reservations and preemption act for: a tuning of
-    # those modes, so Engine takes only the default until they are ported
+    # the class headroom reservations and preemption act for
     priority_protected_class: str = _env("PRIORITY_PROTECTED_CLASS", "interactive")
 
-    # --- modes the port does not run yet: Engine refuses them when on, and
-    # their tuning when not at its default ---
+    # --- engine modes; Engine refuses the sequence-parallel ring's and the
+    # draft controller's tuning (SP_RING_*, SPEC_K, SPEC_ITERS, SPEC_ACCEPT_*,
+    # SPEC_DEADLINE_*) away from its default ---
     prefill_widths: int = _int("PREFILL_WIDTHS", 1)
     prefill_priority: bool = _bool("PREFILL_PRIORITY", False)
     sp_ring_pack: bool = _bool("SP_RING_PACK", True)

@@ -9,10 +9,11 @@ for ``GET /metrics``, the families and samples ``prometheus_client``
 writes for the same series (its ``_created`` samples left out).  The series
 are the ones the port's layers touch -- the API, worker, resilience,
 LLM and retrieval series -- with the JAX package's names, label names,
-help text and buckets.  The engine-owned series (TTFT, decode tokens,
-SLO, KV tier, fleet) come with the observability slice (ROADMAP queue 1
-item 6); of those only the two that ``MeteredLLM`` observes with
-``replica="api"`` are here.  ``counter_value`` and ``histogram_stats``
+help text and buckets.  Of the engine-owned series, the speculative,
+preemption and KV-tier ones are here (``serving/async_engine.py`` exports
+them), and the two that ``MeteredLLM`` observes with ``replica="api"``;
+the others (the engine's TTFT and decode tokens, SLO, fleet) come with
+the observability slice (ROADMAP queue 1 item 6).  ``counter_value`` and ``histogram_stats``
 read the series back (tests, the health report, the chip script).
 """
 
@@ -311,6 +312,89 @@ TTFT = Histogram(
     buckets=(0.1, 0.25, 0.5, 1.0, 1.5, 2.0, 3.0, 5.0, 10.0),
 )
 DECODE_TOKENS = Counter("rag_decode_tokens_total", "Generated tokens", ["replica"])
+# the engine's speculative, preemption and host-tier series, exported by
+# serving/async_engine.py after each step
+SPEC_PROPOSED = Counter(
+    "rag_spec_draft_tokens_total", "Speculative draft tokens proposed", ["replica"])
+SPEC_ACCEPTED = Counter(
+    "rag_spec_accepted_tokens_total",
+    "Speculative draft tokens the model accepted and committed",
+    ["replica"],
+)
+SPEC_PROPOSED_TOTAL = Counter(
+    "rag_spec_proposed_total",
+    "Draft tokens proposed by the speculative decoder (n-gram or draft model)",
+    ["replica"],
+)
+SPEC_ACCEPTED_TOTAL = Counter(
+    "rag_spec_accepted_total",
+    "Proposed draft tokens the target model accepted and committed",
+    ["replica"],
+)
+SPEC_FALLBACKS = Counter(
+    "rag_spec_fallbacks_total",
+    "Requests the adaptive controller demoted from speculative to plain "
+    "decode, by reason (acceptance collapse / deadline pressure)",
+    ["replica", "reason"],
+)
+SPEC_ACCEPTANCE = Histogram(
+    "rag_spec_acceptance_ratio",
+    "Per-request draft acceptance ratio (accepted / proposed) at completion",
+    ["replica"],
+    buckets=(0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9, 1.0),
+)
+ENGINE_PREEMPTIONS = Counter(
+    "rag_engine_preemptions_total",
+    "Batch-class victims parked to the KV host tier so protected-class "
+    "admission could proceed (serving/engine.py preempt-to-host)",
+    ["replica"],
+)
+ENGINE_PREEMPT_RESUMES = Counter(
+    "rag_engine_preempt_resumes_total",
+    "Parked victims re-admitted via prefix share + fault-in (decode "
+    "continues token-identically, no recomputed prompt prefill)",
+    ["replica"],
+)
+KV_TIER_DEVICE_PAGES = Gauge(
+    "rag_kv_tier_device_free_pages",
+    "Allocatable device KV pages (free list + evictable cached pages)",
+    ["replica"],
+)
+KV_TIER_HOST_PAGES = Gauge(
+    "rag_kv_tier_host_pages",
+    "KV pages resident in the host-RAM swap tier (by chain hash)",
+    ["replica"],
+)
+KV_FAULT_INS = Counter(
+    "rag_kv_tier_fault_ins_total",
+    "Prefix pages re-admitted host->device instead of recomputed",
+    ["replica"],
+)
+KV_WRITEBACKS = Counter(
+    "rag_kv_tier_writebacks_total",
+    "Cold device pages saved device->host at step boundaries",
+    ["replica"],
+)
+KV_DEDUP_HITS = Counter(
+    "rag_kv_tier_dedup_hits_total",
+    "share() hits on pages other concurrent requests actively hold "
+    "(cross-user prefix-page dedup)",
+    ["replica"],
+)
+KV_DEDUP_HOLDS = Counter(
+    "rag_kv_tier_dedup_holds_total",
+    "Admissions held one registration for an identical prefix mid-prefill "
+    "instead of duplicating its footprint",
+    ["replica"],
+)
+KV_MIGRATION_SECONDS = Histogram(
+    "rag_kv_tier_migration_seconds",
+    "Per-step host time spent planning/dispatching/landing page migration "
+    "(writeback gathers + fault-in scatters)",
+    ["replica"],
+    buckets=(0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+             0.05, 0.1),
+)
 WORKER_DEQUEUE_ERRORS = Counter(
     "rag_worker_dequeue_errors_total",
     "queue.dequeue() failures survived by the worker's backoff loop",

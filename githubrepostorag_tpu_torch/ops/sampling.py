@@ -19,6 +19,19 @@ import torch
 NEG_INF = -1e30
 
 
+def _segment_logits(logits: torch.Tensor, seg_pos=None) -> torch.Tensor:
+    """Take the fused window layout [B, S, V] directly: ``seg_pos`` ([B]
+    int) gathers each row's window position on the device (None: position
+    0, the committed token of a verify or decode window).  Rank-2 logits
+    pass through untouched."""
+    if logits.dim() == 2:
+        return logits
+    if seg_pos is None:
+        return logits[:, 0]
+    idx = seg_pos.long()[:, None, None].expand(-1, 1, logits.shape[-1])
+    return torch.gather(logits, 1, idx)[:, 0]
+
+
 def apply_repetition_penalty(logits: torch.Tensor, presence: torch.Tensor, penalty):
     """HF/vLLM convention: divide positive logits by the penalty, multiply
     negative ones, for every token already seen.  ``presence`` [B, V] bool."""
@@ -62,9 +75,11 @@ def _categorical(logits: torch.Tensor, generator: torch.Generator) -> torch.Tens
 
 def sample_tokens(logits, generator, temperature, top_p, top_k, repetition_penalty,
                   presence) -> torch.Tensor:
-    """logits [B, V] float32; per-row params [B]; presence [B, V] bool.
-    Returns [B] int32: the exact argmax where temperature <= 0, else a draw
-    from the top-k- and top-p-filtered distribution."""
+    """logits [B, V] float32 (or a [B, S, V] window: position 0); per-row
+    params [B]; presence [B, V] bool.  Returns [B] int32: the exact argmax
+    where temperature <= 0, else a draw from the top-k- and
+    top-p-filtered distribution."""
+    logits = _segment_logits(logits)
     logits = apply_repetition_penalty(logits, presence, repetition_penalty[:, None])
     greedy = torch.argmax(logits, dim=-1)
     scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
@@ -74,10 +89,14 @@ def sample_tokens(logits, generator, temperature, top_p, top_k, repetition_penal
 
 
 def sample_tokens_capped(logits, generator, temperature, top_p, top_k,
-                         repetition_penalty, presence, cap: int = 128) -> torch.Tensor:
+                         repetition_penalty, presence, cap: int = 128,
+                         seg_pos=None) -> torch.Tensor:
     """Decode-loop sampler: ``sample_tokens`` semantics with top-k/top-p
     applied within the ``cap`` highest logits, taken by an exact
-    ``torch.topk`` (the JAX package's SAMPLING_EXACT_TOPK=1 path)."""
+    ``torch.topk`` (the JAX package's SAMPLING_EXACT_TOPK=1 path).
+    ``logits`` [B, V], or a [B, S, V] window read at ``seg_pos`` ([B]
+    window position per row; None: position 0)."""
+    logits = _segment_logits(logits, seg_pos)
     logits = apply_repetition_penalty(logits, presence, repetition_penalty[:, None])
     greedy = torch.argmax(logits, dim=-1)
     scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]
@@ -96,9 +115,11 @@ def sample_tokens_capped(logits, generator, temperature, top_p, top_k,
 
 
 def sample_tokens_nofilter(logits, generator, temperature, repetition_penalty,
-                           presence) -> torch.Tensor:
+                           presence, seg_pos=None) -> torch.Tensor:
     """Fast path for rows with top_p >= 1 and top_k <= 0: one draw over the
-    full vocab, no candidate sort."""
+    full vocab, no candidate sort.  ``logits`` as ``sample_tokens_capped``
+    takes them."""
+    logits = _segment_logits(logits, seg_pos)
     logits = apply_repetition_penalty(logits, presence, repetition_penalty[:, None])
     greedy = torch.argmax(logits, dim=-1)
     scaled = logits / torch.clamp(temperature, min=1e-6)[:, None]

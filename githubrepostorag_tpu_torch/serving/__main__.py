@@ -15,10 +15,17 @@ SIGINT.  Worker and ingest pods point ``QWEN_ENDPOINT`` here with
     python -m githubrepostorag_tpu_torch.serving --device cpu --port 8000  # plain path
 
 The server runs on the card unless ``--device cpu`` asks for the CPU.  It
-serves one card: ``MESH_SHAPE``, ``SPEC_DRAFT_MODEL`` and ``CTRL=on`` exit
-with a message naming the ROADMAP.md item that brings them, and the engine
-refuses the other modes it does not run yet when their settings turn them
-on.
+serves the engine's modes from their settings: n-gram speculation
+(``SPEC_NGRAM_K``), its on-device burst (``SPEC_BURST_ITERS``), the fused
+step (``FUSED_STEP`` with ``PREFILL_TOKEN_BUDGET``), the host KV tier
+(``KV_TIER``, ``KV_HOST_POOL_PAGES``, ``KV_MIGRATE_BURST``) and
+preempt-to-host (``PREEMPT``, ``PREEMPT_HEADROOM_PAGES``,
+``PRIORITY_PROTECTED_CLASS``), over bf16, int8 or int4 pages
+(``KV_QUANT``).  It serves one card: ``MESH_SHAPE``, ``SPEC_DRAFT_MODEL``
+and ``CTRL=on`` exit with a message naming the ROADMAP.md item that brings
+them, and the engine refuses the tuning of the modes it does not run yet
+(``SP_RING_*``, ``SPEC_K``, ``SPEC_ITERS``, ``SPEC_ACCEPT_FLOOR``,
+``SPEC_DEADLINE_MARGIN_S``) away from its default.
 """
 
 from __future__ import annotations

@@ -4,9 +4,15 @@
 A dedicated driver thread spins ``engine.step()`` while work exists
 (continuous batching); token and final events hop into per-request asyncio
 queues through ``call_soon_threadsafe``.  The device never waits on the
-event loop and the event loop never blocks on the device.  The JAX
+event loop and the event loop never blocks on the device.  After each
+step the driver turns the engine's park events into ``parked`` stream
+events (advisory: a parked request resumes token for token) and exports
+the speculative, host-tier and preemption counters to ``metrics.py``'s
+series under the replica label, as the JAX version does.  The JAX
 version's observability planes (step profiler, token ledger, SLO monitor,
-page observatory, router digest, metrics) are not ported yet.
+page observatory, router digest) are not ported yet (ROADMAP queue 1 item
+6): nothing attaches a page observer (``Engine.attach_page_observer``) or
+pushes class pressure (``Engine.set_class_pressure``) here.
 
 The engine belongs to the driver thread alone.  Submissions and
 cancellations go into an inbox that the driver applies before each step,
@@ -15,9 +21,9 @@ the loop, as the JAX version does, starves the loop under concurrent HTTP
 arrivals (the busy driver retakes the lock within one step's Python), and
 the requests then run one after another.
 
-``stats()`` returns the JAX version's key set; keys of modes the port does
-not run read 0, as the JAX version's defaults give them while the mode is
-off.  It reads the engine's counters without a lock, each read atomic
+``stats()`` returns the JAX version's key set and values; the
+sequence-parallel keys read 0, as the JAX version gives them on one chip.
+It reads the engine's counters without a lock, each read atomic
 under the interpreter lock, so a row may mix two steps' values; the JAX
 version's bounded wait and stale row need the fleet controller's stats
 timeout, a setting the port does not have yet.
@@ -41,14 +47,15 @@ logger = logging.getLogger(__name__)
 
 @dataclass
 class StreamEvent:
-    type: str  # "token" | "final"
+    type: str  # "token" | "parked" | "final"
     token_id: int | None = None
     result: GenerationResult | None = None
 
 
 class AsyncEngine:
-    def __init__(self, engine: Engine) -> None:
+    def __init__(self, engine: Engine, replica: str = "r0") -> None:
         self.engine = engine  # driven by the driver thread alone
+        self.replica = replica  # the metrics' replica label
         # (request id, operation) the driver applies before its next step
         self._inbox: deque[tuple[str, Callable[[], None]]] = deque()
         self._wake = threading.Event()
@@ -75,6 +82,7 @@ class AsyncEngine:
             await asyncio.get_running_loop().run_in_executor(None, thread.join, 30)
 
     def _drive(self) -> None:
+        self._export = _CounterExport(self.engine, self.replica)
         while not self._stop:
             self._apply_inbox()
             try:
@@ -85,6 +93,11 @@ class AsyncEngine:
                 self.driver_error = repr(exc)
                 self._fail_in_flight(self.driver_error)
                 return
+            for rid in self.engine.drain_park_events():
+                # advisory: the request is parked in the host tier and will
+                # resume token for token; consumers keep waiting
+                self._emit(rid, StreamEvent(type="parked"))
+            self._export.step(finished)
             for res in finished:
                 self._emit(res.request_id, StreamEvent(type="final", result=res))
             if not has_work and not self._inbox:
@@ -183,25 +196,100 @@ class AsyncEngine:
         self._submit(request_id, lambda: self.engine.cancel(request_id))
 
     def stats(self) -> dict[str, Any]:
-        """Queue, page and request counters for ``/health``."""
+        """Queue, page, speculation, host-tier and preemption counters for
+        ``/health``, with the JAX version's keys."""
         eng = self.engine
-        out = {
+        alloc = eng._allocator
+        return {
             "role": "fused",
             "running": eng.num_running,
             "waiting": eng.num_waiting,
             "requests_admitted": eng.requests_admitted,
-            "free_pages": eng._allocator.free_count,
-            "total_pages": eng._allocator.num_pages,
-            "prefix_cache_hit_tokens": getattr(eng._allocator, "hit_tokens", 0),
+            "free_pages": alloc.free_count,
+            "total_pages": alloc.num_pages,
+            "prefix_cache_hit_tokens": getattr(alloc, "hit_tokens", 0),
+            # sequence-parallel prefill needs a mesh (ROADMAP queue 1 item 8)
+            "sp_prefills": 0,
+            "sp_ring_segments": 0,
+            "sp_ring_tokens": 0,
+            "spec_proposed": eng.spec_proposed,
+            "spec_accepted": eng.spec_accepted,
+            "spec_acceptance_rate": eng.spec_accepted / max(1, eng.spec_proposed),
+            "spec_fallbacks": sum(eng.spec_fallbacks.values()),
             "deadline_reaps": eng.deadline_reaps,
+            "kv_host_pages": getattr(alloc, "host_pages", 0),
+            "kv_fault_ins": getattr(alloc, "fault_ins", 0),
+            "kv_writebacks": getattr(alloc, "writebacks", 0),
+            "kv_dedup_hits": getattr(alloc, "dedup_hits", 0),
+            "kv_dedup_holds": eng.dedup_holds,
+            "kv_pages_exported": eng.kv_pages_exported,
+            "kv_pages_imported": eng.kv_pages_imported,
+            "parked": eng.num_parked,
+            "preemptions": eng.preemptions,
+            "preempted_pages": eng.preempted_pages,
+            "preempt_resumes": eng.preempt_resumes,
+            "resume_faulted_pages": eng.resume_faulted_pages,
+            "resume_recomputed_tokens": eng.resume_recomputed_tokens,
+            "resume_recomputed_prompt_tokens": eng.resume_recomputed_prompt_tokens,
         }
-        # the sequence-parallel, speculative, host-tier, disaggregation and
-        # preemption modes are not ported: their counters stay 0
-        zero = ("sp_prefills", "sp_ring_segments", "sp_ring_tokens", "spec_proposed",
-                "spec_accepted", "spec_fallbacks", "kv_host_pages", "kv_fault_ins",
-                "kv_writebacks", "kv_dedup_hits", "kv_dedup_holds", "kv_pages_exported",
-                "kv_pages_imported", "parked", "preemptions", "preempted_pages",
-                "preempt_resumes", "resume_faulted_pages", "resume_recomputed_tokens",
-                "resume_recomputed_prompt_tokens")
-        out.update(dict.fromkeys(zero, 0), spec_acceptance_rate=0.0)
-        return out
+
+
+class _CounterExport:
+    """The engine's cumulative counters exported as deltas to the metrics'
+    series after each step (the JAX driver's ``export_counters``): the
+    speculative ones while n-gram speculation is on, the host tier's while
+    the tier is on, the preemption ones while preemption is on.  A series'
+    replica child is made at its first export, so an engine that runs none
+    of these modes adds no sample to ``/metrics``."""
+
+    def __init__(self, engine: Engine, replica: str) -> None:
+        self.engine = engine
+        self.replica = replica
+        self.last = {"prop": 0, "acc": 0, "fb": {}, "kv_fault": 0, "kv_wb": 0, "kv_dedup": 0,
+                     "kv_hold": 0, "kv_mig_s": 0.0, "preempts": 0, "resumes": 0}
+
+    def _child(self, metric, **labels):
+        return metric.labels(replica=self.replica, **labels)
+
+    def _inc(self, metric, key: str, value) -> None:
+        if value > self.last[key]:
+            self._child(metric).inc(value - self.last[key])
+            self.last[key] = value
+
+    def step(self, finished: list[GenerationResult]) -> None:
+        from githubrepostorag_tpu_torch import metrics as m
+
+        eng, last = self.engine, self.last
+        if eng.spec_ngram_k > 0:
+            d_prop, d_acc = eng.spec_proposed - last["prop"], eng.spec_accepted - last["acc"]
+            if d_prop > 0:
+                self._child(m.SPEC_PROPOSED).inc(d_prop)
+                self._child(m.SPEC_PROPOSED_TOTAL).inc(d_prop)
+            if d_acc > 0:
+                self._child(m.SPEC_ACCEPTED).inc(d_acc)
+                self._child(m.SPEC_ACCEPTED_TOTAL).inc(d_acc)
+            last.update(prop=eng.spec_proposed, acc=eng.spec_accepted)
+            for reason, n in eng.spec_fallbacks.items():
+                prev = last["fb"].get(reason, 0)
+                if n > prev:
+                    self._child(m.SPEC_FALLBACKS, reason=reason).inc(n - prev)
+                    last["fb"][reason] = n
+            for res in finished:
+                if res.spec_proposed > 0:
+                    self._child(m.SPEC_ACCEPTANCE).observe(res.spec_accepted / res.spec_proposed)
+        if eng._kv_tier_on:
+            alloc = eng._allocator
+            self._inc(m.KV_FAULT_INS, "kv_fault", alloc.fault_ins)
+            self._inc(m.KV_WRITEBACKS, "kv_wb", alloc.writebacks)
+            self._inc(m.KV_DEDUP_HITS, "kv_dedup", alloc.dedup_hits)
+            self._inc(m.KV_DEDUP_HOLDS, "kv_hold", eng.dedup_holds)
+            mig_s = eng.migration_seconds_total + eng.fault_in_seconds_total
+            if mig_s > last["kv_mig_s"]:
+                # one observation per step that migrated: its host time
+                self._child(m.KV_MIGRATION_SECONDS).observe(mig_s - last["kv_mig_s"])
+                last["kv_mig_s"] = mig_s
+            self._child(m.KV_TIER_DEVICE_PAGES).set(alloc.free_count)
+            self._child(m.KV_TIER_HOST_PAGES).set(alloc.host_pages)
+        if eng._preempt_on:
+            self._inc(m.ENGINE_PREEMPTIONS, "preempts", eng.preemptions)
+            self._inc(m.ENGINE_PREEMPT_RESUMES, "resumes", eng.preempt_resumes)

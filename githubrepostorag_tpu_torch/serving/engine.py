@@ -34,9 +34,28 @@ the next burst's chained last-token/length state and committed with that
 burst's read.  The first host read (``.tolist()`` / ``.cpu()``) of a
 result is the sync point, at the same places the JAX engine fetches.
 
-Every other mode of the JAX engine (sequence-parallel ring prefill,
-n-gram / draft / fused-step speculation, the host KV tier, preemption,
-meshes) is rejected at construction: it is not ported yet.
+Speculative modes (``spec_ngram_k``): every decode dispatch verifies an
+n-gram draft window of k+1 tokens through kernel A and commits the longest
+agreed prefix plus the correction token.  ``_spec_decode_step`` drafts on
+the host (serving/spec_decode.py); ``spec_burst_iters`` moves drafting on
+the device and runs that many iterations in one call whenever every
+running row is plain greedy (serving/spec_burst.py); ``fused_step`` runs a
+step's deferred packed prefill wave and a mixed spec / sampled burst in
+one call (serving/fused_step.py).  Spec modes commit synchronously (no
+decode chain, no kernel B).
+
+Host KV tier (``kv_tier`` / ``kv_host_pool_pages``): registered cold pages
+are copied device -> host at step boundaries (a gather into a device
+buffer, a non-blocking copy into pinned memory, read one boundary later
+once its event has completed) and fault back in host -> device on a prefix
+hit, scattered on the engine's stream before any dispatch that reads them
+(serving/kv_cache.TieredPageAllocator, ops/page_migration.py).
+Preempt-to-host (``preempt``): a protected-class arrival that cannot be
+admitted parks a batch-class victim's pages in the host tier; the victim
+resumes through the prefix cache with no prompt token recomputed.
+
+Still refused at construction: sequence-parallel ring prefill, meshes and
+draft-model speculation (ROADMAP queue 1 items 5.5 and 8).
 """
 
 from __future__ import annotations
@@ -44,7 +63,7 @@ from __future__ import annotations
 import itertools
 import logging
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable
 
 import numpy as np
@@ -57,12 +76,20 @@ from githubrepostorag_tpu_torch.models.qwen2 import (
     forward_paged_packed,
 )
 from githubrepostorag_tpu_torch.models.quant import QUANTIZED_TYPES, fuse_projections
+from githubrepostorag_tpu_torch.ops.page_migration import (
+    gather_pages,
+    migrate_buckets,
+    scatter_pages,
+    split_page_payloads,
+)
 from githubrepostorag_tpu_torch.ops.sampling import sample_tokens
 from githubrepostorag_tpu_torch.serving.decode_burst import decode_burst
+from githubrepostorag_tpu_torch.serving.fused_step import fused_step_burst
 from githubrepostorag_tpu_torch.serving.kv_cache import (
     OutOfPages,
     PageAllocator,
     PrefixCachingAllocator,
+    TieredPageAllocator,
     make_page_pools,
     packed_slot_mapping,
     page_hashes,
@@ -71,6 +98,8 @@ from githubrepostorag_tpu_torch.serving.kv_cache import (
     slot_mapping,
 )
 from githubrepostorag_tpu_torch.serving.sampling_params import SamplingParams
+from githubrepostorag_tpu_torch.serving.spec_burst import spec_decode_burst
+from githubrepostorag_tpu_torch.serving.spec_decode import ngram_propose
 
 logger = logging.getLogger(__name__)
 
@@ -86,34 +115,24 @@ def _bucket(n: int, cap: int, minimum: int = 16) -> int:
     return min(b, cap)
 
 
-# JAX Engine options whose modes are not ported, with the value that means
+# JAX Engine options whose modes are not ported (sequence-parallel ring
+# prefill, meshes, draft-model speculation), with the value that means
 # "off" (for a mode's tuning keyword, its JAX default).  Passing any other
 # value raises at construction, so the port is stricter than the JAX engine,
 # which ignores a mode's tuning while the mode is off.
 _UNPORTED_OPTIONS = {
     "mesh": None,
-    "kv_tier": "off",
-    "kv_host_pool_pages": 0,
     "sp_prefill_threshold": None,
-    "spec_ngram_k": 0,
-    "spec_burst_iters": 0,
-    "fused_step": False,
-    "draft_params": None,
-    "draft_cfg": None,
-    "preempt": "off",
-    "preempt_headroom_pages": 0,
-    # tuning of those modes (JAX defaults)
-    "protected_priority": "interactive",
-    "kv_migrate_burst": 8,
     "sp_ring_pack": True,
     "sp_ring_buckets": 0,
+    "draft_params": None,
+    "draft_cfg": None,
+    # the draft controller's tuning (JAX defaults)
     "spec_k": 4,
     "spec_iters": 4,
     "spec_accept_floor": 0.35,
     "spec_deadline_margin_s": 0.25,
 }
-# values the JAX engine also reads as "off" for these options
-_ALSO_OFF = {"kv_tier": ("auto",), "preempt": ("auto",)}
 
 
 @dataclass
@@ -127,6 +146,15 @@ class GenerationResult:
     error: str | None = None
     # monotonic phase stamps: submit_t / prefill_start_t / first_token_t / done_t
     timings: dict | None = None
+    # draft-model speculation's per-request accounting (ROADMAP queue 1
+    # item 5.5; the n-gram paths count per engine and leave these 0 / None)
+    spec_proposed: int = 0
+    spec_accepted: int = 0
+    spec_fallback: str | None = None
+    # host tier: prefix pages re-admitted by fault-in instead of recomputed
+    faulted_pages: int = 0
+    # times this request was parked to the host tier and resumed
+    preempted: int = 0
 
 
 @dataclass
@@ -151,7 +179,19 @@ class _Request:
     first_token_t: float | None = None
     deadline_ts: float | None = None  # absolute time.monotonic() budget
     deadline_expired: bool = False
-    priority: str = "interactive"  # SLO class
+    # host tier: chain hashes this admission promised to register (followers
+    # with the same prefix may wait for them), and pages faulted in
+    claimed_hashes: list[bytes] = field(default_factory=list)
+    faulted_pages: int = 0
+    # SLO class: headroom and preemption act for the protected one
+    priority: str = "interactive"
+    # preempt-to-host: after a park, ``prompt`` holds the whole stream
+    # (prompt + output so far), so resuming is a prefix-cached admission;
+    # the original split is kept for the result
+    preempted: int = 0
+    resume_pending: bool = False
+    orig_prompt_len: int = 0
+    prior_output: list[int] = field(default_factory=list)
 
 
 class Engine:
@@ -180,24 +220,90 @@ class Engine:
         layer_unroll: int = 1,  # the JAX burst's layer-scan unroll; no
         # effect here (no scan), kept for the settings' sake
         prefix_caching: bool = True,
+        kv_tier: str = "auto",  # host-RAM KV page tier behind the block
+        # tables: "on", "off", or "auto" (on iff kv_host_pool_pages > 0);
+        # needs prefix_caching (tier residency is keyed by chain hashes)
+        kv_host_pool_pages: int = 0,  # host tier capacity in pages (0 with
+        # kv_tier="on": 4 x num_pages)
+        kv_migrate_burst: int = 8,  # pages per migration dispatch
         prefill_priority: bool = False,  # no decode burst on a step whose
         # prefill chunk ran while prompts are still admitting
+        spec_ngram_k: int = 0,  # > 0: n-gram speculation with drafts of up
+        # to k tokens instead of decode bursts
+        spec_burst_iters: int = 0,  # > 0 (with spec_ngram_k): this many
+        # draft -> verify -> accept iterations in one call while every
+        # running row is plain greedy
+        fused_step: bool = False,  # one call a step: the deferred packed
+        # prefill wave and a mixed spec / sampled burst (needs spec_ngram_k,
+        # spec_burst_iters and prefill_token_budget; not prefill_priority)
+        preempt: str = "auto",  # preempt-to-host: "on" (needs the tier),
+        # "off", or "auto" (on iff the tier is)
+        preempt_headroom_pages: int = 0,  # pages a non-protected admission
+        # must leave allocatable; doubles while the protected class warns
         default_priority: str = "interactive",  # class stamped on
         # unlabeled add_request calls (PRIORITY_DEFAULT_CLASS)
+        protected_priority: str = "interactive",  # the class headroom and
+        # preemption act for; its requests are never victims
         device: str | torch.device | None = None,
         **unported,
     ) -> None:
+        # the JAX engine's checks on mode combinations, with its errors
+        if spec_burst_iters > 0 and spec_ngram_k <= 0:
+            raise ValueError(
+                "spec_burst_iters requires spec_ngram_k > 0 (SPEC_BURST_ITERS fuses the "
+                "n-gram spec path; without SPEC_NGRAM_K it would silently do nothing)")
+        draft_params = unported.get("draft_params")
+        if fused_step:
+            if spec_ngram_k <= 0 or spec_burst_iters <= 0:
+                raise ValueError(
+                    "fused_step requires spec_ngram_k > 0 and spec_burst_iters > 0 "
+                    "(FUSED_STEP fuses the n-gram spec burst with packed prefill)")
+            if prefill_token_budget is None:
+                raise ValueError(
+                    "fused_step requires prefill_token_budget (the fused program's "
+                    "prefill phase is the packed segment grid)")
+            if draft_params is not None:
+                raise ValueError(
+                    "fused_step and draft-model speculation are mutually exclusive; "
+                    "unset SPEC_DRAFT_MODEL or FUSED_STEP")
+            if prefill_priority:
+                raise ValueError(
+                    "fused_step is incompatible with prefill_priority: a prefill-priority "
+                    "step skips decode, which would orphan the deferred prefill wave")
+        if (draft_params is None) != (unported.get("draft_cfg") is None):
+            raise ValueError("draft_params and draft_cfg must be set together")
+        if draft_params is not None and spec_ngram_k > 0:
+            raise ValueError(
+                "draft-model speculation and n-gram speculation are mutually exclusive; "
+                "unset SPEC_NGRAM_K or SPEC_DRAFT_MODEL")
+        if kv_tier not in ("auto", "on", "off"):
+            raise ValueError(f"kv_tier must be 'auto'|'on'|'off', got {kv_tier!r}")
+        if kv_tier == "on" and not prefix_caching:
+            raise ValueError(
+                "kv_tier='on' requires prefix_caching (host-tier residency is keyed by "
+                "prefix chain hashes)")
+        kv_tier_on = prefix_caching and (
+            kv_tier == "on" or (kv_tier == "auto" and kv_host_pool_pages > 0))
+        if preempt not in ("auto", "on", "off"):
+            raise ValueError(f"preempt must be 'auto'|'on'|'off', got {preempt!r}")
+        if preempt == "on" and not kv_tier_on:
+            raise ValueError(
+                "preempt='on' requires the KV host tier (kv_tier) — resume rides the "
+                "claim/fault-in machinery, so parked victims need a tier to survive in")
         for name, value in unported.items():
             if name not in _UNPORTED_OPTIONS:
                 raise TypeError(f"Engine() got an unexpected keyword argument {name!r}")
             default = _UNPORTED_OPTIONS[name]
-            if not (value is default or value == default or value in _ALSO_OFF.get(name, ())):
+            if not (value is default or value == default):
                 raise NotImplementedError(
                     f"Engine option {name}={value!r} selects or tunes a mode the torch "
-                    f"port does not run yet (leave it at {default!r}); it serves padded or packed (prefill_token_budget) "
-                    "chunked prefill, bf16/f32 or int8/int4 (kv_quant) KV pages, "
-                    "bf16/f32, int8 or int4 weights, prefix caching and pipelined "
-                    "decode bursts"
+                    f"port does not run yet (leave it at {default!r}); it serves padded or "
+                    "packed (prefill_token_budget) chunked prefill, bf16/f32 or int8/int4 "
+                    "(kv_quant) KV pages, bf16/f32, int8 or int4 weights, prefix caching, "
+                    "pipelined decode bursts, n-gram speculation (spec_ngram_k, "
+                    "spec_burst_iters, fused_step), the host KV tier (kv_tier, "
+                    "kv_host_pool_pages, kv_migrate_burst) and preempt-to-host (preempt, "
+                    "preempt_headroom_pages, protected_priority)"
                 )
         self.device = resolve_device(device)
         _check_params(params, self.device)
@@ -239,6 +345,7 @@ class Engine:
         self.layer_unroll = max(1, layer_unroll)
         self.prefill_priority = prefill_priority
         self.default_priority = default_priority
+        self._page_obs = None  # an advisory page observatory, if attached
 
         # 0 off, 8 int8, 4 nibble-packed int4
         self.kv_quant = quant_bits(kv_quant)
@@ -247,16 +354,70 @@ class Engine:
         self._k_pages, self._v_pages = pools.k, pools.v
         self._k_scales, self._v_scales = pools.ks, pools.vs
         self.prefix_caching = prefix_caching
-        self._allocator = (PrefixCachingAllocator(num_pages) if prefix_caching
-                           else PageAllocator(num_pages))
+        self._kv_tier_on = kv_tier_on
+        self.kv_migrate_burst = max(1, kv_migrate_burst)
+        if kv_tier_on:
+            self._allocator = TieredPageAllocator(
+                num_pages,
+                host_pool_pages=kv_host_pool_pages if kv_host_pool_pages > 0 else 4 * num_pages,
+                migrate_burst=self.kv_migrate_burst)
+        elif prefix_caching:
+            self._allocator = PrefixCachingAllocator(num_pages)
+        else:
+            self._allocator = PageAllocator(num_pages)
+        # writeback bursts in flight: (host buffers, copy event, hashes),
+        # landed at the next step boundary; and fault-in staging buffers
+        # kept alive until their host -> device copy's event completes
+        self._wb_pending: list[tuple[tuple, torch.cuda.Event | None, list[bytes]]] = []
+        self._fault_staging: list[tuple[torch.cuda.Event, tuple]] = []
+        self.kv_migrations = 0  # stats: writeback bursts dispatched
+        self.kv_fault_dispatches = 0  # stats: fault-in scatter bursts
+        self.dedup_holds = 0  # stats: admissions held for a pending twin
+        self.migration_seconds_total = 0.0
+        self.fault_in_seconds_total = 0.0
+        self.kv_pages_exported = 0
+        self.kv_pages_imported = 0
+        self.transfer_seconds_total = 0.0
+
+        self.spec_ngram_k = spec_ngram_k
+        self.spec_burst_iters = spec_burst_iters
+        self.fused_step_on = bool(fused_step)
+        # the fused call's prefill segment bucket: always the largest packed
+        # bucket, so a deferred wave's shape never depends on its size
+        self._fused_pf_segs = self.packed_prefill_buckets()[-1] if self.fused_step_on else 0
+        self._fused_pf_wave: dict | None = None  # deferred packed wave
+        self.fused_steps_total = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_fallbacks: dict[str, int] = {}  # draft-model controller's
 
         self.requests_admitted = 0
         self.deadline_reaps = 0
+
+        # priority classes and preempt-to-host
+        self._preempt_on = kv_tier_on and preempt != "off"
+        self.preempt_headroom_pages = max(0, preempt_headroom_pages)
+        self.protected_priority = protected_priority
+        # class-aware queue order only when the options give classes teeth
+        self._priority_sched = self._preempt_on or self.preempt_headroom_pages > 0
+        self._parked: list[_Request] = []
+        self._park_events: list[str] = []  # request ids parked since the last drain
+        self._class_pressure: dict[str, int] = {}  # class -> 0 ok / 1 warn / 2 critical
+        self.preemptions = 0
+        self.preempted_pages = 0
+        self.preempt_resumes = 0
+        self.resume_faulted_pages = 0
+        self.resume_recomputed_tokens = 0  # parked KV tokens prefilled again
+        self.resume_recomputed_prompt_tokens = 0  # of those, prompt tokens
+
         self.committed_tokens = 0
         self.prefill_tokens = 0
+        self.reaped_tokens = 0  # output tokens dropped by deadline reaps
+        self.admission_blocked_steps = 0  # steps with waiters left after admission
         self.step_dispatches_total = 0
         self.prefill_seconds_total = 0.0
         self.decode_seconds_total = 0.0
+        self.spec_verify_seconds_total = 0.0
 
         # host-side batch state
         self._block_tables = np.zeros((max_num_seqs, self.max_pages_per_seq), dtype=np.int32)
@@ -287,8 +448,31 @@ class Engine:
         # pipelined decode state (see module docstring): the in-flight burst,
         # finished rows whose pages it may still read, and first-token waves
         self._chain: dict | None = None
-        self._deferred: list[tuple[int, list[int]]] = []
+        self._deferred: list[tuple[int, list[int], str]] = []  # (row, pages, request id)
         self._pending_first: list[tuple[torch.Tensor, list[tuple[_Request, int]]]] = []
+
+    # ------------------------------------------------- page observability --
+
+    def attach_page_observer(self, obs) -> None:
+        """Register a page observatory: the allocator reports claim deltas
+        and tier events, the engine each request's hold and release.  Both
+        are advisory, and every call is fenced."""
+        self._page_obs = obs
+        self._allocator.attach_observer(obs)
+
+    def _obs_hold(self, req: _Request) -> None:
+        if self._page_obs is not None:
+            try:
+                self._page_obs.on_request_hold(req.request_id, req.priority, len(req.pages))
+            except Exception:  # noqa: BLE001 - advisory seam
+                pass
+
+    def _obs_release(self, rid: str) -> None:
+        if self._page_obs is not None:
+            try:
+                self._page_obs.on_request_release(rid)
+            except Exception:  # noqa: BLE001 - advisory seam
+                pass
 
     # ------------------------------------------------------------- intake --
 
@@ -315,6 +499,7 @@ class Engine:
         req = _Request(request_id=rid, prompt=list(prompt_ids), sampling=sampling,
                        on_token=on_token, deadline_ts=deadline_s,
                        priority=priority or self.default_priority)
+        req.orig_prompt_len = len(req.prompt)
         if len(req.prompt) + sampling.max_tokens > self.max_seq_len:
             req.sampling = sampling.clamped(self.max_seq_len - len(req.prompt))
         self._requests[rid] = req
@@ -336,8 +521,19 @@ class Engine:
             req.error = error
             self._rejected.append(req)
             return rid
-        self._waiting.append(req)
+        self._enqueue_waiting(req)
         return rid
+
+    def _enqueue_waiting(self, req: _Request) -> None:
+        """Queue an arrival.  With priority scheduling on, protected-class
+        arrivals go ahead of every other class's waiters (first come, first
+        served within the class); otherwise the queue is FCFS."""
+        if self._priority_sched and req.priority == self.protected_priority:
+            for i, other in enumerate(self._waiting):
+                if other.priority != self.protected_priority:
+                    self._waiting.insert(i, req)
+                    return
+        self._waiting.append(req)
 
     def cancel(self, request_id: str) -> None:
         req = self._requests.get(request_id)
@@ -345,7 +541,7 @@ class Engine:
             req.cancelled = True
 
     def has_work(self) -> bool:
-        return bool(self._waiting or self._row_req or self._rejected)
+        return bool(self._waiting or self._row_req or self._rejected or self._parked)
 
     @property
     def num_running(self) -> int:
@@ -362,6 +558,10 @@ class Engine:
     def num_waiting(self) -> int:
         return len(self._waiting)
 
+    @property
+    def num_parked(self) -> int:
+        return len(self._parked)
+
     # --------------------------------------------------------- scheduling --
 
     def step(self) -> list[GenerationResult]:
@@ -376,19 +576,43 @@ class Engine:
         self._rejected.clear()
         self._reap_expired()
         self._reap_cancelled(finished)
+        self._reap_parked(finished)
+        if self._kv_tier_on:
+            self._migrate_pages()
+        if self._preempt_on:
+            self._maybe_preempt(finished)
+        self._unpark_ready()
 
         t_pf = time.monotonic()
         prefilled = self._try_prefill(finished)
         self.prefill_seconds_total += time.monotonic() - t_pf
+        if self._waiting:
+            # still queued after an admission attempt: blocked on rows,
+            # pages or a dedup hold this step
+            self.admission_blocked_steps += 1
         # prefill priority: a chunk ran and prompts remain, so the next step
         # goes to admission, not to a burst.  Nothing starves: once no chunk
         # can run, ``prefilled`` is False and decode runs.  The in-flight
         # burst and queued first-token waves stay on the device until then.
         skip_decode = self.prefill_priority and prefilled and self.is_admitting
-        if not skip_decode and any(r.state == "running" for r in self._row_req.values()):
+        running = [r for r in self._row_req.values() if r.state == "running"]
+        if running and not skip_decode:
             t_run = time.monotonic()
-            self._decode_step(finished)
-            self.decode_seconds_total += time.monotonic() - t_run
+            if self.spec_ngram_k > 0:
+                if self.fused_step_on:
+                    # one call: the deferred packed wave (if any) and a
+                    # mixed spec / sampled burst
+                    self._fused_step(finished)
+                elif self.spec_burst_iters > 0 and all(
+                        r.sampling.temperature <= 0.0 and r.sampling.repetition_penalty == 1.0
+                        for r in running):
+                    self._spec_burst_step(finished)
+                else:
+                    self._spec_decode_step(finished)
+                self.spec_verify_seconds_total += time.monotonic() - t_run
+            else:
+                self._decode_step(finished)
+                self.decode_seconds_total += time.monotonic() - t_run
         if not self._row_req:
             # nothing left running: land any in-flight burst and recycle
             self._drain_chain(finished)
@@ -398,7 +622,7 @@ class Engine:
         """Mark past-deadline requests cancelled so the reap below frees
         their pages this step."""
         now = time.monotonic()
-        for req in itertools.chain(self._waiting, self._row_req.values()):
+        for req in itertools.chain(self._waiting, self._row_req.values(), self._parked):
             if req.deadline_ts is not None and not req.cancelled and now >= req.deadline_ts:
                 req.cancelled = True
                 req.deadline_expired = True
@@ -408,14 +632,346 @@ class Engine:
         for req in [r for r in self._waiting if r.cancelled]:
             self._waiting.remove(req)
             req.state = "done"
+            if req.deadline_expired:
+                self.reaped_tokens += len(req.output)
             finished.append(self._result(req, "deadline" if req.deadline_expired else "cancelled"))
         for req in [r for r in self._row_req.values() if r.cancelled]:
             self._release(req)
+            if req.deadline_expired:
+                self.reaped_tokens += len(req.output) + len(req.prior_output)
             finished.append(self._result(req, "deadline" if req.deadline_expired else "cancelled"))
+
+    def _reap_parked(self, finished: list[GenerationResult]) -> None:
+        """Finish cancelled or expired parked requests.  Their device pages
+        went back at park time and their host copies are plain cache
+        entries, so both tiers are freed exactly once."""
+        for req in [r for r in self._parked if r.cancelled]:
+            self._parked.remove(req)
+            req.state = "done"
+            if req.deadline_expired:
+                self.reaped_tokens += len(req.output) + len(req.prior_output)
+            finished.append(self._result(req, "deadline" if req.deadline_expired else "cancelled"))
+
+    # ------------------------------------------- preempt-to-host (parking) --
+
+    def set_class_pressure(self, states: dict[str, int]) -> None:
+        """Install per-class burn-rate states (0 ok / 1 warn / 2 critical).
+        Without an SLO plane nothing calls this, and the engine preempts
+        only on the direct trigger (a protected head of queue that cannot
+        be admitted)."""
+        self._class_pressure = dict(states)
+
+    def drain_park_events(self) -> list[str]:
+        """Return and clear the request ids parked since the last drain
+        (AsyncEngine turns them into ``parked`` stream events)."""
+        events, self._park_events = self._park_events, []
+        return events
+
+    def _class_headroom(self, req: _Request) -> int:
+        """KV pages this request's admission must leave allocatable: none
+        for the protected class; batch pays double while the protected
+        class is in warn."""
+        if req.priority == self.protected_priority:
+            return 0
+        hr = self.preempt_headroom_pages
+        if hr and self._class_pressure.get(self.protected_priority, 0) >= 1:
+            hr *= 2
+        return hr
+
+    def _maybe_preempt(self, finished: list[GenerationResult]) -> None:
+        """Park batch-class victims to the host tier until the trigger is
+        met: a protected request heads the queue but cannot be admitted, or
+        the protected class burns critically (clear the headroom ahead of
+        the next arrival).  Landing the chain can finish the would-be
+        victim, so each round drains and re-checks before it picks one: a
+        park always happens with no chain live, and the row teardown is
+        ``_release``'s immediate path."""
+        target: _Request | None = None
+        if self._waiting and self._waiting[0].priority == self.protected_priority:
+            target = self._waiting[0]
+        critical = self._class_pressure.get(self.protected_priority, 0) >= 2
+        if target is None and not critical:
+            return
+        guard = 2 * self.max_num_seqs + 8  # a bound that never binds
+        while guard > 0:
+            guard -= 1
+            if target is not None:
+                need, hashes = self._head_need_hashes(target)
+                if self._free_rows and self._allocator.can_admit(hashes, need):
+                    return
+            elif self._allocator.can_admit([], max(1, self.preempt_headroom_pages)):
+                return
+            if self._chain is not None or self._deferred:
+                # land the burst first: its commits may finish the victim,
+                # and deferred pages may be enough
+                self._drain_chain(finished)
+                continue
+            victim = self._pick_victim()
+            if victim is None:
+                return
+            self._park_victim(victim)
+            # dispatch the priority writebacks now, so the parked pages
+            # unpin within this step
+            while self._allocator.pending_park_writebacks and self._migrate_pages():
+                pass
+
+    def _pick_victim(self) -> _Request | None:
+        """The running batch-class request to park: latest deadline (none
+        sorts last, most preemptible), then most pages.  Only a victim
+        whose committed KV covers its prompt qualifies: resuming any other
+        would prefill prompt tokens again."""
+        ps = self.page_size
+        best: _Request | None = None
+        best_key: tuple = ()
+        for req in self._row_req.values():
+            if req.state != "running" or req.cancelled:
+                continue
+            if req.priority == self.protected_priority:
+                continue
+            if (req.seq_len // ps) * ps < len(req.prompt):
+                continue  # mid-prompt: resume would recompute prefill
+            key = (req.deadline_ts is None, req.deadline_ts or 0.0, len(req.pages))
+            if best is None or key > best_key:
+                best, best_key = req, key
+        return best
+
+    def _park_victim(self, req: _Request) -> None:
+        """Evict a running request's KV to the host tier and park it.  The
+        stream so far (prompt + output) becomes its prompt; on resume the
+        admission shares the full pages back (a device hit or a fault-in)
+        and prefill recomputes only the partial tail page.  ``max_tokens``
+        shrinks by the tokens already produced, so the budget and every
+        stop condition are unchanged."""
+        ps = self.page_size
+        stream = req.prompt + req.output
+        full = req.seq_len // ps  # pages whose KV is fully committed
+        hashes = page_hashes(stream[: full * ps], ps)
+        if req.claimed_hashes:
+            self._allocator.unclaim(req.claimed_hashes)
+            req.claimed_hashes = []
+        for j in range(req.pages_registered, full):
+            self._allocator.register(hashes[j], req.pages[j])  # first writer wins
+        pages, req.pages = req.pages, []
+        self.preempted_pages += len(pages)
+        self._allocator.park(pages)
+        self._obs_release(req.request_id)
+        row = req.row
+        self._free_rows.append(row)
+        self._row_req.pop(row, None)
+        self._clear_row(row)
+        req.row = -1
+        produced = len(req.output)
+        req.prior_output.extend(req.output)
+        req.prompt = stream
+        req.output = []
+        req.page_hashes = []  # recomputed from the folded prompt
+        req.pages_registered = 0
+        req.cached_tokens = 0
+        req.prefill_pos = 0
+        req.seq_len = 0
+        if produced:
+            req.sampling = replace(req.sampling,
+                                   max_tokens=max(1, req.sampling.max_tokens - produced))
+        req.state = "parked"
+        req.preempted += 1
+        req.resume_pending = False
+        self._parked.append(req)
+        self._park_events.append(req.request_id)
+        self.preemptions += 1
+
+    def _unpark_ready(self) -> None:
+        """Move parked requests whose pages fit back to the queue, earliest
+        deadline first; hold them all while the protected class is still
+        critical (un-parking into that pressure only cycles pages)."""
+        if not self._parked:
+            return
+        if self._class_pressure.get(self.protected_priority, 0) >= 2:
+            return
+        self._parked.sort(key=lambda r: (r.deadline_ts is None, r.deadline_ts or 0.0))
+        while self._parked:
+            req = self._parked[0]
+            need, hashes = self._head_need_hashes(req)
+            if not self._free_rows or not self._allocator.can_admit(
+                    hashes, need, headroom=self._class_headroom(req)):
+                break  # deadline order: later victims do not jump the head
+            self._parked.pop(0)
+            req.state = "waiting"
+            req.resume_pending = True
+            self._requeue_resumed(req)
+
+    def _requeue_resumed(self, req: _Request) -> None:
+        """Resumed victims queue behind the protected block, ahead of queued
+        batch arrivals: they ran once and hold host-tier state."""
+        for i, other in enumerate(self._waiting):
+            if other.priority != self.protected_priority or req.priority == self.protected_priority:
+                self._waiting.insert(i, req)
+                return
+        self._waiting.append(req)
+
+    # ---------------------------------------------------- host KV tier --
+
+    def _to_host(self, bufs: tuple) -> tuple[tuple, torch.cuda.Event | None]:
+        """Start copying device buffers into pinned host memory without
+        blocking; returns the host buffers and an event that completes with
+        the copies (None on the CPU, where the gather is already host
+        memory).  The host buffers are read only after the event."""
+        if self.device.type == "cpu":
+            return bufs, None
+        host = tuple(None if b is None else torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
+                     for b in bufs)
+        for h, b in zip(host, bufs):
+            if b is not None:
+                h.copy_(b, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _migrate_pages(self) -> bool:
+        """Step-boundary device -> host page migration (tiered engines).
+
+        1. LAND the previous boundary's writebacks: wait for each copy's
+           event (normally long complete) and publish each page's payload
+           to the allocator under its chain hash.
+        2. PLAN + DISPATCH a new gather over the coldest parked pages not
+           yet saved (``TieredPageAllocator.evict``: a residency change,
+           not a release), and start its copy to pinned host memory; it
+           lands at the next boundary.
+
+        Returns True if any work happened (``flush_kv_migrations`` loops
+        on it)."""
+        t0 = time.monotonic()
+        moved = False
+        alloc = self._allocator
+        for bufs, event, hashes in self._wb_pending:
+            if event is not None:
+                event.synchronize()
+            for h, payload in zip(hashes, split_page_payloads(bufs, len(hashes))):
+                alloc.complete_writeback(h, payload)
+            moved = True
+        self._wb_pending.clear()
+        plan = alloc.evict(self.kv_migrate_burst)
+        if plan:
+            nb = _bucket(len(plan), self.kv_migrate_burst, minimum=1)
+            idx = np.full((nb,), -1, dtype=np.int32)
+            idx[: len(plan)] = [p for p, _ in plan]
+            bufs = gather_pages(self._k_pages, self._v_pages, self._tensor(idx),
+                                self._k_scales, self._v_scales)
+            host, event = self._to_host(bufs)
+            # (k, v, ks, vs, draft k, draft v): the payload format; no draft
+            self._wb_pending.append((host + (None, None), event, [h for _, h in plan]))
+            self.kv_migrations += 1
+            moved = True
+        if moved:
+            self.migration_seconds_total += time.monotonic() - t0
+        return moved
+
+    def _dispatch_fault_ins(self) -> None:
+        """Scatter the staged host -> device page payloads into the pools.
+        Runs right after admission, before any dispatch that could read the
+        faulted pages: every copy and scatter is queued on the engine's
+        stream ahead of them, so no host sync is needed.  A staging buffer
+        in pinned memory stays referenced until its copy's event has
+        completed."""
+        staged = self._allocator.fault_in()
+        if not staged:
+            return
+        t0 = time.monotonic()
+        self._fault_staging = [(ev, bufs) for ev, bufs in self._fault_staging if not ev.query()]
+        # stored head width from the pool: int4 pages hold head_dim // 2
+        ps, hd = self.page_size, self._k_pages.shape[-1]
+        lead = (self.cfg.num_layers, self.cfg.num_kv_heads)
+        quant = self._k_scales is not None
+        pin = self.device.type == "cuda"
+        while staged:
+            burst = staged[: self.kv_migrate_burst]
+            staged = staged[self.kv_migrate_burst:]
+            nb = _bucket(len(burst), self.kv_migrate_burst, minimum=1)
+            idx = np.full((nb,), -1, dtype=np.int32)
+            k_vals = torch.zeros((*lead, nb, ps, hd), dtype=self._k_pages.dtype, pin_memory=pin)
+            v_vals = torch.zeros(k_vals.shape, dtype=k_vals.dtype, pin_memory=pin)
+            ks_vals = vs_vals = None
+            if quant:
+                ks_vals = torch.zeros((*lead, nb), dtype=torch.float32, pin_memory=pin)
+                vs_vals = torch.zeros(ks_vals.shape, dtype=torch.float32, pin_memory=pin)
+            for i, (page, payload) in enumerate(burst):
+                pk, pv, pks, pvs = payload[:4]
+                idx[i] = page
+                k_vals[:, :, i] = pk
+                v_vals[:, :, i] = pv
+                if quant:
+                    ks_vals[:, :, i] = pks
+                    vs_vals[:, :, i] = pvs
+            host = (k_vals, v_vals, ks_vals, vs_vals)
+            dev = [None if x is None else x.to(self.device, non_blocking=True) for x in host]
+            scatter_pages(self._k_pages, self._v_pages, self._tensor(idx), dev[0],
+                          self._k_scales, self._v_scales, v_vals=dev[1], ks_vals=dev[2],
+                          vs_vals=dev[3])
+            if pin:
+                event = torch.cuda.Event()
+                event.record()
+                self._fault_staging.append((event, host))
+            self.kv_fault_dispatches += 1
+        self.fault_in_seconds_total += time.monotonic() - t0
+
+    def flush_kv_migrations(self) -> None:
+        """Run migration boundaries until quiescent: every plannable
+        writeback dispatched and landed (tests and measurements; serving
+        makes progress step by step)."""
+        if not self._kv_tier_on:
+            return
+        while self._migrate_pages():
+            pass
+
+    def export_kv_pages(self, hashes: list[bytes]) -> list[tuple[bytes, object]]:
+        """Pack the KV payloads of ``hashes`` for a peer replica.  Host-tier
+        copies serve directly; device-resident pages gather in migration
+        bursts and are read back synchronously (the price of the handoff,
+        charged to ``transfer_seconds_total``).  Hashes in neither tier are
+        skipped: the importer recomputes that tail."""
+        if not self._kv_tier_on or not hashes:
+            return []
+        t0 = time.monotonic()
+        alloc = self._allocator
+        out: list[tuple[bytes, object]] = []
+        to_gather: list[tuple[bytes, int]] = []
+        for h in hashes:
+            payload = alloc.host_payload(h)
+            if payload is not None:
+                out.append((h, payload))
+                continue
+            page = alloc.device_page_of(h)
+            if page is not None:
+                to_gather.append((h, page))
+        while to_gather:
+            burst = to_gather[: self.kv_migrate_burst]
+            to_gather = to_gather[self.kv_migrate_burst:]
+            nb = _bucket(len(burst), self.kv_migrate_burst, minimum=1)
+            idx = np.full((nb,), -1, dtype=np.int32)
+            idx[: len(burst)] = [p for _, p in burst]
+            bufs = gather_pages(self._k_pages, self._v_pages, self._tensor(idx),
+                                self._k_scales, self._v_scales)
+            host = tuple(None if b is None else b.cpu() for b in bufs) + (None, None)
+            out.extend((h, p) for (h, _), p in zip(burst, split_page_payloads(host, len(burst))))
+        self.kv_pages_exported += len(out)
+        self.transfer_seconds_total += time.monotonic() - t0
+        return out
+
+    def import_kv_pages(self, pages: list[tuple[bytes, object]]) -> int:
+        """Admit transferred page payloads into the host tier (host-dict
+        work: the device is untouched until an admission shares a hash and
+        the fault-in scatter lands it).  Returns how many were stored."""
+        if not self._kv_tier_on or not pages:
+            return 0
+        t0 = time.monotonic()
+        stored = sum(bool(self._allocator.import_page(h, payload)) for h, payload in pages)
+        self.kv_pages_imported += stored
+        self.transfer_seconds_total += time.monotonic() - t0
+        return stored
 
     def _register_full_pages(self, req: _Request) -> None:
         """Publish every prompt page prefill has completed so far: its KV is
-        final, so identical prefixes admitted from now on skip it."""
+        final, so identical prefixes admitted from now on skip it.  A page
+        this admission claimed drops its claim once registered."""
         if not self.prefix_caching:
             return
         if not req.page_hashes:
@@ -424,7 +980,19 @@ class Engine:
         while req.pages_registered < full:
             j = req.pages_registered
             self._allocator.register(req.page_hashes[j], req.pages[j])
+            if req.claimed_hashes and req.claimed_hashes[0] == req.page_hashes[j]:
+                req.claimed_hashes.pop(0)
+                self._allocator.unclaim([req.page_hashes[j]])
             req.pages_registered = j + 1
+
+    def _commit_first_now(self, others_running: bool) -> bool:
+        """Whether a freshly prefilled row's first token commits with a host
+        read now (best TTFT) instead of queueing on the device for the next
+        burst: always in the n-gram spec modes (synchronous by design), and
+        otherwise only with no chain live and no other row running."""
+        if self.spec_ngram_k > 0:
+            return True
+        return self._chain is None and not others_running
 
     def _head_need_hashes(self, req: _Request) -> tuple[int, list[bytes]]:
         """Total page need for ``req`` and the chain hashes of the prefix
@@ -446,10 +1014,12 @@ class Engine:
         not worth it for an admission the allocator would refuse)."""
         if not self._waiting:
             return False
-        need, hashes = self._head_need_hashes(self._waiting[0])
+        req = self._waiting[0]
+        need, hashes = self._head_need_hashes(req)
         rows_avail = bool(self._free_rows) or bool(self._deferred)
-        extra = sum(self._allocator.releasable_count(pages) for _, pages in self._deferred)
-        return rows_avail and self._allocator.can_admit(hashes, need, extra_free=extra)
+        extra = sum(self._allocator.releasable_count(pages) for _, pages, _ in self._deferred)
+        return rows_avail and self._allocator.can_admit(
+            hashes, need, extra_free=extra, headroom=self._class_headroom(req))
 
     def _try_prefill(self, finished: list[GenerationResult]) -> bool:
         """Admit every waiting request the pool can back, then run ONE
@@ -458,8 +1028,10 @@ class Engine:
         burst (finished rows wait in ``_deferred``), so the chain is drained
         only when the head of the queue needs those deferred resources."""
         if self._waiting:
-            need0, hashes0 = self._head_need_hashes(self._waiting[0])
-            can_free = bool(self._free_rows) and self._allocator.can_admit(hashes0, need0)
+            req0 = self._waiting[0]
+            need0, hashes0 = self._head_need_hashes(req0)
+            can_free = bool(self._free_rows) and self._allocator.can_admit(
+                hashes0, need0, headroom=self._class_headroom(req0))
             if not can_free and self._admission_feasible():
                 self._drain_chain(finished)
         cached_admits: list[_Request] = []
@@ -468,8 +1040,23 @@ class Engine:
             need, hashes = self._head_need_hashes(req)
             if need > self.max_pages_per_seq:
                 raise RuntimeError("intake clamp must bound the page need")
-            if not self._allocator.can_admit(hashes, need):
+            if (req.priority != self.protected_priority and self._preempt_on
+                    and self._class_pressure.get(self.protected_priority, 0) >= 2):
+                # while the protected class burns critically, batch admission
+                # pauses: every free page belongs to the class preempted for
                 break
+            if not self._allocator.can_admit(hashes, need, headroom=self._class_headroom(req)):
+                break
+            if self._kv_tier_on and hashes:
+                pending = self._allocator.pending_claim_pages(hashes)
+                if pending and self._allocator.plain_free_count < need:
+                    # an identical prefix is mid-prefill on another row and
+                    # pages are tight: wait for its registration instead of
+                    # duplicating its footprint (its registration or release
+                    # drops the claim)
+                    self.dedup_holds += 1
+                    break
+            faults_before = self._allocator.fault_ins if self._kv_tier_on else 0
             shared = self._allocator.share(hashes) if hashes else []
             try:
                 pages = shared + self._allocator.allocate(need - len(shared))
@@ -480,12 +1067,33 @@ class Engine:
             row = self._free_rows.pop()
             req.row, req.pages, req.state = row, pages, "prefilling"
             req.prefill_start_t = time.monotonic()
+            self._obs_hold(req)
+            if self._kv_tier_on:
+                req.faulted_pages += self._allocator.fault_ins - faults_before
+                claimed = hashes[len(shared):]
+                if claimed:
+                    # promise the pages this prefill will register, so
+                    # identical-prefix followers can wait for one registration
+                    self._allocator.claim(claimed)
+                    req.claimed_hashes = list(claimed)
             # cache hit: prefill resumes after the shared pages' tokens
             req.cached_tokens = len(shared) * self.page_size
             req.prefill_pos = req.seq_len = req.cached_tokens
             req.pages_registered = len(shared)
             if shared:
                 self._allocator.hit_tokens += req.cached_tokens
+            if req.resume_pending:
+                # a parked victim is back: its folded prompt shared the
+                # full pages it parked (a device hit or a fault-in); prefill
+                # recomputes only the partial tail page
+                req.resume_pending = False
+                self.preempt_resumes += 1
+                if self._kv_tier_on:
+                    self.resume_faulted_pages += self._allocator.fault_ins - faults_before
+                kv_at_park = len(req.prompt) - 1  # KV the victim had parked
+                self.resume_recomputed_tokens += max(0, kv_at_park - req.cached_tokens)
+                self.resume_recomputed_prompt_tokens += max(
+                    0, req.orig_prompt_len - req.cached_tokens)
             self._row_req[row] = req
             self._block_tables[row, : len(pages)] = pages
             self._seq_lens[row] = req.cached_tokens
@@ -494,6 +1102,10 @@ class Engine:
             self._set_row_sampling(row, req.sampling)
             if req.cached_tokens:
                 cached_admits.append(req)
+        if self._kv_tier_on:
+            # scatter the fault-ins share() staged before any dispatch below
+            # can read those pages
+            self._dispatch_fault_ins()
         if cached_admits:
             # skipped prefixes still count for the repetition penalty
             nr = _bucket(len(cached_admits), self.max_num_seqs, minimum=1)
@@ -621,8 +1233,8 @@ class Engine:
         wave = [(granted[i][0], i) for i in done_idx]
         for req, _ in wave:
             req.state = "running"
-        if self._chain is None and not others_running:
-            # engine otherwise idle: commit now (best TTFT)
+        if self._commit_first_now(others_running):
+            # engine otherwise idle, or a spec mode: commit now (best TTFT)
             tokens = tokens_d.tolist()
             for req, i in wave:
                 self._commit_token(req, tokens[i], finished)
@@ -655,6 +1267,12 @@ class Engine:
         last position, and the handoff into ``_pending_first`` / the decode
         chain is the padded path's."""
         others_running = any(r.state == "running" for r in self._row_req.values())
+        if self.fused_step_on and others_running:
+            # decode rows are live: defer the wave into this step's fused
+            # call (``_fused_step``), built at the fixed segment bucket; its
+            # bookkeeping runs after that call
+            self._fused_pf_wave = self._build_packed_wave(reqs, rb=self._fused_pf_segs)
+            return
         meta = self._build_packed_wave(reqs)
         self.step_dispatches_total += 1
         t = self._tensor
@@ -666,10 +1284,11 @@ class Engine:
                                   t(meta["seg_ids_2d"]), t(meta["new_lens"]), logits,
                                   others_running, finished)
 
-    def _build_packed_wave(self, reqs: list[_Request]) -> dict:
+    def _build_packed_wave(self, reqs: list[_Request], rb: int | None = None) -> dict:
         """Greedy-pack the prefilling rows' next chunks into the [budget]
         token buffer and build every host array the packed dispatch
-        needs."""
+        needs.  ``rb`` pins the segment-row bucket (the fused step's);
+        None buckets the segment count."""
         budget = self.prefill_token_budget
         tq = self.packed_chunk
         packed: list[tuple[_Request, int]] = []  # (request, tokens granted)
@@ -681,7 +1300,8 @@ class Engine:
             packed.append((req, share))
             used += share
         n = len(packed)
-        rb = _bucket(n, self.max_num_seqs, minimum=1)
+        if rb is None:
+            rb = _bucket(n, self.max_num_seqs, minimum=1)
 
         ids = np.zeros((1, budget), dtype=np.int32)
         pos = np.zeros((1, budget), dtype=np.int32)
@@ -770,10 +1390,7 @@ class Engine:
             self._presence, self._tensor(active), self._tensor(self._row_limits),
             self._tensor(self._block_tables), self._gen,
             self._temp_d, self._top_p_d, self._top_k_d, self._rep_pen_d,
-            n_steps=n_steps,
-            # sort-free sampling whenever no sampling row filters
-            filter_sampling=bool(np.any((self._temp > 0.0)
-                                        & ((self._top_p < 1.0) | (self._top_k > 0)))),
+            n_steps=n_steps, filter_sampling=self._filter_sampling(),
             k_scales=self._k_scales, v_scales=self._v_scales,
         )
         prev = self._chain
@@ -781,6 +1398,207 @@ class Engine:
                        "first": first_waves}
         if prev is not None:
             self._commit_burst(prev, finished)
+
+    def _spec_window_rows(self, running: list[_Request]) -> dict:
+        """The host arrays of a device-drafting call (spec burst, fused
+        step) over the compacted running rows, padded to a row bucket:
+        token histories [rb, max_seq_len], their lengths, cached lengths,
+        block tables, row limits, activity, greedy-ness and engine rows."""
+        rb = _bucket(len(running), self.max_num_seqs, minimum=1)
+        h = self.max_seq_len
+        out = {"rb": rb, "hist": np.zeros((rb, h), dtype=np.int32),
+               "hlens": np.zeros((rb,), dtype=np.int32), "lens": np.zeros((rb,), dtype=np.int32),
+               "bt": np.zeros((rb, self.max_pages_per_seq), dtype=np.int32),
+               "limits": np.zeros((rb,), dtype=np.int32), "active": np.zeros((rb,), dtype=bool),
+               "spec_ok": np.zeros((rb,), dtype=bool), "row_idx": np.zeros((rb,), dtype=np.int32)}
+        for i, req in enumerate(running):
+            toks = (req.prompt + req.output)[-h:]
+            out["hist"][i, : len(toks)] = toks
+            out["hlens"][i] = len(toks)
+            out["lens"][i] = req.seq_len
+            out["bt"][i] = self._block_tables[req.row]
+            out["limits"][i] = self._row_limits[req.row]
+            out["active"][i] = True
+            out["spec_ok"][i] = (req.sampling.temperature <= 0.0
+                                 and req.sampling.repetition_penalty == 1.0)
+            out["row_idx"][i] = req.row
+        return out
+
+    def _commit_spec_block(self, running: list[_Request], toks_d: torch.Tensor,
+                           prop_d: torch.Tensor, spec_ok: np.ndarray,
+                           finished: list[GenerationResult]) -> None:
+        """Read a device-drafting call's [rb, iters, k+1] token block and
+        its [rb, iters] proposals in ONE transfer and commit them: per
+        iteration a row commits its tokens up to the first -1; once a row
+        stops, its later iterations (drafted past the stop) are discarded,
+        proposals included."""
+        rb, iters, width = toks_d.shape
+        block = torch.cat([toks_d.reshape(rb, iters * width), prop_d], dim=1).cpu().numpy()
+        toks = block[:, : iters * width].reshape(rb, iters, width)
+        prop = block[:, iters * width:]
+        for i, req in enumerate(running):
+            for it in range(iters):
+                if req.state != "running":
+                    break
+                self.spec_proposed += int(prop[i, it])
+                committed = 0
+                for t in toks[i, it]:
+                    if t < 0 or req.state != "running":
+                        break
+                    req.seq_len += 1
+                    self._seq_lens[req.row] = req.seq_len
+                    self._commit_token(req, int(t), finished)
+                    committed += 1
+                if committed and spec_ok[i]:
+                    # committed = agreed draft prefix + 1 correction token
+                    self.spec_accepted += committed - 1
+
+    def _spec_burst_step(self, finished: list[GenerationResult]) -> None:
+        """``spec_burst_iters`` draft / verify / accept iterations in one
+        call (serving/spec_burst.py), the device form of
+        ``_spec_decode_step`` for all-plain-greedy batches; one read of the
+        token block per call."""
+        running = [r for r in self._row_req.values() if r.state == "running"]
+        w = self._spec_window_rows(running)
+        t = self._tensor
+        self.step_dispatches_total += 1
+        toks_d, prop_d, *_ = spec_decode_burst(
+            self.params, self.cfg, t(w["hist"]), t(w["hlens"]), t(w["lens"]),
+            self._k_pages, self._v_pages, t(w["bt"]), t(w["limits"]), t(w["active"]),
+            n_iters=self.spec_burst_iters, k=self.spec_ngram_k,
+            k_scales=self._k_scales, v_scales=self._v_scales)
+        self._commit_spec_block(running, toks_d, prop_d, w["spec_ok"], finished)
+
+    def _fused_step(self, finished: list[GenerationResult]) -> None:
+        """One call for the whole step (serving/fused_step.py): the packed
+        prefill wave ``_prefill_batch_packed`` deferred (if any), then
+        ``spec_burst_iters`` mixed iterations: greedy rows draft, verify and
+        accept as ``_spec_burst_step`` does, sampled rows draw one token an
+        iteration from the same forward.  The deferred wave's bookkeeping
+        runs on the returned prefill logits, so rows that finish prefill
+        join the next step's burst."""
+        running = [r for r in self._row_req.values() if r.state == "running"]
+        w = self._spec_window_rows(running)
+        t = self._tensor
+        pf_wave, self._fused_pf_wave = self._fused_pf_wave, None
+        has_prefill = pf_wave is not None
+        pf = ((t(pf_wave["ids"]), t(pf_wave["pos"]), t(pf_wave["slots"]), t(pf_wave["bt"]),
+               t(pf_wave["cached"]), t(pf_wave["new_lens"]), t(pf_wave["seg"]),
+               t(pf_wave["last_idx"])) if has_prefill else (None,) * 8)
+        self._push_sampling()
+        row_d = t(w["row_idx"])
+        rows_l = row_d.long()
+        self.fused_steps_total += 1
+        self.step_dispatches_total += 1
+        toks_d, prop_d, pf_logits, *_ = fused_step_burst(
+            self.params, self.cfg, t(w["hist"]), t(w["hlens"]), t(w["lens"]),
+            self._k_pages, self._v_pages, t(w["bt"]), t(w["limits"]), t(w["active"]),
+            t(w["spec_ok"]), row_d, self._presence, self._gen,
+            self._temp_d[rows_l], self._top_p_d[rows_l], self._top_k_d[rows_l],
+            self._rep_pen_d[rows_l], *pf,
+            n_iters=self.spec_burst_iters, k=self.spec_ngram_k, tq=self.packed_chunk,
+            filter_sampling=self._filter_sampling(), has_prefill=has_prefill,
+            k_scales=self._k_scales, v_scales=self._v_scales)
+        if has_prefill:
+            # presence marks, advance, first tokens (committed now: spec
+            # modes commit synchronously)
+            self._finish_prefill_wave(pf_wave["packed"], pf_wave["rb"], pf_wave["row_idx"],
+                                      t(pf_wave["seg_ids_2d"]), t(pf_wave["new_lens"]),
+                                      pf_logits, True, finished)
+        self._commit_spec_block(running, toks_d, prop_d, w["spec_ok"], finished)
+
+    def _spec_decode_step(self, finished: list[GenerationResult]) -> None:
+        """One speculative iteration drafted on the host
+        (serving/spec_decode.py): plain-greedy rows (temperature 0, no
+        repetition penalty) get an n-gram draft of up to ``spec_ngram_k``
+        tokens; ONE paged forward over [last token, draft...] verifies every
+        row, and each row commits its longest model-agreed prefix plus the
+        model's correction token.  Rows with sampling or a penalty commit
+        one token from the standard sampler.  Synchronous: the verify
+        logits are read at once."""
+        k = self.spec_ngram_k
+        width = k + 1
+        vocab = self.cfg.vocab_size
+        running = [r for r in self._row_req.values() if r.state == "running"]
+        rb = _bucket(len(running), self.max_num_seqs, minimum=1)
+        ids = np.zeros((rb, width), dtype=np.int32)
+        pos = np.zeros((rb, width), dtype=np.int32)
+        slots = np.full((rb, width), -1, dtype=np.int32)
+        bt = np.zeros((rb, self.max_pages_per_seq), dtype=np.int32)
+        cached = np.zeros((rb,), dtype=np.int32)
+        new_lens = np.zeros((rb,), dtype=np.int32)
+        drafts: list[list[int]] = []
+        plain_greedy: list[bool] = []
+        for i, req in enumerate(running):
+            sp = req.sampling
+            eligible = sp.temperature <= 0.0 and sp.repetition_penalty == 1.0
+            plain_greedy.append(eligible)
+            draft: list[int] = []
+            if eligible:
+                cap = min(k, int(self._row_limits[req.row]) - req.seq_len - 1,
+                          sp.max_tokens - len(req.output) - 1)
+                if cap > 0:
+                    draft = ngram_propose(req.prompt + req.output, cap)
+            drafts.append(draft)
+            self.spec_proposed += len(draft)
+            n_new = 1 + len(draft)
+            ids[i, 0] = req.output[-1] if req.output else req.prompt[-1]
+            ids[i, 1:n_new] = draft
+            pos[i] = np.arange(req.seq_len, req.seq_len + width)
+            slots[i] = slot_mapping(self._block_tables[req.row], req.seq_len, n_new,
+                                    self.page_size, width)
+            bt[i] = self._block_tables[req.row]
+            cached[i] = req.seq_len
+            new_lens[i] = n_new
+
+        t = self._tensor
+        self.step_dispatches_total += 1
+        # every position's logits, [rb, k+1, V]: verification reads them all
+        logits = self._run_prefill(forward_paged, t(ids), t(pos), t(slots), t(bt), t(cached),
+                                   t(new_lens))
+        row_idx = np.zeros((rb,), dtype=np.int32)
+        row_idx[: len(running)] = [r.row for r in running]
+        row_d = t(row_idx)
+        greedy_toks = torch.argmax(logits, dim=-1).cpu().numpy()  # [rb, width]
+        sampled0 = None
+        if not all(plain_greedy):
+            self._push_sampling()
+            rows_l = row_d.long()
+            sampled0 = sample_tokens(
+                logits, self._gen, self._temp_d[rows_l], self._top_p_d[rows_l],
+                self._top_k_d[rows_l], self._rep_pen_d[rows_l], self._presence[rows_l, :vocab],
+            ).cpu().numpy()
+
+        # the committed tokens, padded with the drop column -> one presence mark
+        committed = np.full((rb, width), vocab, dtype=np.int32)
+        counts = np.zeros((rb,), dtype=np.int32)
+        for i, req in enumerate(running):
+            if plain_greedy[i]:
+                draft = drafts[i]
+                a = 0
+                while a < len(draft) and greedy_toks[i, a] == draft[a]:
+                    a += 1
+                toks = [int(x) for x in greedy_toks[i, : a + 1]]
+            else:
+                a = 0
+                toks = [int(sampled0[i])]
+            for j, tok in enumerate(toks):
+                req.seq_len += 1
+                self._seq_lens[req.row] = req.seq_len
+                committed[i, counts[i]] = tok
+                counts[i] += 1
+                if j < a:  # an accepted draft token that committed
+                    self.spec_accepted += 1
+                self._commit_token(req, tok, finished)
+                if req.state != "running":
+                    break
+        self._mark_presence_chunks(row_d, t(committed), t(counts))
+
+    def _filter_sampling(self) -> bool:
+        """The sampler variant of a burst: sort-free whenever no sampling
+        row filters (greedy rows take the exact argmax whatever their
+        top_p / top_k; free rows are reset at release)."""
+        return bool(np.any((self._temp > 0.0) & ((self._top_p < 1.0) | (self._top_k > 0))))
 
     def _commit_first_tokens(self, waves, finished: list[GenerationResult]) -> None:
         """Read + commit deferred prefill first-token waves."""
@@ -819,8 +1637,9 @@ class Engine:
         if self._pending_first:
             waves, self._pending_first = self._pending_first, []
             self._commit_first_tokens(waves, finished)
-        for row, pages in self._deferred:
+        for row, pages, rid in self._deferred:
             self._allocator.release(pages)
+            self._obs_release(rid)
             self._free_rows.append(row)
         self._deferred.clear()
 
@@ -853,26 +1672,36 @@ class Engine:
             finished.append(self._result(req, "length"))
 
     def _release(self, req: _Request) -> None:
+        if req.claimed_hashes:
+            # an unfinished prefill abandons its registration promises, so
+            # held followers are not stranded
+            self._allocator.unclaim(req.claimed_hashes)
+            req.claimed_hashes = []
         if req.row >= 0:
             if self._chain is not None:
                 # an in-flight burst still reads this row's pages
-                self._deferred.append((req.row, req.pages))
+                self._deferred.append((req.row, req.pages, req.request_id))
             else:
                 self._allocator.release(req.pages)
+                self._obs_release(req.request_id)
                 self._free_rows.append(req.row)
             self._row_req.pop(req.row, None)
-            self._seq_lens[req.row] = 0
-            self._block_tables[req.row] = 0
-            self._row_limits[req.row] = 0
-            # reset the host mirrors to the no-filter defaults so a free row
-            # never pins bursts onto the filtered sampler (the device copy
-            # of a free row is never read; reassignment re-dirties)
-            self._temp[req.row] = 1.0
-            self._top_p[req.row] = 1.0
-            self._top_k[req.row] = 0
-            self._rep_pen[req.row] = 1.0
+            self._clear_row(req.row)
             req.row = -1
         req.state = "done"
+
+    def _clear_row(self, row: int) -> None:
+        """Empty a row's host state.  The sampling mirrors go back to the
+        no-filter defaults so a free row never pins bursts onto the filtered
+        sampler (the device copy of a free row is never read; reassignment
+        re-dirties)."""
+        self._seq_lens[row] = 0
+        self._block_tables[row] = 0
+        self._row_limits[row] = 0
+        self._temp[row] = 1.0
+        self._top_p[row] = 1.0
+        self._top_k[row] = 0
+        self._rep_pen[row] = 1.0
 
     def _set_row_sampling(self, row: int, sp: SamplingParams) -> None:
         self._temp[row] = sp.temperature
@@ -886,10 +1715,16 @@ class Engine:
         self._requests.pop(req.request_id, None)
         ttft = (req.first_token_t - req.submit_t) if req.first_token_t else None
         done_t = time.monotonic()
+        # a parked request folded its output into its prompt: report the
+        # caller's prompt and the whole output stream
+        output = req.prior_output + req.output if req.prior_output else req.output
+        prompt = req.prompt
+        if req.orig_prompt_len and req.orig_prompt_len < len(req.prompt):
+            prompt = req.prompt[: req.orig_prompt_len]
         return GenerationResult(
             request_id=req.request_id,
-            prompt_tokens=req.prompt,
-            output_tokens=req.output,
+            prompt_tokens=prompt,
+            output_tokens=output,
             finish_reason=reason,
             ttft_s=ttft,
             decode_time_s=(done_t - req.first_token_t) if req.first_token_t else 0.0,
@@ -899,6 +1734,8 @@ class Engine:
                 "first_token_t": req.first_token_t,
                 "done_t": done_t,
             },
+            faulted_pages=req.faulted_pages,
+            preempted=req.preempted,
         )
 
     # ----------------------------------------------------- presence helpers --
@@ -917,8 +1754,10 @@ class Engine:
     def warmup(self) -> None:
         """Build the kernels and touch every path live traffic takes --
         prefill at each dispatch width (packed at the budget when one is
-        set), a greedy and a sampled decode burst -- through the public step
-        loop, leaving the engine state clean.  Each wave's prompt holds
+        set), a greedy and a sampled decode burst (in a spec mode, the spec
+        paths instead) -- through the public step loop, then each
+        fused-step variant and each migration burst size when those modes
+        are on, leaving the engine state clean.  Each wave's prompt holds
         another token, so no wave resumes from an earlier one's cached
         pages."""
         if self.device.type == "cuda":
@@ -940,7 +1779,67 @@ class Engine:
         wave += 1
         self.generate([[2 + wave % max(2, self.cfg.vocab_size - 2)] * 3],
                       SamplingParams(max_tokens=2, temperature=0.7, top_p=0.9))
+        if self.fused_step_on:
+            self._warm_fused_variants()
+        if self._kv_tier_on:
+            self._warm_migrations()
         logger.info("engine warmup complete")
+
+    def _row_buckets(self) -> list[int]:
+        out, b = [], 1
+        while True:
+            out.append(min(b, self.max_num_seqs))
+            if b >= self.max_num_seqs:
+                return out
+            b *= 2
+
+    def _warm_fused_variants(self) -> None:
+        """Run every fused-step variant live traffic can take once: (row
+        bucket) x (has_prefill) x (filter_sampling).  An all-False
+        ``active`` masks every KV write, history write and presence mark,
+        and the prefill phase's all -1 slots write only the drop page, so
+        each call leaves the pools' real pages as they were."""
+        self._push_sampling()
+        dev = self.device
+        h, budget, pfseg = self.max_seq_len, self.prefill_token_budget, self._fused_pf_segs
+        mp = self.max_pages_per_seq
+
+        def zeros(*shape, dtype=torch.int32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        pf_warm = (zeros(1, budget), zeros(1, budget),
+                   torch.full((budget,), -1, dtype=torch.int32, device=dev), zeros(pfseg, mp),
+                   zeros(pfseg), zeros(pfseg),
+                   torch.full((budget,), pfseg, dtype=torch.int32, device=dev), zeros(pfseg))
+        for nb in self._row_buckets():
+            rows = zeros(nb).long()
+            for has_pf in (False, True):
+                for filt in (False, True):
+                    fused_step_burst(
+                        self.params, self.cfg, zeros(nb, h), zeros(nb), zeros(nb),
+                        self._k_pages, self._v_pages, zeros(nb, mp), zeros(nb),
+                        zeros(nb, dtype=torch.bool), zeros(nb, dtype=torch.bool),
+                        rows.to(torch.int32), self._presence, self._gen, self._temp_d[rows],
+                        self._top_p_d[rows], self._top_k_d[rows], self._rep_pen_d[rows],
+                        *(pf_warm if has_pf else (None,) * 8),
+                        n_iters=self.spec_burst_iters, k=self.spec_ngram_k, tq=self.packed_chunk,
+                        filter_sampling=filt, has_prefill=has_pf,
+                        k_scales=self._k_scales, v_scales=self._v_scales)
+
+    def _warm_migrations(self) -> None:
+        """Run a gather and a scatter at every migration burst size.  All
+        -1 indices make the scatters write only the drop page and the
+        gathers read page 0."""
+        ps, hd = self.page_size, self._k_pages.shape[-1]
+        lead = (self.cfg.num_layers, self.cfg.num_kv_heads)
+        quant = self._k_scales is not None
+        for nb in migrate_buckets(self.kv_migrate_burst):
+            idx = torch.full((nb,), -1, dtype=torch.int32, device=self.device)
+            gather_pages(self._k_pages, self._v_pages, idx, self._k_scales, self._v_scales)
+            zk = torch.zeros((*lead, nb, ps, hd), dtype=self._k_pages.dtype, device=self.device)
+            zs = torch.zeros((*lead, nb), dtype=torch.float32, device=self.device) if quant else None
+            scatter_pages(self._k_pages, self._v_pages, idx, zk, self._k_scales, self._v_scales,
+                          v_vals=zk, ks_vals=zs, vs_vals=zs)
 
     def generate(self, prompts: list[list[int]],
                  sampling: SamplingParams | list[SamplingParams] | None = None,

@@ -166,6 +166,8 @@ class OpenAIServer(HTTPServer):
                         stopped_on_string = True
                 elif event.type == "final":
                     result = event.result
+                # "parked" (preempt-to-host) is advisory: the request resumes
+                # token for token, so keep waiting
         text_parts.append("" if stopped_on_string else detok.flush())
         text = "".join(text_parts)
         finish = "stop" if stopped_on_string else _map_finish(result)

@@ -259,16 +259,56 @@ def test_engine_defaults_to_the_card(weights):
 
 
 @pytest.mark.parametrize("option", [
-    {"spec_burst_iters": 2}, {"kv_host_pool_pages": 16}, {"spec_ngram_k": 4},
-    {"fused_step": True}, {"kv_tier": "on"}, {"preempt": "on"}, {"sp_prefill_threshold": 64},
+    {"draft_params": object(), "draft_cfg": object()}, {"spec_iters": 2},
+    {"spec_accept_floor": 0.5}, {"sp_ring_buckets": 2}, {"sp_ring_pack": False},
+    {"spec_deadline_margin_s": 1.0}, {"sp_prefill_threshold": 64},
     {"mesh": object()},
     # a mode's tuning away from its JAX default is refused like the mode
-    {"spec_k": 8}, {"kv_migrate_burst": 16}, {"protected_priority": "batch"},
+    {"spec_k": 8}, {"spec_k": 2, "spec_iters": 8}, {"sp_prefill_threshold": 0},
 ])
 def test_engine_rejects_unported_modes(weights, option):
     _, cfg, _, tp = weights
     with pytest.raises(NotImplementedError):
         _torch_engine(cfg, tp, **option)
+
+
+@pytest.mark.parametrize("option, bad", [
+    ({"spec_ngram_k": 4}, {"spec_ngram_k": 4, "draft_params": {}, "draft_cfg": object()}),
+    ({"spec_ngram_k": 4, "spec_burst_iters": 2}, {"spec_burst_iters": 2}),
+    ({"spec_ngram_k": 4, "spec_burst_iters": 2, "fused_step": True, "prefill_token_budget": 48},
+     {"spec_ngram_k": 4, "spec_burst_iters": 2, "fused_step": True}),
+    ({"spec_ngram_k": 4, "spec_burst_iters": 2, "fused_step": True, "prefill_token_budget": 48},
+     {"spec_ngram_k": 4, "spec_burst_iters": 2, "fused_step": True, "prefill_token_budget": 48,
+      "prefill_priority": True}),
+    ({"fused_step": False, "spec_ngram_k": 2}, {"fused_step": True, "spec_ngram_k": 2}),
+    ({"kv_tier": "on"}, {"kv_tier": "on", "prefix_caching": False}),
+    ({"kv_host_pool_pages": 16}, {"kv_tier": "sometimes"}),
+    ({"kv_tier": "on", "kv_migrate_burst": 16}, None),
+    ({"kv_tier": "on", "preempt": "on"}, {"preempt": "on"}),
+    ({"kv_host_pool_pages": 16, "preempt_headroom_pages": 4}, {"preempt": "maybe"}),
+    ({"protected_priority": "batch", "preempt_headroom_pages": 2}, None),
+])
+def test_engine_accepts_ported_modes_and_validates_them_as_jax(weights, option, bad):
+    """Each ported option is accepted and configures the engine as the JAX
+    engine's does (mode flags, allocator class and host capacity, migration
+    burst, fused segment bucket, headroom, the protected class); each bad
+    combination raises the JAX engine's ValueError, message for message."""
+    jcfg, cfg, jp, tp = weights
+    te = _torch_engine(cfg, tp, **option)
+    je = JEngine(jp, jcfg, kv_dtype=jnp.float32, **ENGINE_KW, **option)
+    attrs = ("spec_ngram_k", "spec_burst_iters", "fused_step_on", "_fused_pf_segs",
+             "_kv_tier_on", "kv_migrate_burst", "_preempt_on", "preempt_headroom_pages",
+             "protected_priority", "_priority_sched")
+    assert [getattr(te, a) for a in attrs] == [getattr(je, a) for a in attrs]
+    assert type(te._allocator).__name__ == type(je._allocator).__name__
+    assert getattr(te._allocator, "host_pool_pages", None) == getattr(
+        je._allocator, "host_pool_pages", None)
+    if bad is not None:
+        with pytest.raises(ValueError) as t_err:
+            _torch_engine(cfg, tp, **bad)
+        with pytest.raises(ValueError) as j_err:
+            JEngine(jp, jcfg, kv_dtype=jnp.float32, **ENGINE_KW, **bad)
+        assert str(t_err.value) == str(j_err.value)
 
 
 def test_engine_accepts_off_values_and_rejects_unknown_options(weights):
@@ -345,6 +385,23 @@ def test_async_engine_stats_key_set_matches_jax(weights):
     # a fresh engine of the same geometry reads the same everywhere
     assert port == ref
     assert port["free_pages"] == port["total_pages"] == ENGINE_KW["num_pages"]
+    # after the same traffic on a tiered spec engine: the same values
+    # (writebacks, a fault-in of an evicted prefix, drafts proposed)
+    mode = dict(spec_ngram_k=3, kv_tier="on", kv_host_pool_pages=24, num_pages=12,
+                page_size=4, max_num_seqs=2, max_seq_len=64, prefill_chunk=16)
+    te = Engine(tp, cfg, kv_dtype=torch.float32, device="cpu", **{**ENGINE_KW, **mode})
+    je = JEngine(jp, jcfg, kv_dtype=jnp.float32, **{**ENGINE_KW, **mode})
+    rng = np.random.default_rng(4)
+    prompt = [5, 6, 7, 8] * 3 + rng.integers(0, cfg.vocab_size, 12).tolist()
+    filler = rng.integers(0, cfg.vocab_size, 36).tolist()
+    for eng, sp in ((te, SamplingParams), (je, JSamplingParams)):
+        for batch in ([prompt], [filler], [prompt]):
+            eng.generate(batch, sp(max_tokens=6, temperature=0.0))
+            eng.flush_kv_migrations()
+    port = AsyncEngine(te).stats()
+    ref = JAsyncEngine(je).stats()
+    assert port == ref
+    assert port["kv_fault_ins"] > 0 and port["kv_writebacks"] > 0 and port["spec_proposed"] > 0
 
 
 def test_engine_takes_the_servers_tuning_keywords(weights):

@@ -3,8 +3,10 @@ githubrepostorag_tpu_torch.serving --device cpu`` in a subprocess, over a
 tiny checkpoint directory (random Qwen2 weights in safetensors, the byte-level
 BPE ``tokenizer.json`` and a ChatML ``tokenizer_config.json`` built as
 ``tests/test_bpe_native.py`` builds them): /health comes up, a chat is
-answered, SIGTERM stops it cleanly.  And ``main`` refuses what it cannot
-serve, naming the roadmap item that brings it."""
+answered, SIGTERM stops it cleanly, on the defaults and with the
+speculative and host-tier modes on.  ``build_engine`` runs each mode from
+its settings.  And ``main`` refuses what it cannot serve, naming the
+roadmap item that brings it."""
 
 from __future__ import annotations
 
@@ -80,9 +82,20 @@ def _free_port() -> int:
 
 
 def test_server_serves_a_chat_from_a_checkpoint(checkpoint):
+    _serve_a_chat(checkpoint, {})
+
+
+def test_server_serves_a_chat_in_the_speculative_and_host_tier_modes(checkpoint):
+    """The same server with the fused step (n-gram speculation, its burst,
+    a token budget), the host KV tier and preemption on, from the
+    settings alone."""
+    _serve_a_chat(checkpoint, MODE_ENVS["fused"] | MODE_ENVS["preempt"])
+
+
+def _serve_a_chat(checkpoint, extra: dict) -> None:
     port = _free_port()
     env = {k: v for k, v in os.environ.items() if k not in ("MESH_SHAPE", "SPEC_DRAFT_MODEL")}
-    env.update(SERVER_ENV, MODEL_WEIGHTS_PATH=str(checkpoint), CTRL="off")
+    env.update(SERVER_ENV, MODEL_WEIGHTS_PATH=str(checkpoint), CTRL="off", **extra)
     proc = subprocess.Popen(
         [sys.executable, "-m", "githubrepostorag_tpu_torch.serving", "--device", "cpu",
          "--host", "127.0.0.1", "--port", str(port)],
@@ -140,3 +153,46 @@ def test_main_refuses_what_it_cannot_serve(monkeypatch, env, message):
     finally:
         monkeypatch.undo()
         config.reload_settings()
+
+
+MODE_ENVS = {
+    "spec": {"SPEC_NGRAM_K": "4"},
+    "burst": {"SPEC_NGRAM_K": "4", "SPEC_BURST_ITERS": "4"},
+    "fused": {"SPEC_NGRAM_K": "4", "SPEC_BURST_ITERS": "4", "FUSED_STEP": "1",
+              "PREFILL_TOKEN_BUDGET": "64"},
+    "tier": {"KV_TIER": "on", "KV_HOST_POOL_PAGES": "32", "KV_MIGRATE_BURST": "4"},
+    "preempt": {"KV_TIER": "on", "KV_HOST_POOL_PAGES": "32", "PREEMPT": "on",
+                "PREEMPT_HEADROOM_PAGES": "2", "PRIORITY_PROTECTED_CLASS": "interactive"},
+}
+
+
+@pytest.mark.parametrize("mode", sorted(MODE_ENVS))
+def test_build_engine_runs_each_mode_from_its_settings(monkeypatch, mode):
+    """``build_engine`` turns each mode's settings into an engine running
+    that mode, whose greedy tokens equal the default settings' engine's."""
+    from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config, init_params
+    from githubrepostorag_tpu_torch.serving import SamplingParams
+    from githubrepostorag_tpu_torch.serving.__main__ import build_engine
+
+    cfg = Qwen2Config.tiny()
+    params = init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    prompts = [[5, 6, 7, 8, 5, 6, 7, 8, 5, 6], [9, 10, 11]]
+    sp = SamplingParams(temperature=0.0, max_tokens=6)
+    engines = {}
+    for name, env in (("default", {}), (mode, MODE_ENVS[mode])):
+        for key in {k for e in MODE_ENVS.values() for k in e}:
+            monkeypatch.delenv(key, raising=False)
+        for key, value in {**SERVER_ENV, **env}.items():
+            monkeypatch.setenv(key, value)
+        engines[name] = build_engine(config.reload_settings(), params, cfg, "cpu")
+    monkeypatch.undo()
+    config.reload_settings()
+    eng = engines[mode]
+    flags = {"spec": eng.spec_ngram_k == 4, "burst": eng.spec_burst_iters == 4,
+             "fused": eng.fused_step_on and eng.prefill_token_budget == 64,
+             "tier": eng._kv_tier_on and eng.kv_migrate_burst == 4,
+             "preempt": eng._preempt_on and eng.preempt_headroom_pages == 2}
+    assert flags[mode]
+    assert not (engines["default"].spec_ngram_k or engines["default"]._kv_tier_on)
+    assert ([r.output_tokens for r in eng.generate(prompts, sp)]
+            == [r.output_tokens for r in engines["default"].generate(prompts, sp)])
