@@ -11,6 +11,7 @@
     python3 chip_smoke.py --only options   # device, build, the engine options in pairs
     python3 chip_smoke.py --only split     # device, build, the rag phase, the split deployment
     python3 chip_smoke.py --only modes     # device, build, A's verify window, the engine modes
+    python3 chip_smoke.py --only draft     # device, build, A at the draft's shapes, draft speculation
 
 Phases, each raising on failure:
 
@@ -202,6 +203,39 @@ Phases, each raising on failure:
               held at the verify window in the kernel phase (B=8, S=5, new
               0-5, contexts to 2048, fp / int8 / int4 pages).  Prints
               {"modes": ...}.
+   draft   -- after the modes phase: draft-model speculation at Qwen2-7B
+              with a draft at Qwen2-0.5B's widths and depth (hidden 896, 24
+              layers, 14/2 heads, hd 64, intermediate 4864) and the 7B's
+              vocabulary (152,064: the reference refuses the published
+              0.5B's 151,936 beside the 7B's), each draft written as a
+              checkpoint into a temp dir under _build/ and loaded by the
+              model server's build_engine through SPEC_DRAFT_MODEL (SPEC_K
+              4, SPEC_ITERS 4): the modes traffic with the default engine,
+              a random draft over the random target (the acceptance floor
+              demotes the rows: B launches), the same with the floor at 0
+              (every token through a verify window), the quoting pair (the
+              modes phase's quoting target, a quoting draft), a partly
+              quoting draft (t -> t+2 where t % 8 == 0: partial acceptance,
+              the k ladder's rungs counted), the quoting pair over int8
+              target pages (draft pools bf16): TPOT, decode tok/s, tokens
+              per main-model dispatch, proposed / accepted, fallbacks by
+              reason, a profiled decode window's idle share, A's launches
+              at hd 64 and hd 128 pinned, the compile watchdog 0 after
+              warmup in every run, the obs hooks' us a step; bf16
+              divergences only at near ties; float32 identity at 2 layers
+              (floor 0); the host tier with the draft on (draft = target:
+              both pools' faulted-in pages byte-equal, acceptance equal to
+              the first serve's); one draft burst under
+              torch.cuda.set_sync_debug_mode("error").  Kernel A is held at
+              the draft's shapes in the kernel phase (S = 1 at 14/2 heads
+              hd 64, the draft's S = 512 prefill, the verify rungs S = 2
+              and 3 at 28/4 hd 128).  The rag phase also reads /debug/slo,
+              /debug/hbm, /debug/timeline and /debug/fleet from the RAG API
+              (held to tests/golden/), the watchdog, the ledger (committed
+              tokens equal the jobs' tokens; buckets, limiter, stall p50,
+              goodput, MFU at 989 TFLOP/s), the page observatory
+              (attribution within 1 % of its occupancy integral) and the
+              obs hooks' cost.  Prints {"draft": ...}.
 6. int4    -- the same 7B tree quantized to group-wise int4 (group 64) on
               the card, layer by layer; the model checks again (prefill
               logits through kernel D, decode logits through kernel E),
@@ -213,7 +247,7 @@ Phases, each raising on failure:
               checkout of the port (copy this script there).
 7. summary -- whether transformers, prometheus_client, pydantic, psutil and
               requests import here, the retrieval, rag, engine-options,
-              ingest, split and modes numbers, the card's name and power limit, the kernel
+              ingest, split, modes and draft numbers, the card's name and power limit, the kernel
               list, then the result line.
 
 There is no CPU fallback: without a card the script exits non-zero.
@@ -1019,6 +1053,7 @@ def phase_kernels() -> dict:
             results["fused_window_attention@int8@S256"] = resq
         del w256
     results.update(verify_window_cases(rng, dev, check))
+    results.update(draft_window_cases(rng, dev, check))
     window_rows_invariant(rng, dev)
     results["gemm_rows"] = gemm_row_invariance()
     torch.cuda.empty_cache()
@@ -1146,6 +1181,42 @@ def verify_window_cases(rng, dev, check) -> dict:
             if timed:
                 out[key] = res
         del case
+    return out
+
+
+def draft_window_cases(rng, dev, check) -> dict:
+    """Kernel A at the draft-model path's shapes: the draft's step (B=8,
+    S=1, 14/2 heads -- group 7 --, hd 64, 128-key pages, contexts to 2048,
+    one bucket padding row with no key), the draft's prefill (B=4, S=512,
+    hd 64), and the target's verify rungs below the top one (B=8, S = 2
+    and 3, 28/4 heads, hd 128, new 0..S).  fp pools, float32 for the tight
+    limit, bf16 timed against its bound and SDPA."""
+    import torch
+
+    out = {}
+    cases = (
+        ("draft_S1", "draft step B=8 S=1 14/2 hd 64 ctx<=2048",
+         dict(b=8, s=1, n_q=14, n_kv=2, hd=64, cached=[2047, 1500, 777, 128, 64, 1, 2000, 0],
+              new=[1, 1, 1, 1, 1, 1, 1, 0])),
+        ("draft_S512", "draft prefill B=4 S=512 14/2 hd 64 ctx<=2048",
+         dict(b=4, s=512, n_q=14, n_kv=2, hd=64, cached=[0, 1024, 1500, 512],
+              new=[512, 512, 300, 512])),
+        ("S2", "verify rung B=8 S=2 28/4 hd 128 ctx<=2048",
+         dict(b=8, s=2, n_q=28, n_kv=4, hd=128, cached=[2046, 1500, 777, 128, 64, 1, 2000, 0],
+              new=[2, 2, 1, 2, 1, 2, 0, 0])),
+        ("S3", "verify rung B=8 S=3 28/4 hd 128 ctx<=2048",
+         dict(b=8, s=3, n_q=28, n_kv=4, hd=128, cached=[2045, 1500, 777, 128, 64, 1, 2000, 0],
+              new=[3, 3, 2, 1, 3, 3, 0, 0])),
+    )
+    for key, label, kw in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            case = kernel_a_case(rng, dev, kw["b"], kw["s"], kw["n_q"], kw["n_kv"], kw["hd"],
+                                 128, cached=kw["cached"], new=kw["new"], dtype=dtype)
+            timed = dtype == torch.bfloat16
+            res = check(f"kernel A {label} {str(dtype)[6:]}", measure_kernel_a(case, timed))
+            if timed:
+                out[f"fused_window_attention@{key}"] = res
+            del case
     return out
 
 
@@ -2957,6 +3028,7 @@ def debug_index_check(port: int, device: str = "cuda") -> dict:
 
 RAG_MAX_OUTPUT = 64  # QWEN_MAX_OUTPUT: a random 7B model rarely emits EOS
 RAG_DEADLINE_MS = 600  # the reaped job's budget: its first engine call outlives it
+RAG_LEDGER_WINDOW_S = 900  # the token ledger's window in the rag phase: all of its jobs
 REPO_CHUNKS = 2048  # chunks a repository (chunk_metadata)
 
 
@@ -3058,13 +3130,22 @@ def rag_hierarchy_docs(enc, rows: int, seed: int = SEED + 31) -> dict:
     return docs
 
 
-def rag_job(port: int, body: dict, cancel_on_turn: bool = False) -> dict:
+def rag_job(port: int, body: dict, cancel_on_turn: bool = False, started=None) -> dict:
     """POST one job, read its SSE stream to its terminal event (cancelling
     the job at its first ``turn`` event when asked), then GET its result.
     The API ends a stream at ``final`` or, for a failed job, at the
     ``error`` event the worker emits just before its empty ``final`` (as
-    the JAX API does).  Returns the reply, the events and the POST ->
-    terminal event wall time."""
+    the JAX API does).  ``started`` (a ``threading.Event``) is set at the
+    stream's first event, or when the call ends without one.  Returns the
+    reply, the events and the POST -> terminal event wall time."""
+    try:
+        return _rag_job(port, body, cancel_on_turn, started)
+    finally:
+        if started is not None:
+            started.set()
+
+
+def _rag_job(port: int, body: dict, cancel_on_turn: bool, started) -> dict:
     import http.client
 
     t0 = time.monotonic()
@@ -3082,6 +3163,8 @@ def rag_job(port: int, body: dict, cancel_on_turn: bool = False) -> dict:
             if not line.startswith("data: "):
                 continue
             events.append(json.loads(line[len("data: "):]))
+            if started is not None:
+                started.set()
             if cancel_on_turn and cancelled_at is None and events[-1]["event"] == "turn":
                 status, ack, _ = _http(port, "POST", f"/rag/jobs/{job_id}/cancel")
                 if status != 200 or ack != {"job_id": job_id, "cancelled": True}:
@@ -3107,6 +3190,28 @@ def rag_job(port: int, body: dict, cancel_on_turn: bool = False) -> dict:
         raise RuntimeError(f"GET result of {job_id}: {status} {result}")
     return {"body": body, "reply": reply, "events": events, "wall_s": wall, "result": result,
             "cancelled_at": cancelled_at}
+
+
+def run_rag_jobs(port: int, jobs: list) -> list:
+    """Run ``rag_jobs``' eight jobs at once, each in a thread of its own,
+    and return their ``rag_job`` records in the list's order.  The
+    deadline job goes first and the other seven follow once its stream
+    shows the worker has started it: its RAG_DEADLINE_MS budget runs from
+    the POST, and queued behind seven jobs that load the engine and the
+    host, its transit alone outlasted the budget over Redis on the card,
+    so the job expired before its first engine call and nothing was left
+    for the engine to reap."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    lead = next(i for i, (body, _) in enumerate(jobs) if "deadline_ms" in body)
+    started = threading.Event()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {lead: pool.submit(rag_job, port, *jobs[lead], started=started)}
+        started.wait(60)
+        futures.update({i: pool.submit(rag_job, port, *job)
+                        for i, job in enumerate(jobs) if i != lead})
+        return [futures[i].result() for i in range(len(jobs))]
 
 
 def _spans_by_id(trace: dict) -> dict:
@@ -3143,13 +3248,15 @@ def synthesis_ttft(trace: dict) -> dict:
 def rag_settings(geometry: dict | None = None, prefill_priority: bool = False):
     """The rag phase's settings, put into the environment (the entry
     points read them there): the engine phase's geometry, QWEN_MAX_OUTPUT
-    set to RAG_MAX_OUTPUT, the in-process LLM backend."""
+    set to RAG_MAX_OUTPUT, the in-process LLM backend, a token-ledger
+    window that holds the whole phase (SLO_LEDGER_WINDOW_S)."""
     import os
 
     from githubrepostorag_tpu_torch import config
 
     os.environ.update(geometry or ENGINE_GEOMETRY, QWEN_MAX_OUTPUT=str(RAG_MAX_OUTPUT),
-                      LLM_BACKEND="inprocess", PREFILL_PRIORITY=str(int(prefill_priority)))
+                      LLM_BACKEND="inprocess", PREFILL_PRIORITY=str(int(prefill_priority)),
+                      SLO_LEDGER_WINDOW_S=str(RAG_LEDGER_WINDOW_S))
     return config.reload_settings()
 
 
@@ -3189,6 +3296,15 @@ def rag_jobs(short: int, code_repos: tuple[str, str] = ("repo0", "repo1")) -> li
     ]
 
 
+def first_llm_start(trace: dict | None) -> float | None:
+    """Seconds from a job's root span to its first ``llm.generate`` span
+    (None: the job's budget ran out before its first LLM call, which then
+    never reached the engine)."""
+    starts = [sp["start_s"] for sp in (trace or {}).get("spans", [])
+              if sp["name"] == "llm.generate"]
+    return min(starts) if starts else None
+
+
 def terminal_state(job: dict) -> str:
     """How a job of ``rag_job`` ended: "cancelled", "deadline" (its
     ``error`` event names the deadline), "error" or "final"."""
@@ -3196,6 +3312,160 @@ def terminal_state(job: dict) -> str:
     if last["event"] == "error":
         return "deadline" if "deadline" in last["data"].get("error", "") else "error"
     return "cancelled" if last["data"].get("cancelled") is True else "final"
+
+
+def _shape(value):
+    """The committed schema scripts' type shape (scripts/check_*_schema.py)."""
+    if isinstance(value, dict):
+        return {k: _shape(v) for k, v in sorted(value.items())}
+    if isinstance(value, list):
+        return [_shape(value[0])] if value else []
+    if isinstance(value, bool):
+        return "bool"
+    if isinstance(value, (int, float)):
+        return "number"
+    if value is None:
+        return "null"
+    return type(value).__name__
+
+
+def conforms(got, golden, path: str = "$") -> None:
+    """Raise unless a live body's shape fits the golden one: every key it
+    has, the golden has with the same shape (a dict keyed by names --
+    replicas, classes, request ids -- holds its values to the golden's one
+    entry; an empty golden map takes any names); a section the golden
+    fills may be null or empty (no router, no controller); a replica's
+    ``stats`` is its engine's own dict."""
+    if got in ("null", []) or (got == {} and isinstance(golden, dict)):
+        return
+    if path.endswith(".stats"):
+        if not isinstance(got, dict):
+            raise RuntimeError(f"{path}: {got}")
+        return
+    if isinstance(golden, dict):
+        if not isinstance(got, dict):
+            raise RuntimeError(f"{path}: {got} where the golden schema has {golden}")
+        if not golden:  # a map by name the golden build left empty
+            return
+        for k, v in got.items():
+            if k in golden:
+                conforms(v, golden[k], f"{path}.{k}")
+            elif len(golden) == 1:
+                conforms(v, next(iter(golden.values())), f"{path}.{k}")
+            else:
+                raise RuntimeError(f"{path}: key {k!r} is not in the golden schema")
+    elif isinstance(golden, list):
+        if not isinstance(got, list):
+            raise RuntimeError(f"{path}: {got} where the golden schema has a list")
+        if got and golden:
+            conforms(got[0], golden[0], f"{path}[0]")
+    elif got != golden and golden != "null":
+        raise RuntimeError(f"{path}: {got} where the golden schema has {golden}")
+
+
+def rag_obs_check(port: int, aeng, before: dict) -> dict:
+    """The observability planes over the rag phase's jobs, through the RAG
+    API on localhost: /debug/slo, /debug/hbm, /debug/timeline and
+    /debug/fleet, each body held to the committed golden schemas
+    (tests/golden/); the compile watchdog 0 after warmup; the ledger's
+    committed tokens equal the engine's and the finished requests' tokens;
+    the page observatory's attributed page-seconds within 1 % of its
+    occupancy integral (the JAX test's tolerance); the ledger's buckets,
+    limiter, scheduler stall p50, goodput and MFU (against
+    CHIP_PEAK_TFLOPS, the card's 989 TFLOP/s dense bf16); the obs hooks'
+    host us a step beside the step's."""
+    from pathlib import Path
+
+    from githubrepostorag_tpu_torch.config import get_settings
+    from githubrepostorag_tpu_torch.metrics import DECODE_TOKENS, XLA_COMPILES, counter_value
+
+    golden_dir = Path(__file__).resolve().parent / "tests" / "golden"
+    slo_g = json.loads((golden_dir / "debug_slo_schema.json").read_text())
+    tl_g = json.loads((golden_dir / "debug_timeline_schema.json").read_text())
+    time.sleep(0.2)  # the driver's hooks after its last step (it idles in 20 ms waits)
+    bodies = {}
+    for path in ("/debug/slo", "/debug/hbm", "/debug/timeline?window_s=600", "/debug/fleet"):
+        status, body, _ = _http(port, "GET", path)
+        if status != 200:
+            raise RuntimeError(f"GET {path} -> {status}")
+        bodies[path.split("?")[0]] = body
+    conforms(_shape(bodies["/debug/slo"]), slo_g["GET /debug/slo"])
+    conforms(_shape(bodies["/debug/fleet"]), slo_g["GET /debug/fleet"])
+    conforms(_shape(bodies["/debug/hbm"]), tl_g["GET /debug/hbm"])
+    tl = bodies["/debug/timeline"]
+    conforms(_shape({**tl, "traceEvents": []}), tl_g["GET /debug/timeline"])
+    kinds = {}
+    for ev in tl["traceEvents"]:
+        key = (f"M:{ev['name']}" if ev["ph"] == "M" else
+               "C:" + ev["name"].split(" ", 1)[-1] if ev["ph"] == "C" else
+               f"{ev['ph']}:{ev.get('cat', '')}")
+        kinds.setdefault(key, _shape(ev))
+    for key, shp in kinds.items():
+        if key not in tl_g["GET /debug/timeline traceEvents"]:
+            raise RuntimeError(f"timeline event kind {key} is not in the golden schema")
+        want = tl_g["GET /debug/timeline traceEvents"][key]
+        if key in ("X:span", "i:span_event"):
+            # a span's args carry its own attributes (an HTTP status, a
+            # query): only the trace ids are fixed keys
+            shp, want = dict(shp), dict(want)
+            got_args, want_args = shp.pop("args"), want.pop("args")
+            ids = ("trace_id", "span_id") if key == "X:span" else ()
+            conforms({k: got_args[k] for k in ids}, {k: want_args[k] for k in ids},
+                     f"$.{key}.args")
+        conforms(shp, want, f"$.{key}")
+    src = tl["metadata"]["sources"]
+    if not (src["spans"] > 0 and src["steps"] > 0 and src["samples"] > 0):
+        raise RuntimeError(f"timeline sources {src}")
+    replica = aeng.replica
+    compiles = counter_value(XLA_COMPILES, replica=replica) - before["compiles"]
+    if compiles != 0:
+        raise RuntimeError(f"the compile watchdog counted {compiles} during the rag jobs")
+    ledger = next(r["ledger"] for r in bodies["/debug/fleet"]["replicas"]
+                  if r["replica"] == replica)
+    # the ledger's first step differences the engine's counters against
+    # zero, as the JAX ledger does, so its window also holds the tokens
+    # warmup committed before the driver ran: it must equal the engine's
+    # whole count, and the jobs' tokens the engine's count over the jobs
+    committed = ledger["tokens"]["committed"]
+    warmup_tokens = before["engine_committed"] if before["ledger_steps"] == 0 else None
+    engine_tokens = aeng.engine.committed_tokens - before["engine_committed"]
+    finished_tokens = counter_value(DECODE_TOKENS, replica=replica) - before["decode_tokens"]
+    expect = aeng.engine.committed_tokens if warmup_tokens is not None else (
+        before["ledger_committed"] + engine_tokens)
+    if not (committed == expect and engine_tokens == finished_tokens > 0):
+        raise RuntimeError(f"ledger committed {committed} (expected {expect}), engine "
+                           f"{engine_tokens}, finished requests' tokens {finished_tokens}")
+    hbm = bodies["/debug/hbm"]["totals"]
+    occ, attr = hbm["occupancy_integral_page_s"], hbm["attributed_page_s"]
+    if not (occ > 0 and abs(occ - attr) <= 0.01 * occ):
+        raise RuntimeError(f"page observatory: attributed {attr} vs occupancy {occ}")
+    steps = [rec for _, rec in aeng.ledger.recent_steps()]
+    stalls = sorted(rec["sched_stall"] for rec in steps)
+    walls = sum(rec["wall"] for rec in steps)
+    buckets = ledger["bucket_seconds"]
+    span = sum(buckets.values())
+    n = max(1, aeng.steps_total - before["steps"])
+    out = {
+        "watchdog_compiles": compiles, "ledger_committed_tokens": committed,
+        "ledger_warmup_tokens": warmup_tokens, "jobs_tokens": engine_tokens,
+        "finished_tokens": finished_tokens, "ledger_steps": ledger["steps"],
+        "bucket_seconds": buckets,
+        "bucket_share": {k: v / span for k, v in buckets.items()} if span else {},
+        "step_wall_s": walls, "limiter": ledger["limiter"],
+        "sched_stall_p50_ms": 1e3 * stalls[len(stalls) // 2] if stalls else None,
+        "goodput_tok_s": ledger["goodput_tok_s"], "mfu": ledger["mfu"],
+        "mfu_peak_tflops": get_settings().chip_peak_tflops,
+        "hbm_occupancy_page_s": occ, "hbm_attributed_page_s": attr,
+        "hbm_finished_requests": bodies["/debug/hbm"]["replicas"][replica]["attribution"][
+            "finished_requests"],
+        "obs_us_per_step": 1e6 * (aeng.obs_seconds_total - before["obs_s"]) / n,
+        "step_us_mean": 1e6 * (aeng.step_seconds_total - before["step_s"]) / n,
+        "timeline_sources": src, "slo_state": bodies["/debug/slo"]["replicas"][0]["state"]
+        if bodies["/debug/slo"]["replicas"] else None,
+        "admission_hint": bodies["/debug/slo"]["admission_hint"],
+    }
+    log(f"rag obs: {json.dumps(out)}")
+    return out
 
 
 def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages: int = 8192,
@@ -3208,16 +3478,15 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
     set to RAG_MAX_OUTPUT), the agent over the retrieval phase's device
     index (plus repo, module, file and catalog docs), and ``RagApi`` +
     ``RagWorker`` in one process over the memory bus, on localhost.
-    Eight jobs posted at once: code questions, repo questions, one
-    whole-repo architecture question (the assembler's long-context mode),
-    one cancelled at its first turn, one whose ``deadline_ms`` the engine
-    reaps.  Every launch count is set to 0 just before the jobs and read
-    just after they all reach ``final``.  ``prefill_priority`` sets
+    Eight jobs posted together (``run_rag_jobs``): code questions, repo
+    questions, one whole-repo architecture question (the assembler's
+    long-context mode), one cancelled at its first turn, one whose
+    ``deadline_ms`` the engine reaps.  Every launch count is set to 0
+    just before the jobs and read just after they all reach ``final``.  ``prefill_priority`` sets
     PREFILL_PRIORITY for the engine (``--only options``).  ``llm`` (from
     ``rag_llm``, with the same settings) is used and left open, for the
     split phase; without it the phase builds its own and closes it."""
     import threading
-    from concurrent.futures import ThreadPoolExecutor
 
     import torch
 
@@ -3227,7 +3496,7 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
         MemoryBus, MemoryCancelFlags, MemoryJobQueue, reset_memory_hub)
     from githubrepostorag_tpu_torch.llm import set_llm
     from githubrepostorag_tpu_torch.metrics import (
-        DEVICE_INDEX_SEARCHES, JOBS_TOTAL, MeteredLLM, counter_value)
+        DECODE_TOKENS, DEVICE_INDEX_SEARCHES, JOBS_TOTAL, XLA_COMPILES, MeteredLLM, counter_value)
     from githubrepostorag_tpu_torch.retrieval import RetrieverFactory
     from githubrepostorag_tpu_torch.store import set_store
     from githubrepostorag_tpu_torch.worker import RagWorker
@@ -3282,12 +3551,19 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
     try:
         free0 = engine._allocator.free_count
         reaps0 = engine.deadline_reaps
+        aeng = llm.engine
+        obs0 = {"compiles": counter_value(XLA_COMPILES, replica=aeng.replica),
+                "ledger_committed": aeng.ledger.snapshot()["tokens"]["committed"],
+                "ledger_steps": aeng.ledger.snapshot()["steps"],
+                "engine_committed": engine.committed_tokens,
+                "decode_tokens": counter_value(DECODE_TOKENS, replica=aeng.replica),
+                "obs_s": aeng.obs_seconds_total, "step_s": aeng.step_seconds_total,
+                "steps": aeng.steps_total}
         searches0 = {p: counter_value(DEVICE_INDEX_SEARCHES, path=p) for p in ("device", "fallback")}
         jobs0 = {st: counter_value(JOBS_TOTAL, status=st) for st in ("ok", "cancelled", "timeout")}
         reset_launches()
         t0 = time.monotonic()
-        with ThreadPoolExecutor(len(jobs)) as pool:
-            done = list(pool.map(lambda j: rag_job(port, *j), jobs))
+        done = run_rag_jobs(port, jobs)
         traffic_s = time.monotonic() - t0
         deadline = time.monotonic() + 120
         while engine.has_work() and time.monotonic() < deadline:
@@ -3310,6 +3586,8 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
                 if (kinds[-1] != "error" or "deadline" not in final["error"]
                         or job["result"] != {"answer": "", "sources": [], "error": final["error"]}):
                     raise RuntimeError(f"deadline job {q!r}: events {kinds}, result {job['result']}")
+                _, trace, _ = _http(port, "GET", f"/debug/traces/{job['reply']['trace_id']}")
+                stats["deadline_job_first_llm_s"] = first_llm_start(trace)
                 continue
             if kinds[:2] != ["started", "iteration"] or "error" in kinds or "retrieval" not in kinds:
                 raise RuntimeError(f"job {q!r}: events {kinds}")
@@ -3369,6 +3647,9 @@ def phase_rag(cfg, params, device: str = "cuda", index=None, enc=None, passages:
         status, metrics, _ = _http(port, "GET", "/metrics")
         if status != 200 or 'rag_jobs_total{status="cancelled"}' not in metrics:
             raise RuntimeError(f"/metrics: {status}")
+        if "rag_engine_step_seconds_total" not in metrics or "rag_slo_state" not in metrics:
+            raise RuntimeError("/metrics: the ledger's and the SLO plane's series are missing")
+        stats["obs"] = rag_obs_check(port, aeng, obs0)
         stats.update({
             "jobs": len(done), "finished": finished, "traffic_wall_s": traffic_s,
             "job_wall_p50_s": percentile(walls, 0.5), "job_wall_p95_s": percentile(walls, 0.95),
@@ -3650,6 +3931,7 @@ def phase_ingest(cfg, params, enc=None, device: str = "cuda", geometry: dict | N
         MemoryBus, MemoryCancelFlags, MemoryJobQueue, reset_memory_hub)
     from githubrepostorag_tpu_torch.ingest.__main__ import main as ingest_main
     from githubrepostorag_tpu_torch.llm import set_llm
+    from githubrepostorag_tpu_torch.resilience.policy import priority_scope
     from githubrepostorag_tpu_torch.metrics import MeteredLLM
     from githubrepostorag_tpu_torch.retrieval import DeviceIndexedStore, RetrieverFactory
     from githubrepostorag_tpu_torch.serving.tokenizer import ByteTokenizer
@@ -3710,7 +3992,12 @@ def phase_ingest(cfg, params, enc=None, device: str = "cuda", geometry: dict | N
         reset_launches()
         t0 = time.monotonic()
         printed = io.StringIO()
-        with contextlib.redirect_stdout(printed):  # the CLI prints the run's record
+        # the CLI prints the run's record; its LLM calls are batch-class
+        # work: in a deployment the ingest pod is not the API pod, and here
+        # its 65 queued prompts would otherwise burn the interactive class's
+        # TTFT budget on the engine the phase's RAG job shares, and the
+        # API's SLO plane would shed that job
+        with contextlib.redirect_stdout(printed), priority_scope("batch"):
             rc = ingest_main(["--local", root, "--repo", INGEST_REPO,
                               *([] if cuda else ["--device", "cpu"])])
         ingest_s = time.monotonic() - t0
@@ -4271,8 +4558,7 @@ def phase_split(cfg, llm, rag: dict, enc, device: str = "cuda", rows: int = 2580
         jobs = rag_jobs(short, code_repos=("repo0", "repo0"))  # repo0's code chunks
         reset_launches()
         t0 = time.monotonic()
-        with ThreadPoolExecutor(len(jobs)) as pool:
-            done = list(pool.map(lambda j: rag_job(api_port, *j), jobs))
+        done = run_rag_jobs(api_port, jobs)
         traffic_s = time.monotonic() - t0
         deadline = time.monotonic() + 120
         while engine.has_work() and time.monotonic() < deadline:
@@ -4297,6 +4583,8 @@ def phase_split(cfg, llm, rag: dict, enc, device: str = "cuda", rows: int = 2580
             if state == "deadline":
                 if job["result"] != {"answer": "", "sources": [], "error": final["error"]}:
                     raise RuntimeError(f"deadline job: result {job['result']}")
+                stats["deadline_job_first_llm_s"] = first_llm_start(
+                    get_recorder().trace_payload(job["reply"]["trace_id"]))
                 continue
             if job["result"].get("answer") != final["answer"] or not final["sources"]:
                 raise RuntimeError(f"job {job['body']['query']!r}: result {job['result']} vs "
@@ -4319,7 +4607,16 @@ def phase_split(cfg, llm, rag: dict, enc, device: str = "cuda", rows: int = 2580
                     for p in searches0}
         jobs_total = {st: counter_value(JOBS_TOTAL, status=st) - jobs0[st] for st in jobs0}
         if reaped < 1 or jobs_total != {"ok": 6, "cancelled": 1, "timeout": 1}:
-            raise RuntimeError(f"deadline reaps {reaped}, rag_jobs_total moved by {jobs_total}")
+            # where the deadline job's budget went: its trace's spans by
+            # start offset (no llm.generate: the budget ran out before the
+            # agent's first call, which then never reached the engine)
+            job = next(j for j in done if "deadline_ms" in j["body"])
+            trace = get_recorder().trace_payload(job["reply"]["trace_id"]) or {"spans": []}
+            spans = [(sp["name"], sp.get("start_s"),
+                      sp.get("duration_s")) for sp in trace["spans"]]
+            raise RuntimeError(f"deadline reaps {reaped}, rag_jobs_total moved by {jobs_total}; "
+                               f"the deadline job's spans {spans}, events "
+                               f"{[e['event'] for e in job['events']]}, wall {job['wall_s']}")
         if searches["device"] <= 0 or searches["fallback"] != 0:
             raise RuntimeError(f"index searches in the split phase: {searches}")
         a, b = "fused_window_attention", "paged_attention_decode_staged"
@@ -4465,7 +4762,7 @@ def launch_counters() -> dict:
 # per-branch counts beside a wrapper's total: A and B by pool, D by loader,
 # E by kernel
 BRANCH_COUNTS = ("launches_by_pool", "launches_by_loader", "launches_by_kernel",
-                 "launches_by_window")
+                 "launches_by_window", "launches_by_head_dim")
 
 
 def _branch_key(name: str, attr: str, kind) -> str:
@@ -4919,7 +5216,8 @@ MODE_RUNS = (
 )
 MODE_KEYS = ("SPEC_NGRAM_K", "SPEC_BURST_ITERS", "FUSED_STEP", "PREFILL_TOKEN_BUDGET",
              "PREFILL_PRIORITY", "PREFILL_WIDTHS", "KV_QUANT", "KV_TIER",
-             "KV_HOST_POOL_PAGES", "PREEMPT", *ENGINE_GEOMETRY)
+             "KV_HOST_POOL_PAGES", "PREEMPT", "SPEC_DRAFT_MODEL", "SPEC_K", "SPEC_ITERS",
+             "SPEC_ACCEPT_FLOOR", *ENGINE_GEOMETRY)
 
 
 def mode_settings(env: dict | None = None):
@@ -4937,12 +5235,12 @@ def mode_settings(env: dict | None = None):
     return config.reload_settings()
 
 
-def mode_engine(cfg, params, env: dict):
+def mode_engine(cfg, params, env: dict, device: str = "cuda"):
     """The model server's engine for ``env`` (``serving/__main__.build_engine``
     over the settings), warmed up."""
     from githubrepostorag_tpu_torch.serving.__main__ import build_engine
 
-    engine = build_engine(mode_settings(env), params, cfg, "cuda")
+    engine = build_engine(mode_settings(env), params, cfg, device)
     engine.warmup()
     return engine
 
@@ -4976,9 +5274,13 @@ def serve_modes_traffic(engine, traffic: dict, sampled: tuple[int, ...] = ()) ->
     to 0 just before and read just after: the wave at once (rows in
     ``sampled`` at temperature 0.8, top-p 0.9), then the decode wave at
     once.  Returns the results, launches, and the engine's dispatch and
-    speculation counters over the decode wave."""
+    speculation counters over the decode wave; the compile watchdog's
+    count (``rag_xla_compiles_total``: first-time kernel work after the
+    driver's start, which must stay 0) and the obs hooks' host us a step
+    beside the step's."""
     import torch
 
+    from githubrepostorag_tpu_torch import metrics
     from githubrepostorag_tpu_torch.serving import AsyncEngine, SamplingParams
 
     greedy = SamplingParams(temperature=0.0, max_tokens=traffic["n_new"])
@@ -4990,9 +5292,12 @@ def serve_modes_traffic(engine, traffic: dict, sampled: tuple[int, ...] = ()) ->
         return (engine.step_dispatches_total, engine.spec_proposed, engine.spec_accepted,
                 engine.fused_steps_total)
 
+    obs = {}
+
     async def serve():
         aeng = AsyncEngine(engine)
         await aeng.start()
+        compiles0 = metrics.counter_value(metrics.XLA_COMPILES, replica=aeng.replica)
         try:
             t0 = time.monotonic()
             first = await asyncio.gather(*(aeng.generate(p, sp)
@@ -5004,6 +5309,11 @@ def serve_modes_traffic(engine, traffic: dict, sampled: tuple[int, ...] = ()) ->
             return first, decoded, t1 - t0, c0, counters()
         finally:
             await aeng.stop()
+            steps = max(1, aeng.steps_total)
+            obs.update(watchdog_compiles=metrics.counter_value(
+                metrics.XLA_COMPILES, replica=aeng.replica) - compiles0,
+                obs_us_per_step=1e6 * aeng.obs_seconds_total / steps,
+                step_us_mean=1e6 * aeng.step_seconds_total / steps, driver_steps=aeng.steps_total)
 
     reset_launches()
     c_start = counters()
@@ -5037,6 +5347,7 @@ def serve_modes_traffic(engine, traffic: dict, sampled: tuple[int, ...] = ()) ->
         "decode_proposed": c1[1] - c0[1], "decode_accepted": c1[2] - c0[2],
         "fused_steps": c1[3] - c_start[3],
         "a_launches_per_token": 0.0,  # filled below
+        **obs,
     }
 
 
@@ -5111,7 +5422,8 @@ def teacher_logits(params, cfg, rows: list[tuple[list[int], list[int]]], widths:
 
 
 def check_bf16_divergence(params, cfg, groups: list[list[int]], prompts: list[list[int]],
-                          plain: list[list[int]], runs: dict, device: str = "cuda") -> dict:
+                          plain: list[list[int]], runs: dict, device: str = "cuda",
+                          widths: tuple[int, ...] = (5,)) -> dict:
     """Greedy rows of each bf16 spec run against the default run's.  Where
     a row's tokens first differ, at position p, the divergence must be a
     near tie.  The default run's outputs are teacher-forced per group of
@@ -5121,7 +5433,8 @@ def check_bf16_divergence(params, cfg, groups: list[list[int]], prompts: list[li
     gap between the two logits of any output position of the row up to
     p.  If each path's logits lie within D of the other's, two different
     argmaxes are at most 2 D apart: the teacher-forced logits of the two
-    tokens at p must be within 2 D."""
+    tokens at p must be within 2 D.  ``widths``: the windows D is taken
+    over (the draft's verify rungs add 2 and 3)."""
     import torch
 
     out = {"rows_compared": 0, "divergent": [], "largest_bound": None}
@@ -5135,10 +5448,11 @@ def check_bf16_divergence(params, cfg, groups: list[list[int]], prompts: list[li
                 continue
             group = next(g for g in groups if i in g)
             if group[0] not in forced:
-                l1, l5 = teacher_logits(params, cfg, [(prompts[j], plain[j]) for j in group],
-                                        (1, 5), device=device)
-                forced[group[0]] = (l1, (l1 - l5).abs().amax(dim=-1), l5.argmax(dim=-1))
-                del l5
+                l1, *lw = teacher_logits(params, cfg, [(prompts[j], plain[j]) for j in group],
+                                         (1, *widths), device=device)
+                gaps = torch.stack([(l1 - x).abs().amax(dim=-1) for x in lw]).amax(dim=0)
+                forced[group[0]] = (l1, gaps, lw[-1].argmax(dim=-1))
+                del lw
                 if device == "cuda":
                     torch.cuda.empty_cache()
             l1, d, arg5 = forced[group[0]]
@@ -5561,10 +5875,346 @@ def phase_modes(cfg, params) -> dict:
     return out
 
 
+# the draft controller's settings as a pod sets them (the JAX defaults)
+DRAFT_SPEC = {"SPEC_K": "4", "SPEC_ITERS": "4"}
+
+
+def draft_config(cfg):
+    """Qwen2-0.5B's widths and depth with the target's vocabulary: the
+    published 0.5B's 151,936 beside the 7B's 152,064 is refused by the
+    reference's vocabulary rule (ROADMAP queue 3).  Untied, as
+    ``write_checkpoint`` writes it."""
+    import dataclasses
+
+    from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config
+
+    return dataclasses.replace(Qwen2Config.qwen2_0_5b(), vocab_size=cfg.vocab_size,
+                               tie_word_embeddings=False)
+
+
+def draft_tree(dcfg, kind: str, seed: int, device: str = "cuda", dtype=None) -> dict:
+    """A draft's unfused tree: ``random`` from the seed; ``quoting`` the
+    quoting construction at the draft's shapes (zero layers, lm_head the
+    embedding rolled by one row: narrates t -> t+1, as the quoting target
+    does); ``partial`` quoting but for the ids t % 8 == 0, whose column
+    t + 2 is row t's (they draft t + 2) and whose column t + 1 is row
+    t + 1's (t + 1 drafts itself): drafts run out at those ids."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models.qwen2 import init_params
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    tree = init_params(dcfg, gen, device=device, dtype=dtype or torch.bfloat16)
+    if kind == "random":
+        return tree
+    tree = narrator_params(tree)
+    if kind == "partial":
+        t = torch.arange(0, dcfg.vocab_size - 2, 8, device=device)
+        tree["lm_head"][:, t + 2] = tree["embed"][t].t()
+        tree["lm_head"][:, t + 1] = tree["embed"][t + 1].t()
+    return tree
+
+
+def record_rungs(engine) -> dict:
+    """Count the draft length the engine's controller picks each dispatch."""
+    picks: dict[int, int] = {}
+    pick = engine._pick_spec_k
+
+    def counted(running):
+        k = pick(running)
+        picks[k] = picks.get(k, 0) + 1
+        return k
+
+    engine._pick_spec_k = counted
+    return picks
+
+
+def draft_sync_free(engine, traffic: dict) -> dict:
+    """One draft burst (k = 4, 4 iterations) on the engine's rows with
+    ``torch.cuda.set_sync_debug_mode("error")``: any host sync inside
+    raises.  The inputs are made before, the rows cancelled after."""
+    import torch
+
+    from githubrepostorag_tpu_torch.serving import SamplingParams
+    from githubrepostorag_tpu_torch.serving.draft_spec import draft_spec_burst
+
+    rids = [engine.add_request(p, SamplingParams(temperature=0.0, max_tokens=64))
+            for p in traffic["decode"]]
+    while any(r.state in ("waiting", "prefilling") for r in engine._requests.values()):
+        engine.step()
+    running = [r for r in engine._row_req.values() if r.state == "running"]
+    w = engine._spec_window_rows(running)
+    t = engine._tensor
+    args = [t(w[k]) for k in ("hist", "hlens", "lens")]
+    rest = [t(w[k]) for k in ("bt", "limits", "active")]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        toks, prop, *_ = draft_spec_burst(
+            engine.params, engine.draft_params, engine.cfg, engine.draft_cfg, *args,
+            engine._k_pages, engine._v_pages, engine._dk_pages, engine._dv_pages, *rest,
+            n_iters=4, k=4, k_scales=engine._k_scales, v_scales=engine._v_scales)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    block = toks.flatten().cpu()
+    for rid in rids:
+        engine.cancel(rid)
+    while engine.has_work():
+        engine.step()
+    if not ((block >= -1) & (block < engine.cfg.vocab_size)).all():
+        raise RuntimeError("the draft burst under sync-debug mode returned tokens outside "
+                           "the vocabulary")
+    return {"rows": len(running), "tokens": int((block >= 0).sum()),
+            "proposed": int(prop.sum()), "host_syncs": 0}
+
+
+def draft_f32_identity(cfg, dcfg, device: str = "cuda") -> dict:
+    """Exact identity in float32: the 7B target and the 0.5B-width random
+    draft each cut to 2 layers, float32 weights and pages (kernel A's f32
+    route), TF32 off, the acceptance floor at 0 (every token through a
+    verify window); every greedy token equal to the default engine's."""
+    import dataclasses
+
+    import torch
+
+    from githubrepostorag_tpu_torch.models.qwen2 import init_params
+    from githubrepostorag_tpu_torch.serving import Engine, SamplingParams
+
+    cfg2, dcfg2 = (dataclasses.replace(c, num_layers=2) for c in (cfg, dcfg))
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 79)
+    t2 = init_params(cfg2, gen, device=device, dtype=torch.float32)
+    d2 = draft_tree(dcfg2, "random", SEED + 71, device=device, dtype=torch.float32)
+    traffic = modes_traffic(cfg)
+    kw = dict(page_size=128, num_pages=256, max_num_seqs=8, prefill_chunk=512, decode_burst=8,
+              max_seq_len=11712, kv_dtype=torch.float32, device=device)
+    sp = SamplingParams(temperature=0.0, max_tokens=traffic["n_new"])
+    tokens, launches, counts = {}, {}, {}
+    for name, extra in (("default", {}), ("draft", dict(draft_params=d2, draft_cfg=dcfg2,
+                                                        spec_accept_floor=0.0, spec_k=4,
+                                                        spec_iters=4))):
+        engine = Engine(t2, cfg2, **kw, **extra)
+        reset_launches()
+        res = engine.generate(traffic["wave"] + traffic["decode"], sp)
+        torch.cuda.synchronize()
+        launches[name] = read_launches()
+        tokens[name] = [r.output_tokens for r in res]
+        counts[name] = (engine.spec_proposed, engine.spec_accepted)
+        del engine
+    diff = [i for i, (x, y) in enumerate(zip(tokens["draft"], tokens["default"])) if x != y]
+    if diff:
+        raise RuntimeError(f"float32 draft rows {diff} differ from the default engine's")
+    pin_mode_launches("f32 draft", launches["draft"], ("fused_window_attention@hd64",
+                                                       "fused_window_attention@hd128"),
+                      ("paged_attention_decode_staged",))
+    out = {"rows_identical": len(tokens["default"]),
+           "tokens_each": sum(len(t) for t in tokens["default"]),
+           "proposed_accepted": counts["draft"]}
+    log(f"draft, float32 (2 layers): {json.dumps(out)}")
+    del t2, d2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def draft_tier_run(cfg, params, device: str = "cuda") -> dict:
+    """The host tier with the draft on, at 7B: the tier run's geometry (48
+    device pages, 256 host, four 2048-token prefixes) with the target as
+    its own draft (so acceptance reads the draft's KV: a draft page left
+    behind would change it).  The first prefix, written back and reclaimed,
+    faults back in: the same tokens and the same proposed / accepted as
+    its first serve, and both pools' faulted pages byte-equal."""
+    import torch
+
+    from githubrepostorag_tpu_torch.ops.page_migration import gather_pages
+    from githubrepostorag_tpu_torch.serving import Engine, SamplingParams
+    from githubrepostorag_tpu_torch.serving.kv_cache import page_hashes
+
+    engine = Engine(params, cfg, page_size=128, num_pages=48, max_num_seqs=8,
+                    prefill_chunk=512, decode_burst=8, max_seq_len=11712, kv_tier="on",
+                    kv_host_pool_pages=256, draft_params=params, draft_cfg=cfg, spec_k=4,
+                    spec_iters=4, device=device)
+    engine.warmup()
+    rng = np.random.default_rng(SEED + 83)
+    prefixes = [rng.integers(0, cfg.vocab_size, 2048).tolist() for _ in range(4)]
+    sp = SamplingParams(temperature=0.0, max_tokens=32)
+    al = engine._allocator
+    hashes = page_hashes(prefixes[0], 128)[: (len(prefixes[0]) - 1) // 128]
+
+    def pools(pages):
+        idx = torch.tensor(pages, dtype=torch.int32, device=device)
+        return [x.cpu() for x in (*gather_pages(engine._k_pages, engine._v_pages, idx)[:2],
+                                  *gather_pages(engine._dk_pages, engine._dv_pages, idx)[:2])]
+
+    first = engine.generate([prefixes[0]], sp)[0]
+    engine.flush_kv_migrations()
+    before = pools([al._hash_to_page[h] for h in hashes])
+    for p in prefixes[1:]:
+        engine.generate([p], sp)
+        engine.flush_kv_migrations()
+    if any(h in al._hash_to_page for h in hashes):
+        raise RuntimeError("the first prefix kept device pages after three others")
+    again = engine.generate([prefixes[0]], sp)[0]
+    torch.cuda.synchronize()
+    if again.faulted_pages <= 0:
+        raise RuntimeError("the evicted prefix did not fault in")
+    if again.output_tokens != first.output_tokens:
+        raise RuntimeError("the faulted-in prefix's tokens differ from its first serve's")
+    acc = [(r.spec_proposed, r.spec_accepted) for r in (first, again)]
+    if acc[0] != acc[1] or acc[0][1] <= 0:
+        raise RuntimeError(f"acceptance after the fault-in {acc[1]} differs from the first "
+                           f"serve's {acc[0]}")
+    after = pools([al._hash_to_page[h] for h in hashes])
+    if not all(torch.equal(x, y) for x, y in zip(before, after)):
+        raise RuntimeError("round-tripped KV pages (target or draft pools) are not byte-equal")
+    if al.free_count != al.num_pages:
+        raise RuntimeError("pages leaked after the draft tier run")
+    out = {"prefix_pages": len(hashes), "faulted_pages": again.faulted_pages,
+           "proposed_accepted_first_and_after": acc, "pools_byte_equal": 4,
+           "writebacks": al.writebacks, "fault_ins": al.fault_ins}
+    log(f"draft, host tier: {json.dumps(out)}")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_draft(cfg, params, device: str = "cuda") -> dict:
+    """Draft-model speculation at Qwen2-7B (random bf16 weights) with a
+    Qwen2-0.5B-width draft (see the module docstring), each engine built by
+    the model server's build_engine from its settings, the draft loaded
+    from a checkpoint written into a temp dir under _build/ (deleted
+    after); the checks and numbers of each run, bf16 divergences at near
+    ties only, float32 identity, the host tier and a sync-free burst."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from githubrepostorag_tpu_torch import kernels
+    from githubrepostorag_tpu_torch.serving import SamplingParams
+
+    a, b = "fused_window_attention", "paged_attention_decode_staged"
+    t_phase = time.monotonic()
+    dcfg = draft_config(cfg)
+    traffic = modes_traffic(cfg)
+    prompts = traffic["wave"] + traffic["decode"]
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="draft-", dir=kernels.BUILD_DIR))
+    out = {"draft_config": {k: getattr(dcfg, k) for k in (
+        "hidden_size", "num_layers", "num_heads", "num_kv_heads", "head_dim",
+        "intermediate_size", "vocab_size")}, "checkpoints": {}, "runs": {}}
+    runs, tokens = {}, {}
+    narr = narrator_params(params)
+    try:
+        dirs = {}
+        for kind, seed in (("random", SEED + 71), ("quoting", SEED + 73),
+                           ("partial", SEED + 73)):
+            t0 = time.monotonic()
+            tree = draft_tree(dcfg, kind, seed, device=device)
+            dirs[kind] = root / kind
+            dirs[kind].mkdir()
+            nbytes = write_checkpoint(dirs[kind], tree, dcfg)
+            del tree
+            torch.cuda.empty_cache()
+            out["checkpoints"][kind] = {"bytes": nbytes, "write_s": time.monotonic() - t0}
+        plan = [("default", params, None, {}), ("random", params, "random", {}),
+                ("random_floor0", params, "random", {"SPEC_ACCEPT_FLOOR": "0"}),
+                ("quoting", narr, "quoting", {}), ("partial", narr, "partial", {}),
+                ("quoting_kv8", narr, "quoting", {"KV_QUANT": "int8"})]
+        sync_check = None
+        for name, tree, kind, env in plan:
+            t0 = time.monotonic()
+            if kind is not None:
+                env = {**env, **DRAFT_SPEC, "SPEC_DRAFT_MODEL": str(dirs[kind])}
+            engine = mode_engine(cfg, tree, env, device)
+            warm_s = time.monotonic() - t0
+            picks = record_rungs(engine) if kind else {}
+            run = serve_modes_traffic(engine, traffic)
+            n = run["launches"]
+            if run["watchdog_compiles"] != 0:
+                raise RuntimeError(f"draft {name}: the compile watchdog counted "
+                                   f"{run['watchdog_compiles']} after warmup")
+            if kind is None:
+                pin_mode_launches(name, n, (a, b), ())
+            else:
+                if engine._dk_pages.dtype != torch.bfloat16:
+                    raise RuntimeError(f"draft {name}: draft pools in {engine._dk_pages.dtype}")
+                pin_mode_launches(name, n, (a + "@hd64", a + "@hd128", a + "@S1",
+                                            a + "@S5"), ())
+            if name == "random":
+                pin_mode_launches(name, n, (b,), ())
+                if engine.spec_fallbacks.get("acceptance", 0) <= 0:
+                    raise RuntimeError("the random draft was never demoted by the floor")
+            if name == "random_floor0":
+                pin_mode_launches(name, n, (), (b,))
+            if name == "quoting_kv8":
+                pin_mode_launches(name, n, (a + "@int8",), ())
+                if engine._k_pages.dtype != torch.int8:
+                    raise RuntimeError("quoting_kv8: the target pages are not int8")
+            rate = run["spec_accepted"] / max(1, run["spec_proposed"])
+            run.update(warmup_s=warm_s, acceptance=rate, fallbacks=dict(engine.spec_fallbacks),
+                       rungs={str(k): v for k, v in sorted(picks.items())},
+                       a_launches_per_token=n.get(a, 0) / max(1, sum(
+                           len(r.output_tokens) for r in run["results"])),
+                       a_launches_by_head_dim={k: n.get(f"{a}@{k}", 0) for k in ("hd64",
+                                                                               "hd128")},
+                       a_launches_by_window={k.split("@S")[1]: v for k, v in n.items()
+                                             if k.startswith(a + "@S")})
+            if name in ("default", "random_floor0", "quoting"):
+                run["profile"] = profile_decode(engine, traffic["decode"],
+                                                SamplingParams(temperature=0.0, max_tokens=17))
+            if name == "random":
+                sync_check = draft_sync_free(engine, traffic)
+            tokens[name] = {i: run["results"][i].output_tokens for i in run["greedy_rows"]}
+            run["seconds"] = time.monotonic() - t0
+            run["launches"] = {k: v for k, v in n.items() if v}
+            del run["results"], run["greedy_rows"]
+            runs[name] = run
+            log(f"draft, {name}: {json.dumps(run)}")
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        mode_settings()
+    del narr
+    gc.collect()
+    torch.cuda.empty_cache()
+    if runs["quoting"]["acceptance"] < 0.9 or set(runs["quoting"]["rungs"]) != {"4"}:
+        raise RuntimeError(f"quoting pair: acceptance {runs['quoting']['acceptance']:.3f}, "
+                           f"rungs {runs['quoting']['rungs']}; expected ~1 at the top rung")
+    part = runs["partial"]
+    if not 0.0 < part["acceptance"] < runs["quoting"]["acceptance"] or \
+            set(part["rungs"]) <= {"4"}:
+        raise RuntimeError(f"partly quoting draft: acceptance {part['acceptance']:.3f}, "
+                           f"rungs {part['rungs']}; expected partial, a lower rung visited")
+    for name in ("partial", "quoting_kv8"):
+        if tokens[name] != tokens["quoting"]:
+            raise RuntimeError(f"{name}: greedy tokens differ from the quoting pair's")
+    n_wave = len(traffic["wave"])
+    groups = [list(range(n_wave)), list(range(n_wave, len(prompts)))]
+    divergence = check_bf16_divergence(
+        params, cfg, groups, prompts, tokens["default"],
+        {k: tokens[k] for k in ("random", "random_floor0")}, device=device, widths=(2, 3, 5))
+    log(f"draft, bf16 divergence: {json.dumps(divergence)}")
+    out.update(runs=runs, bf16_divergence=divergence, sync_free_burst=sync_check,
+               identical_to_default={k: sum(tokens[k][i] == tokens["default"][i]
+                                            for i in tokens[k])
+                                     for k in ("random", "random_floor0")})
+    out["f32"] = draft_f32_identity(cfg, dcfg, device)
+    out["tier"] = draft_tier_run(cfg, params, device)
+    out["seconds"] = time.monotonic() - t_phase
+    log(f"draft phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["kernels", "longctx", "int4", "retrieval", "rag",
-                                           "ingest", "options", "split", "modes"],
+                                           "ingest", "options", "split", "modes", "draft"],
                         default=None,
                         help="kernels: the device, build and kernel phases only; longctx: "
                              "the device and build phases and the long-context decode "
@@ -5579,7 +6229,9 @@ def main() -> int:
                              "phases, the rag phase and the split deployment (API pod, "
                              "Redis, Cassandra, the worker pod, the native store); modes: "
                              "the device and build phases, kernel A at the verify window "
-                             "and the engine modes phase")
+                             "and the engine modes phase; draft: the device and build "
+                             "phases, kernel A at the draft's and the verify rungs' shapes "
+                             "and the draft-model speculation phase")
     args = parser.parse_args()
 
     import torch
@@ -5641,6 +6293,26 @@ def main() -> int:
         log(f"done in {time.monotonic() - t_all:.1f} s")
         print(json.dumps({"kernel_a_verify_window": verify}))
         print(json.dumps({"modes": modes}))
+        print(device["card"])
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
+                                                 "count": device["count"]}}), flush=True)
+        return 0
+    if args.only == "draft":
+        checks = []
+
+        def check(label, res):
+            checks.append((label, res))
+            log(f"{label}: {json.dumps(res)}")
+            return res
+
+        shapes = draft_window_cases(np.random.default_rng(SEED), torch.device("cuda"), check)
+        if any(r["limit_share"] > 1.0 for _, r in checks):
+            raise RuntimeError("kernel A disagrees with its plain version at the draft's shapes")
+        cfg, params = make_7b_params()
+        draft = phase_draft(cfg, params)
+        log(f"done in {time.monotonic() - t_all:.1f} s")
+        print(json.dumps({"kernel_a_draft_shapes": shapes}))
+        print(json.dumps({"draft": draft}))
         print(device["card"])
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                                  "count": device["count"]}}), flush=True)
@@ -5732,6 +6404,9 @@ def main() -> int:
     modes = phase_modes(cfg, params)
     gc.collect()
     torch.cuda.empty_cache()
+    draft = phase_draft(cfg, params)
+    gc.collect()
+    torch.cuda.empty_cache()
     qparams = quantize_7b(params)
     del params  # the bf16 tree and engines are gone before the int4 phases
     gc.collect()
@@ -5797,6 +6472,17 @@ def main() -> int:
             entry["verify_window"]["launches_per_token"] = {
                 run: modes["runs"][run]["a_launches_per_token"]
                 for run in ("default", "spec", "burst", "fused", "fused_int4")}
+            # the draft-model path's shapes, alone, and the draft runs'
+            # launches per committed token by head dim and window
+            entry["draft_shapes"] = {key.split("@", 1)[1]: {k: kres[key][k]
+                                                            for k in keys + ("host_us",)}
+                                     for key in kres if key.startswith(a + "@draft_")
+                                     or key in (a + "@S2", a + "@S3")}
+            entry["draft_shapes"]["launches_per_token"] = {
+                run: {"all": draft["runs"][run]["a_launches_per_token"],
+                      **draft["runs"][run]["a_launches_by_head_dim"],
+                      "by_window": draft["runs"][run]["a_launches_by_window"]}
+                for run in ("random", "random_floor0", "quoting", "partial")}
         if name in ("paged_attention_decode_staged", "paged_attention_decode"):
             # the split of the timed cases: 4 kv heads, 64 pages of 128 keys
             entry["plan"] = {f"B={bb}": _plan_decode(bb, 4, 64, 128, n_sm)._asdict()
@@ -5814,6 +6500,7 @@ def main() -> int:
     print(json.dumps({"ingest": runs["ingest"]}))
     print(json.dumps({"split": runs["split"]}))
     print(json.dumps({"modes": modes}))
+    print(json.dumps({"draft": draft}))
     print(device["card"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],

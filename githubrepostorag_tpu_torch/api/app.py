@@ -19,10 +19,14 @@ with the JAX app's three middlewares -- CORS headers on every reply (and
 204 to OPTIONS), the per-request count/latency series, and a root span
 per /rag request continuing an incoming ``traceparent``.
 
-``/debug/slo``, ``/debug/fleet``, ``/debug/hbm`` and ``/debug/timeline``
-read planes the port does not have yet (ROADMAP queue 1 items 6 and 7):
-they are not routed, so they get the JSON 404 every unknown path gets, as
-on the port's model server.
+and the observability planes' routes:
+  GET  /debug/slo                 -> the SLO plane (burn states, decisions)
+  GET  /debug/fleet               -> per-replica ledgers, monitors, stats
+  GET  /debug/hbm                 -> the page observatories
+  GET  /debug/timeline            -> one Perfetto trace (?window_s=; 400
+                                     when it is not a number)
+Their payloads are empty of replicas in a process with no engine (the
+split deployment's API pod), as in the JAX app.
 """
 
 from __future__ import annotations
@@ -44,9 +48,11 @@ from githubrepostorag_tpu_torch.resilience.policy import Deadline
 from githubrepostorag_tpu_torch.serving.http_core import (
     HTTPServer,
     Request,
+    debug_plane_routes,
     end_stream,
     respond,
     start_stream,
+    timeline_window,
     write_chunk,
     write_json,
 )
@@ -82,6 +88,8 @@ class RagApi(HTTPServer):
             "/debug/traces": {"GET": self.debug_traces},
             "/debug/traces/{trace_id}": {"GET": self.debug_trace},
             "/debug/index": {"GET": self.debug_index},
+            **debug_plane_routes(),
+            "/debug/timeline": {"GET": self.debug_timeline},
             "/health": {"GET": self.health},
             "/metrics": {"GET": self.metrics},
             "/": {"GET": self.index_redirect},
@@ -155,8 +163,8 @@ class RagApi(HTTPServer):
             return await write_json(
                 req, 429, {"error": f"job queue full ({depth} queued); retry later"},
                 (("Retry-After", str(retry_after)),))
-        # per-class admission decision: sheds only when a provider
-        # registered one (the SLO plane, not ported yet) says so
+        # per-class admission decision: sheds only when the SLO plane's
+        # decision table (registered when the plane is built) says so
         from githubrepostorag_tpu_torch.resilience.admission import should_shed
 
         if should_shed(request.priority or s.priority_default_class):
@@ -266,6 +274,17 @@ class RagApi(HTTPServer):
         from githubrepostorag_tpu_torch.retrieval.live_index import live_index_payload
 
         return await write_json(req, 200, live_index_payload())
+
+    async def debug_timeline(self, req: Request) -> bool:
+        """One Perfetto trace for the recent past (``?window_s=`` bounds
+        it); save the body and open it in ui.perfetto.dev."""
+        from githubrepostorag_tpu_torch.obs.timeline import build_timeline
+
+        try:
+            window_s = timeline_window(req)
+        except ValueError:
+            return await write_json(req, 400, {"error": "window_s must be a number"})
+        return await write_json(req, 200, build_timeline(window_s=window_s))
 
     async def health(self, req: Request) -> bool:
         from githubrepostorag_tpu_torch.api.health import health_report

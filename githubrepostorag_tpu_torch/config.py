@@ -11,12 +11,12 @@ and its sampling defaults), ``agent/`` (the loop's budgets),
 ``events/``, ``worker/`` and ``api/`` (jobs, queue bound, SSE, the Redis
 URL of the split deployment, the worker pod's metrics port),
 ``resilience/`` (retries, breakers, ``FAULTS``), ``obs/`` (traces,
-the log format) and ``ingest/`` (GitHub, branch and collection, DEV_MODE,
+the log format, the step profiler's ring, the SLO objectives and burn
+rates, the ledger's window and MFU denominator, the timeline) and ``ingest/`` (GitHub, branch and collection, DEV_MODE,
 the Pushgateway, ``EXTENSION_TO_LANGUAGE``).  Each reads the same environment variable, with the same
 default and parser, as the JAX package's field of the same name, so a pod
 spec carries over unchanged.  The settings of modes the port does not run
-yet (draft-model speculation and its controller's tuning, the
-sequence-parallel ring, meshes) are kept: setting one reaches ``Engine``,
+yet (the sequence-parallel ring, meshes, the fleet controller) are kept: setting one reaches ``Engine``,
 which refuses it, or ``__main__``, which exits naming the roadmap item
 that brings it.  ``SP_PREFILL_THRESHOLD``
 means nothing on one card (the JAX server resolves it to off there) and
@@ -186,9 +186,8 @@ class Settings:
     # the class headroom reservations and preemption act for
     priority_protected_class: str = _env("PRIORITY_PROTECTED_CLASS", "interactive")
 
-    # --- engine modes; Engine refuses the sequence-parallel ring's and the
-    # draft controller's tuning (SP_RING_*, SPEC_K, SPEC_ITERS, SPEC_ACCEPT_*,
-    # SPEC_DEADLINE_*) away from its default ---
+    # --- engine modes; Engine refuses the sequence-parallel ring's tuning
+    # (SP_RING_*) away from its default ---
     prefill_widths: int = _int("PREFILL_WIDTHS", 1)
     prefill_priority: bool = _bool("PREFILL_PRIORITY", False)
     sp_ring_pack: bool = _bool("SP_RING_PACK", True)
@@ -206,9 +205,41 @@ class Settings:
     preempt: str = _env("PREEMPT", "auto")
     preempt_headroom_pages: int = _int("PREEMPT_HEADROOM_PAGES", 0)
 
+    # draft-model speculation: the draft's checkpoint dir (SPEC_K,
+    # SPEC_ITERS, SPEC_ACCEPT_FLOOR, SPEC_DEADLINE_MARGIN_S tune it)
+    spec_draft_model: str = _env("SPEC_DRAFT_MODEL", "")
+
+    # --- observability planes (obs/) ---
+    # continuous profiler: every Nth driver step lands in a bounded ring
+    # (0 = off); PROFILE_RING samples are kept per replica
+    profile_sample_every: int = _int("PROFILE_SAMPLE_EVERY", 32)
+    profile_ring: int = _int("PROFILE_RING", 512)
+    # /debug/timeline's default window and its event cap
+    timeline_window_s: float = _float("TIMELINE_WINDOW_S", 120.0)
+    timeline_max_events: int = _int("TIMELINE_MAX_EVENTS", 20000)
+    # SLO objectives (ms) per priority class, and the longctx class's own
+    slo_ttft_p50_ms: float = _float("SLO_TTFT_P50_MS", 1500.0)
+    slo_ttft_p99_ms: float = _float("SLO_TTFT_P99_MS", 5000.0)
+    slo_tpot_ms: float = _float("SLO_TPOT_MS", 100.0)
+    slo_deadline_miss_budget: float = _float("SLO_DEADLINE_MISS_BUDGET", 0.05)
+    slo_longctx_ttft_p50_ms: float = _float("SLO_LONGCTX_TTFT_P50_MS", 15000.0)
+    slo_longctx_ttft_p99_ms: float = _float("SLO_LONGCTX_TTFT_P99_MS", 45000.0)
+    slo_longctx_tpot_ms: float = _float("SLO_LONGCTX_TPOT_MS", 150.0)
+    # "short,long" burn-rate windows (s) and the warn / critical burn rates
+    slo_windows: str = _env("SLO_WINDOWS", "60,300")
+    slo_burn_warn: float = _float("SLO_BURN_WARN", 6.0)
+    slo_burn_critical: float = _float("SLO_BURN_CRITICAL", 14.4)
+    # the token ledger's rolling window (goodput, MFU, limiter)
+    slo_ledger_window_s: float = _float("SLO_LEDGER_WINDOW_S", 60.0)
+    # FLOPs a token for MFU; 0 = ~2x the parameter count of the config
+    model_flops_per_token: float = _float("MODEL_FLOPS_PER_TOKEN", 0.0)
+    # the MFU denominator: the card's dense bf16 peak, 989 TFLOP/s on an
+    # NVIDIA H100 80GB HBM3 at 700 W (the JAX package's default is a
+    # TPU's, 197)
+    chip_peak_tflops: float = _float("CHIP_PEAK_TFLOPS", 989.0)
+
     # --- settings __main__ refuses: they need planes the port lacks ---
     mesh_shape: str = _env("MESH_SHAPE", "")  # e.g. "dp:2,tp:4"
-    spec_draft_model: str = _env("SPEC_DRAFT_MODEL", "")  # draft checkpoint dir
     ctrl: str = _env("CTRL", "off")  # the fleet controller
 
     # --- store and retrieval (store/factory.py, embedding.py, retrieval/) ---

@@ -366,8 +366,8 @@ class InProcessLLM:
         # manual span: the generator body runs on the consumer's schedule
         # and the engine result surfaces on the pump (llm-loop) thread, so
         # the trace context is captured here and threaded in explicitly.
-        # The port's AsyncEngine has no step profiler yet (ROADMAP queue 1
-        # item 6): ``profiler`` reads None and no span is registered
+        # Registered with the driver's step profiler, the span receives an
+        # ``xla_compile`` event if live traffic meets an unwarmed shape
         ctx = current_context()
         sp = Span("llm.generate", ctx) if ctx is not None and ctx.sampled else None
         profiler = getattr(self.engine, "profiler", None)

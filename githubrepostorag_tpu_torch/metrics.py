@@ -12,8 +12,10 @@ LLM and retrieval series -- with the JAX package's names, label names,
 help text and buckets.  Of the engine-owned series, the speculative,
 preemption and KV-tier ones are here (``serving/async_engine.py`` exports
 them), and the two that ``MeteredLLM`` observes with ``replica="api"``;
-the others (the engine's TTFT and decode tokens, SLO, fleet) come with
-the observability slice (ROADMAP queue 1 item 6).  ``counter_value`` and ``histogram_stats``
+the engine driver's own (running / waiting, TTFT, TPOT, decode tokens)
+and the observability planes' (compiles, stall, ledger, SLO, page
+observatory, profiler samples, timeline) are here too; the fleet's
+come with the fleet (ROADMAP queue 1 item 7).  ``counter_value`` and ``histogram_stats``
 read the series back (tests, the health report, the chip script).
 """
 
@@ -305,8 +307,8 @@ INDEX_OPS_APPLIED = Counter(
     "Mutation ops the live-index apply loop drained into the store",
     ["table", "kind"],
 )
-# MeteredLLM's API-side observations (replica="api"); the engine's own
-# children of these series come with the observability slice
+# MeteredLLM's API-side observations (replica="api") and the engine
+# driver's (its replica)
 TTFT = Histogram(
     "rag_ttft_seconds", "Time to first generated token", ["replica"],
     buckets=(0.1, 0.25, 0.5, 1.0, 1.5, 2.0, 3.0, 5.0, 10.0),
@@ -427,6 +429,123 @@ ADMISSION_FAILOPEN = Counter(
     "rag_admission_failopen_total",
     "Admission decisions that failed open (the SLO-plane provider raised "
     "or returned garbage; the request was accepted anyway)",
+)
+
+# the engine driver's own series and the observability planes' (obs/):
+# the step profiler, the token ledger, the SLO monitor, the page
+# observatory, the continuous profiler and the timeline
+XLA_COMPILES = Counter(
+    "rag_xla_compiles_total",
+    "Work the card ran for the first time during live engine stepping: a "
+    "kernel build or load, a new kernel launch plan, a dispatch shape warmup "
+    "did not run (warmup should make this zero; see obs/engine_profile.py)",
+    ["replica"],
+)
+ENGINE_RUNNING = Gauge("rag_engine_running_seqs", "Sequences in the decode batch", ["replica"])
+ENGINE_WAITING = Gauge("rag_engine_waiting_seqs", "Queued requests", ["replica"])
+PREFIX_CACHE_HITS = Counter(
+    "rag_prefix_cache_hit_tokens_total",
+    "Prompt tokens served from the KV prefix cache instead of prefill",
+    ["replica"],
+)
+ENGINE_WAITING = Gauge("rag_engine_waiting_seqs", "Queued requests", ["replica"])
+PREFIX_CACHE_HITS = Counter(
+    "rag_prefix_cache_hit_tokens_total",
+    "Prompt tokens served from the KV prefix cache instead of prefill",
+    ["replica"],
+)
+TPOT = Histogram(
+    "rag_engine_tpot_seconds",
+    "Time per output token after the first (decode seconds / decode tokens)",
+    ["replica"],
+    buckets=(0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0),
+)
+SCHED_STALL = Gauge(
+    "rag_engine_sched_stall_seconds",
+    "Gap between consecutive engine steps while work exists "
+    "(scheduler stall; 0 when idle)",
+    ["replica"],
+)
+LEDGER_GOODPUT = Gauge(
+    "rag_engine_goodput_tokens_per_s",
+    "Rolling committed-token throughput over the ledger window",
+    ["replica"],
+)
+LEDGER_MFU = Gauge(
+    "rag_engine_mfu_ratio",
+    "Rolling model FLOPs utilization: (committed+prefill tokens) x "
+    "flops/token over elapsed x peak chip FLOPs",
+    ["replica"],
+)
+LEDGER_LIMITER = Gauge(
+    "rag_engine_limiter",
+    "One-hot windowed bottleneck attribution "
+    "(hbm_pages | stall | compile | swap_wait | kv_transfer | none)",
+    ["replica", "limiter"],
+)
+LEDGER_STEP_SECONDS = Counter(
+    "rag_engine_step_seconds_total",
+    "Engine step wall time classified into phase buckets (prefill | decode "
+    "| spec_verify | kv_migration | kv_transfer | sched_stall | compile)",
+    ["replica", "bucket"],
+)
+LEDGER_TOKENS = Counter(
+    "rag_engine_tokens_total",
+    "Token outcomes: committed | spec_rejected | deadline_reaped",
+    ["replica", "outcome"],
+)
+ENGINE_FUSED_STEPS = Counter(
+    "rag_engine_fused_steps_total",
+    "Engine steps served by the single-dispatch fused program "
+    "(packed prefill + mixed spec/plain decode — serving/fused_step.py)",
+    ["replica"],
+)
+ENGINE_STEP_DISPATCHES = Gauge(
+    "rag_engine_step_dispatches",
+    "Rolling main-model programs dispatched per engine step (1.0 = every "
+    "step fused into one program; the unfused mixed path issues 2+)",
+    ["replica"],
+)
+SLO_BURN = Gauge(
+    "rag_slo_burn_rate",
+    "Error-budget burn rate per objective/class over each rolling window",
+    ["replica", "objective", "klass", "window"],
+)
+SLO_STATE = Gauge(
+    "rag_slo_state",
+    "SLO state machine per objective/class: 0=ok 1=warn 2=critical",
+    ["replica", "objective", "klass"],
+)
+SLO_TRANSITIONS = Counter(
+    "rag_slo_state_transitions_total",
+    "SLO state machine transitions, labeled by the state entered",
+    ["replica", "objective", "klass", "state"],
+)
+HBM_HELD_PAGES = Gauge(
+    "rag_hbm_held_pages",
+    "Refcount claims currently held on device pages per replica (each "
+    "block-table listing is one claim; the page observatory integrates "
+    "this over time into page-seconds)",
+    ["replica"],
+)
+HBM_PAGE_SECONDS = Counter(
+    "rag_hbm_page_seconds_total",
+    "Page-seconds attributed to finished requests per replica and "
+    "priority class (the memory analogue of the token ledger)",
+    ["replica", "priority"],
+)
+PROFILE_SAMPLES = Counter(
+    "rag_profile_samples_total",
+    "Continuous-profiler step samples captured into the ring per replica",
+    ["replica"],
+)
+TIMELINE_EXPORTS = Counter(
+    "rag_timeline_exports_total",
+    "Perfetto timeline builds served (/debug/timeline + bench dumps)",
+)
+TIMELINE_EVENTS_DROPPED = Counter(
+    "rag_timeline_events_dropped_total",
+    "Trace events dropped by the timeline_max_events cap across exports",
 )
 
 

@@ -106,6 +106,14 @@ class FlightRecorder:
         with self._lock:
             return list(self._traces)
 
+    def export_spans(self) -> list[tuple[str, list["Span"], float]]:
+        """Every retained trace as (trace_id, spans, wall_t), oldest trace
+        first — the timeline exporter's raw-span source (monotonic start/
+        end preserved; the renders above round and rebase)."""
+        with self._lock:
+            return [(tid, list(e.spans), e.wall_t or 0.0)
+                    for tid, e in self._traces.items()]
+
     def _snapshot(self, trace_id: str) -> tuple[list["Span"], int, float] | None:
         with self._lock:
             entry = self._traces.get(trace_id)

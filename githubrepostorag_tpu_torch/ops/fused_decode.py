@@ -23,6 +23,7 @@ refuses raises before any launch.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -61,6 +62,7 @@ class WindowPlan(NamedTuple):
     waves: float  # blocks over what the card holds at once
 
 
+@functools.lru_cache(maxsize=4096)
 def _plan_window(b: int, s: int, n_q: int, n_kv: int, hd: int, page_size: int,
                  n_sm: int = 132, route: str = "wgmma", pool: str = "fp") -> WindowPlan:
     """Kernels A's and C's launch from static shapes only: ``b`` rows (A)
@@ -205,13 +207,17 @@ def fused_window_attention(q_win, k_pages, v_pages, block_tables, cached_lens, n
     fused_window_attention.launches_by_pool[kind] += 1
     by_window = fused_window_attention.launches_by_window
     by_window[s] = by_window.get(s, 0) + 1
+    by_hd = fused_window_attention.launches_by_head_dim
+    by_hd[f"hd{hd}"] = by_hd.get(f"hd{hd}", 0) + 1
     return out
 
 
-# kernel launches (CUDA path only), in all, per pool branch and per window S
+# kernel launches (CUDA path only), in all, per pool branch, per window S
+# and per head dim (a draft model's 64 beside the target's 128)
 fused_window_attention.launches = 0
 fused_window_attention.launches_by_pool = dict.fromkeys(POOL_CODES, 0)
 fused_window_attention.launches_by_window = {}
+fused_window_attention.launches_by_head_dim = {}
 
 
 def fused_paged_attention(q, k_pages, v_pages, block_tables, cached_lens, new_lens,

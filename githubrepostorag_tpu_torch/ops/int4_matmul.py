@@ -153,7 +153,8 @@ def _plan_int4(m: int, k: int, n: int, gsz: int, x_ptr: int, q_ptr: int, s_ptr: 
     128 and 64 rows with the fewest waves of tiles times a tile's step
     time, modelled as block_m + 64: the tensor cores' time grows with the
     rows, and the dequantization, the same for any block_m, adds what it
-    does not overlap (about 64 rows' worth)."""
+    does not overlap (about 64 rows' worth).  Cached by shape and
+    alignment."""
     _require("int4_matmul", k % 64 == 0 and k > 0 and n % 2 == 0,
              f"K {k} must be a positive multiple of 64, N {n} even")
     _require("int4_matmul", gsz % 16 == 0 and k % gsz == 0,
@@ -161,8 +162,15 @@ def _plan_int4(m: int, k: int, n: int, gsz: int, x_ptr: int, q_ptr: int, s_ptr: 
     _require("int4_matmul", x_ptr % 16 == 0, "x must be 16-byte aligned")
     _require("int4_matmul", all(p % 4 == 0 for p in (q_ptr, s_ptr, zs_ptr)),
              "weights must be 4-byte aligned")
-    tma = (gsz in (64, 128) and n % 16 == 0
-           and all(p % 16 == 0 for p in (x_ptr, q_ptr, s_ptr, zs_ptr)))
+    return _plan_int4_shape(m, k, n, gsz,
+                            all(p % 16 == 0 for p in (x_ptr, q_ptr, s_ptr, zs_ptr)), n_sm)
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan_int4_shape(m: int, k: int, n: int, gsz: int, aligned16: bool, n_sm: int) -> Int4Plan:
+    """``_plan_int4`` by shape and alignment, cached (a new entry is a
+    shape the card has not launched at in this process)."""
+    tma = gsz in (64, 128) and n % 16 == 0 and aligned16
     n_tiles = -(-n // BLOCK_N)
     if m <= 8:
         block_m = 8

@@ -34,6 +34,7 @@ and per-(row, kv head) arrival counters persist per device.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -60,6 +61,7 @@ class DecodePlan(NamedTuple):
     blocks: int  # split blocks launched: B * n_kv * n_splits
 
 
+@functools.lru_cache(maxsize=4096)
 def _plan_decode(b: int, n_kv: int, max_pages: int, page_size: int,
                  n_sm: int = 132) -> DecodePlan:
     """The split of every (row, kv head)'s block table: ``n_splits`` blocks

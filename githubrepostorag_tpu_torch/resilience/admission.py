@@ -1,7 +1,7 @@
 """Per-class admission decisions consulted by the API's load-shedding
 check; a copy of ``githubrepostorag_tpu/resilience/admission.py``.  The
-port has no SLO plane yet (ROADMAP queue 1 item 6): until one registers
-its providers, every decision is "accept".
+SLO plane (obs/slo.get_slo_plane) registers its providers when a process
+first builds it; until then every decision is "accept".
 
 The SLO plane (obs/slo.py) registers two callables here at construction:
 the legacy fleet-wide ``admission_hint`` and the per-class

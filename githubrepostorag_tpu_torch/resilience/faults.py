@@ -33,6 +33,7 @@ from __future__ import annotations
 import threading
 import time
 import zlib
+from collections import deque
 from dataclasses import dataclass, field
 from random import Random
 
@@ -143,6 +144,9 @@ class FaultRegistry:
         for f in faults:
             self.by_site.setdefault(f.site, []).append(f)
         self._lock = threading.Lock()
+        # timestamped injection ring for the /debug/timeline exporter —
+        # prometheus keeps the totals, this keeps the WHEN
+        self._events: deque[tuple[float, str, str]] = deque(maxlen=256)
 
     @classmethod
     def from_env(cls) -> "FaultRegistry":
@@ -166,8 +170,16 @@ class FaultRegistry:
                 if fault.should_fire():
                     fault.fired += 1
                     FAULTS_INJECTED.labels(site=site, action=fault.action).inc()
+                    self._events.append(
+                        (time.monotonic(), site, fault.action))
                     return fault.action, fault.delay_s
         return None, 0.0
+
+    def events(self, t_min: float = 0.0) -> list[tuple[float, str, str]]:
+        """Injections fired at or after ``t_min`` as (monotonic_t, site,
+        action) — the timeline's fault-instant source."""
+        with self._lock:
+            return [e for e in self._events if e[0] >= t_min]
 
     def stats(self) -> dict[str, list[dict]]:
         with self._lock:
@@ -200,6 +212,10 @@ def reset_faults() -> None:
     global _registry
     with _registry_lock:
         _registry = None
+
+
+def active() -> bool:
+    return bool(get_registry().by_site)
 
 
 def fire_sync(site: str) -> bool:

@@ -7,7 +7,7 @@ the paged engine from the settings (``config.py``: ``MAX_NUM_SEQS``,
 ``KV_NUM_PAGES``, ``KV_PAGE_SIZE``, ``PREFILL_CHUNK``, ``CONTEXT_WINDOW``,
 ``PREFILL_TOKEN_BUDGET``, ``KV_QUANT``, ``QUANTIZE_WEIGHTS``, ...), warms it
 up and serves the OpenAI-compatible surface (/v1/chat/completions,
-/v1/completions, /v1/models, /health, /debug/index) until SIGTERM or
+/v1/completions, /v1/models, /health, /debug/*) until SIGTERM or
 SIGINT.  Worker and ingest pods point ``QWEN_ENDPOINT`` here with
 ``LLM_BACKEND=http``.
 
@@ -17,15 +17,18 @@ SIGINT.  Worker and ingest pods point ``QWEN_ENDPOINT`` here with
 The server runs on the card unless ``--device cpu`` asks for the CPU.  It
 serves the engine's modes from their settings: n-gram speculation
 (``SPEC_NGRAM_K``), its on-device burst (``SPEC_BURST_ITERS``), the fused
-step (``FUSED_STEP`` with ``PREFILL_TOKEN_BUDGET``), the host KV tier
+step (``FUSED_STEP`` with ``PREFILL_TOKEN_BUDGET``), draft-model
+speculation (``SPEC_DRAFT_MODEL``: a second checkpoint dir sharing the
+target's tokenizer, loaded unquantized; ``SPEC_K``, ``SPEC_ITERS``,
+``SPEC_ACCEPT_FLOOR``, ``SPEC_DEADLINE_MARGIN_S``), the host KV tier
 (``KV_TIER``, ``KV_HOST_POOL_PAGES``, ``KV_MIGRATE_BURST``) and
 preempt-to-host (``PREEMPT``, ``PREEMPT_HEADROOM_PAGES``,
 ``PRIORITY_PROTECTED_CLASS``), over bf16, int8 or int4 pages
-(``KV_QUANT``).  It serves one card: ``MESH_SHAPE``, ``SPEC_DRAFT_MODEL``
-and ``CTRL=on`` exit with a message naming the ROADMAP.md item that brings
-them, and the engine refuses the tuning of the modes it does not run yet
-(``SP_RING_*``, ``SPEC_K``, ``SPEC_ITERS``, ``SPEC_ACCEPT_FLOOR``,
-``SPEC_DEADLINE_MARGIN_S``) away from its default.
+(``KV_QUANT``), and the observability planes' /debug/slo, /debug/fleet,
+/debug/hbm and /debug/timeline.  It serves one card: ``MESH_SHAPE`` and
+``CTRL=on`` exit with a message naming the ROADMAP.md item that brings
+them, and the engine refuses the sequence-parallel ring's tuning
+(``SP_RING_*``) away from its default.
 """
 
 from __future__ import annotations
@@ -47,23 +50,45 @@ logger = logging.getLogger("githubrepostorag_tpu_torch.serving")
 _NOT_SERVED = (
     ("MESH_SHAPE", lambda s: bool(s.mesh_shape),
      "queue 1 item 8 (parallel layers: meshes and dp replicas)"),
-    ("SPEC_DRAFT_MODEL", lambda s: bool(s.spec_draft_model),
-     "queue 1 item 5 (off-default engine modes: draft-model speculation)"),
     ("CTRL", lambda s: s.ctrl == "on", "queue 1 item 7 (fleet: the controller)"),
 )
 
 
+_SPEC_EXCLUSIVE = ("SPEC_DRAFT_MODEL and SPEC_NGRAM_K are mutually exclusive: "
+                   "a serving pod runs one speculation strategy")
+
+
 def check_served(s: Settings) -> None:
-    """Exit with a message for settings the port's server cannot serve."""
+    """Exit with a message for settings the port's server cannot serve, or
+    that contradict each other."""
     for name, is_set, item in _NOT_SERVED:
         if is_set(s):
             raise SystemExit(f"{name} is set, but the torch port serves one card without it "
                              f"yet; ROADMAP.md {item} brings it")
+    if s.spec_draft_model and s.spec_ngram_k:
+        raise SystemExit(_SPEC_EXCLUSIVE)
+
+
+def load_draft(s: Settings, device) -> tuple[dict | None, object | None]:
+    """The draft model of ``SPEC_DRAFT_MODEL`` (params, config), or (None,
+    None) when unset.  It loads unquantized and unfused (the engine fuses
+    it) and must share the target's tokenizer: the engine refuses another
+    vocabulary size."""
+    if not s.spec_draft_model:
+        return None, None
+    if s.spec_ngram_k:
+        raise SystemExit(_SPEC_EXCLUSIVE)
+    from githubrepostorag_tpu_torch.models.hf_loader import load_qwen2
+
+    logger.info("loading draft model from %s", s.spec_draft_model)
+    return load_qwen2(s.spec_draft_model, dtype=torch.bfloat16, device=device)
 
 
 def build_engine(s: Settings, params: dict, cfg, device) -> Engine:
     """The engine the settings describe (the JAX server's keywords, so a
-    mode the port does not run is refused by ``Engine``)."""
+    mode the port does not run is refused by ``Engine``), with the draft
+    model of ``SPEC_DRAFT_MODEL`` loaded here when set."""
+    draft_params, draft_cfg = load_draft(s, device)
     return Engine(
         params, cfg,
         max_num_seqs=s.max_num_seqs,
@@ -84,6 +109,8 @@ def build_engine(s: Settings, params: dict, cfg, device) -> Engine:
         spec_ngram_k=s.spec_ngram_k,
         spec_burst_iters=s.spec_burst_iters,
         fused_step=s.fused_step,
+        draft_params=draft_params,
+        draft_cfg=draft_cfg,
         spec_k=s.spec_k,
         spec_iters=s.spec_iters,
         spec_accept_floor=s.spec_accept_floor,

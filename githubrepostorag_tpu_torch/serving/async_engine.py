@@ -8,11 +8,20 @@ event loop and the event loop never blocks on the device.  After each
 step the driver turns the engine's park events into ``parked`` stream
 events (advisory: a parked request resumes token for token) and exports
 the speculative, host-tier and preemption counters to ``metrics.py``'s
-series under the replica label, as the JAX version does.  The JAX
-version's observability planes (step profiler, token ledger, SLO monitor,
-page observatory, router digest) are not ported yet (ROADMAP queue 1 item
-6): nothing attaches a page observer (``Engine.attach_page_observer``) or
-pushes class pressure (``Engine.set_class_pressure``) here.
+series under the replica label, as the JAX version does.
+
+The observability planes are wired as in the JAX driver: a step profiler
+(scheduler stall, the compile watchdog, re-baselined by ``mark_warm`` at
+each ``start()``), a token ledger and an SLO burn-rate monitor registered
+with the process's SLO plane, a page observatory attached to the engine
+(``Engine.attach_page_observer``) and registered with the HBM plane, and a
+continuous profiler.  Every 0.25 s the driver pushes the monitor's class
+states into ``Engine.set_class_pressure``, so preemption and headroom act
+on a burning error budget; each finished request is one ``slo.observe``.
+The hooks run on the driver thread, after the step; a hook that raises is
+logged and serving goes on.  ``obs_seconds_total`` and
+``step_seconds_total`` sum the hooks' and the steps' host time.  The
+fleet's router digest comes with the fleet (ROADMAP queue 1 item 7).
 
 The engine belongs to the driver thread alone.  Submissions and
 cancellations go into an inbox that the driver applies before each step,
@@ -34,11 +43,22 @@ from __future__ import annotations
 import asyncio
 import logging
 import threading
+import time
 import uuid
 from collections import deque
 from dataclasses import dataclass
 from typing import Any, AsyncIterator, Callable
 
+from githubrepostorag_tpu_torch.config import get_settings
+from githubrepostorag_tpu_torch.obs.continuous import ContinuousProfiler, register_profiler
+from githubrepostorag_tpu_torch.obs.engine_profile import (
+    CompileWatchdog,
+    EngineStepProfiler,
+    plan_caches,
+)
+from githubrepostorag_tpu_torch.obs.hbm import PageObservatory, get_hbm_plane
+from githubrepostorag_tpu_torch.obs.ledger import TokenLedger, engine_snapshot, flops_per_token
+from githubrepostorag_tpu_torch.obs.slo import SLOMonitor, get_slo_plane
 from githubrepostorag_tpu_torch.serving.engine import Engine, GenerationResult
 from githubrepostorag_tpu_torch.serving.sampling_params import SamplingParams
 
@@ -63,12 +83,66 @@ class AsyncEngine:
         self._thread: threading.Thread | None = None
         self._loop: asyncio.AbstractEventLoop | None = None
         self._queues: dict[str, asyncio.Queue[StreamEvent]] = {}
+        self._priority: dict[str, str | None] = {}  # SLO class per request
         self.driver_error: str | None = None
+        # the observability planes, federated per replica (module docstring)
+        # the watchdog also counts the engine's dispatch shapes
+        self.profiler = EngineStepProfiler(
+            CompileWatchdog(plan_caches() + [
+                ("engine.dispatch_shapes", lambda: len(getattr(engine, "dispatch_shapes", ())))]),
+            replica=replica)
+        s = get_settings()
+        fpt = s.model_flops_per_token or (
+            flops_per_token(engine.cfg) if getattr(engine, "cfg", None) else 0.0)
+        self.ledger = TokenLedger(replica, flops_per_tok=fpt,
+                                  peak_flops=s.chip_peak_tflops * 1e12,
+                                  window_s=s.slo_ledger_window_s)
+        self.slo = SLOMonitor(replica)
+        self.page_obs = PageObservatory(replica)
+        if hasattr(engine, "attach_page_observer"):
+            engine.attach_page_observer(self.page_obs)
+        self.page_obs.attach_pool_view(self._pool_view)
+        get_hbm_plane().register(replica, self.page_obs)
+        self.continuous = ContinuousProfiler(replica)
+        register_profiler(replica, self.continuous)
+        self.role = "fused"
+        get_slo_plane().register(replica, ledger=self.ledger, monitor=self.slo,
+                                 stats=self.stats)
+        # host seconds of the steps that had work, and of the obs hooks
+        # after them (the planes' cost a step)
+        self.step_seconds_total = 0.0
+        self.obs_seconds_total = 0.0
+        self.steps_total = 0
+
+    def _pool_view(self) -> dict:
+        """Advisory allocator snapshot for the page observatory's payload:
+        lock-free attribute reads and one list copy, so /debug/hbm renders
+        while the driver steps."""
+        alloc = self.engine._allocator
+        free = list(getattr(alloc, "_free", ()))
+        lru = getattr(alloc, "_lru", None)
+        out = {
+            "num_pages": alloc.num_pages,
+            "free": alloc.free_count,
+            "plain_free": len(free),
+            "cached_lru": len(lru) if lru is not None else 0,
+            "host_pages": getattr(alloc, "host_pages", 0),
+            "free_pages": free,
+            "hit_tokens": getattr(alloc, "hit_tokens", 0),
+        }
+        for k in ("fault_ins", "writebacks", "dedup_hits", "host_evictions",
+                  "tier_drops", "page_imports", "import_dedup_skips",
+                  "preempt_parked_pages"):
+            out[k] = getattr(alloc, k, 0)
+        return out
 
     async def start(self) -> None:
         if self._thread is not None:
             return
         self._stop = False
+        # re-baseline the compile watchdog: first-time work before serving
+        # (warmup, another engine's warmup in this process) is expected
+        self.profiler.mark_warm()
         self._loop = asyncio.get_running_loop()
         self._thread = threading.Thread(target=self._drive, name="engine-driver", daemon=True)
         self._thread.start()
@@ -83,26 +157,69 @@ class AsyncEngine:
 
     def _drive(self) -> None:
         self._export = _CounterExport(self.engine, self.replica)
+        eng = self.engine
+        pressure_next = 0.0
         while not self._stop:
             self._apply_inbox()
+            step_start = time.monotonic()
             try:
-                has_work = self.engine.has_work()
-                finished = self.engine.step() if has_work else []
+                if step_start >= pressure_next:
+                    # burn-rate states feed the engine's preemption trigger
+                    # and headroom doubling
+                    eng.set_class_pressure(self.slo.class_states())
+                    pressure_next = time.monotonic() + 0.25
+                has_work = eng.has_work()
+                finished = eng.step() if has_work else []
             except Exception as exc:  # noqa: BLE001 - fail every waiter, never hang
                 logger.exception("engine driver failed")
                 self.driver_error = repr(exc)
                 self._fail_in_flight(self.driver_error)
                 return
-            for rid in self.engine.drain_park_events():
+            step_end = time.monotonic()
+            for rid in eng.drain_park_events():
                 # advisory: the request is parked in the host tier and will
                 # resume token for token; consumers keep waiting
                 self._emit(rid, StreamEvent(type="parked"))
-            self._export.step(finished)
+            try:
+                self._observe_step(has_work, step_start, step_end, finished)
+            except Exception:  # noqa: BLE001 - a failing plane never stops serving
+                logger.exception("observability hook failed on replica %s", self.replica)
             for res in finished:
                 self._emit(res.request_id, StreamEvent(type="final", result=res))
             if not has_work and not self._inbox:
                 self._wake.wait(timeout=0.02)
                 self._wake.clear()
+
+    def _observe_step(self, has_work: bool, step_start: float, step_end: float,
+                      finished: list[GenerationResult]) -> None:
+        """The JAX driver's per-step hooks, after the step: the series, the
+        step profiler, the ledger and the continuous profiler (or their
+        idle calls), and each finished request into the SLO monitor."""
+        eng = self.engine
+        t0 = time.monotonic()
+        self._export.step(finished)
+        if has_work:
+            snap = engine_snapshot(eng)
+            alloc = eng._allocator
+            compiles = self.profiler.on_step(step_start, step_end)
+            self.ledger.on_step(snap, step_start, step_end, compiles=compiles)
+            self.continuous.on_step(
+                step_end, self.ledger.last_rec or {},
+                queue=(eng.num_running, eng.num_waiting, eng.num_parked),
+                pool=(alloc.free_count, getattr(alloc, "host_pages", 0)))
+        else:
+            self.profiler.idle()
+            self.ledger.idle()
+        for res in finished:
+            self.slo.observe(self._priority.pop(res.request_id, None) or "interactive",
+                             ttft_s=res.ttft_s, tpot_s=_tpot(res),
+                             deadline_missed=res.finish_reason == "deadline")
+        # burn rates keep decaying while nothing finishes
+        self.slo.maybe_refresh()
+        if has_work:
+            self.steps_total += 1
+            self.step_seconds_total += step_end - step_start
+            self.obs_seconds_total += time.monotonic() - t0
 
     def _apply_inbox(self) -> None:
         """Run the queued submissions and cancellations in order; one that
@@ -157,6 +274,7 @@ class AsyncEngine:
             self._emit(rid, StreamEvent(type="token", token_id=token_id))
 
         self._queues[rid] = q
+        self._priority[rid] = priority
         if self.driver_error is not None:  # it died before the queue was there to fail
             self._queues.pop(rid, None)
             raise RuntimeError(f"engine driver is dead: {self.driver_error}")
@@ -173,6 +291,7 @@ class AsyncEngine:
                     return
         finally:
             self._queues.pop(rid, None)
+            self._priority.pop(rid, None)
             if not done:
                 # the consumer left first (its task was cancelled or it
                 # closed the stream): end the row so its pages come back
@@ -234,13 +353,21 @@ class AsyncEngine:
         }
 
 
+def _tpot(res: GenerationResult) -> float | None:
+    """Decode seconds a token after the first (the prefill's), or None."""
+    decoded = len(res.output_tokens) - 1
+    return res.decode_time_s / decoded if decoded > 0 and res.decode_time_s > 0 else None
+
+
 class _CounterExport:
-    """The engine's cumulative counters exported as deltas to the metrics'
-    series after each step (the JAX driver's ``export_counters``): the
-    speculative ones while n-gram speculation is on, the host tier's while
-    the tier is on, the preemption ones while preemption is on.  A series'
-    replica child is made at its first export, so an engine that runs none
-    of these modes adds no sample to ``/metrics``."""
+    """The engine's series after each step (the JAX driver's
+    ``export_counters``): running and waiting rows; each finished
+    request's tokens, TTFT and TPOT; and the cumulative counters as deltas
+    -- the speculative ones while a speculative mode is on, the host
+    tier's while the tier is on, the preemption ones while preemption is
+    on.  A mode series' replica child is made at its first export, so an
+    engine that runs none of these modes adds none of their samples to
+    ``/metrics``."""
 
     def __init__(self, engine: Engine, replica: str) -> None:
         self.engine = engine
@@ -260,7 +387,16 @@ class _CounterExport:
         from githubrepostorag_tpu_torch import metrics as m
 
         eng, last = self.engine, self.last
-        if eng.spec_ngram_k > 0:
+        self._child(m.ENGINE_RUNNING).set(eng.num_running)
+        self._child(m.ENGINE_WAITING).set(eng.num_waiting)
+        for res in finished:
+            self._child(m.DECODE_TOKENS).inc(len(res.output_tokens))
+            if res.ttft_s is not None:
+                self._child(m.TTFT).observe(res.ttft_s)
+            tpot = _tpot(res)
+            if tpot is not None:
+                self._child(m.TPOT).observe(tpot)
+        if eng.spec_ngram_k > 0 or eng._draft_enabled:
             d_prop, d_acc = eng.spec_proposed - last["prop"], eng.spec_accepted - last["acc"]
             if d_prop > 0:
                 self._child(m.SPEC_PROPOSED).inc(d_prop)

@@ -54,8 +54,20 @@ Preempt-to-host (``preempt``): a protected-class arrival that cannot be
 admitted parks a batch-class victim's pages in the host tier; the victim
 resumes through the prefix cache with no prompt token recomputed.
 
-Still refused at construction: sequence-parallel ring prefill, meshes and
-draft-model speculation (ROADMAP queue 1 items 5.5 and 8).
+Draft-model speculation (``draft_params`` / ``draft_cfg``): a small model
+drafts k tokens on its own page pools (never quantized, the same page
+count, indexed by the target's block tables), the target verifies k+1
+positions through kernel A, and ``spec_iters`` rounds run in one call
+(serving/draft_spec.py).  Every prefill chunk also runs through the draft
+into its pools; the host tier moves both pools' pages.  A controller picks
+each dispatch's k from a power-of-two ladder by the batch's EMA acceptance
+and demotes a request to plain decode, for the rest of its life, when its
+acceptance falls under ``spec_accept_floor`` or its deadline comes within
+``spec_deadline_margin_s``; a batch with any other row decodes plainly
+that step.
+
+Still refused at construction: sequence-parallel ring prefill and meshes
+(ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -84,6 +96,7 @@ from githubrepostorag_tpu_torch.ops.page_migration import (
 )
 from githubrepostorag_tpu_torch.ops.sampling import sample_tokens
 from githubrepostorag_tpu_torch.serving.decode_burst import decode_burst
+from githubrepostorag_tpu_torch.serving.draft_spec import draft_spec_burst
 from githubrepostorag_tpu_torch.serving.fused_step import fused_step_burst
 from githubrepostorag_tpu_torch.serving.kv_cache import (
     OutOfPages,
@@ -116,22 +129,15 @@ def _bucket(n: int, cap: int, minimum: int = 16) -> int:
 
 
 # JAX Engine options whose modes are not ported (sequence-parallel ring
-# prefill, meshes, draft-model speculation), with the value that means
-# "off" (for a mode's tuning keyword, its JAX default).  Passing any other
-# value raises at construction, so the port is stricter than the JAX engine,
-# which ignores a mode's tuning while the mode is off.
+# prefill, meshes), with the value that means "off" (for a mode's tuning
+# keyword, its JAX default).  Passing any other value raises at
+# construction, so the port is stricter than the JAX engine, which ignores
+# a mode's tuning while the mode is off.
 _UNPORTED_OPTIONS = {
     "mesh": None,
     "sp_prefill_threshold": None,
     "sp_ring_pack": True,
     "sp_ring_buckets": 0,
-    "draft_params": None,
-    "draft_cfg": None,
-    # the draft controller's tuning (JAX defaults)
-    "spec_k": 4,
-    "spec_iters": 4,
-    "spec_accept_floor": 0.35,
-    "spec_deadline_margin_s": 0.25,
 }
 
 
@@ -146,8 +152,9 @@ class GenerationResult:
     error: str | None = None
     # monotonic phase stamps: submit_t / prefill_start_t / first_token_t / done_t
     timings: dict | None = None
-    # draft-model speculation's per-request accounting (ROADMAP queue 1
-    # item 5.5; the n-gram paths count per engine and leave these 0 / None)
+    # draft-model speculation's per-request accounting: drafts proposed and
+    # accepted, and the sticky fallback reason ("acceptance" | "deadline");
+    # the n-gram paths count per engine and leave these 0 / None
     spec_proposed: int = 0
     spec_accepted: int = 0
     spec_fallback: str | None = None
@@ -183,6 +190,12 @@ class _Request:
     # with the same prefix may wait for them), and pages faulted in
     claimed_hashes: list[bytes] = field(default_factory=list)
     faulted_pages: int = 0
+    # draft-model speculation controller: EMA of the per-dispatch acceptance
+    # rate (drives the k ladder) and the sticky fallback reason
+    spec_accept_ema: float | None = None
+    spec_fallback: str | None = None
+    spec_proposed_req: int = 0
+    spec_accepted_req: int = 0
     # SLO class: headroom and preemption act for the protected one
     priority: str = "interactive"
     # preempt-to-host: after a park, ``prompt`` holds the whole stream
@@ -238,6 +251,17 @@ class Engine:
         # spec_burst_iters and prefill_token_budget; not prefill_priority)
         preempt: str = "auto",  # preempt-to-host: "on" (needs the tier),
         # "off", or "auto" (on iff the tier is)
+        draft_params: dict | None = None,  # draft-model speculation: a small
+        # model drafts k tokens on its own pools, the target verifies k+1
+        # (serving/draft_spec.py); exclusive with spec_ngram_k
+        draft_cfg: Qwen2Config | None = None,
+        spec_k: int = 4,  # the largest draft length; the controller picks each
+        # dispatch's k from the power-of-two ladder [1, 2, ..., spec_k]
+        spec_iters: int = 4,  # draft / verify / accept rounds a dispatch
+        spec_accept_floor: float = 0.35,  # under this EMA acceptance a request
+        # falls back to plain decode for the rest of its life
+        spec_deadline_margin_s: float = 0.25,  # within this of its deadline a
+        # request falls back too
         preempt_headroom_pages: int = 0,  # pages a non-protected admission
         # must leave allocatable; doubles while the protected class warns
         default_priority: str = "interactive",  # class stamped on
@@ -252,7 +276,6 @@ class Engine:
             raise ValueError(
                 "spec_burst_iters requires spec_ngram_k > 0 (SPEC_BURST_ITERS fuses the "
                 "n-gram spec path; without SPEC_NGRAM_K it would silently do nothing)")
-        draft_params = unported.get("draft_params")
         if fused_step:
             if spec_ngram_k <= 0 or spec_burst_iters <= 0:
                 raise ValueError(
@@ -270,7 +293,7 @@ class Engine:
                 raise ValueError(
                     "fused_step is incompatible with prefill_priority: a prefill-priority "
                     "step skips decode, which would orphan the deferred prefill wave")
-        if (draft_params is None) != (unported.get("draft_cfg") is None):
+        if (draft_params is None) != (draft_cfg is None):
             raise ValueError("draft_params and draft_cfg must be set together")
         if draft_params is not None and spec_ngram_k > 0:
             raise ValueError(
@@ -297,11 +320,14 @@ class Engine:
             if not (value is default or value == default):
                 raise NotImplementedError(
                     f"Engine option {name}={value!r} selects or tunes a mode the torch "
-                    f"port does not run yet (leave it at {default!r}); it serves padded or "
+                    f"port does not run yet (leave it at {default!r}); it serves every "
+                    "Engine mode but sequence-parallel ring prefill and meshes: padded or "
                     "packed (prefill_token_budget) chunked prefill, bf16/f32 or int8/int4 "
                     "(kv_quant) KV pages, bf16/f32, int8 or int4 weights, prefix caching, "
                     "pipelined decode bursts, n-gram speculation (spec_ngram_k, "
-                    "spec_burst_iters, fused_step), the host KV tier (kv_tier, "
+                    "spec_burst_iters, fused_step), draft-model speculation (draft_params, "
+                    "draft_cfg, spec_k, spec_iters, spec_accept_floor, "
+                    "spec_deadline_margin_s), the host KV tier (kv_tier, "
                     "kv_host_pool_pages, kv_migrate_burst) and preempt-to-host (preempt, "
                     "preempt_headroom_pages, protected_priority)"
                 )
@@ -387,12 +413,49 @@ class Engine:
         self._fused_pf_segs = self.packed_prefill_buckets()[-1] if self.fused_step_on else 0
         self._fused_pf_wave: dict | None = None  # deferred packed wave
         self.fused_steps_total = 0
+
+        # draft-model speculation (module docstring)
+        self._draft_enabled = draft_params is not None
+        self.draft_cfg = draft_cfg
+        self.spec_k = spec_k
+        self.spec_iters = spec_iters
+        self.spec_accept_floor = spec_accept_floor
+        self.spec_deadline_margin_s = spec_deadline_margin_s
+        self.draft_params = None
+        self._dk_pages = self._dv_pages = None
+        self._force_plain = False  # warmup: route decode through _decode_step
+        self._spec_k_ladder: list[int] = []
+        if self._draft_enabled:
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                # verify compares token ids across the two models
+                raise ValueError(
+                    f"draft vocab {draft_cfg.vocab_size} != target vocab "
+                    f"{cfg.vocab_size}; draft and target must share a tokenizer")
+            if spec_k < 1 or spec_iters < 1:
+                raise ValueError("spec_k and spec_iters must be >= 1")
+            _check_params(draft_params, self.device)
+            self.draft_params = fuse_projections(draft_params)
+            # the draft's own pools, indexed by the target's block tables
+            # (one allocator, two pools), in kv_dtype, never quantized
+            dpools = make_page_pools(draft_cfg, num_pages, page_size, dtype=kv_dtype,
+                                     device=self.device, quant=0)
+            self._dk_pages, self._dv_pages = dpools.k, dpools.v
+            # power-of-two ladder up to spec_k: warmup runs every rung, and
+            # the controller only dispatches at a rung
+            rung = 1
+            while rung < spec_k:
+                self._spec_k_ladder.append(rung)
+                rung *= 2
+            self._spec_k_ladder = sorted(set(self._spec_k_ladder + [spec_k]))
         self.spec_proposed = 0
         self.spec_accepted = 0
-        self.spec_fallbacks: dict[str, int] = {}  # draft-model controller's
+        self.spec_fallbacks: dict[str, int] = {}  # draft-model fallbacks by reason
 
         self.requests_admitted = 0
         self.deadline_reaps = 0
+        # every dispatch shape run so far, (path, rows, ...): the compile
+        # watchdog counts the ones live traffic adds after warmup
+        self.dispatch_shapes: set[tuple] = set()
 
         # priority classes and preempt-to-host
         self._preempt_on = kv_tier_on and preempt != "off"
@@ -598,7 +661,18 @@ class Engine:
         running = [r for r in self._row_req.values() if r.state == "running"]
         if running and not skip_decode:
             t_run = time.monotonic()
-            if self.spec_ngram_k > 0:
+            if self._draft_enabled and not self._force_plain:
+                # every row is asked (a demotion is marked where it happens)
+                capable = [r for r in running if self._spec_capable(r)]
+                if len(capable) == len(running):
+                    self._draft_spec_step(finished)
+                    self.spec_verify_seconds_total += time.monotonic() - t_run
+                else:
+                    # one sampled or fallen-back row demotes this step's whole
+                    # dispatch to plain decode (per step, not sticky)
+                    self._decode_step(finished)
+                    self.decode_seconds_total += time.monotonic() - t_run
+            elif self.spec_ngram_k > 0:
                 if self.fused_step_on:
                     # one call: the deferred packed wave (if any) and a
                     # mixed spec / sampled burst
@@ -854,11 +928,16 @@ class Engine:
             nb = _bucket(len(plan), self.kv_migrate_burst, minimum=1)
             idx = np.full((nb,), -1, dtype=np.int32)
             idx[: len(plan)] = [p for p, _ in plan]
-            bufs = gather_pages(self._k_pages, self._v_pages, self._tensor(idx),
+            idx_d = self._tensor(idx)
+            bufs = gather_pages(self._k_pages, self._v_pages, idx_d,
                                 self._k_scales, self._v_scales)
+            # (k, v, ks, vs, draft k, draft v): the payload format.  The
+            # draft pools share page indices with the target's, so a page
+            # saves both, or a faulted-in row would draft from another
+            # request's KV (tokens stay right; acceptance would collapse)
+            bufs = tuple(bufs) + self._draft_gather(idx_d)
             host, event = self._to_host(bufs)
-            # (k, v, ks, vs, draft k, draft v): the payload format; no draft
-            self._wb_pending.append((host + (None, None), event, [h for _, h in plan]))
+            self._wb_pending.append((host, event, [h for _, h in plan]))
             self.kv_migrations += 1
             moved = True
         if moved:
@@ -889,29 +968,49 @@ class Engine:
             idx = np.full((nb,), -1, dtype=np.int32)
             k_vals = torch.zeros((*lead, nb, ps, hd), dtype=self._k_pages.dtype, pin_memory=pin)
             v_vals = torch.zeros(k_vals.shape, dtype=k_vals.dtype, pin_memory=pin)
-            ks_vals = vs_vals = None
+            ks_vals = vs_vals = dk_vals = dv_vals = None
             if quant:
                 ks_vals = torch.zeros((*lead, nb), dtype=torch.float32, pin_memory=pin)
                 vs_vals = torch.zeros(ks_vals.shape, dtype=torch.float32, pin_memory=pin)
+            if self._draft_enabled:
+                dshape = (*self._dk_pages.shape[:2], nb, ps, self._dk_pages.shape[-1])
+                dk_vals = torch.zeros(dshape, dtype=self._dk_pages.dtype, pin_memory=pin)
+                dv_vals = torch.zeros(dshape, dtype=self._dk_pages.dtype, pin_memory=pin)
             for i, (page, payload) in enumerate(burst):
                 pk, pv, pks, pvs = payload[:4]
+                pdk, pdv = tuple(payload[4:6]) or (None, None)
                 idx[i] = page
                 k_vals[:, :, i] = pk
                 v_vals[:, :, i] = pv
                 if quant:
                     ks_vals[:, :, i] = pks
                     vs_vals[:, :, i] = pvs
-            host = (k_vals, v_vals, ks_vals, vs_vals)
+                if dk_vals is not None and pdk is not None:
+                    dk_vals[:, :, i] = pdk
+                    dv_vals[:, :, i] = pdv
+            host = (k_vals, v_vals, ks_vals, vs_vals, dk_vals, dv_vals)
             dev = [None if x is None else x.to(self.device, non_blocking=True) for x in host]
-            scatter_pages(self._k_pages, self._v_pages, self._tensor(idx), dev[0],
+            idx_d = self._tensor(idx)
+            scatter_pages(self._k_pages, self._v_pages, idx_d, dev[0],
                           self._k_scales, self._v_scales, v_vals=dev[1], ks_vals=dev[2],
                           vs_vals=dev[3])
+            if dk_vals is not None:
+                # both pools: see _migrate_pages
+                scatter_pages(self._dk_pages, self._dv_pages, idx_d, dev[4], v_vals=dev[5])
             if pin:
                 event = torch.cuda.Event()
                 event.record()
                 self._fault_staging.append((event, host))
             self.kv_fault_dispatches += 1
         self.fault_in_seconds_total += time.monotonic() - t0
+
+    def _draft_gather(self, idx: torch.Tensor) -> tuple:
+        """The draft pools' half of a page payload: (draft k, draft v) of
+        the pages ``idx``, or (None, None) without a draft model."""
+        if not self._draft_enabled:
+            return (None, None)
+        dk, dv, _, _ = gather_pages(self._dk_pages, self._dv_pages, idx)
+        return (dk, dv)
 
     def flush_kv_migrations(self) -> None:
         """Run migration boundaries until quiescent: every plannable
@@ -948,9 +1047,12 @@ class Engine:
             nb = _bucket(len(burst), self.kv_migrate_burst, minimum=1)
             idx = np.full((nb,), -1, dtype=np.int32)
             idx[: len(burst)] = [p for _, p in burst]
-            bufs = gather_pages(self._k_pages, self._v_pages, self._tensor(idx),
+            idx_d = self._tensor(idx)
+            bufs = gather_pages(self._k_pages, self._v_pages, idx_d,
                                 self._k_scales, self._v_scales)
-            host = tuple(None if b is None else b.cpu() for b in bufs) + (None, None)
+            # the draft pools too: the importer's draft KV must cover the prefix
+            bufs = tuple(bufs) + self._draft_gather(idx_d)
+            host = tuple(None if b is None else b.cpu() for b in bufs)
             out.extend((h, p) for (h, _), p in zip(burst, split_page_payloads(host, len(burst))))
         self.kv_pages_exported += len(out)
         self.transfer_seconds_total += time.monotonic() - t0
@@ -988,10 +1090,14 @@ class Engine:
     def _commit_first_now(self, others_running: bool) -> bool:
         """Whether a freshly prefilled row's first token commits with a host
         read now (best TTFT) instead of queueing on the device for the next
-        burst: always in the n-gram spec modes (synchronous by design), and
-        otherwise only with no chain live and no other row running."""
+        burst: always in the n-gram spec modes (synchronous by design);
+        under draft-model speculation whenever no plain-decode chain is live
+        (its device state must not race a fresh commit); otherwise only with
+        no chain live and no other row running."""
         if self.spec_ngram_k > 0:
             return True
+        if self._draft_enabled:
+            return self._chain is None
         return self._chain is None and not others_running
 
     def _head_need_hashes(self, req: _Request) -> tuple[int, list[bytes]]:
@@ -1163,10 +1269,13 @@ class Engine:
 
         ids_d = self._tensor(ids)
         new_lens_d = self._tensor(new_lens)
+        args = (ids_d, self._tensor(pos), self._tensor(slots), self._tensor(bt),
+                self._tensor(cached), new_lens_d)
+        last_d = self._tensor(last_idx)
         self.step_dispatches_total += 1
-        logits = self._run_prefill(
-            forward_paged, ids_d, self._tensor(pos), self._tensor(slots), self._tensor(bt),
-            self._tensor(cached), new_lens_d, logits_at=self._tensor(last_idx))
+        self.dispatch_shapes.add(("prefill", rb, width))
+        logits = self._run_prefill(forward_paged, *args, logits_at=last_d)
+        self._draft_prefill(forward_paged, *args, logits_at=last_d)
 
         # mark the chunk's prompt tokens (padding rows have lens 0)
         row_idx = np.zeros((rb,), dtype=np.int32)
@@ -1183,6 +1292,16 @@ class Engine:
             if w >= longest_chunk:
                 width = w
         return width
+
+    def _draft_prefill(self, fn, ids, pos, *args, **kwargs) -> None:
+        """Under draft-model speculation, run the same chunk (same slots and
+        block tables) through the draft into its pools, so drafting always
+        has the whole prompt cached; the logits are not read."""
+        if not self._draft_enabled:
+            return
+        self.step_dispatches_total += 1
+        fn(self.draft_params, self.draft_cfg, ids, pos, self._dk_pages, self._dv_pages,
+           *args, **kwargs)
 
     def _run_prefill(self, fn, ids, pos, *args, **kwargs) -> torch.Tensor:
         """Run ``forward_paged`` or ``forward_paged_packed`` over the
@@ -1275,11 +1394,13 @@ class Engine:
             return
         meta = self._build_packed_wave(reqs)
         self.step_dispatches_total += 1
+        self.dispatch_shapes.add(("packed", meta["rb"]))
         t = self._tensor
-        logits = self._run_prefill(
-            forward_paged_packed, t(meta["ids"]), t(meta["pos"]), t(meta["slots"]),
-            t(meta["bt"]), t(meta["cached"]), t(meta["new_lens"]), t(meta["seg"]),
-            t(meta["last_idx"]), self.packed_chunk)
+        args = (t(meta["ids"]), t(meta["pos"]), t(meta["slots"]), t(meta["bt"]),
+                t(meta["cached"]), t(meta["new_lens"]), t(meta["seg"]), t(meta["last_idx"]),
+                self.packed_chunk)
+        logits = self._run_prefill(forward_paged_packed, *args)
+        self._draft_prefill(forward_paged_packed, *args)
         self._finish_prefill_wave(meta["packed"], meta["rb"], meta["row_idx"],
                                   t(meta["seg_ids_2d"]), t(meta["new_lens"]), logits,
                                   others_running, finished)
@@ -1385,12 +1506,14 @@ class Engine:
 
         self._push_sampling()
         self.step_dispatches_total += 1
+        filt = self._filter_sampling()
+        self.dispatch_shapes.add(("decode", n_steps, filt))
         toks, _, self._k_pages, self._v_pages, self._presence, out_lens, *_ = decode_burst(
             self.params, self.cfg, last_d, lens_d, self._k_pages, self._v_pages,
             self._presence, self._tensor(active), self._tensor(self._row_limits),
             self._tensor(self._block_tables), self._gen,
             self._temp_d, self._top_p_d, self._top_k_d, self._rep_pen_d,
-            n_steps=n_steps, filter_sampling=self._filter_sampling(),
+            n_steps=n_steps, filter_sampling=filt,
             k_scales=self._k_scales, v_scales=self._v_scales,
         )
         prev = self._chain
@@ -1462,6 +1585,7 @@ class Engine:
         w = self._spec_window_rows(running)
         t = self._tensor
         self.step_dispatches_total += 1
+        self.dispatch_shapes.add(("spec_burst", w["rb"]))
         toks_d, prop_d, *_ = spec_decode_burst(
             self.params, self.cfg, t(w["hist"]), t(w["hlens"]), t(w["lens"]),
             self._k_pages, self._v_pages, t(w["bt"]), t(w["limits"]), t(w["active"]),
@@ -1490,6 +1614,7 @@ class Engine:
         rows_l = row_d.long()
         self.fused_steps_total += 1
         self.step_dispatches_total += 1
+        self.dispatch_shapes.add(("fused", w["rb"], has_prefill, self._filter_sampling()))
         toks_d, prop_d, pf_logits, *_ = fused_step_burst(
             self.params, self.cfg, t(w["hist"]), t(w["hlens"]), t(w["lens"]),
             self._k_pages, self._v_pages, t(w["bt"]), t(w["limits"]), t(w["active"]),
@@ -1506,6 +1631,100 @@ class Engine:
                                       t(pf_wave["seg_ids_2d"]), t(pf_wave["new_lens"]),
                                       pf_logits, True, finished)
         self._commit_spec_block(running, toks_d, prop_d, w["spec_ok"], finished)
+
+    # ------------------------------------------- draft-model speculation --
+
+    def _spec_capable(self, req: _Request) -> bool:
+        """Whether this request may ride the draft burst this step.
+        Sampling rows are ineligible (greedy only); acceptance collapse and
+        deadline pressure demote the request for good, counted once."""
+        if req.spec_fallback is not None:
+            return False
+        sp = req.sampling
+        if sp.temperature > 0.0 or sp.repetition_penalty != 1.0:
+            return False
+        if req.spec_accept_ema is not None and req.spec_accept_ema < self.spec_accept_floor:
+            self._mark_fallback(req, "acceptance")
+            return False
+        if req.deadline_ts is not None and (
+                req.deadline_ts - time.monotonic() < self.spec_deadline_margin_s):
+            # plain decode stops at a finer grain than a spec_iters x (k+1)
+            # token dispatch: never spend the last of a deadline on tokens
+            # the caller will throw away
+            self._mark_fallback(req, "deadline")
+            return False
+        return True
+
+    def _mark_fallback(self, req: _Request, reason: str) -> None:
+        req.spec_fallback = reason
+        self.spec_fallbacks[reason] = self.spec_fallbacks.get(reason, 0) + 1
+
+    def _pick_spec_k(self, running: list[_Request]) -> int:
+        """The draft length: spec_k scaled by the batch's mean EMA
+        acceptance, snapped up to the ladder (a batch with no history starts
+        at the top rung)."""
+        emas = [r.spec_accept_ema for r in running if r.spec_accept_ema is not None]
+        if not emas:
+            return self._spec_k_ladder[-1]
+        want = max(1, round((sum(emas) / len(emas)) * self.spec_k))
+        for rung in self._spec_k_ladder:
+            if rung >= want:
+                return rung
+        return self._spec_k_ladder[-1]
+
+    def _draft_spec_step(self, finished: list[GenerationResult]) -> None:
+        """One draft-model dispatch (serving/draft_spec.py): ``spec_iters``
+        draft / verify / accept rounds at the controller's k, and ONE host
+        read of the [rb, iters, k+1] token block and its proposals.
+        Synchronous, like the n-gram burst."""
+        if self._chain is not None or self._pending_first:
+            # a plain-decode chain (a mixed or fallback step) is in flight:
+            # land it so the snapshot below sees every committed token
+            self._drain_chain(finished)
+        running = [r for r in self._row_req.values() if r.state == "running"]
+        if not running:
+            return
+        k = self._pick_spec_k(running)
+        w = self._spec_window_rows(running)
+        t = self._tensor
+        self.step_dispatches_total += 1
+        self.dispatch_shapes.add(("draft", w["rb"], k))
+        toks_d, prop_d, *_ = draft_spec_burst(
+            self.params, self.draft_params, self.cfg, self.draft_cfg,
+            t(w["hist"]), t(w["hlens"]), t(w["lens"]), self._k_pages, self._v_pages,
+            self._dk_pages, self._dv_pages, t(w["bt"]), t(w["limits"]), t(w["active"]),
+            n_iters=self.spec_iters, k=k, k_scales=self._k_scales, v_scales=self._v_scales)
+        rb, iters, width = toks_d.shape
+        block = torch.cat([toks_d.reshape(rb, iters * width), prop_d], dim=1).cpu().numpy()
+        toks = block[:, : iters * width].reshape(rb, iters, width)
+        prop = block[:, iters * width:]
+        for i, req in enumerate(running):
+            proposed = accepted = 0
+            for it in range(iters):
+                if req.state != "running":
+                    break  # the device drafted past this row's stop; discard
+                p_it = int(prop[i, it])
+                proposed += p_it
+                req.spec_proposed_req += p_it
+                committed = 0
+                for tok in toks[i, it]:
+                    if tok < 0 or req.state != "running":
+                        break
+                    if committed:
+                        # tokens 2..n of an iteration are accepted drafts,
+                        # counted before the commit that may finish the request
+                        accepted += 1
+                        req.spec_accepted_req += 1
+                    req.seq_len += 1
+                    self._seq_lens[req.row] = req.seq_len
+                    self._commit_token(req, int(tok), finished)
+                    committed += 1
+            self.spec_proposed += proposed
+            self.spec_accepted += accepted
+            if proposed:
+                rate = accepted / proposed
+                req.spec_accept_ema = (rate if req.spec_accept_ema is None
+                                       else 0.3 * rate + 0.7 * req.spec_accept_ema)
 
     def _spec_decode_step(self, finished: list[GenerationResult]) -> None:
         """One speculative iteration drafted on the host
@@ -1553,6 +1772,7 @@ class Engine:
 
         t = self._tensor
         self.step_dispatches_total += 1
+        self.dispatch_shapes.add(("spec", rb))
         # every position's logits, [rb, k+1, V]: verification reads them all
         logits = self._run_prefill(forward_paged, t(ids), t(pos), t(slots), t(bt), t(cached),
                                    t(new_lens))
@@ -1734,6 +1954,9 @@ class Engine:
                 "first_token_t": req.first_token_t,
                 "done_t": done_t,
             },
+            spec_proposed=req.spec_proposed_req,
+            spec_accepted=req.spec_accepted_req,
+            spec_fallback=req.spec_fallback,
             faulted_pages=req.faulted_pages,
             preempted=req.preempted,
         )
@@ -1752,38 +1975,90 @@ class Engine:
     # --------------------------------------------------------- convenience --
 
     def warmup(self) -> None:
-        """Build the kernels and touch every path live traffic takes --
-        prefill at each dispatch width (packed at the budget when one is
-        set), a greedy and a sampled decode burst (in a spec mode, the spec
-        paths instead) -- through the public step loop, then each
+        """Build the kernels and touch every shape live traffic takes, through
+        the public step loop, as the JAX engine's warmup does: prefill at
+        each (row bucket x dispatch width) -- packed: each segment bucket --,
+        a greedy and a sampled decode burst (in a spec mode, the spec paths
+        instead); under draft-model speculation the plain-decode fallback
+        and every (k rung x row bucket) of the draft burst; then each
         fused-step variant and each migration burst size when those modes
-        are on, leaving the engine state clean.  Each wave's prompt holds
+        are on.  It leaves the engine state clean.  Each wave's prompt holds
         another token, so no wave resumes from an earlier one's cached
-        pages."""
+        pages.  What it runs is what the compile watchdog
+        (obs/engine_profile.py) counts as warm: each kernel's launch plan
+        at these shapes."""
         if self.device.type == "cuda":
             from githubrepostorag_tpu_torch import kernels
 
             kernels.build()
-        greedy = SamplingParams(max_tokens=2, temperature=0.0)
-        widths = [self.prefill_chunk] if self.prefill_token_budget else self.prefill_width_buckets
-        seen: set[int] = set()
+        buckets = self._row_buckets()
+        sp = SamplingParams(max_tokens=2, temperature=0.0)
         wave = 0
-        for w in widths:
-            plen = max(1, min(w, self.max_seq_len - 3))
-            dw = self._dispatch_width(min(plen, self.prefill_chunk))
-            if dw in seen:
-                continue
-            seen.add(dw)
-            wave += 1
-            self.generate([[2 + wave % max(2, self.cfg.vocab_size - 2)] * plen], greedy)
+
+        def tok() -> int:
+            return 2 + wave % max(2, self.cfg.vocab_size - 2)
+
+        def long_len(nb: int, cap: int) -> int:
+            # one long prompt and nb - 1 short ones that fit the pool together
+            short_pages = pages_needed(3 + sp.max_tokens, self.page_size)
+            budget = (self._allocator.num_pages - (nb - 1) * short_pages) * self.page_size
+            return min(cap, self.max_seq_len - 3, budget - sp.max_tokens)
+
+        if self.prefill_token_budget is not None:
+            for nb in self.packed_prefill_buckets():
+                plen = long_len(nb, self.prefill_chunk)
+                if plen <= 0:
+                    continue  # no live wave can hold nb rows either
+                wave += 1
+                self.generate([[tok()] * plen] + [[tok()] * 3] * (nb - 1), sp)
+        seen: set[tuple[int, int]] = set()  # (row bucket, width) dispatched
+        for nb in buckets if self.prefill_token_budget is None else []:
+            for w in self.prefill_width_buckets:
+                plen = long_len(nb, w)
+                if plen <= 0:
+                    continue
+                dw = self._dispatch_width(min(plen, self.prefill_chunk))
+                if (nb, dw) in seen:
+                    continue
+                seen.add((nb, dw))
+                wave += 1
+                self.generate([[tok()] * plen] + [[tok()] * 3] * (nb - 1), sp)
         wave += 1
-        self.generate([[2 + wave % max(2, self.cfg.vocab_size - 2)] * 3],
-                      SamplingParams(max_tokens=2, temperature=0.7, top_p=0.9))
+        self.generate([[tok()] * 3], SamplingParams(max_tokens=2, temperature=0.7, top_p=0.9))
+        if self._draft_enabled:
+            # the plain-decode fallback (the greedy waves above rode the
+            # draft burst), then the whole ladder with an all-False active,
+            # which writes only the drop pages
+            wave += 1
+            self._force_plain = True
+            try:
+                self.generate([[tok()] * 3], sp)
+            finally:
+                self._force_plain = False
+            self._warm_draft_ladder(buckets)
         if self.fused_step_on:
             self._warm_fused_variants()
         if self._kv_tier_on:
             self._warm_migrations()
-        logger.info("engine warmup complete")
+        logger.info("engine warmup complete (%d prefill row buckets)", len(buckets))
+
+    def _warm_draft_ladder(self, buckets: list[int]) -> None:
+        """Run the draft burst at every (k rung x row bucket): all-False
+        ``active`` masks every commit, history write and real KV write."""
+        dev, h, mp = self.device, self.max_seq_len, self.max_pages_per_seq
+        for kk in self._spec_k_ladder:
+            for nb in buckets:
+                self.dispatch_shapes.add(("draft", nb, kk))
+                zeros = [torch.zeros(shape, dtype=torch.int32, device=dev)
+                         for shape in ((nb, h), (nb,), (nb,))]
+                draft_spec_burst(
+                    self.params, self.draft_params, self.cfg, self.draft_cfg, *zeros,
+                    self._k_pages, self._v_pages, self._dk_pages, self._dv_pages,
+                    torch.zeros((nb, mp), dtype=torch.int32, device=dev),
+                    torch.zeros((nb,), dtype=torch.int32, device=dev),
+                    torch.zeros((nb,), dtype=torch.bool, device=dev),
+                    n_iters=self.spec_iters, k=kk,
+                    k_scales=self._k_scales, v_scales=self._v_scales)
 
     def _row_buckets(self) -> list[int]:
         out, b = [], 1
@@ -1815,6 +2090,7 @@ class Engine:
             rows = zeros(nb).long()
             for has_pf in (False, True):
                 for filt in (False, True):
+                    self.dispatch_shapes.add(("fused", nb, has_pf, filt))
                     fused_step_burst(
                         self.params, self.cfg, zeros(nb, h), zeros(nb), zeros(nb),
                         self._k_pages, self._v_pages, zeros(nb, mp), zeros(nb),
@@ -1827,9 +2103,9 @@ class Engine:
                         k_scales=self._k_scales, v_scales=self._v_scales)
 
     def _warm_migrations(self) -> None:
-        """Run a gather and a scatter at every migration burst size.  All
-        -1 indices make the scatters write only the drop page and the
-        gathers read page 0."""
+        """Run a gather and a scatter at every migration burst size, over the
+        draft pools too.  All -1 indices make the scatters write only the
+        drop page and the gathers read page 0."""
         ps, hd = self.page_size, self._k_pages.shape[-1]
         lead = (self.cfg.num_layers, self.cfg.num_kv_heads)
         quant = self._k_scales is not None
@@ -1840,6 +2116,12 @@ class Engine:
             zs = torch.zeros((*lead, nb), dtype=torch.float32, device=self.device) if quant else None
             scatter_pages(self._k_pages, self._v_pages, idx, zk, self._k_scales, self._v_scales,
                           v_vals=zk, ks_vals=zs, vs_vals=zs)
+            if self._draft_enabled:
+                self._draft_gather(idx)
+                dk = self._dk_pages
+                zd = torch.zeros((*dk.shape[:2], nb, ps, dk.shape[-1]), dtype=dk.dtype,
+                                 device=self.device)
+                scatter_pages(self._dk_pages, self._dv_pages, idx, zd, v_vals=zd)
 
     def generate(self, prompts: list[list[int]],
                  sampling: SamplingParams | list[SamplingParams] | None = None,

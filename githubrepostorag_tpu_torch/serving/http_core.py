@@ -17,6 +17,12 @@ path patterns whose ``{name}`` segments match one path segment each, as
 aiohttp's ``{name}`` resources do; an unknown path gets a JSON 404 and a
 known path with another method a JSON 405, in the server's own error
 shape.  A server runs on the event loop ``listen()`` ran on.
+
+Both servers serve the observability planes' read-only routes with the
+handlers below: ``GET /debug/slo``, ``/debug/fleet``, ``/debug/hbm``
+(``debug_plane_routes``) and ``/debug/timeline?window_s=``
+(``timeline_window``: the server answers a window that is not a number
+with 400 in its own error shape).
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from dataclasses import dataclass, field
 from email.utils import formatdate
 from http import HTTPStatus
 from typing import Awaitable, Callable
-from urllib.parse import unquote
+from urllib.parse import parse_qs, unquote
 
 logger = logging.getLogger(__name__)
 
@@ -56,6 +62,7 @@ class Request:
     status: int | None = None  # the status of the head written
     route: str | None = None  # the matched pattern, None when unmatched
     params: dict[str, str] = field(default_factory=dict)  # its {name} segments
+    query: dict[str, str] = field(default_factory=dict)  # ?name=value (the last one)
     extra_headers: list[tuple[str, str]] = field(default_factory=list)  # on every reply
 
     @property
@@ -129,8 +136,10 @@ async def read_request(reader: asyncio.StreamReader,
         body = await _read_chunked(reader)
     else:
         body = await reader.readexactly(length) if length else b""
-    return Request(method=method, path=unquote(target.split("?", 1)[0]), version=version,
-                   headers=headers, body=body, reader=reader, writer=writer)
+    path, _, query = target.partition("?")
+    return Request(method=method, path=unquote(path), version=version,
+                   headers=headers, body=body, reader=reader, writer=writer,
+                   query={k: v[-1] for k, v in parse_qs(query).items()})
 
 
 async def _read_chunked(reader: asyncio.StreamReader) -> bytes:
@@ -334,3 +343,36 @@ class HTTPServer:
                 await write_json(req, 500, self.error_payload(f"internal error: {exc!r}"),
                                  keep_alive=False)
             return False
+
+
+# --------------------------------------------------- observability routes --
+
+
+async def debug_slo(req: Request) -> bool:
+    from githubrepostorag_tpu_torch.obs.slo import get_slo_plane
+
+    return await write_json(req, 200, get_slo_plane().slo_payload())
+
+
+async def debug_fleet(req: Request) -> bool:
+    from githubrepostorag_tpu_torch.obs.slo import get_slo_plane
+
+    return await write_json(req, 200, get_slo_plane().fleet_payload())
+
+
+async def debug_hbm(req: Request) -> bool:
+    from githubrepostorag_tpu_torch.obs.hbm import get_hbm_plane
+
+    return await write_json(req, 200, get_hbm_plane().payload())
+
+
+def debug_plane_routes() -> dict[str, dict[str, Handler]]:
+    return {"/debug/slo": {"GET": debug_slo}, "/debug/fleet": {"GET": debug_fleet},
+            "/debug/hbm": {"GET": debug_hbm}}
+
+
+def timeline_window(req: Request) -> float | None:
+    """``?window_s=`` of a timeline request (None when absent); raises
+    ValueError when it is not a number."""
+    raw = req.query.get("window_s")
+    return None if raw is None else float(raw)

@@ -2,14 +2,17 @@
 ``githubrepostorag_tpu/serving/openai_api.py`` on the standard library.
 
 Endpoints: POST /v1/chat/completions (stream and non-stream),
-POST /v1/completions, GET /v1/models, GET /health, and GET /debug/index
-(the live index's watermarks and compaction, ``live_index_payload``).
-Request handling --
+POST /v1/completions, GET /v1/models, GET /health, GET /debug/index
+(the live index's watermarks and compaction, ``live_index_payload``), the
+observability planes' GET /debug/slo, /debug/fleet, /debug/hbm and
+/debug/timeline (``?window_s=``, 400 when not a number), and POST
+/debug/fleet/drain and /debug/fleet/activate, which a single engine
+answers with the JAX server's 404 (replica groups come with the fleet,
+ROADMAP queue 1 item 7).  Request handling --
 sampling defaults, stop strings (cut inside a streamed delta too), finish
 reasons, the 400 for malformed bodies and for ``finish_reason == "error"``,
 cancellation on a stop string, a client that goes away, or a cancelled
-task -- follows the JAX server line for line.  The JAX server's other
-/debug/* routes read planes the port does not have yet and are not served.
+task -- follows the JAX server line for line.
 
 The JAX server runs on aiohttp, which the card's machine does not have, so
 this one runs on the port's HTTP/1.1 core (``serving/http_core.py``,
@@ -36,9 +39,11 @@ from githubrepostorag_tpu_torch.serving.http_core import (
     MAX_BODY,
     HTTPServer,
     Request,
+    debug_plane_routes,
     end_stream,
     error_payload,
     start_stream,
+    timeline_window,
     write_chunk,
     write_json,
 )
@@ -86,6 +91,10 @@ class OpenAIServer(HTTPServer):
             "/v1/models": {"GET": self.models},
             "/health": {"GET": self.health},
             "/debug/index": {"GET": self.debug_index},
+            **debug_plane_routes(),
+            "/debug/timeline": {"GET": self.debug_timeline},
+            "/debug/fleet/drain": {"POST": self.fleet_drain},
+            "/debug/fleet/activate": {"POST": self.fleet_activate},
         }
 
     # ------------------------------------------------------------- wiring
@@ -114,6 +123,39 @@ class OpenAIServer(HTTPServer):
 
     async def debug_index(self, req: Request) -> bool:
         return await self._json(req, live_index_payload())
+
+    async def debug_timeline(self, req: Request) -> bool:
+        """One Perfetto trace for the recent past (``?window_s=`` bounds
+        it); save the body and open it in ui.perfetto.dev."""
+        from githubrepostorag_tpu_torch.obs.timeline import build_timeline
+
+        try:
+            window_s = timeline_window(req)
+        except ValueError:
+            return await self._json(req, error_payload("window_s must be a number"), 400)
+        return await self._json(req, build_timeline(window_s=window_s))
+
+    async def _fleet_lifecycle(self, req: Request, verb: str) -> bool:
+        """POST /debug/fleet/{drain,activate}: duck-typed on the engine
+        being a replica group (a single engine answers 404)."""
+        action = getattr(self.engine, verb, None)
+        if action is None:
+            return await self._json(
+                req, error_payload("fleet lifecycle requires replica groups"), 404)
+        try:
+            replica = req.json()["replica"]
+        except (ValueError, KeyError, TypeError) as exc:
+            return await self._json(req, error_payload(f"invalid request body: {exc}"), 400)
+        try:
+            return await self._json(req, await action(replica))
+        except KeyError:
+            return await self._json(req, error_payload(f"unknown replica {replica!r}"), 404)
+
+    async def fleet_drain(self, req: Request) -> bool:
+        return await self._fleet_lifecycle(req, "drain")
+
+    async def fleet_activate(self, req: Request) -> bool:
+        return await self._fleet_lifecycle(req, "activate")
 
     async def models(self, req: Request) -> bool:
         return await self._json(req, {

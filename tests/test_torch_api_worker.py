@@ -408,17 +408,76 @@ def test_static_ui_redirect_and_cors_match_jax(services):
 
 
 def test_debug_routes(services):
-    """/debug/index answers as JAX's; the planes the port lacks are not
-    routed: a JSON 404 where the JAX app serves them."""
+    """/debug/index answers as JAX's; /debug/slo, /debug/fleet, /debug/hbm
+    and /debug/timeline as the JAX app serves them (no engine in this
+    process: no replica), their bodies equal to JAX's but for clocks and
+    conforming to the committed golden schemas; /debug/traces after a job
+    conforms too; a window that is not a number gets JAX's 400."""
+    from test_torch_obs_planes import conforms, golden, reset_planes, shape
+
+    reset_planes()
     svc = services()
     out = on_both(svc, lambda side, port: request(port, "GET", "/debug/index"))
     assert out["port"][0] == out["jax"][0] == 200 and out["port"][2] == out["jax"][2]
-    for path in ("/debug/slo", "/debug/fleet", "/debug/hbm", "/debug/timeline"):
-        status, _, body = request(svc.ports["port"], "GET", path)
-        assert status == 404 and body["error"]["message"] == f"no route {path}"
-        assert request(svc.ports["jax"], "GET", path)[0] == 200
+    on_both(svc, post_and_follow({"query": "how are jobs created?"}))
+    slo_g, tl_g = golden("debug_slo_schema.json"), golden("debug_timeline_schema.json")
+    bodies = {}
+    for path in ("/debug/slo", "/debug/fleet", "/debug/hbm", "/debug/timeline?window_s=60",
+                 "/debug/traces"):
+        out = on_both(svc, lambda side, port: request(port, "GET", path))
+        assert out["port"][0] == out["jax"][0] == 200, path
+        assert sorted(out["port"][2]) == sorted(out["jax"][2]), path
+        bodies[path] = out["port"][2]
+    assert bodies["/debug/slo"]["decisions"] == {"interactive": "accept"}
+    assert bodies["/debug/hbm"]["replica_count"] == 0
+    conforms(shape(bodies["/debug/slo"]), slo_g["GET /debug/slo"])
+    conforms(shape(bodies["/debug/fleet"]), slo_g["GET /debug/fleet"])
+    conforms(shape(bodies["/debug/hbm"]), tl_g["GET /debug/hbm"])
+    tl = bodies["/debug/timeline?window_s=60"]
+    conforms(shape({**tl, "traceEvents": []}), tl_g["GET /debug/timeline"])
+    assert tl["metadata"]["sources"]["spans"] > 0  # the job's span tree
+    conforms(shape(bodies["/debug/traces"]),
+             golden("debug_traces_schema.json")["GET /debug/traces"])
+    out = on_both(svc, lambda side, port: request(port, "GET", "/debug/timeline?window_s=soon"))
+    assert out["port"][0] == out["jax"][0] == 400 and out["port"][2] == out["jax"][2]
     status, hdrs, _ = request(svc.ports["port"], "GET", "/rag/jobs")
     assert status == 405 and hdrs["allow"] == "POST"
+
+
+def test_api_sheds_when_the_plane_says_shed(services, monkeypatch):
+    """A monitor registered with the port's SLO plane, driven critical on
+    the batch class: POST /rag/jobs of that class gets 429 with
+    ``Retry-After: 1`` as from the JAX app under its plane, the protected
+    class is still accepted, and the shed counts."""
+    from githubrepostorag_tpu.obs.slo import SLOMonitor as JMonitor, get_slo_plane as j_plane
+    from githubrepostorag_tpu_torch.obs.slo import SLOMonitor, get_slo_plane
+    from test_torch_obs_planes import reset_planes
+
+    from githubrepostorag_tpu_torch.metrics import JOBS_SHED, counter_value
+
+    monkeypatch.setenv("SLO_WINDOWS", "1,5")
+    config.reload_settings()
+    j_reload()
+    reset_planes()
+    svc = services()
+    try:
+        for plane, mon in ((get_slo_plane(), SLOMonitor("shed")),
+                           (j_plane(), JMonitor("shed"))):
+            plane.register("shed", monitor=mon)
+            for i in range(6):
+                mon.observe("batch", deadline_missed=True, now=time.monotonic() + 0.01 * i)
+            mon.maybe_refresh(force=True)
+        shed_before = counter_value(JOBS_SHED)
+        out = on_both(svc, lambda side, port: request(
+            port, "POST", "/rag/jobs", {"query": "q", "priority": "batch"}))
+        assert out["port"][0] == out["jax"][0] == 429
+        assert out["port"][1]["retry-after"] == out["jax"][1]["retry-after"] == "1"
+        assert out["port"][2] == out["jax"][2]
+        assert counter_value(JOBS_SHED) == shed_before + 1
+        status, _, reply = request(svc.ports["port"], "POST", "/rag/jobs", {"query": "q"})
+        assert status == 200 and reply["job_id"]
+    finally:
+        reset_planes()
 
 
 def test_sse_heartbeat_while_the_agent_thinks(services, monkeypatch):

@@ -53,6 +53,15 @@ ENVIRONMENTS = {
                          "CASSANDRA_PORT": "19042", "CASSANDRA_USERNAME": "rag",
                          "CASSANDRA_PASSWORD": "pw", "CASSANDRA_KEYSPACE": "vectors"},
     "split_deployment_bad_ports": {"METRICS_PORT": "nine", "CASSANDRA_PORT": ""},
+    "draft_and_obs": {"SPEC_DRAFT_MODEL": "/models/draft", "SPEC_K": "2", "SPEC_ITERS": "3",
+                      "SPEC_ACCEPT_FLOOR": "0.2", "SPEC_DEADLINE_MARGIN_S": "1.5",
+                      "PROFILE_SAMPLE_EVERY": "4", "PROFILE_RING": "16",
+                      "TIMELINE_WINDOW_S": "30", "TIMELINE_MAX_EVENTS": "100",
+                      "SLO_TTFT_P50_MS": "800", "SLO_TTFT_P99_MS": "2000", "SLO_TPOT_MS": "40",
+                      "SLO_DEADLINE_MISS_BUDGET": "0.1", "SLO_LONGCTX_TTFT_P50_MS": "9000",
+                      "SLO_LONGCTX_TTFT_P99_MS": "20000", "SLO_LONGCTX_TPOT_MS": "90",
+                      "SLO_WINDOWS": "5,30", "SLO_BURN_WARN": "2", "SLO_BURN_CRITICAL": "4",
+                      "SLO_LEDGER_WINDOW_S": "10", "MODEL_FLOPS_PER_TOKEN": "1.5e10"},
 }
 
 
@@ -75,10 +84,18 @@ def test_env_names_found():
     assert {"MODEL_WEIGHTS_PATH", "QUANTIZE_WEIGHTS", "KV_QUANT", "CONTEXT_WINDOW"} <= set(ENV_NAMES)
 
 
+# divergences by design: the field and the port's default (the JAX
+# package's is a TPU's figure); the variable and its parser stay the same
+PORT_DEFAULTS = {"chip_peak_tflops": 989.0}
+
+
 @pytest.mark.parametrize("name", list(ENVIRONMENTS))
 def test_fields_equal_jax(env, name):
     port, jax_side = env(ENVIRONMENTS[name])
     for f in dataclasses.fields(port):
+        if f.name in PORT_DEFAULTS:
+            assert getattr(port, f.name) == PORT_DEFAULTS[f.name], f.name
+            continue
         assert getattr(port, f.name) == getattr(jax_side, f.name), f.name
     assert port.scope_tables == jax_side.scope_tables
     assert config.get_settings() is port
@@ -95,3 +112,16 @@ def test_typo_raises_on_both_sides(env, var, value):
 def test_extension_languages_equal_jax():
     assert config.EXTENSION_TO_LANGUAGE == j_config.EXTENSION_TO_LANGUAGE
     assert list(config.EXTENSION_TO_LANGUAGE) == list(j_config.EXTENSION_TO_LANGUAGE)
+
+
+def test_chip_peak_is_the_cards(env):
+    """CHIP_PEAK_TFLOPS, the ledger's MFU denominator, defaults to the
+    card's dense bf16 peak (989 TFLOP/s, NVIDIA H100 80GB HBM3 at 700 W),
+    not the JAX package's TPU figure; set, it parses as the JAX field
+    does."""
+    port, jax_side = env({})
+    assert port.chip_peak_tflops == 989.0 != jax_side.chip_peak_tflops
+    port, jax_side = env({"CHIP_PEAK_TFLOPS": "500"})
+    assert port.chip_peak_tflops == jax_side.chip_peak_tflops == 500.0
+    port, jax_side = env({"CHIP_PEAK_TFLOPS": "fast"})
+    assert port.chip_peak_tflops == 989.0

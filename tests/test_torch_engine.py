@@ -259,12 +259,10 @@ def test_engine_defaults_to_the_card(weights):
 
 
 @pytest.mark.parametrize("option", [
-    {"draft_params": object(), "draft_cfg": object()}, {"spec_iters": 2},
-    {"spec_accept_floor": 0.5}, {"sp_ring_buckets": 2}, {"sp_ring_pack": False},
-    {"spec_deadline_margin_s": 1.0}, {"sp_prefill_threshold": 64},
+    {"sp_ring_buckets": 2}, {"sp_ring_pack": False}, {"sp_prefill_threshold": 64},
     {"mesh": object()},
     # a mode's tuning away from its JAX default is refused like the mode
-    {"spec_k": 8}, {"spec_k": 2, "spec_iters": 8}, {"sp_prefill_threshold": 0},
+    {"sp_prefill_threshold": 0}, {"sp_ring_buckets": 1, "sp_ring_pack": False},
 ])
 def test_engine_rejects_unported_modes(weights, option):
     _, cfg, _, tp = weights
@@ -413,8 +411,11 @@ def test_engine_takes_the_servers_tuning_keywords(weights):
     _torch_engine(cfg, tp, kv_migrate_burst=8, sp_ring_pack=True, sp_ring_buckets=0, spec_k=4,
                   spec_iters=4, spec_accept_floor=0.35, spec_deadline_margin_s=0.25,
                   protected_priority="interactive")
-    with pytest.raises(NotImplementedError, match=r"spec_iters=2 .*leave it at 4"):
-        _torch_engine(cfg, tp, spec_iters=2)
+    with pytest.raises(NotImplementedError, match=r"sp_ring_buckets=2 .*leave it at 0"):
+        _torch_engine(cfg, tp, sp_ring_buckets=2)
+    # the draft controller's tuning is taken at any value (the mode is ported)
+    _torch_engine(cfg, tp, spec_k=8, spec_iters=2, spec_accept_floor=0.5,
+                  spec_deadline_margin_s=1.0)
 
 
 def test_out_of_vocabulary_prompt_ids_are_refused_where_jax_admits_them(weights):

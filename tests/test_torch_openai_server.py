@@ -460,3 +460,52 @@ async def test_a_request_arriving_mid_run_is_admitted_at_once():
     assert second[0] == 200 and events[-1] == "[DONE]"
     assert admitted[second[1]["id"]] - t_sent < 0.2
     assert t_second < t_first
+
+
+def test_debug_plane_routes_match_jax_and_the_golden(servers):
+    """GET /debug/slo, /debug/fleet, /debug/hbm and /debug/timeline after
+    traffic: the JAX server's statuses and top-level keys, bodies that
+    conform to the committed golden schemas, the timeline's window and its
+    400; POST /debug/fleet/drain and /activate: JAX's single-engine 404."""
+    from githubrepostorag_tpu_torch.obs.hbm import get_hbm_plane
+    from githubrepostorag_tpu_torch.obs.slo import get_slo_plane
+    from test_torch_obs_planes import conforms, golden, shape
+
+    # another test's server may have registered its own engine as r0 since
+    aeng = servers.server.engine
+    get_slo_plane().register("r0", ledger=aeng.ledger, monitor=aeng.slo, stats=aeng.stats)
+    get_hbm_plane().register("r0", aeng.page_obs)
+    assert _post(servers.port, "/v1/completions", {"prompt": "obs", "max_tokens": 4,
+                                                   "temperature": 0})[0] == 200
+    assert _post(servers.jax, "/v1/completions", {"prompt": "obs", "max_tokens": 4,
+                                                  "temperature": 0})[0] == 200
+    slo_g, tl_g = golden("debug_slo_schema.json"), golden("debug_timeline_schema.json")
+    bodies = {}
+    for path in ("/debug/slo", "/debug/fleet", "/debug/hbm", "/debug/timeline",
+                 "/debug/timeline?window_s=30"):
+        out = {}
+        for side in ("port", "jax"):
+            status, _, data = _request(getattr(servers, side), "GET", path)
+            out[side] = (status, json.loads(data))
+        assert out["port"][0] == out["jax"][0] == 200, path
+        assert sorted(out["port"][1]) == sorted(out["jax"][1]), path
+        bodies[path] = out["port"][1]
+    conforms(shape(bodies["/debug/slo"]), slo_g["GET /debug/slo"])
+    conforms(shape(bodies["/debug/fleet"]), slo_g["GET /debug/fleet"])
+    conforms(shape(bodies["/debug/hbm"]), tl_g["GET /debug/hbm"])
+    tl = bodies["/debug/timeline?window_s=30"]
+    conforms(shape({**tl, "traceEvents": []}), tl_g["GET /debug/timeline"])
+    assert tl["metadata"]["window_s"] == 30.0 and tl["metadata"]["replicas"] == ["r0"]
+    assert tl["metadata"]["sources"]["steps"] > 0
+    fleet = bodies["/debug/fleet"]
+    assert fleet["fleet"]["replicas"] == 1 and fleet["replicas"][0]["stats"]["total_pages"] == 256
+    assert fleet["replicas"][0]["ledger"]["tokens"]["committed"] > 0
+    hbm = bodies["/debug/hbm"]["replicas"]["r0"]
+    assert hbm["attribution"]["finished_requests"] > 0
+    for side in ("port", "jax"):
+        status, _, data = _request(getattr(servers, side), "GET", "/debug/timeline?window_s=x")
+        assert status == 400 and json.loads(data)["error"]["message"] == "window_s must be a number"
+        for verb in ("drain", "activate"):
+            status, body = _post(getattr(servers, side), f"/debug/fleet/{verb}", {"replica": "r0"})
+            assert status == 404
+            assert body["error"]["message"] == "fleet lifecycle requires replica groups"

@@ -40,16 +40,25 @@ SERVER_ENV = {"CONTEXT_WINDOW": "256", "MAX_NUM_SEQS": "2", "KV_PAGE_SIZE": "8",
 
 @pytest.fixture(scope="module")
 def checkpoint(tmp_path_factory) -> Path:
+    return _write_checkpoint(tmp_path_factory.mktemp("ckpt"), seed=0)
+
+
+@pytest.fixture(scope="module")
+def draft_checkpoint(tmp_path_factory) -> Path:
+    """A second model sharing the tokenizer: one layer, other weights."""
+    return _write_checkpoint(tmp_path_factory.mktemp("draft"), seed=1, layers=1)
+
+
+def _write_checkpoint(root: Path, seed: int, layers: int = 2) -> Path:
     impl = pytest.importorskip("tokenizers.implementations")
-    root = tmp_path_factory.mktemp("ckpt")
     bpe = impl.ByteLevelBPETokenizer()
     bpe.train_from_iterator(CORPUS * 4, vocab_size=600, min_frequency=1,
                             special_tokens=SPECIALS)
     bpe.save(str(root / "tokenizer.json"))
     (root / "tokenizer_config.json").write_text(json.dumps(
         {"eos_token": "<|im_end|>", "chat_template": CHAT_TEMPLATE}))
-    vocab, h, inter, layers, heads, kv_heads, hd = 640, 64, 128, 2, 4, 2, 16
-    g = torch.Generator().manual_seed(0)
+    vocab, h, inter, heads, kv_heads, hd = 640, 64, 128, 4, 2, 16
+    g = torch.Generator().manual_seed(seed)
     state = {"model.embed_tokens.weight": torch.randn(vocab, h, generator=g) * 0.05,
              "model.norm.weight": torch.ones(h)}
     for i in range(layers):
@@ -92,7 +101,39 @@ def test_server_serves_a_chat_in_the_speculative_and_host_tier_modes(checkpoint)
     _serve_a_chat(checkpoint, MODE_ENVS["fused"] | MODE_ENVS["preempt"])
 
 
-def _serve_a_chat(checkpoint, extra: dict) -> None:
+def test_server_serves_a_chat_with_a_draft_model(checkpoint, draft_checkpoint):
+    """SPEC_DRAFT_MODEL: the server loads the draft, speculates (drafts
+    proposed, in /health) and answers with the JAX engine's greedy tokens
+    for the same checkpoints, draft and prompt (bf16 weights on both
+    sides, as both servers load them)."""
+    import ml_dtypes
+    import jax.numpy as jnp
+
+    from githubrepostorag_tpu.models.hf_loader import load_qwen2 as j_load
+    from githubrepostorag_tpu.serving import Engine as JEngine, SamplingParams as JSamplingParams
+    from githubrepostorag_tpu_torch.serving.tokenizer import make_tokenizer
+
+    messages = [{"role": "user", "content": "hello world"}]
+    reply, health = _serve_a_chat(checkpoint, {"SPEC_DRAFT_MODEL": str(draft_checkpoint),
+                                               "SPEC_K": "2", "SPEC_ITERS": "2"},
+                                  messages=messages, max_tokens=8)
+    assert health["spec_proposed"] > 0
+    tok = make_tokenizer(str(checkpoint))
+    params, cfg = j_load(str(checkpoint), dtype=ml_dtypes.bfloat16, fuse=True)
+    dparams, dcfg = j_load(str(draft_checkpoint), dtype=ml_dtypes.bfloat16)
+    eng = JEngine(params, cfg, max_num_seqs=2, num_pages=64, page_size=8, max_seq_len=256,
+                  prefill_chunk=32, kv_dtype=jnp.bfloat16, draft_params=dparams,
+                  draft_cfg=dcfg, spec_k=2, spec_iters=2)
+    eng.warmup()  # as the server does: its waves speculate too
+    out = eng.generate([tok.encode_chat(messages)], JSamplingParams(
+        max_tokens=8, temperature=0.0, stop_token_ids=(tok.eos_token_id,)))[0]
+    ids = [t for t in out.output_tokens if t != tok.eos_token_id]
+    assert reply["usage"]["completion_tokens"] == len(out.output_tokens)
+    assert reply["choices"][0]["message"]["content"] == tok.decode(ids)
+    assert eng.spec_proposed == health["spec_proposed"]
+
+
+def _serve_a_chat(checkpoint, extra: dict, messages=None, max_tokens: int = 6):
     port = _free_port()
     env = {k: v for k, v in os.environ.items() if k not in ("MESH_SHAPE", "SPEC_DRAFT_MODEL")}
     env.update(SERVER_ENV, MODEL_WEIGHTS_PATH=str(checkpoint), CTRL="off", **extra)
@@ -113,15 +154,17 @@ def _serve_a_chat(checkpoint, extra: dict) -> None:
                 assert time.monotonic() < deadline, "server never came up"
                 time.sleep(0.2)
         assert health["status"] == "ok" and health["free_pages"] == health["total_pages"] == 64
-        body = {"messages": [{"role": "user", "content": "hello world"}], "max_tokens": 6,
-                "temperature": 0}
+        body = {"messages": messages or [{"role": "user", "content": "hello world"}],
+                "max_tokens": max_tokens, "temperature": 0}
         req = urllib.request.Request(f"{base}/v1/chat/completions", data=json.dumps(body).encode(),
                                      headers={"Content-Type": "application/json"})
         with urllib.request.urlopen(req, timeout=60) as resp:
             reply = json.loads(resp.read())
         assert reply["model"] == "tiny-ckpt"
         assert isinstance(reply["choices"][0]["message"]["content"], str)
-        assert 1 <= reply["usage"]["completion_tokens"] <= 6
+        assert 1 <= reply["usage"]["completion_tokens"] <= max_tokens
+        with urllib.request.urlopen(f"{base}/health", timeout=5) as resp:
+            health = json.loads(resp.read())
         proc.send_signal(signal.SIGTERM)
         out, _ = proc.communicate(timeout=60)
         assert proc.returncode == 0, out
@@ -130,18 +173,19 @@ def _serve_a_chat(checkpoint, extra: dict) -> None:
         if proc.poll() is None:
             proc.kill()
             proc.communicate()
+    return reply, health
 
 
 @pytest.mark.parametrize("env,message", [
     ({}, "requires MODEL_WEIGHTS_PATH"),
     ({"MODEL_WEIGHTS_PATH": "/nonexistent", "MESH_SHAPE": "tp:2"},
      "MESH_SHAPE is set.*queue 1 item 8 "),
-    ({"MODEL_WEIGHTS_PATH": "/nonexistent", "SPEC_DRAFT_MODEL": "/draft"},
-     "SPEC_DRAFT_MODEL is set.*queue 1 item 5 "),
+    ({"MODEL_WEIGHTS_PATH": "/nonexistent", "SPEC_DRAFT_MODEL": "/draft", "SPEC_NGRAM_K": "4"},
+     "SPEC_DRAFT_MODEL and SPEC_NGRAM_K are mutually exclusive"),
     ({"MODEL_WEIGHTS_PATH": "/nonexistent", "CTRL": "on"}, "CTRL is set.*queue 1 item 7 "),
 ])
 def test_main_refuses_what_it_cannot_serve(monkeypatch, env, message):
-    for name in ("MODEL_WEIGHTS_PATH", "MESH_SHAPE", "SPEC_DRAFT_MODEL", "CTRL"):
+    for name in ("MODEL_WEIGHTS_PATH", "MESH_SHAPE", "SPEC_DRAFT_MODEL", "SPEC_NGRAM_K", "CTRL"):
         monkeypatch.delenv(name, raising=False)
     for name, value in env.items():
         monkeypatch.setenv(name, value)
