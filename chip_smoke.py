@@ -12,6 +12,7 @@
     python3 chip_smoke.py --only split     # device, build, the rag phase, the split deployment
     python3 chip_smoke.py --only modes     # device, build, A's verify window, the engine modes
     python3 chip_smoke.py --only draft     # device, build, A at the draft's shapes, draft speculation
+    python3 chip_smoke.py --only fleet     # device, build, the fleet (router, disagg, controller)
 
 Phases, each raising on failure:
 
@@ -236,6 +237,40 @@ Phases, each raising on failure:
               goodput, MFU at 989 TFLOP/s), the page observatory
               (attribution within 1 % of its occupancy integral) and the
               obs hooks' cost.  Prints {"draft": ...}.
+   fleet   -- after the draft phase: the fleet at Qwen2-7B (random bf16
+              weights, the engine phase's geometry), every replica built
+              by the model server's build_serving_engine over the one
+              weight tree, launching A and B (pinned, nothing else) on
+              the card's default stream.  (a) Router: one engine, then
+              MESH_SHAPE=dp:2, each behind the model server over HTTP; 16
+              greedy completions (4 groups of 4 sharing a 1024-token
+              prefix, 100-300 token tails, 32 tokens): a group's first
+              request alone, its other three once it has a first token,
+              the next group once all four have: affinity hits at least
+              12 less the slack spills the router reports; TTFT p50 / p95,
+              latency, decode tok/s, routed per replica; the fleet's tokens
+              against the one engine's (bf16: near ties only); the decode
+              wave (8 x 17, 256-token prompts) warm, timed and profiled
+              through each: idle share under one and two driver threads
+              (``--only fleet``: also the replicas' shared step lock
+              against none in turns, on the wave and on the 16 requests
+              again, shared / none / none / shared, on fresh prompts);
+              memory of one engine and of two replicas; the watchdog 0 on
+              every replica; float32 at 2 layers: every token of two
+              groups equal.  (b) DISAGG=on, KV_TIER=on, two replicas:
+              two groups handed off (pages shipped, export / import /
+              fault-in ms a page and GB/s), the same again (deduped), the
+              shipped pages byte-equal on both replicas, tokens against
+              the one engine's; FAULTS=disagg.transfer:error on two new
+              prompts: the transfer_error fallback.  (c) dp:3,
+              FLEET_SPARES=1, CTRL=on over HTTP: 8 requests; once r0 has a
+              token, FAULTS=fleet.step.r0:error@window=3: kills its driver:
+              r0's requests answered with the fence's error, r2 activated,
+              r0 retired, 4 more served; seconds from the kill to r2
+              active and to the first request served after; failopen 0,
+              the watchdog 0 across the activation, the failover on
+              /debug/fleet, the fence on /debug/timeline.  Prints
+              {"fleet": ...}.
 6. int4    -- the same 7B tree quantized to group-wise int4 (group 64) on
               the card, layer by layer; the model checks again (prefill
               logits through kernel D, decode logits through kernel E),
@@ -247,7 +282,7 @@ Phases, each raising on failure:
               checkout of the port (copy this script there).
 7. summary -- whether transformers, prometheus_client, pydantic, psutil and
               requests import here, the retrieval, rag, engine-options,
-              ingest, split, modes and draft numbers, the card's name and power limit, the kernel
+              ingest, split, modes, draft and fleet numbers, the card's name and power limit, the kernel
               list, then the result line.
 
 There is no CPU fallback: without a card the script exits non-zero.
@@ -1746,6 +1781,15 @@ def make_7b_params():
                                 *params["layers"].values()])
     log(f"Qwen2-7B random bf16 weights: {n / 1e9:.2f} B params in {time.monotonic() - t0:.1f} s")
     return cfg, params
+
+
+def at_depth(cfg, params: dict, layers: int) -> tuple:
+    """The model at its widths cut to its first ``layers`` layers: the
+    config and a tree whose stacked layer tensors are views of ``params``'."""
+    import dataclasses
+
+    return (dataclasses.replace(cfg, num_layers=layers),
+            {**params, "layers": {k: v[:layers] for k, v in params["layers"].items()}})
 
 
 def upcast(params: dict) -> dict:
@@ -6211,10 +6255,648 @@ def phase_draft(cfg, params, device: str = "cuda") -> dict:
     return out
 
 
+FLEET_KEYS = ("MESH_SHAPE", "FLEET_SPARES", "CTRL", "CTRL_TICK_S", "CTRL_HYSTERESIS_TICKS",
+              "CTRL_COOLDOWN_S", "CTRL_LIVENESS_TIMEOUT_S", "CTRL_SNAPSHOT_DIR", "DISAGG",
+              "DISAGG_PREFILL_REPLICAS", "ROUTE_DIGEST_INTERVAL_S", "FAULTS",
+              "SLO_TTFT_P50_MS", "SLO_TTFT_P99_MS", "SLO_TPOT_MS")
+FLEET_PREFIX = 1024  # the shared prefix of a group's prompts (tokens)
+FLEET_NEW = 32  # greedy tokens a request
+
+
+def fleet_settings(env: dict | None = None, geometry: dict | None = None):
+    """``mode_settings`` with the fleet's settings unset but ``env``'s, and
+    ``geometry`` (default: the engine phase's) in the environment."""
+    import os
+
+    from githubrepostorag_tpu_torch.resilience.faults import reset_faults
+
+    for key in FLEET_KEYS:
+        os.environ.pop(key, None)
+    s = mode_settings({**(geometry or {}), **(env or {})})
+    reset_faults()
+    return s
+
+
+def arm_faults(spec: str | None) -> None:
+    """``FAULTS=spec`` (None: unset), the settings and the fault registry
+    rebuilt from it, as a restarted pod would read it."""
+    import os
+
+    from githubrepostorag_tpu_torch import config
+    from githubrepostorag_tpu_torch.resilience.faults import reset_faults
+
+    if spec is None:
+        os.environ.pop("FAULTS", None)
+    else:
+        os.environ["FAULTS"] = spec
+    config.reload_settings()
+    reset_faults()
+
+
+def fleet_traffic(seed: int = SEED + 83, groups: int = 4, size: int = 4,
+                  prefix: int = FLEET_PREFIX) -> dict:
+    """``groups`` groups of ``size`` completion prompts (byte-tokenizer
+    text: one token a byte) sharing a ``prefix``-token prefix, each with a
+    100-300 token tail; and 8 distinct 256-token prompts (the decode wave)."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz  ,.", dtype=np.uint8)
+
+    def text(n):
+        return bytes(rng.choice(letters, n)).decode()
+
+    out = []
+    for _ in range(groups):
+        head = text(prefix)
+        out.append([head + text(int(rng.integers(100, 301))) for _ in range(size)])
+    return {"groups": out, "decode": [text(256) for _ in range(8)]}
+
+
+class LoopThread:
+    """An event loop on a thread of its own (the server's), with ``run``
+    for coroutines from this thread."""
+
+    def __init__(self) -> None:
+        import threading
+
+        self.loop = asyncio.new_event_loop()
+        self.thread = threading.Thread(target=self.loop.run_forever, name="fleet-loop",
+                                       daemon=True)
+        self.thread.start()
+
+    def run(self, coro, timeout: float = 600):
+        return asyncio.run_coroutine_threadsafe(coro, self.loop).result(timeout)
+
+    def close(self) -> None:
+        self.run(self.loop.shutdown_asyncgens())
+        self.loop.call_soon_threadsafe(self.loop.stop)
+        self.thread.join(30)
+        self.loop.close()
+
+
+def record_results(served) -> tuple[dict, list]:
+    """Wrap ``served.stream`` (an AsyncEngine or a MultiAsyncEngine): every
+    final result by request id, and the order in which requests met their
+    first token (request id, monotonic time)."""
+    results, firsts = {}, []
+    inner = served.stream
+
+    async def stream(*args, **kw):
+        first = True
+        async for event in inner(*args, **kw):
+            if event.type == "token" and first:
+                first = False
+                firsts.append((kw.get("request_id"), time.monotonic()))
+            if event.type == "final":
+                results[event.result.request_id] = event.result
+            yield event
+
+    served.stream = stream
+    return results, firsts
+
+
+def wait_for(cond, timeout: float = 300, what: str = "condition") -> None:
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise RuntimeError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def send_groups(port: int, groups: list[list[str]], firsts: list,
+                max_tokens: int = FLEET_NEW) -> list:
+    """The group schedule over HTTP (``/v1/completions``, greedy): a group's
+    first request alone; once it has its first token (its prefix pages
+    registered and published), the group's other requests at once; the
+    next group once every request of this one has its first token.
+    Returns (status, reply, (start, end)) per request, in group order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def post(prompt):
+        body = json.dumps({"prompt": prompt, "max_tokens": max_tokens,
+                           "temperature": 0}).encode()
+        return _http(port, "POST", "/v1/completions", body)
+
+    futures = []
+    n0 = len(firsts)
+    with ThreadPoolExecutor(sum(len(g) for g in groups)) as pool:
+        done = 0
+        for group in groups:
+            futures.append(pool.submit(post, group[0]))
+            wait_for(lambda: len(firsts) >= n0 + done + 1, what="a group's first token")
+            time.sleep(0.05)  # the driver publishes its digest after the step
+            futures += [pool.submit(post, p) for p in group[1:]]
+            done += len(group)
+            wait_for(lambda: len(firsts) >= n0 + done, what="the group's first tokens")
+        return [f.result() for f in futures]
+
+
+def served_numbers(replies: list, results: dict, t_start: float) -> dict:
+    """TTFT (engine: submit to first token), client latency, decode tok/s
+    (decode tokens over first token to last done) of one run's replies."""
+    res = []
+    for status, reply, _ in replies:
+        if status != 200:
+            raise RuntimeError(f"/v1/completions: {status} {reply}")
+        r = results[reply["id"]]
+        if r.finish_reason != "length" or len(r.output_tokens) != reply["usage"][
+                "completion_tokens"]:
+            raise RuntimeError(f"{reply['id']}: {r.finish_reason}, {len(r.output_tokens)} tokens")
+        res.append(r)
+    ttft = sorted(r.ttft_s for r in res)
+    lat = sorted(end - start for _, _, (start, end) in replies)
+    first = min(r.timings["first_token_t"] for r in res)
+    done = max(r.timings["done_t"] for r in res)
+    return {"requests": len(res), "ttft_p50_s": percentile(ttft, 0.5),
+            "ttft_p95_s": percentile(ttft, 0.95), "latency_p50_s": percentile(lat, 0.5),
+            "latency_p95_s": percentile(lat, 0.95),
+            "decode_tok_s": sum(len(r.output_tokens) - 1 for r in res) / (done - first),
+            "wall_s": done - t_start, "tokens": [r.output_tokens for r in res],
+            "prompts": [list(r.prompt_tokens) for r in res]}
+
+
+def serve_http(served, s) -> tuple:
+    """OpenAIServer over ``served`` (byte tokenizer) on a loop thread."""
+    from githubrepostorag_tpu_torch.serving.openai_api import OpenAIServer
+    from githubrepostorag_tpu_torch.serving.tokenizer import ByteTokenizer
+
+    lt = LoopThread()
+    server = OpenAIServer(served, ByteTokenizer(), model_name=s.qwen_model)
+    port = lt.run(server.start("127.0.0.1", 0))
+    return lt, server, port
+
+
+def decode_wave_profile(served, prompts: list[str], device: str) -> dict:
+    """profile_decode's idle share for one or more driver threads: the
+    decode wave (8 distinct 256-token prompts x 17 greedy tokens) at once
+    through ``served``: warm, timed (wall), then under torch.profiler
+    (device busy)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from githubrepostorag_tpu_torch.serving import SamplingParams
+
+    sp = SamplingParams(temperature=0.0, max_tokens=17)
+    ids = [list(p.encode()) for p in prompts]
+
+    async def wave():
+        return await asyncio.gather(*(served.generate(p, sp) for p in ids))
+
+    lt = LoopThread()
+    try:
+        lt.run(wave())
+        t0 = time.monotonic()
+        lt.run(wave())
+        wall = 1e3 * (time.monotonic() - t0)
+        busy = None
+        if device == "cuda":
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                lt.run(wave())
+                torch.cuda.synchronize()
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if "CUDA" in str(e.device_type)) / 1e3
+        return {"wall_ms": wall, "busy_ms": busy,
+                "idle_pct": None if busy is None else 100 * (1 - busy / wall)}
+    finally:
+        lt.run(served.stop())
+        lt.close()
+
+
+def pin_path(label: str, device: str) -> dict:
+    """Kernels A and B launched on the path just served, nothing else."""
+    launches = read_launches()
+    if device == "cuda":
+        a, b = "fused_window_attention", "paged_attention_decode_staged"
+        pin_mode_launches(label, launches, (a, b), ())
+        off = {k: n for k, n in launches.items() if k.split("@")[0] not in (a, b) and n}
+        if off:
+            raise RuntimeError(f"the {label} path launched kernels it never reaches: {off}")
+    return {k: v for k, v in launches.items() if v}
+
+
+def watchdog_counts(replicas) -> dict:
+    from githubrepostorag_tpu_torch import metrics
+
+    return {ae.replica: metrics.counter_value(metrics.XLA_COMPILES, replica=ae.replica)
+            for ae in replicas}
+
+
+def fleet_router_run(cfg, params, traffic: dict, device: str, geometry: dict | None) -> dict:
+    """(a): one engine, then ``MESH_SHAPE=dp:2``, each built by the
+    server's ``build_serving_engine`` and behind the model server over
+    HTTP, on the same group schedule; the decode wave's idle share through
+    each; the fleet's tokens against the one engine's; memory of one
+    engine and of two replicas over the one weight tree.  Affinity is held
+    to the router's own record: every group's first request misses, the
+    other 12 hit, less the hits its ``router.pick`` events say it passed
+    over for load (``slack_spill``)."""
+    import torch
+
+    from githubrepostorag_tpu_torch.serving.__main__ import build_serving_engine
+
+    mem = (lambda: torch.cuda.memory_allocated()) if device == "cuda" else (lambda: 0)
+    out = {}
+    runs = {}
+    for label, env in (("one_engine", {}), ("dp2", {"MESH_SHAPE": "dp:2"})):
+        s = fleet_settings({**env, "ROUTE_DIGEST_INTERVAL_S": "0"}, geometry)
+        m0 = mem()
+        t0 = time.monotonic()
+        served = build_serving_engine(s, params, cfg, torch.device(device),
+                                      2 if env else 1)
+        build_s = time.monotonic() - t0
+        m1 = mem()
+        replicas = served.replicas() if env else [served]
+        results, firsts = record_results(served)
+        lt, server, port = serve_http(served, s)
+        try:
+            compiles0 = watchdog_counts(replicas)
+            reset_launches()
+            t_start = time.monotonic()
+            replies = send_groups(port, traffic["groups"], firsts)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            run = served_numbers(replies, results, t_start)
+            run["launches"] = pin_path(f"fleet {label}", device)
+            compiles = {r: n - compiles0[r] for r, n in watchdog_counts(replicas).items()}
+            if any(compiles.values()):
+                raise RuntimeError(f"fleet {label}: the watchdog counted {compiles} after warmup")
+            run.update(build_s=build_s, memory_allocated_gb=m1 / 1e9,
+                       engines_gb=(m1 - m0) / 1e9, watchdog_compiles=compiles)
+            if env:
+                router = served.router_stats()
+                d = router["decisions"]
+                timeline = _http(port, "GET", "/debug/timeline?window_s=600")[1]
+                picks = [ev["args"] for ev in timeline["traceEvents"]
+                         if ev.get("cat") == "fleet" and ev.get("name") == "router.pick"]
+                spills = sum(1 for a in picks if a.get("slack_spill"))
+                n_req = sum(len(g) for g in traffic["groups"])
+                if len(picks) != n_req or d["affinity_hit"] + d["affinity_miss"] != n_req:
+                    raise RuntimeError(f"dp:2: {len(picks)} router.pick events and "
+                                       f"{d} decisions for {n_req} requests")
+                if d["affinity_hit"] < n_req - len(traffic["groups"]) - spills or \
+                        d["affinity_miss"] - spills != len(traffic["groups"]):
+                    raise RuntimeError(f"dp:2: {d['affinity_hit']} affinity hits and "
+                                       f"{d['affinity_miss']} misses, {spills} slack spills; "
+                                       "expected a miss a group and the rest hits less the "
+                                       "spills")
+                fleet_payload = _http(port, "GET", "/debug/fleet")[1]
+                health = _http(port, "GET", "/health")[1]
+                if [r["replica"] for r in fleet_payload["replicas"]] != ["r0", "r1"] or \
+                        health["replicas"] != 2 or "router" not in health:
+                    raise RuntimeError("dp:2: /debug/fleet or /health misses a replica")
+                run.update(decisions=d, spills=spills,
+                           routed={r: v["routed"] for r, v in router["per_replica"].items()},
+                           prefix_hit_rate={r: v["prefix_hit_rate"]
+                                            for r, v in router["per_replica"].items()})
+        finally:
+            lt.run(server.stop())
+            lt.close()
+        routed0 = served.router_stats()["per_replica"] if env else {}
+        run["decode_wave"] = decode_wave_profile(served, traffic["decode"], device)
+        if env:  # the three waves' picks
+            run["decode_wave"]["routed"] = {
+                r: v["routed"] - routed0[r]["routed"]
+                for r, v in served.router_stats()["per_replica"].items()}
+        runs[label] = run
+        if not env:
+            # the disagg part's fused references, outside the numbers
+            from githubrepostorag_tpu_torch.serving import SamplingParams
+
+            sp = SamplingParams(temperature=0.0, max_tokens=FLEET_NEW)
+            fault = [list(p.encode()) for p in fleet_traffic(SEED + 89, 1, 2)["groups"][0]]
+            out["fault_prompts"] = fault
+            out["fault_plain"] = [r.output_tokens for r in served.engine.generate(fault, sp)]
+        del served, replicas, server
+        gc.collect()
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        log(f"fleet, {label}: " + json.dumps({k: v for k, v in run.items()
+                                              if k not in ("tokens", "prompts")}))
+    one, dp2 = runs["one_engine"], runs["dp2"]
+    n = len(traffic["groups"][0])
+    groups = [list(range(i, i + n)) for i in range(0, len(one["tokens"]), n)]
+    divergence = check_bf16_divergence(
+        params, cfg, groups, one["prompts"], one["tokens"],
+        {"dp2": dict(enumerate(dp2["tokens"]))}, device=device)
+    out.update(one_engine={k: v for k, v in one.items() if k not in ("tokens", "prompts")},
+               dp2={k: v for k, v in dp2.items() if k not in ("tokens", "prompts")},
+               bf16_divergence=divergence, plain=one["tokens"], prompts=one["prompts"],
+               extra_replica_gb=dp2["engines_gb"] - one["engines_gb"])
+    return out
+
+
+def fleet_f32_identity(cfg, params, device: str) -> dict:
+    """Exact identity in float32: the 7B at full width cut to 2 layers,
+    float32 weights and pages; two groups of the router traffic through a
+    two-replica MultiAsyncEngine and through one AsyncEngine, every greedy
+    token equal."""
+    import dataclasses
+
+    import torch
+
+    from githubrepostorag_tpu_torch.serving import AsyncEngine, Engine, SamplingParams
+    from githubrepostorag_tpu_torch.serving.multi_engine import MultiAsyncEngine
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    p2 = upcast({**params, "layers": {k: v[:2] for k, v in params["layers"].items()}})
+    kw = dict(page_size=128, num_pages=256, max_num_seqs=8, prefill_chunk=512, decode_burst=8,
+              max_seq_len=11712, kv_dtype=torch.float32, device=device)
+    groups = fleet_traffic(SEED + 83, 2)["groups"]
+    sp = SamplingParams(temperature=0.0, max_tokens=FLEET_NEW)
+    fleet_settings({"ROUTE_DIGEST_INTERVAL_S": "0"})
+    tokens = {}
+    for label, n in (("one", 1), ("dp2", 2)):
+        engines = [Engine(p2, cfg2, **kw) for _ in range(n)]
+        served = MultiAsyncEngine(engines) if n > 1 else AsyncEngine(engines[0])
+
+        async def run():
+            out = []
+            for g in groups:
+                ids = [list(p.encode()) for p in g]
+                first = asyncio.ensure_future(served.generate(ids[0], sp))
+                await asyncio.sleep(0.5)
+                out += [await first] + list(await asyncio.gather(
+                    *(served.generate(p, sp) for p in ids[1:])))
+            await served.stop()
+            return out
+
+        tokens[label] = [r.output_tokens for r in asyncio.run(run())]
+        del served, engines
+    diff = [i for i, (x, y) in enumerate(zip(tokens["dp2"], tokens["one"])) if x != y]
+    if diff:
+        raise RuntimeError(f"float32 fleet rows {diff} differ from one engine's")
+    del p2
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {"rows_identical": len(tokens["one"]), "tokens_each": FLEET_NEW}
+
+
+def fleet_disagg_run(cfg, params, traffic: dict, ref: dict, device: str,
+                     geometry: dict | None) -> dict:
+    """(b): ``DISAGG=on`` with ``KV_TIER=on``, two replicas (r0 prefill, r1
+    decode) built by ``build_serving_engine``: two groups of the router
+    traffic (handoffs, pages shipped, per-page export / import / fault-in
+    ms and GB/s), the same again (every page deduped), the shipped pages
+    byte-equal on both replicas, tokens against the one engine's (bf16:
+    near ties only); then two new prompts under
+    ``FAULTS=disagg.transfer:error``: the transfer_error fallback, the one
+    engine's tokens."""
+    import torch
+
+    from githubrepostorag_tpu_torch.ops.page_migration import gather_pages
+    from githubrepostorag_tpu_torch.serving import SamplingParams
+    from githubrepostorag_tpu_torch.serving.__main__ import build_serving_engine
+    from githubrepostorag_tpu_torch.serving.kv_cache import page_hashes
+
+    s = fleet_settings({"MESH_SHAPE": "dp:2", "DISAGG": "on", "KV_TIER": "on",
+                        "KV_HOST_POOL_PAGES": "512", "ROUTE_DIGEST_INTERVAL_S": "0"}, geometry)
+    multi = build_serving_engine(s, params, cfg, torch.device(device), 2)
+    pre, dec = multi.replicas()
+    if (pre.role, dec.role) != ("prefill", "decode"):
+        raise RuntimeError(f"disagg roles {pre.role} / {dec.role}")
+    sp = SamplingParams(temperature=0.0, max_tokens=FLEET_NEW)
+    groups = traffic["groups"][:2]
+    n = len(groups[0])
+    ids = [list(p.encode()) for g in groups for p in g]
+    lt = LoopThread()
+
+    async def serve_groups():
+        out = []
+        for i in range(0, len(ids), n):
+            first = asyncio.ensure_future(multi.generate(ids[i], sp))
+            # the group's followers once the first is decoding on r1
+            while not (dec.engine.num_running or first.done()):
+                await asyncio.sleep(0.002)
+            await asyncio.sleep(0.05)
+            out += [await first] + list(await asyncio.gather(
+                *(multi.generate(p, sp) for p in ids[i + 1: i + n])))
+        return out
+
+    try:
+        reset_launches()
+        t0 = time.monotonic()
+        first = lt.run(serve_groups())
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        ds1 = multi.disagg_stats()
+        xfer = {"export_s": pre.engine.transfer_seconds_total,
+                "exported": pre.engine.kv_pages_exported,
+                "import_s": dec.engine.transfer_seconds_total,
+                "imported": dec.engine.kv_pages_imported,
+                "fault_in_s": dec.engine.fault_in_seconds_total,
+                "faulted": dec.engine._allocator.fault_ins}
+        again = lt.run(serve_groups())
+        ds2 = multi.disagg_stats()
+        launches = pin_path("disagg", device)
+        # the first request's shipped pages, on both replicas
+        hashes = page_hashes(ids[0], pre.engine.page_size)[: (len(ids[0]) - 1)
+                                                            // pre.engine.page_size]
+        lt.run(asyncio.sleep(0.1))
+        byte_equal = 0
+        for h in hashes:
+            pages = [ae.engine._allocator.device_page_of(h) for ae in (pre, dec)]
+            if None in pages:
+                continue
+            got = [gather_pages(ae.engine._k_pages, ae.engine._v_pages,
+                                torch.tensor([p], dtype=torch.int32, device=device))[:2]
+                   for ae, p in zip((pre, dec), pages)]
+            if not all(torch.equal(x, y) for x, y in zip(*got)):
+                raise RuntimeError("a shipped KV page differs between the two replicas")
+            byte_equal += 1
+        if byte_equal == 0:
+            raise RuntimeError("no shipped page was resident on both replicas")
+        # the fault case: new prompts, every transfer chunk refused
+        arm_faults("disagg.transfer:error")
+        fault_res = [lt.run(multi.generate(p, sp)) for p in ref["fault_prompts"]]
+        arm_faults(None)
+        ds3 = multi.disagg_stats()
+    finally:
+        arm_faults(None)
+        lt.run(multi.stop())
+        lt.close()
+    page_bytes = 2 * pre.engine._k_pages[:, :, 0].numel() * pre.engine._k_pages.element_size()
+    tokens = [r.output_tokens for r in first]
+    if [r.output_tokens for r in again] != tokens:
+        raise RuntimeError("disagg: the repeat round's tokens differ from the first round's")
+    if ds1["handoffs"] != len(ids) or ds1["fallbacks"]:
+        raise RuntimeError(f"disagg round 1: {ds1}")
+    if ds2["pages_shipped"] != ds1["pages_shipped"] or ds2["pages_deduped"] <= ds1[
+            "pages_deduped"]:
+        raise RuntimeError(f"disagg repeat round shipped pages again: {ds2}")
+    if ds3["fallbacks"].get("transfer_error") != len(fault_res):
+        raise RuntimeError(f"disagg fault: fallbacks {ds3['fallbacks']}")
+    plain = ref["plain"][: len(ids)]
+    divergence = check_bf16_divergence(
+        params, cfg, [list(range(i, i + n)) for i in range(0, len(ids), n)], ids, plain,
+        {"disagg": dict(enumerate(tokens))}, device=device)
+    # the fallback prefills on the prefill replica over its cached prefix
+    fault_divergence = check_bf16_divergence(
+        params, cfg, [[0, 1]], ref["fault_prompts"], ref["fault_plain"],
+        {"fault": dict(enumerate(r.output_tokens for r in fault_res))}, device=device)
+    out = {
+        "handoffs": ds1["handoffs"], "pages_shipped": ds1["pages_shipped"],
+        "pages_deduped_first_round": ds1["pages_deduped"],
+        "repeat_round": {"handoffs": ds2["handoffs"] - ds1["handoffs"],
+                         "pages_shipped": ds2["pages_shipped"] - ds1["pages_shipped"],
+                         "pages_deduped": ds2["pages_deduped"] - ds1["pages_deduped"]},
+        "transport": ds3["transport"], "fault_fallbacks": ds3["fallbacks"],
+        "pages_byte_equal": byte_equal, "page_mb": page_bytes / 2 ** 20,
+        "first_round_wall_s": wall, **xfer,
+        "export_ms_per_page": 1e3 * xfer["export_s"] / max(1, xfer["exported"]),
+        "export_gb_s": xfer["exported"] * page_bytes / max(1e-9, xfer["export_s"]) / 1e9,
+        "import_ms_per_page": 1e3 * xfer["import_s"] / max(1, xfer["imported"]),
+        "fault_in_ms_per_page": 1e3 * xfer["fault_in_s"] / max(1, xfer["faulted"]),
+        "fault_in_gb_s": xfer["faulted"] * page_bytes / max(1e-9, xfer["fault_in_s"]) / 1e9,
+        "tokens_equal_one_engine": sum(t == p for t, p in zip(tokens, plain)),
+        "bf16_divergence": divergence, "fault_divergence": fault_divergence,
+        "launches": launches,
+    }
+    del multi, pre, dec
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def fleet_controller_run(cfg, params, device: str, geometry: dict | None) -> dict:
+    """(c): ``MESH_SHAPE=dp:3``, ``FLEET_SPARES=1``, ``CTRL=on`` behind the
+    model server over HTTP, as ``python -m githubrepostorag_tpu_torch.
+    serving`` builds them; a wave of 8 requests; once r0 has a first token,
+    ``FAULTS=fleet.step.r0:error@window=3:`` kills its driver: r0 fenced,
+    its requests answered with the fence's error, r2 activated, r0
+    retired; a second wave served; seconds from the kill to r2 active and
+    to the first request served after; failopen 0, the watchdog 0 across
+    the activation, the action on /debug/fleet, the fence on
+    /debug/timeline."""
+    import os
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from githubrepostorag_tpu_torch.serving.__main__ import (build_controller,
+                                                              build_serving_engine)
+
+    # objectives no run misses, so the log holds the death rung alone: a
+    # call on a slow host burned r1's TTFT / TPOT budget critical beside
+    # the failover (the burn rung is held to JAX's by the CPU tests)
+    s = fleet_settings({"MESH_SHAPE": "dp:3", "FLEET_SPARES": "1", "CTRL": "on",
+                        "CTRL_TICK_S": "0.05", "CTRL_HYSTERESIS_TICKS": "2",
+                        "CTRL_COOLDOWN_S": "30", "CTRL_LIVENESS_TIMEOUT_S": "30",
+                        "SLO_TTFT_P50_MS": "600000", "SLO_TTFT_P99_MS": "600000",
+                        "SLO_TPOT_MS": "600000"}, geometry)
+    multi = build_serving_engine(s, params, cfg, torch.device(device), 3)
+    r0, r1, r2 = multi.replicas()
+    if [ae.lifecycle for ae in (r0, r1, r2)] != ["active", "active", "spare"]:
+        raise RuntimeError("dp:3 with one spare: lifecycles wrong")
+    results, firsts = record_results(multi)
+    lt, server, port = serve_http(multi, s)
+    ctrl = build_controller(s, multi)
+    lt.run(ctrl.start())
+    rng = np.random.default_rng(SEED + 97)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz  ,.", dtype=np.uint8)
+    wave1 = [bytes(rng.choice(letters, 512)).decode() for _ in range(8)]
+    wave2 = [bytes(rng.choice(letters, 512)).decode() for _ in range(4)]
+
+    def post(prompt):
+        body = json.dumps({"prompt": prompt, "max_tokens": 64, "temperature": 0}).encode()
+        return _http(port, "POST", "/v1/completions", body)
+
+    try:
+        compiles0 = watchdog_counts((r1, r2))
+        reset_launches()
+        with ThreadPoolExecutor(8) as pool:
+            futures = [pool.submit(post, p) for p in wave1]
+            wait_for(lambda: any(multi._route.get(rid) is r0 for rid, _ in firsts),
+                     what="r0's first token")
+            arm_faults("fleet.step.r0:error@window=3:")
+            wait_for(lambda: not r0.driver_alive(), what="r0's driver to die")
+            t_kill = time.monotonic()
+            wait_for(lambda: r2.lifecycle == "active" and r2.driver_alive()
+                     and r0.lifecycle == "drained", what="the failover")
+            t_active = time.monotonic()
+            arm_faults(None)
+            futures2 = [pool.submit(post, p) for p in wave2]
+            replies1 = [f.result() for f in futures]
+            replies2 = [f.result() for f in futures2]
+        if device == "cuda":
+            torch.cuda.synchronize()
+        launches = pin_path("fleet controller", device)
+        compiles = {r: n - compiles0[r] for r, n in watchdog_counts((r1, r2)).items()}
+        payload = _http(port, "GET", "/debug/fleet")[1]
+        timeline = _http(port, "GET", "/debug/timeline?window_s=600")[1]
+    finally:
+        ctrl.stop()
+        lt.run(server.stop())
+        lt.close()
+        arm_faults(None)
+    fenced = [r for r in replies1 if r[0] != 200]
+    if not fenced or any(st != 400 or "fenced by fleet controller" not in rep["error"]["message"]
+                         for st, rep, _ in fenced):
+        raise RuntimeError(f"wave 1: r0's requests not answered with the fence's error: {fenced}")
+    routed_r0 = sum(1 for r in replies1 if r[0] != 200)
+    if any(st != 200 for st, _, _ in replies2):
+        raise RuntimeError(f"wave 2 after the failover: {[r[:2] for r in replies2]}")
+    res2 = [results[rep["id"]] for _, rep, _ in replies2]
+    first_token = min(r.timings["first_token_t"] for r in res2)
+    first_served = min(r.timings["done_t"] for r in res2)
+    ctrl_section = payload["controller"]
+    fo = [e for e in ctrl_section["log"] if e["action"] == "failover"]
+    if [(e["replica"], e["reason"], e["status"]) for e in fo] != [("r0", "dead", "dispatched")]:
+        raise RuntimeError(f"controller log: {ctrl_section['log']}")
+    if ctrl_section["failopen"] != 0:
+        raise RuntimeError(f"the controller failed open {ctrl_section['failopen']} times")
+    if any(compiles.values()):
+        raise RuntimeError(f"the watchdog counted {compiles} across the activation")
+    names = {ev.get("name") for ev in timeline["traceEvents"]}
+    if not {"fleet.fence", "request.fenced"} <= names:
+        raise RuntimeError("/debug/timeline shows no fence")
+    routed = {r: v["routed"] for r, v in payload["router"]["per_replica"].items()}
+    if routed["r2"] < 1:
+        raise RuntimeError("the activated spare served nothing")
+    return {"kill_to_active_s": t_active - t_kill,
+            "kill_to_first_token_s": first_token - t_kill,
+            "kill_to_first_served_s": first_served - t_kill,
+            "fenced_requests": routed_r0, "wave1_ok": len(replies1) - routed_r0,
+            "wave2_ok": len(replies2), "routed": routed,
+            "lifecycles": {r: v["lifecycle"] for r, v in payload["router"]["per_replica"].items()},
+            "failover": fo[0]["detail"], "failopen": 0, "watchdog_compiles": compiles,
+            "ticks": ctrl_section["ticks"], "launches": launches}
+
+
+def phase_fleet(cfg, params, device: str = "cuda", geometry: dict | None = None) -> dict:
+    """The fleet at Qwen2-7B (random bf16 weights; the engine phase's
+    geometry: 256 pages of 128, 8 rows, chunk 512): (a) the router over
+    ``MESH_SHAPE=dp:2`` against one engine, over HTTP, and in float32 at 2
+    layers; (b) the disaggregated handoff; (c) the controller's failover.
+    Every replica is built by the model server's ``build_serving_engine``
+    over the one weight tree and launches A and B on the card's default
+    stream."""
+    import torch
+
+    t0 = time.monotonic()
+    traffic = fleet_traffic()
+    out = {"router": fleet_router_run(cfg, params, traffic, device, geometry)}
+    ref = {k: out["router"].pop(k) for k in ("plain", "prompts", "fault_prompts", "fault_plain")}
+    out["f32"] = fleet_f32_identity(cfg, params, device) if device == "cuda" else None
+    out["disagg"] = fleet_disagg_run(cfg, params, traffic, ref, device, geometry)
+    log(f"fleet, disagg: {json.dumps(out['disagg'])}")
+    out["controller"] = fleet_controller_run(cfg, params, device, geometry)
+    log(f"fleet, controller: {json.dumps(out['controller'])}")
+    fleet_settings()
+    out["seconds"] = time.monotonic() - t0
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"fleet phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["kernels", "longctx", "int4", "retrieval", "rag",
-                                           "ingest", "options", "split", "modes", "draft"],
+                                           "ingest", "options", "split", "modes", "draft",
+                                           "fleet"],
                         default=None,
                         help="kernels: the device, build and kernel phases only; longctx: "
                              "the device and build phases and the long-context decode "
@@ -6231,7 +6913,9 @@ def main() -> int:
                              "the device and build phases, kernel A at the verify window "
                              "and the engine modes phase; draft: the device and build "
                              "phases, kernel A at the draft's and the verify rungs' shapes "
-                             "and the draft-model speculation phase")
+                             "and the draft-model speculation phase; fleet: the device and "
+                             "build phases and the fleet phase (router over dp:2, the "
+                             "disaggregated handoff, the controller's failover)")
     args = parser.parse_args()
 
     import torch
@@ -6317,6 +7001,15 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                                  "count": device["count"]}}), flush=True)
         return 0
+    if args.only == "fleet":
+        cfg, params = make_7b_params()
+        fleet = phase_fleet(cfg, params)
+        log(f"done in {time.monotonic() - t_all:.1f} s")
+        print(json.dumps({"fleet": fleet}))
+        print(device["card"])
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
+                                                 "count": device["count"]}}), flush=True)
+        return 0
     if args.only == "ingest":
         cfg, params = make_7b_params()
         ingest = phase_ingest(cfg, params)
@@ -6385,8 +7078,12 @@ def main() -> int:
     options["gemm_rows_differing_by_m"] = kres["gemm_rows"]
     runs["http"] = phase_http(cfg, params)
     runs["rag"], runs["split"] = rag_and_split(cfg, params, store.pop("index"), enc)
+    # the ingest, modes and draft phases at a quarter of the depth here, at
+    # the published widths, so the whole script ends well inside its time
+    # limit on a slow host; their --only runs keep all 28 layers
+    cfg_q, params_q = at_depth(cfg, params, cfg.num_layers // 4)
     runs.update({
-        "ingest": phase_ingest(cfg, params, enc=enc),
+        "ingest": {"layers": cfg_q.num_layers, **phase_ingest(cfg_q, params_q, enc=enc)},
         # packed prefill over bf16 pools never reaches kernel A
         "packed": phase_engine(cfg, params, "packed bf16", (c, b), (a,),
                                prefill_token_budget=2048),
@@ -6401,10 +7098,14 @@ def main() -> int:
     longctx = {"bf16": phase_longctx(cfg, params, "bf16"),
                "kv8": phase_longctx(cfg, params, "kv int8", kv_quant=8)}
     log(f"long-context decode profiles: {json.dumps(longctx)}")
-    modes = phase_modes(cfg, params)
+    modes = {"layers": cfg_q.num_layers, **phase_modes(cfg_q, params_q)}
     gc.collect()
     torch.cuda.empty_cache()
-    draft = phase_draft(cfg, params)
+    draft = {"layers": cfg_q.num_layers, **phase_draft(cfg_q, params_q)}
+    del params_q
+    gc.collect()
+    torch.cuda.empty_cache()
+    fleet = phase_fleet(cfg, params)
     gc.collect()
     torch.cuda.empty_cache()
     qparams = quantize_7b(params)
@@ -6501,6 +7202,7 @@ def main() -> int:
     print(json.dumps({"split": runs["split"]}))
     print(json.dumps({"modes": modes}))
     print(json.dumps({"draft": draft}))
+    print(json.dumps({"fleet": fleet}))
     print(device["card"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],

@@ -12,11 +12,13 @@ and its sampling defaults), ``agent/`` (the loop's budgets),
 URL of the split deployment, the worker pod's metrics port),
 ``resilience/`` (retries, breakers, ``FAULTS``), ``obs/`` (traces,
 the log format, the step profiler's ring, the SLO objectives and burn
-rates, the ledger's window and MFU denominator, the timeline) and ``ingest/`` (GitHub, branch and collection, DEV_MODE,
-the Pushgateway, ``EXTENSION_TO_LANGUAGE``).  Each reads the same environment variable, with the same
+rates, the ledger's window and MFU denominator, the timeline), ``ingest/`` (GitHub, branch and collection, DEV_MODE,
+the Pushgateway, ``EXTENSION_TO_LANGUAGE``) and the fleet (``MESH_SHAPE``'s
+dp replicas, the router's ``ROUTE_*``, ``FLEET_SPARES``, the controller's
+``CTRL_*``, the prefill / decode split's ``DISAGG_*``).  Each reads the same environment variable, with the same
 default and parser, as the JAX package's field of the same name, so a pod
 spec carries over unchanged.  The settings of modes the port does not run
-yet (the sequence-parallel ring, meshes, the fleet controller) are kept: setting one reaches ``Engine``,
+yet (the sequence-parallel ring, mesh axes other than dp) are kept: setting one reaches ``Engine``,
 which refuses it, or ``__main__``, which exits naming the roadmap item
 that brings it.  ``SP_PREFILL_THRESHOLD``
 means nothing on one card (the JAX server resolves it to off there) and
@@ -238,9 +240,44 @@ class Settings:
     # TPU's, 197)
     chip_peak_tflops: float = _float("CHIP_PEAK_TFLOPS", 989.0)
 
-    # --- settings __main__ refuses: they need planes the port lacks ---
-    mesh_shape: str = _env("MESH_SHAPE", "")  # e.g. "dp:2,tp:4"
-    ctrl: str = _env("CTRL", "off")  # the fleet controller
+    # --- the fleet (serving/multi_engine.py, controller.py, disagg.py) ---
+    # "dp:N" serves N engine replicas on the card; a tp / sp / ep / pp
+    # axis above 1 needs the parallel layers __main__ refuses
+    mesh_shape: str = _env("MESH_SHAPE", "")
+    # the router: auto = affinity when any replica caches prefixes, on =
+    # always score prefixes, off = weighted least-loaded
+    route_affinity: str = _env("ROUTE_AFFINITY", "auto")
+    # least interval between a replica's chain-digest rebuilds
+    route_digest_interval_s: float = _float("ROUTE_DIGEST_INTERVAL_S", 0.25)
+    # the shortest matched prefix run (pages) that counts as a hit
+    route_min_prefix_pages: int = _int("ROUTE_MIN_PREFIX_PAGES", 1)
+    # trailing replicas that start as warm spares (clamped by __main__)
+    fleet_spares: int = _int("FLEET_SPARES", 0)
+    # "on" runs the self-healing controller over a fleet of dp > 1
+    ctrl: str = _env("CTRL", "off")
+    ctrl_tick_s: float = _float("CTRL_TICK_S", 1.0)
+    # consecutive agreeing ticks before a decision acts
+    ctrl_hysteresis_ticks: int = _int("CTRL_HYSTERESIS_TICKS", 2)
+    # quiet period a (replica, action) after it acted
+    ctrl_cooldown_s: float = _float("CTRL_COOLDOWN_S", 30.0)
+    # at most this many actions a sliding window
+    ctrl_max_actions: int = _int("CTRL_MAX_ACTIONS", 4)
+    ctrl_action_window_s: float = _float("CTRL_ACTION_WINDOW_S", 300.0)
+    # a driver heartbeat older than this marks its replica wedged
+    ctrl_liveness_timeout_s: float = _float("CTRL_LIVENESS_TIMEOUT_S", 5.0)
+    # hbm_pages remedy: host-pool growth factor and cap (0 = 8x the pool)
+    ctrl_host_pool_grow: float = _float("CTRL_HOST_POOL_GROW", 1.5)
+    ctrl_host_pool_max_pages: int = _int("CTRL_HOST_POOL_MAX_PAGES", 0)
+    # the JAX stats() wait on a driver lock; the port's stats() takes no
+    # lock, so this is read by nothing but kept for the pod spec
+    ctrl_stats_timeout_s: float = _float("CTRL_STATS_TIMEOUT_S", 0.25)
+    # the index snapshots a warm spare restores before it activates
+    ctrl_snapshot_dir: str = _env("CTRL_SNAPSHOT_DIR", "")
+    # "on" splits a tiered fleet of >= 2 into prefill and decode replicas
+    disagg: str = _env("DISAGG", "off")
+    disagg_prefill_replicas: int = _int("DISAGG_PREFILL_REPLICAS", 1)
+    # pages a transport chunk of one handoff
+    disagg_transfer_burst: int = _int("DISAGG_TRANSFER_BURST", 32)
 
     # --- store and retrieval (store/factory.py, embedding.py, retrieval/) ---
     store_backend: str = _env("STORE_BACKEND", "memory")  # memory|native|cassandra

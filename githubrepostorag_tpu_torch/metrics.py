@@ -14,8 +14,9 @@ preemption and KV-tier ones are here (``serving/async_engine.py`` exports
 them), and the two that ``MeteredLLM`` observes with ``replica="api"``;
 the engine driver's own (running / waiting, TTFT, TPOT, decode tokens)
 and the observability planes' (compiles, stall, ledger, SLO, page
-observatory, profiler samples, timeline) are here too; the fleet's
-come with the fleet (ROADMAP queue 1 item 7).  ``counter_value`` and ``histogram_stats``
+observatory, profiler samples, timeline) are here too, and the fleet's
+(router decisions, lifecycle and role gauges, controller actions, the
+prefill / decode handoffs).  ``counter_value`` and ``histogram_stats``
 read the series back (tests, the health report, the chip script).
 """
 
@@ -546,6 +547,75 @@ TIMELINE_EXPORTS = Counter(
 TIMELINE_EVENTS_DROPPED = Counter(
     "rag_timeline_events_dropped_total",
     "Trace events dropped by the timeline_max_events cap across exports",
+)
+# the fleet: the router (serving/multi_engine.py), the controller
+# (serving/controller.py) and the prefill / decode split (serving/disagg.py)
+ROUTER_DECISIONS = Counter(
+    "rag_router_decisions_total",
+    "Fleet router outcomes: affinity_hit / affinity_miss / "
+    "skipped_breaker_open / skipped_limiter",
+    ["decision"],
+)
+ROUTER_PREFIX_PAGES = Counter(
+    "rag_router_prefix_pages_total",
+    "Prefix pages the router matched against the chosen replica's digest, "
+    "by tier the match came from",
+    ["replica", "tier"],
+)
+ROUTER_ROUTED = Counter(
+    "rag_router_routed_total",
+    "Requests routed to each replica",
+    ["replica"],
+)
+FLEET_LIFECYCLE = Gauge(
+    "rag_fleet_replica_lifecycle",
+    "Replica lifecycle: 0=active 1=draining 2=drained 3=spare",
+    ["replica"],
+)
+CTRL_ACTIONS = Counter(
+    "rag_ctrl_actions_total",
+    "Fleet-controller remediation actions executed, by action ladder rung "
+    "(failover / grow_host_pool / spec_k_down / spread_affinity) and the "
+    "sensed reason that justified it",
+    ["action", "reason"],
+)
+CTRL_FAILOPEN = Counter(
+    "rag_ctrl_failopen_total",
+    "Controller-internal exceptions survived by failing open (the tick or "
+    "action was abandoned, the fleet kept serving; a rising rate means the "
+    "controller is observe-only in practice)",
+)
+CTRL_SUPPRESSED = Counter(
+    "rag_ctrl_suppressed_total",
+    "Controller decisions withheld by a guard: hysteresis (ticks not yet "
+    "agreeing), cooldown, action-window budget, or an in-flight action on "
+    "the same replica",
+    ["guard"],
+)
+FLEET_ROLE = Gauge(
+    "rag_fleet_replica_role",
+    "Replica serving role under disaggregation: 0=fused 1=prefill 2=decode",
+    ["replica"],
+)
+DISAGG_HANDOFFS = Counter(
+    "rag_disagg_handoffs_total",
+    "Prefill->decode handoff attempts by outcome: shipped (KV landed on a "
+    "decode replica and the request resumed there) or fallback_<reason> "
+    "(finished fused on the prefill replica)",
+    ["outcome"],
+)
+DISAGG_PAGES = Counter(
+    "rag_disagg_pages_total",
+    "KV pages on the handoff path: shipped (packed + transferred) or "
+    "deduped (decode replica already held the content hash — zero bytes "
+    "moved)",
+    ["kind"],
+)
+DISAGG_TRANSFER_SECONDS = Counter(
+    "rag_disagg_transfer_seconds_total",
+    "Host wall time packing/unpacking handoff payloads per replica "
+    "(the ledger charges the same time to its kv_transfer bucket)",
+    ["replica"],
 )
 
 

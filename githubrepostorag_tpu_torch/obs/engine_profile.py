@@ -135,16 +135,18 @@ class EngineStepProfiler:
 
     # ------------------------------------------------------------- steps --
 
-    def on_step(self, step_start: float, step_end: float) -> int:
+    def on_step(self, step_start: float, step_end: float, waited_s: float = 0.0) -> int:
         """Record stall + compile telemetry for one completed engine step.
-        Returns the first-time work observed (for tests)."""
+        ``waited_s`` of the gap before it went to a peer replica's turn at
+        the fleet's step lock and is no stall.  Returns the first-time work
+        observed (for tests)."""
         from githubrepostorag_tpu_torch.metrics import SCHED_STALL, XLA_COMPILES
 
         with self._lock:
             prev = self._last_step_end
             self._last_step_end = step_end
         if prev is not None:
-            SCHED_STALL.labels(replica=self.replica).set(max(0.0, step_start - prev))
+            SCHED_STALL.labels(replica=self.replica).set(max(0.0, step_start - prev - waited_s))
 
         delta = self.watchdog.sample()
         if delta > 0:

@@ -12,7 +12,8 @@ classifies the step's wall time into phase buckets:
     prefill | decode | spec_verify | kv_migration | kv_transfer |
     sched_stall | compile
 
-`sched_stall` is the inter-step gap (host scheduling, lock contention);
+`sched_stall` is the inter-step gap (host scheduling, lock contention),
+less the wait for a peer replica's turn at the fleet's step lock;
 `kv_transfer` is disaggregated-handoff pack/unpack time (the engine's
 export/import gathers run under the driver lock between steps, so the
 raw gap would misread as scheduler stall without the split);
@@ -143,9 +144,12 @@ class TokenLedger:
     # ------------------------------------------------------------ feeding --
 
     def on_step(self, snap: dict[str, float], step_start: float,
-                step_end: float, compiles: int = 0) -> None:
+                step_end: float, compiles: int = 0, waited_s: float = 0.0) -> None:
         """Classify one engine step.  ``snap`` is the engine's cumulative
-        counter snapshot AFTER the step (engine_snapshot)."""
+        counter snapshot AFTER the step (engine_snapshot).  ``waited_s`` of
+        the gap before it went to a peer replica's turn at the fleet's step
+        lock: neither this step's work nor a scheduler stall, so it is left
+        out of both."""
         with self._lock:
             prev = self._prev or {f: 0.0 for f in SNAPSHOT_FIELDS}
             d = {f: snap.get(f, 0.0) - prev.get(f, 0.0) for f in SNAPSHOT_FIELDS}
@@ -153,7 +157,7 @@ class TokenLedger:
             wall = max(0.0, step_end - step_start)
             stall = 0.0
             if self._prev_end is not None:
-                stall = max(0.0, step_start - self._prev_end)
+                stall = max(0.0, step_start - self._prev_end - waited_s)
             self._prev_end = step_end
 
             # handoff export/import runs under the driver lock BETWEEN

@@ -18,9 +18,9 @@ maps to an admission hint (accept | throttle | shed) that
 ``resilience.admission`` exposes to the API's load-shedding check.
 
 ``SLOPlane`` is the per-process registry federating per-replica ledgers and
-monitors; `/debug/slo` and `/debug/fleet` render its payloads.  Its router
-and controller seams (``set_router_info``, ``set_controller_info``) have
-no provider in the port until the fleet (ROADMAP queue 1 item 7).
+monitors; `/debug/slo` and `/debug/fleet` render its payloads.  The fleet
+fills its router and controller seams: ``MultiAsyncEngine`` registers
+``set_router_info``, ``FleetController`` ``set_controller_info``.
 """
 
 from __future__ import annotations

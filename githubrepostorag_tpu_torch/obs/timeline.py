@@ -15,8 +15,9 @@ opens directly in ui.perfetto.dev:
   * KV tier-migration events from the page observatory (fault-in,
     writeback, park, host-evict, disagg import);
   * fleet router ``pick`` decisions, lifecycle verbs, and per-victim
-    fenced-request instants (a seam, ``set_fleet_events_provider``, with
-    no provider in the port until the fleet, ROADMAP queue 1 item 7);
+    fenced-request instants (serving/multi_engine.py registers a
+    provider through ``set_fleet_events_provider``; obs never imports
+    serving);
   * controller actions with their full justification stamps;
   * FAULTS injections, attributed to the victim replica when the site
     names one.

@@ -35,6 +35,7 @@ and per-(row, kv head) arrival counters persist per device.
 from __future__ import annotations
 
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -103,18 +104,25 @@ def _workspace(parts: int, hd: int, device: torch.device) -> torch.Tensor:
 
 
 _COUNTERS: dict[torch.device, torch.Tensor] = {}
+# the fleet's replicas launch from one driver thread each: the check and
+# the grow below happen under this lock, so two threads never both grow
+# the buffer or read it half-replaced
+_COUNTERS_LOCK = threading.Lock()
 
 
 def _counters(pairs: int, device: torch.device) -> torch.Tensor:
     """Per (row, kv head), the split blocks that have finished: int32 zeros
     kept per device (grown as needed) that every launch leaves at zero, its
     last block resetting them.  Launches on the device share them, so they
-    run on one stream at a time, as the engine's do."""
-    buf = _COUNTERS.get(device)
-    if buf is None or buf.numel() < pairs:
-        buf = torch.zeros(max(pairs, 256), dtype=torch.int32, device=device)
-        _COUNTERS[device] = buf
-    return buf
+    must run on one stream at a time: every engine, and every replica of a
+    fleet (``serving/multi_engine.py``), launches onto the device's
+    default stream, which runs them in order."""
+    with _COUNTERS_LOCK:
+        buf = _COUNTERS.get(device)
+        if buf is None or buf.numel() < pairs:
+            buf = torch.zeros(max(pairs, 256), dtype=torch.int32, device=device)
+            _COUNTERS[device] = buf
+        return buf
 
 
 def _split_buffers(b: int, n_kv: int, block_tables, page_size: int, hd: int, device,

@@ -25,10 +25,26 @@ target's tokenizer, loaded unquantized; ``SPEC_K``, ``SPEC_ITERS``,
 preempt-to-host (``PREEMPT``, ``PREEMPT_HEADROOM_PAGES``,
 ``PRIORITY_PROTECTED_CLASS``), over bf16, int8 or int4 pages
 (``KV_QUANT``), and the observability planes' /debug/slo, /debug/fleet,
-/debug/hbm and /debug/timeline.  It serves one card: ``MESH_SHAPE`` and
-``CTRL=on`` exit with a message naming the ROADMAP.md item that brings
-them, and the engine refuses the sequence-parallel ring's tuning
-(``SP_RING_*``) away from its default.
+/debug/hbm and /debug/timeline.
+
+``MESH_SHAPE=dp:N`` serves N engine replicas behind ``MultiAsyncEngine``'s
+prefix-affinity router (``serving/multi_engine.py``): the weights load
+once and every replica is ``build_engine``'s engine over that one tree,
+on its ``dp_devices`` device (all on one card share it), warmed up in
+turn.  ``FLEET_SPARES`` trailing replicas (clamped to leave one active)
+start as warm spares; ``DISAGG=on`` splits a tiered fleet into prefill
+and decode replicas; ``CTRL=on`` with more than one replica runs the
+self-healing ``FleetController`` (``CTRL_SNAPSHOT_DIR`` set: a spare
+restores the latest index snapshot into the store before it activates).
+``POST /debug/fleet/drain`` and ``/activate`` act on the fleet.  Every
+replica launches onto the card's default stream (``multi_engine.py``).
+A ``tp``, ``sp``, ``ep`` or ``pp`` axis above 1 exits with a message
+naming the ROADMAP.md item that brings it, and the engine refuses the
+sequence-parallel ring's tuning (``SP_RING_*``) away from its default.
+
+    MESH_SHAPE=dp:2 python -m githubrepostorag_tpu_torch.serving --port 8000
+    MESH_SHAPE=dp:3 FLEET_SPARES=1 CTRL=on python -m githubrepostorag_tpu_torch.serving
+    MESH_SHAPE=dp:2 DISAGG=on KV_TIER=on python -m githubrepostorag_tpu_torch.serving
 """
 
 from __future__ import annotations
@@ -46,27 +62,47 @@ from githubrepostorag_tpu_torch.serving.engine import Engine
 
 logger = logging.getLogger("githubrepostorag_tpu_torch.serving")
 
-# settings that need planes the port does not have yet -> ROADMAP.md item
-_NOT_SERVED = (
-    ("MESH_SHAPE", lambda s: bool(s.mesh_shape),
-     "queue 1 item 8 (parallel layers: meshes and dp replicas)"),
-    ("CTRL", lambda s: s.ctrl == "on", "queue 1 item 7 (fleet: the controller)"),
-)
-
+# MESH_SHAPE's axes, as the JAX package's plan_from_string reads them
+AXIS_NAMES = ("dp", "pp", "tp", "sp", "ep")
 
 _SPEC_EXCLUSIVE = ("SPEC_DRAFT_MODEL and SPEC_NGRAM_K are mutually exclusive: "
                    "a serving pod runs one speculation strategy")
 
 
-def check_served(s: Settings) -> None:
-    """Exit with a message for settings the port's server cannot serve, or
-    that contradict each other."""
-    for name, is_set, item in _NOT_SERVED:
-        if is_set(s):
-            raise SystemExit(f"{name} is set, but the torch port serves one card without it "
-                             f"yet; ROADMAP.md {item} brings it")
+def mesh_axes(spec: str) -> dict[str, int]:
+    """``MESH_SHAPE``'s axis sizes ("dp:2,tp:4"; axes left out are 1),
+    with the JAX parser's errors."""
+    axes: dict[str, int] = {}
+    for part in spec.replace(" ", "").split(","):
+        if not part:
+            continue
+        name, _, size = part.partition(":")
+        if name not in AXIS_NAMES or not size.isdigit() or int(size) < 1:
+            raise ValueError(f"bad MESH_SHAPE entry {part!r}: want axis:size with axis in "
+                             f"{AXIS_NAMES}")
+        if name in axes:  # "tp:4,tp:2" is a typo, not a request for tp=2
+            raise ValueError(f"bad MESH_SHAPE: axis {name!r} given twice")
+        axes[name] = int(size)
+    return {name: axes.get(name, 1) for name in AXIS_NAMES}
+
+
+def check_served(s: Settings) -> int:
+    """The number of dp replicas to serve; exits with a message for
+    settings the port's server cannot serve, or that contradict each
+    other."""
+    try:
+        axes = mesh_axes(s.mesh_shape)
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from None
+    others = {name: n for name, n in axes.items() if name != "dp" and n > 1}
+    if others:
+        raise SystemExit(
+            f"MESH_SHAPE is set with {others}, but the torch port serves dp replicas only "
+            "yet; ROADMAP.md queue 1 item 8 (parallel layers: tp / sp / ep / pp meshes) "
+            "brings them")
     if s.spec_draft_model and s.spec_ngram_k:
         raise SystemExit(_SPEC_EXCLUSIVE)
+    return axes["dp"]
 
 
 def load_draft(s: Settings, device) -> tuple[dict | None, object | None]:
@@ -84,11 +120,13 @@ def load_draft(s: Settings, device) -> tuple[dict | None, object | None]:
     return load_qwen2(s.spec_draft_model, dtype=torch.bfloat16, device=device)
 
 
-def build_engine(s: Settings, params: dict, cfg, device) -> Engine:
+def build_engine(s: Settings, params: dict, cfg, device, draft=None) -> Engine:
     """The engine the settings describe (the JAX server's keywords, so a
     mode the port does not run is refused by ``Engine``), with the draft
-    model of ``SPEC_DRAFT_MODEL`` loaded here when set."""
-    draft_params, draft_cfg = load_draft(s, device)
+    model of ``SPEC_DRAFT_MODEL``: ``draft`` (params, config) when the
+    caller loaded it, else loaded here.  ``params`` is shared, never
+    copied: a fused tree passes through ``Engine``'s fusing as it is."""
+    draft_params, draft_cfg = draft if draft is not None else load_draft(s, device)
     return Engine(
         params, cfg,
         max_num_seqs=s.max_num_seqs,
@@ -123,14 +161,70 @@ def build_engine(s: Settings, params: dict, cfg, device) -> Engine:
     )
 
 
+def build_serving_engine(s: Settings, params: dict, cfg, device, dp: int = 1):
+    """What the server serves: one warmed-up engine behind ``AsyncEngine``
+    for dp = 1; for dp > 1, ``dp`` warmed-up replicas over the one
+    ``params`` tree behind ``MultiAsyncEngine``, each on its
+    ``dp_devices`` device (every replica on one card launches onto its
+    default stream), the last ``FLEET_SPARES`` of them (clamped to leave
+    one active) warm spares."""
+    from githubrepostorag_tpu_torch.serving.async_engine import AsyncEngine
+
+    if dp <= 1:
+        engine = build_engine(s, params, cfg, device)
+        logger.info("warming up the engine (kernel builds on the card)")
+        engine.warmup()
+        return AsyncEngine(engine)
+    from githubrepostorag_tpu_torch.models.quant import fuse_projections
+    from githubrepostorag_tpu_torch.serving.multi_engine import MultiAsyncEngine, dp_devices
+
+    draft_params, draft_cfg = load_draft(s, device)
+    if draft_params is not None:
+        # fused once here, so every replica shares one draft tree too
+        draft_params = fuse_projections(draft_params, in_place=True)
+    # the replicas share the weights' device (one tree, no copies): a fleet
+    # across cards needs a tree on each, which comes with ROADMAP queue 1
+    # item 8
+    engines = []
+    for i, dev in enumerate(dp_devices(dp, [device])):
+        logger.info("building and warming up engine replica %d/%d on %s", i + 1, dp, dev)
+        engine = build_engine(s, params, cfg, dev, draft=(draft_params, draft_cfg))
+        engine.warmup()
+        engines.append(engine)
+    spares = max(0, min(s.fleet_spares, dp - 1))
+    if spares:
+        logger.info("fleet: %d active + %d warm spare replica(s)", dp - spares, spares)
+    return MultiAsyncEngine(engines, spares=spares)
+
+
+def build_controller(s: Settings, fleet):
+    """The self-healing controller over ``fleet`` when ``CTRL=on`` and the
+    fleet has more than one replica (a single replica has no spare to fail
+    over to), else None.  With ``CTRL_SNAPSHOT_DIR`` set, a spare restores
+    the latest index snapshot into the store before it activates."""
+    from githubrepostorag_tpu_torch.serving.multi_engine import MultiAsyncEngine
+
+    if s.ctrl != "on" or not isinstance(fleet, MultiAsyncEngine):
+        return None
+    from githubrepostorag_tpu_torch.serving.controller import FleetController
+
+    restore = None
+    if s.ctrl_snapshot_dir:
+        from githubrepostorag_tpu_torch.retrieval.snapshot import restore_for_activation
+        from githubrepostorag_tpu_torch.store.factory import get_store
+
+        def restore():
+            return restore_for_activation(s.ctrl_snapshot_dir, get_store())
+    return FleetController(fleet, restore=restore)
+
+
 async def serve(host: str, port: int, device: str | None = None) -> None:
     from githubrepostorag_tpu_torch.models.hf_loader import load_qwen2
-    from githubrepostorag_tpu_torch.serving.async_engine import AsyncEngine
     from githubrepostorag_tpu_torch.serving.openai_api import OpenAIServer
     from githubrepostorag_tpu_torch.serving.tokenizer import make_tokenizer
 
     s = get_settings()
-    check_served(s)
+    dp = check_served(s)
     if not s.model_weights_path:
         raise SystemExit("model server requires MODEL_WEIGHTS_PATH (a local HF checkpoint dir)")
     dev = resolve_device(device)
@@ -142,20 +236,25 @@ async def serve(host: str, port: int, device: str | None = None) -> None:
                 f" (int{s.quantize_weights} weight-only)" if s.quantize_weights else "")
     params, cfg = load_qwen2(s.model_weights_path, dtype=torch.bfloat16,
                              quantize=s.quantize_weights, fuse=True, device=dev)
-    engine = build_engine(s, params, cfg, dev)
+    engine = build_serving_engine(s, params, cfg, dev, dp)
     del params
-    logger.info("warming up the engine (kernel builds on the card)")
-    engine.warmup()
-    server = OpenAIServer(AsyncEngine(engine), tokenizer, model_name=s.qwen_model)
+    server = OpenAIServer(engine, tokenizer, model_name=s.qwen_model)
     bound = await server.start(host=host, port=port)
+    controller = build_controller(s, engine)
+    if controller is not None:
+        await controller.start()
+        logger.info("fleet controller up (tick %.2fs)", controller.tick_s)
     stop = asyncio.Event()
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGTERM, signal.SIGINT):
         loop.add_signal_handler(sig, stop.set)
-    logger.info("model server up on %s:%d (device %s)", host, bound, dev)
+    logger.info("model server up on %s:%d (device %s, %d replica%s)", host, bound, dev, dp,
+                "" if dp == 1 else "s")
     try:
         await stop.wait()  # serve until the pod is stopped
     finally:
+        if controller is not None:
+            controller.stop()
         await server.stop()
         logger.info("model server stopped")
 

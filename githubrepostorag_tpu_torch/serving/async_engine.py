@@ -20,22 +20,44 @@ states into ``Engine.set_class_pressure``, so preemption and headroom act
 on a burning error budget; each finished request is one ``slo.observe``.
 The hooks run on the driver thread, after the step; a hook that raises is
 logged and serving goes on.  ``obs_seconds_total`` and
-``step_seconds_total`` sum the hooks' and the steps' host time.  The
-fleet's router digest comes with the fleet (ROADMAP queue 1 item 7).
+``step_seconds_total`` sum the hooks' and the steps' host time.
 
-The engine belongs to the driver thread alone.  Submissions and
-cancellations go into an inbox that the driver applies before each step,
-so the event loop never waits for the driver: taking the driver's lock on
-the loop, as the JAX version does, starves the loop under concurrent HTTP
-arrivals (the busy driver retakes the lock within one step's Python), and
-the requests then run one after another.
+What the fleet (``serving/multi_engine.py``, ``controller.py``) reads off
+a replica, as in the JAX version: ``digest``, the ``ReplicaDigest`` the
+driver publishes (the allocator's resident and host chain hashes, at most
+every ``ROUTE_DIGEST_INTERVAL_S``); ``lifecycle`` and ``role``, which the
+fleet sets; ``heartbeat``, stamped at the top of every driver iteration
+and every 50 ms while the driver waits for a peer's step (below), and
+``driver_alive()``; ``fail_in_flight``, the fence's error frames;
+``load()``, the queue depth the router ranks by; and the per-replica chaos
+seam ``fleet.step.<replica>`` before each iteration, where ``error`` kills
+the driver (it records ``driver_error`` and exits, leaving its requests
+for the fence) and ``delay`` wedges it.
+
+The engine belongs to the driver thread.  Submissions and cancellations
+go into an inbox that the driver applies before each step, so the event
+loop never waits for the driver: taking the driver's lock on the loop, as
+the JAX version does, starves the loop under concurrent HTTP arrivals
+(the busy driver retakes the lock within one step's Python), and the
+requests then run one after another.  The driver holds ``_lock`` over
+each iteration, and ``step_lock`` (when the fleet sets one) over each
+step.  Waiting for ``step_lock`` is no wedge: the waiting driver keeps
+stamping its heartbeat, so the controller's liveness probe finds only the
+replica that holds the lock and does not return, and the lock is re-read
+at each stamp, so the fresh one a fence hands the peers of a fenced
+holder is taken.  Work that must not interleave with a step takes ``_lock`` from
+an executor thread: ``export_kv_pages`` / ``import_kv_pages`` (the
+disaggregated handoff), the fleet's host-tier writeback at drain and the
+controller's actuators.  ``on_admit`` fires when the request enters the
+inbox; until the driver applies it, ``load()`` counts it as submitted, so
+the router's view of a replica never drops or doubles a request.
 
 ``stats()`` returns the JAX version's key set and values; the
 sequence-parallel keys read 0, as the JAX version gives them on one chip.
-It reads the engine's counters without a lock, each read atomic
-under the interpreter lock, so a row may mix two steps' values; the JAX
-version's bounded wait and stale row need the fleet controller's stats
-timeout, a setting the port does not have yet.
+It reads the engine's counters without a lock, each read atomic under the
+interpreter lock, so a row may mix two steps' values but never waits: a
+wedged driver's row stays live where the JAX version's bounded wait
+(``CTRL_STATS_TIMEOUT_S``) serves a stale one.
 """
 
 from __future__ import annotations
@@ -59,7 +81,9 @@ from githubrepostorag_tpu_torch.obs.engine_profile import (
 from githubrepostorag_tpu_torch.obs.hbm import PageObservatory, get_hbm_plane
 from githubrepostorag_tpu_torch.obs.ledger import TokenLedger, engine_snapshot, flops_per_token
 from githubrepostorag_tpu_torch.obs.slo import SLOMonitor, get_slo_plane
+from githubrepostorag_tpu_torch.resilience.faults import InjectedFault, fire_sync
 from githubrepostorag_tpu_torch.serving.engine import Engine, GenerationResult
+from githubrepostorag_tpu_torch.serving.routing import ReplicaDigest
 from githubrepostorag_tpu_torch.serving.sampling_params import SamplingParams
 
 logger = logging.getLogger(__name__)
@@ -74,10 +98,17 @@ class StreamEvent:
 
 class AsyncEngine:
     def __init__(self, engine: Engine, replica: str = "r0") -> None:
-        self.engine = engine  # driven by the driver thread alone
-        self.replica = replica  # the metrics' replica label
-        # (request id, operation) the driver applies before its next step
-        self._inbox: deque[tuple[str, Callable[[], None]]] = deque()
+        self.engine = engine  # driven by the driver thread
+        self.replica = replica  # the metrics' and the planes' replica label
+        # (request id, operation, is an admission) the driver applies
+        # before its next step
+        self._inbox: deque[tuple[str, Callable[[], None], bool]] = deque()
+        # held by the driver over each iteration (module docstring)
+        self._lock = threading.Lock()
+        # admissions in the inbox; with the engine's queues under
+        # _admit_lock, so load() counts each request once
+        self._admit_lock = threading.Lock()
+        self._unapplied = 0
         self._wake = threading.Event()
         self._stop = False
         self._thread: threading.Thread | None = None
@@ -105,9 +136,18 @@ class AsyncEngine:
         get_hbm_plane().register(replica, self.page_obs)
         self.continuous = ContinuousProfiler(replica)
         register_profiler(replica, self.continuous)
-        self.role = "fused"
+        # the fleet router's view of the allocator's chain hashes
+        self.digest = ReplicaDigest(replica)
+        # set by the fleet on the event loop; other threads only read them
+        self.role = "fused"  # "fused" | "prefill" | "decode"
+        self.lifecycle = "active"
+        # time.monotonic() at the top of the driver's latest iteration
+        self.heartbeat: float | None = None
+        # held around each step when set: the fleet gives the replicas of
+        # one device one lock (serving/multi_engine.py)
+        self.step_lock: threading.Lock | None = None
         get_slo_plane().register(replica, ledger=self.ledger, monitor=self.slo,
-                                 stats=self.stats)
+                                 stats=self.stats, digest=self.digest)
         # host seconds of the steps that had work, and of the obs hooks
         # after them (the planes' cost a step)
         self.step_seconds_total = 0.0
@@ -158,30 +198,55 @@ class AsyncEngine:
     def _drive(self) -> None:
         self._export = _CounterExport(self.engine, self.replica)
         eng = self.engine
-        pressure_next = 0.0
+        pressure_next = digest_next = 0.0
+        digest_interval = get_settings().route_digest_interval_s
+        fault_site = f"fleet.step.{self.replica}"
         while not self._stop:
-            self._apply_inbox()
-            step_start = time.monotonic()
-            try:
-                if step_start >= pressure_next:
-                    # burn-rate states feed the engine's preemption trigger
-                    # and headroom doubling
-                    eng.set_class_pressure(self.slo.class_states())
-                    pressure_next = time.monotonic() + 0.25
-                has_work = eng.has_work()
-                finished = eng.step() if has_work else []
-            except Exception as exc:  # noqa: BLE001 - fail every waiter, never hang
-                logger.exception("engine driver failed")
-                self.driver_error = repr(exc)
-                self._fail_in_flight(self.driver_error)
-                return
-            step_end = time.monotonic()
-            for rid in eng.drain_park_events():
+            self.heartbeat = time.monotonic()
+            with self._lock:
+                try:
+                    fire_sync(fault_site)
+                except InjectedFault as exc:
+                    # the chaos model of a dead replica: leave the evidence
+                    # and exit; the controller fences its requests
+                    self.driver_error = str(exc)
+                    logger.error("replica %s driver killed: %s", self.replica, exc)
+                    return
+                self._apply_inbox()
+                step_start = time.monotonic()
+                try:
+                    if step_start >= pressure_next:
+                        # burn-rate states feed the engine's preemption
+                        # trigger and headroom doubling
+                        eng.set_class_pressure(self.slo.class_states())
+                        pressure_next = time.monotonic() + 0.25
+                    has_work = eng.has_work()
+                    finished = []
+                    waited = 0.0
+                    if has_work:
+                        lock, waited = self._take_step_lock()
+                        try:
+                            step_start = time.monotonic()
+                            finished = eng.step()
+                        finally:
+                            if lock is not None:
+                                lock.release()
+                except Exception as exc:  # noqa: BLE001 - fail every waiter, never hang
+                    logger.exception("engine driver failed")
+                    self.driver_error = repr(exc)
+                    self.fail_in_flight(self.driver_error)
+                    return
+                step_end = time.monotonic()
+                parked = eng.drain_park_events()
+                if step_end >= digest_next:
+                    self._publish_digest()
+                    digest_next = step_end + digest_interval
+            for rid in parked:
                 # advisory: the request is parked in the host tier and will
                 # resume token for token; consumers keep waiting
                 self._emit(rid, StreamEvent(type="parked"))
             try:
-                self._observe_step(has_work, step_start, step_end, finished)
+                self._observe_step(has_work, step_start, step_end, finished, waited)
             except Exception:  # noqa: BLE001 - a failing plane never stops serving
                 logger.exception("observability hook failed on replica %s", self.replica)
             for res in finished:
@@ -190,19 +255,35 @@ class AsyncEngine:
                 self._wake.wait(timeout=0.02)
                 self._wake.clear()
 
+    def _take_step_lock(self) -> tuple[threading.Lock | None, float]:
+        """Take the step lock the fleet set; return it (None when there is
+        none) and the seconds waited for it, stamping the heartbeat every
+        50 ms while a peer steps (module docstring)."""
+        t0 = time.monotonic()
+        while True:
+            lock = self.step_lock
+            if lock is None or lock.acquire(timeout=0.05):
+                return lock, time.monotonic() - t0
+            self.heartbeat = time.monotonic()
+
     def _observe_step(self, has_work: bool, step_start: float, step_end: float,
-                      finished: list[GenerationResult]) -> None:
+                      finished: list[GenerationResult], waited: float = 0.0) -> None:
         """The JAX driver's per-step hooks, after the step: the series, the
         step profiler, the ledger and the continuous profiler (or their
-        idle calls), and each finished request into the SLO monitor."""
+        idle calls), and each finished request into the SLO monitor.
+        ``waited``: the seconds before the step spent on a peer's turn at
+        the step lock, which the profiler and the ledger keep out of the
+        scheduler stall (JAX's replicas, each on its own chips, wait for
+        none, and the router would read the wait as a stall limiter)."""
         eng = self.engine
         t0 = time.monotonic()
         self._export.step(finished)
         if has_work:
             snap = engine_snapshot(eng)
             alloc = eng._allocator
-            compiles = self.profiler.on_step(step_start, step_end)
-            self.ledger.on_step(snap, step_start, step_end, compiles=compiles)
+            compiles = self.profiler.on_step(step_start, step_end, waited_s=waited)
+            self.ledger.on_step(snap, step_start, step_end, compiles=compiles,
+                                waited_s=waited)
             self.continuous.on_step(
                 step_end, self.ledger.last_rec or {},
                 queue=(eng.num_running, eng.num_waiting, eng.num_parked),
@@ -221,28 +302,68 @@ class AsyncEngine:
             self.step_seconds_total += step_end - step_start
             self.obs_seconds_total += time.monotonic() - t0
 
+    def _publish_digest(self) -> None:
+        """Publish the allocator's chain-hash populations for the router
+        (driver thread; the digest's lock is the handoff)."""
+        alloc = self.engine._allocator
+        res_fn = getattr(alloc, "resident_chain_hashes", None)
+        host_fn = getattr(alloc, "host_chain_hashes", None)
+        if res_fn is None and host_fn is None:
+            return
+        t0 = time.monotonic()
+        resident = res_fn() if res_fn else frozenset()
+        host = host_fn() if host_fn else frozenset()
+        self.digest.publish(resident, host, time.monotonic() - t0)
+
     def _apply_inbox(self) -> None:
         """Run the queued submissions and cancellations in order; one that
         raises ends its own request with an error, not the driver."""
         while self._inbox:
-            rid, op = self._inbox.popleft()
+            rid, op, admits = self._inbox.popleft()
             try:
-                op()
+                if admits:
+                    with self._admit_lock:
+                        self._unapplied -= 1
+                        op()
+                else:
+                    op()
             except Exception as exc:  # noqa: BLE001 - one bad request must not stop serving
                 logger.exception("engine rejected %s", rid)
                 res = GenerationResult(request_id=rid, prompt_tokens=[], output_tokens=[],
                                        finish_reason="error", error=repr(exc))
                 self._emit(rid, StreamEvent(type="final", result=res))
 
-    def _submit(self, rid: str, op: Callable[[], None]) -> None:
-        self._inbox.append((rid, op))
+    def _submit(self, rid: str, op: Callable[[], None], admits: bool = False) -> None:
+        if admits:
+            with self._admit_lock:
+                self._unapplied += 1
+        self._inbox.append((rid, op, admits))
         self._wake.set()
 
-    def _fail_in_flight(self, reason: str) -> None:
-        for rid in list(self._queues):
+    def load(self) -> int:
+        """Requests on this replica: running, waiting, and submitted but
+        not applied yet."""
+        with self._admit_lock:
+            return self.engine.num_running + self.engine.num_waiting + self._unapplied
+
+    def driver_alive(self) -> bool:
+        """True while the driver thread runs.  A driver killed by the
+        ``fleet.step.<replica>`` seam exits, so this turns false without
+        ``stop()``."""
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    def fail_in_flight(self, reason: str) -> list[str]:
+        """End every in-flight request with the standard error frame (a
+        final result with finish_reason "error") and return their ids, so
+        no caller waits on a dead or wedged driver.  Takes no lock: the
+        driver may be wedged holding one."""
+        failed = list(self._queues)
+        for rid in failed:
             res = GenerationResult(request_id=rid, prompt_tokens=[], output_tokens=[],
                                    finish_reason="error", error=reason)
             self._emit(rid, StreamEvent(type="final", result=res))
+        return failed
 
     def _emit(self, rid: str, event: StreamEvent) -> None:
         q = self._queues.get(rid)
@@ -257,11 +378,14 @@ class AsyncEngine:
         request_id: str | None = None,
         deadline_s: float | None = None,
         priority: str | None = None,
+        on_admit: Callable[[str], None] | None = None,
     ) -> AsyncIterator[StreamEvent]:
         """Submit a request and yield its token events, then the final
         event.  ``deadline_s`` (absolute time.monotonic()) lets the engine
         reap the request once its caller's budget is gone; ``priority`` is
-        its SLO class (the engine's default class when None).  A stream
+        its SLO class (the engine's default class when None).
+        ``on_admit(rid)`` fires on the event loop once the request counts
+        in ``load()``: the router retires its pending pick there.  A stream
         closed before its final event cancels the request (the JAX version
         leaves the row decoding to its end)."""
         await self.start()
@@ -280,7 +404,9 @@ class AsyncEngine:
             raise RuntimeError(f"engine driver is dead: {self.driver_error}")
         self._submit(rid, lambda: self.engine.add_request(
             prompt_ids, sampling, on_token=on_token, request_id=rid, deadline_s=deadline_s,
-            priority=priority))
+            priority=priority), admits=True)
+        if on_admit is not None:
+            on_admit(rid)
         done = False
         try:
             while True:
@@ -314,13 +440,34 @@ class AsyncEngine:
     async def cancel(self, request_id: str) -> None:
         self._submit(request_id, lambda: self.engine.cancel(request_id))
 
+    async def export_kv_pages(self, hashes: list[bytes]) -> list[tuple[bytes, object]]:
+        """Pack the KV payloads of ``hashes`` for a peer replica, off the
+        loop and under the driver lock, so no step migrates or evicts the
+        pages under the gather."""
+
+        def work() -> list[tuple[bytes, object]]:
+            with self._lock:
+                return self.engine.export_kv_pages(hashes)
+
+        return await asyncio.get_running_loop().run_in_executor(None, work)
+
+    async def import_kv_pages(self, pages: list[tuple[bytes, object]]) -> int:
+        """Admit a peer's page payloads into this replica's host tier
+        (host work, but the allocator belongs to the driver)."""
+
+        def work() -> int:
+            with self._lock:
+                return self.engine.import_kv_pages(pages)
+
+        return await asyncio.get_running_loop().run_in_executor(None, work)
+
     def stats(self) -> dict[str, Any]:
         """Queue, page, speculation, host-tier and preemption counters for
         ``/health``, with the JAX version's keys."""
         eng = self.engine
         alloc = eng._allocator
         return {
-            "role": "fused",
+            "role": self.role,
             "running": eng.num_running,
             "waiting": eng.num_waiting,
             "requests_admitted": eng.requests_admitted,
@@ -364,8 +511,8 @@ class _CounterExport:
     ``export_counters``): running and waiting rows; each finished
     request's tokens, TTFT and TPOT; and the cumulative counters as deltas
     -- the speculative ones while a speculative mode is on, the host
-    tier's while the tier is on, the preemption ones while preemption is
-    on.  A mode series' replica child is made at its first export, so an
+    tier's (and the handoff's transfer seconds) while the tier is on, the
+    preemption ones while preemption is on.  A mode series' replica child is made at its first export, so an
     engine that runs none of these modes adds none of their samples to
     ``/metrics``."""
 
@@ -373,7 +520,7 @@ class _CounterExport:
         self.engine = engine
         self.replica = replica
         self.last = {"prop": 0, "acc": 0, "fb": {}, "kv_fault": 0, "kv_wb": 0, "kv_dedup": 0,
-                     "kv_hold": 0, "kv_mig_s": 0.0, "preempts": 0, "resumes": 0}
+                     "kv_hold": 0, "kv_mig_s": 0.0, "xfer_s": 0.0, "preempts": 0, "resumes": 0}
 
     def _child(self, metric, **labels):
         return metric.labels(replica=self.replica, **labels)
@@ -426,6 +573,8 @@ class _CounterExport:
                 last["kv_mig_s"] = mig_s
             self._child(m.KV_TIER_DEVICE_PAGES).set(alloc.free_count)
             self._child(m.KV_TIER_HOST_PAGES).set(alloc.host_pages)
+            # the disaggregated handoff's pack / unpack host time
+            self._inc(m.DISAGG_TRANSFER_SECONDS, "xfer_s", eng.transfer_seconds_total)
         if eng._preempt_on:
             self._inc(m.ENGINE_PREEMPTIONS, "preempts", eng.preemptions)
             self._inc(m.ENGINE_PREEMPT_RESUMES, "resumes", eng.preempt_resumes)

@@ -360,6 +360,15 @@ class PrefixCachingAllocator(_ObserverSeam):
         self._hash_to_page[h] = page
         self._page_to_hash[page] = h
 
+    def resident_chain_hashes(self) -> frozenset[bytes]:
+        """Chain hashes served from device pages now (the router's digest;
+        the caller owns the engine, as for every allocator method)."""
+        return frozenset(self._hash_to_page)
+
+    def host_chain_hashes(self) -> frozenset[bytes]:
+        """Chain hashes a fault-in could serve: none without a host tier."""
+        return frozenset()
+
 
 class TieredPageAllocator(PrefixCachingAllocator):
     """Prefix-caching allocator with a host-RAM swap tier behind the
@@ -429,6 +438,10 @@ class TieredPageAllocator(PrefixCachingAllocator):
     @property
     def host_pages(self) -> int:
         return len(self._host)
+
+    def host_chain_hashes(self) -> frozenset[bytes]:
+        """Chain hashes a fault-in from the host tier could serve."""
+        return frozenset(self._host)
 
     @property
     def plain_free_count(self) -> int:

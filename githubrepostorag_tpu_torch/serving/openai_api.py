@@ -6,9 +6,11 @@ POST /v1/completions, GET /v1/models, GET /health, GET /debug/index
 (the live index's watermarks and compaction, ``live_index_payload``), the
 observability planes' GET /debug/slo, /debug/fleet, /debug/hbm and
 /debug/timeline (``?window_s=``, 400 when not a number), and POST
-/debug/fleet/drain and /debug/fleet/activate, which a single engine
-answers with the JAX server's 404 (replica groups come with the fleet,
-ROADMAP queue 1 item 7).  Request handling --
+/debug/fleet/drain and /debug/fleet/activate, which drain and activate a
+replica of a ``MultiAsyncEngine`` fleet (``MESH_SHAPE=dp:N``) and which a
+single engine answers with the JAX server's 404.  ``/health`` carries
+the engine's stats: over a fleet, the merged rows, ``per_replica`` and
+the ``router`` payload.  Request handling --
 sampling defaults, stop strings (cut inside a streamed delta too), finish
 reasons, the 400 for malformed bodies and for ``finish_reason == "error"``,
 cancellation on a stop string, a client that goes away, or a cancelled

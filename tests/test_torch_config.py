@@ -6,6 +6,7 @@ raises on both sides."""
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import re
 from pathlib import Path
@@ -62,6 +63,16 @@ ENVIRONMENTS = {
                       "SLO_LONGCTX_TTFT_P99_MS": "20000", "SLO_LONGCTX_TPOT_MS": "90",
                       "SLO_WINDOWS": "5,30", "SLO_BURN_WARN": "2", "SLO_BURN_CRITICAL": "4",
                       "SLO_LEDGER_WINDOW_S": "10", "MODEL_FLOPS_PER_TOKEN": "1.5e10"},
+    "fleet": {"MESH_SHAPE": "dp:3", "ROUTE_AFFINITY": "on", "ROUTE_DIGEST_INTERVAL_S": "0",
+              "ROUTE_MIN_PREFIX_PAGES": "2", "FLEET_SPARES": "1", "CTRL": "on",
+              "CTRL_TICK_S": "0.05", "CTRL_HYSTERESIS_TICKS": "3", "CTRL_COOLDOWN_S": "0.1",
+              "CTRL_MAX_ACTIONS": "2", "CTRL_ACTION_WINDOW_S": "60",
+              "CTRL_LIVENESS_TIMEOUT_S": "30", "CTRL_HOST_POOL_GROW": "2",
+              "CTRL_HOST_POOL_MAX_PAGES": "64", "CTRL_STATS_TIMEOUT_S": "0.1",
+              "CTRL_SNAPSHOT_DIR": "/snapshots", "DISAGG": "on",
+              "DISAGG_PREFILL_REPLICAS": "2", "DISAGG_TRANSFER_BURST": "8"},
+    "fleet_bad_numbers": {"FLEET_SPARES": "one", "CTRL_TICK_S": "fast",
+                          "ROUTE_DIGEST_INTERVAL_S": ""},
 }
 
 
@@ -125,3 +136,21 @@ def test_chip_peak_is_the_cards(env):
     assert port.chip_peak_tflops == jax_side.chip_peak_tflops == 500.0
     port, jax_side = env({"CHIP_PEAK_TFLOPS": "fast"})
     assert port.chip_peak_tflops == 989.0
+
+
+def test_ctrl_stats_timeout_is_parsed_and_inert(env):
+    """CTRL_STATS_TIMEOUT_S parses as the JAX field does (the pod spec
+    sets it) but nothing of the port reads it: the port's ``stats()``
+    takes no lock to wait on (ROADMAP queue 3 item 18)."""
+    port, jax_side = env({"CTRL_STATS_TIMEOUT_S": "0.5"})
+    assert port.ctrl_stats_timeout_s == jax_side.ctrl_stats_timeout_s == 0.5
+    package = Path(config.__file__).parent
+    readers = []
+    for path in sorted(package.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Attribute) and node.attr == "ctrl_stats_timeout_s") or (
+                    isinstance(node, ast.Constant) and node.value in (
+                        "ctrl_stats_timeout_s", "CTRL_STATS_TIMEOUT_S")):
+                readers.append(f"{path.relative_to(package)}:{node.lineno}")
+    # only the field's own parser names it
+    assert [r.split(":")[0] for r in readers] == ["config.py"], readers

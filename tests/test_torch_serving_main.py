@@ -182,7 +182,11 @@ def _serve_a_chat(checkpoint, extra: dict, messages=None, max_tokens: int = 6):
      "MESH_SHAPE is set.*queue 1 item 8 "),
     ({"MODEL_WEIGHTS_PATH": "/nonexistent", "SPEC_DRAFT_MODEL": "/draft", "SPEC_NGRAM_K": "4"},
      "SPEC_DRAFT_MODEL and SPEC_NGRAM_K are mutually exclusive"),
-    ({"MODEL_WEIGHTS_PATH": "/nonexistent", "CTRL": "on"}, "CTRL is set.*queue 1 item 7 "),
+    ({"MODEL_WEIGHTS_PATH": "/nonexistent", "MESH_SHAPE": "dp:2,sp:2"},
+     "MESH_SHAPE is set.*'sp': 2.*queue 1 item 8 "),
+    ({"MODEL_WEIGHTS_PATH": "/nonexistent", "MESH_SHAPE": "dp:two"}, "bad MESH_SHAPE entry"),
+    ({"MODEL_WEIGHTS_PATH": "/nonexistent", "MESH_SHAPE": "dp:2,dp:3"},
+     "axis 'dp' given twice"),
 ])
 def test_main_refuses_what_it_cannot_serve(monkeypatch, env, message):
     for name in ("MODEL_WEIGHTS_PATH", "MESH_SHAPE", "SPEC_DRAFT_MODEL", "SPEC_NGRAM_K", "CTRL"):
