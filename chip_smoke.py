@@ -13,6 +13,7 @@
     python3 chip_smoke.py --only modes     # device, build, A's verify window, the engine modes
     python3 chip_smoke.py --only draft     # device, build, A at the draft's shapes, draft speculation
     python3 chip_smoke.py --only fleet     # device, build, the fleet (router, disagg, controller)
+    python3 chip_smoke.py --only moe       # device, build, the Qwen2-MoE family (A2.7B)
 
 Phases, each raising on failure:
 
@@ -237,8 +238,9 @@ Phases, each raising on failure:
               goodput, MFU at 989 TFLOP/s), the page observatory
               (attribution within 1 % of its occupancy integral) and the
               obs hooks' cost.  Prints {"draft": ...}.
-   fleet   -- after the draft phase: the fleet at Qwen2-7B (random bf16
-              weights, the engine phase's geometry), every replica built
+   fleet   -- after the draft phase: the fleet at Qwen2-7B's widths (random
+              bf16 weights, the engine phase's geometry; 7 of its 28
+              layers in the whole script, 28 under ``--only fleet``), every replica built
               by the model server's build_serving_engine over the one
               weight tree, launching A and B (pinned, nothing else) on
               the card's default stream.  (a) Router: one engine, then
@@ -280,10 +282,29 @@ Phases, each raising on failure:
               E's total, its prologue's by name).  ``--only int4`` runs E's
               route times and this engine phase alone, also from another
               checkout of the port (copy this script there).
-7. summary -- whether transformers, prometheus_client, pydantic, psutil and
+7. moe     -- with the int4 tree freed: the Qwen2-MoE family at
+              Qwen1.5-MoE-A2.7B's published widths (60 experts top-4, a
+              shared expert, 16 / 16 heads: GQA group 1).  Kernels A
+              (B=4, S=512, contexts to 4096; fp, int8, int4 pools) and B
+              (B=8, pools to 8192, 8 staged; fp, int8) at group 1 against
+              their plain versions, bf16 timed against bound and SDPA;
+              float32 at 2 layers: forward_paged logits and an engine's
+              greedy tokens, kernels against the plain path; the A2.7B at
+              24 layers, random bf16 weights drawn on the card, through
+              the engine phase (capacity factor 2.0, MOE_DROP_STATS on for
+              the traffic): TTFT, TPOT, tok/s, peak memory, the dropped
+              share at prefill and at decode, the decode batch's device
+              split (expert bmm, router, dispatch / combine, shared
+              expert, dense projections, A, B, idle), A and B launches
+              equal to the block's prefill and decode layer calls; a
+              2-layer MoE checkpoint written, loaded and served over HTTP
+              by the model server's build_serving_engine (one chat
+              completion).  Prints {"moe": ...}.
+8. summary -- whether transformers, prometheus_client, pydantic, psutil and
               requests import here, the retrieval, rag, engine-options,
-              ingest, split, modes, draft and fleet numbers, the card's name and power limit, the kernel
-              list, then the result line.
+              ingest, split, modes, draft, fleet and moe numbers, the card's name and power
+              limit, the kernel list (A and B with their group-1 times and
+              MoE-path launches), then the result line.
 
 There is no CPU fallback: without a card the script exits non-zero.
 """
@@ -1089,6 +1110,7 @@ def phase_kernels() -> dict:
         del w256
     results.update(verify_window_cases(rng, dev, check))
     results.update(draft_window_cases(rng, dev, check))
+    results.update(moe_group1_cases(np.random.default_rng(SEED + 89), dev, check))
     window_rows_invariant(rng, dev)
     results["gemm_rows"] = gemm_row_invariance()
     torch.cuda.empty_cache()
@@ -2117,18 +2139,28 @@ def _prefill_logits(params, cfg, seed: int):
 
 
 def hf_state_dict(params: dict, cfg) -> dict:
-    """An unfused param tree in a HuggingFace Qwen2 checkpoint's names and
-    [out, in] layout (the inverse of hf_loader.params_from_state_dict)."""
+    """An unfused param tree in a HuggingFace Qwen2 (or, with experts,
+    Qwen2-MoE) checkpoint's names and [out, in] layout (the inverse of
+    hf_loader.params_from_state_dict)."""
     layers = params["layers"]
     sd = {"model.embed_tokens.weight": params["embed"], "model.norm.weight": params["norm"],
           "lm_head.weight": params["lm_head"].t()}
     names = {"wq": "self_attn.q_proj", "wk": "self_attn.k_proj", "wv": "self_attn.v_proj",
-             "wo": "self_attn.o_proj", "wg": "mlp.gate_proj", "wu": "mlp.up_proj",
-             "wd": "mlp.down_proj"}
+             "wo": "self_attn.o_proj"}
+    if cfg.num_experts:
+        names.update({"router": "mlp.gate", "s_wg": "mlp.shared_expert.gate_proj",
+                      "s_wu": "mlp.shared_expert.up_proj", "s_wd": "mlp.shared_expert.down_proj",
+                      "s_gate": "mlp.shared_expert_gate"})
+    else:
+        names.update({"wg": "mlp.gate_proj", "wu": "mlp.up_proj", "wd": "mlp.down_proj"})
+    experts = {"e_wg": "gate_proj", "e_wu": "up_proj", "e_wd": "down_proj"}
     for i in range(cfg.num_layers):
         p = f"model.layers.{i}."
         for key, name in names.items():
             sd[p + name + ".weight"] = layers[key][i].t()
+        for e in range(cfg.num_experts):
+            for key, name in experts.items():
+                sd[p + f"mlp.experts.{e}.{name}.weight"] = layers[key][i, e].t()
         for key, name in (("bq", "q_proj"), ("bk", "k_proj"), ("bv", "v_proj")):
             sd[p + f"self_attn.{name}.bias"] = layers[key][i]
         sd[p + "input_layernorm.weight"] = layers["ln1"][i]
@@ -2137,8 +2169,9 @@ def hf_state_dict(params: dict, cfg) -> dict:
 
 
 def write_checkpoint(root, params, cfg) -> int:
-    """``params`` as a Hugging Face Qwen2 checkpoint in ``root`` (the
-    port's safetensors writer, config.json); returns the weights' bytes."""
+    """``params`` as a Hugging Face Qwen2 (or Qwen2-MoE) checkpoint in
+    ``root`` (the port's safetensors writer, config.json); returns the
+    weights' bytes."""
     from githubrepostorag_tpu_torch.models.safetensors_io import save_file
 
     save_file(hf_state_dict(params, cfg), root / "model.safetensors")
@@ -2148,7 +2181,13 @@ def write_checkpoint(root, params, cfg) -> int:
         "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
         "rope_theta": cfg.rope_theta, "rms_norm_eps": cfg.rms_norm_eps,
         "max_position_embeddings": cfg.max_position_embeddings,
-        "tie_word_embeddings": False, "torch_dtype": "bfloat16"}))
+        "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+        **({"model_type": "qwen2_moe", "num_experts": cfg.num_experts,
+            "num_experts_per_tok": cfg.num_experts_per_tok,
+            "moe_intermediate_size": cfg.moe_intermediate_size,
+            "shared_expert_intermediate_size": cfg.shared_expert_intermediate_size,
+            "norm_topk_prob": cfg.norm_topk_prob, "decoder_sparse_step": 1,
+            "mlp_only_layers": []} if cfg.num_experts else {})}))
     return (root / "model.safetensors").stat().st_size
 
 
@@ -4833,14 +4872,17 @@ def read_launches() -> dict:
 
 
 def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tuple[str, ...] = (),
-                 profile: bool = True, tail: bool = False, **engine_kw) -> dict:
+                 profile: bool = True, tail: bool = False, probe=None, **engine_kw) -> dict:
     """Serve the traffic below through AsyncEngine(Engine(params,
     **engine_kw)); every kernel's launch count is set to 0 just before and
     read just after: each kernel (or ``kernel@branch``) in ``required``
     must have launched, each in ``absent`` must not have.  ``tail``: then
     one more greedy request, resuming 100 tokens past the cached prefix
     (the width ladder's narrowest window, 128, on its own), outside the
-    traffic's numbers and launches (``tail_launches``)."""
+    traffic's numbers and launches (``tail_launches``).  ``probe``: its
+    ``reset()`` runs with the launch counts' reset, its ``read()`` (under
+    ``probe``) with their read, and ``after(engine, prompts, sp)`` (merged
+    into the result) at the end, on the decode wave."""
     import torch
 
     from githubrepostorag_tpu_torch.serving import AsyncEngine, Engine, SamplingParams
@@ -4882,7 +4924,8 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tup
                 else:
                     last = ev.result
             decoded = await asyncio.gather(*(aeng.generate(p, long_greedy) for p in decode_wave))
-            counted = read_launches(), engine._allocator.hit_tokens - hits_before
+            counted = (read_launches(), engine._allocator.hit_tokens - hits_before,
+                       probe.read() if probe is not None else None)
             tail_res = await aeng.generate(tail_prompt, greedy) if tail else None
             return first, last, streamed, decoded, t_start, t_mid, counted, tail_res
         finally:
@@ -4891,7 +4934,10 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tup
     reset_launches()
     hits_before = engine._allocator.hit_tokens
     packed_before = (engine.packed_prefill_tokens, engine.packed_prefill_padding)
-    first, last, streamed, decoded, t_start, t_mid, (launches, hit), tail_res = asyncio.run(serve())
+    if probe is not None:
+        probe.reset()
+    first, last, streamed, decoded, t_start, t_mid, (launches, hit, probed), tail_res = \
+        asyncio.run(serve())
     torch.cuda.synchronize()
     served = read_launches()  # the traffic's launches and the tail's
 
@@ -4950,6 +4996,10 @@ def phase_engine(cfg, params, label: str, required: tuple[str, ...], absent: tup
     if profile:
         stats["profile"] = profile_decode(engine, decode_wave,
                                           SamplingParams(temperature=0.0, max_tokens=17))
+    if probe is not None:
+        stats["probe"] = probed
+        stats.update(probe.after(engine, decode_wave, SamplingParams(temperature=0.0,
+                                                                     max_tokens=17)))
     return stats
 
 
@@ -6892,11 +6942,530 @@ def phase_fleet(cfg, params, device: str = "cuda", geometry: dict | None = None)
     return out
 
 
+# ------------------------------------------------------------------- moe --
+
+# the A2.7B's decode batch: its rows at one token each are the block's
+# tokens, so a layer call with rows * K assignments is a decode step's
+MOE_ROWS = 8
+# the default pass serves the A2.7B at its published depth (--only moe too)
+MOE_DEFAULT_LAYERS = 24
+
+
+def moe_group1_cases(rng, dev, check) -> dict:
+    """Kernels A and B at the Qwen1.5-MoE-A2.7B's attention: GQA group 1
+    (16 query and 16 KV heads), hd 128, 128-key pages.  A at B=4, S=512,
+    contexts to 4096 over fp, int8 and int4 pools; B at B=8, pool lengths
+    to 8192 with 8 staged keys, over fp and int8 pools.  float32 for the
+    tight limit, bf16 timed against its bound and SDPA.  Keys end in
+    ``@g1``.  The whole script runs them in the kernel phase, while the
+    profiler is fresh (late in a long process it has lost every record of
+    a kernel in five traces running), ``--only moe`` in the moe phase."""
+    import torch
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        timed, name = dtype == torch.bfloat16, str(dtype)[6:]
+        case = kernel_a_case(rng, dev, 4, 512, 16, 16, 128, 128, cached=[3584, 2048, 512, 0],
+                             new=[512, 512, 300, 512], dtype=dtype)
+        for quant in (0, 8, 4):
+            qcase = case if quant == 0 else quantized_case(case, quant)
+            tag = "" if quant == 0 else f"@int{quant}"
+            res = check(f"kernel A{tag.replace('@', ' ')} group 1 B=4 S=512 16/16 ctx<=4096 "
+                        f"{name}", measure_kernel_a(qcase, timed))
+            if timed:
+                out[f"fused_window_attention{tag}@g1"] = res
+        del case
+        case = kernel_b_case(rng, dev, MOE_ROWS, 16, 16, 128, 128,
+                             [8192, 6000, 4096, 3000, 2048, 1024, 300, 1], n_steps=8,
+                             staged_len=8, dtype=dtype)
+        for quant in (0, 8):
+            qcase = case if quant == 0 else quantized_case(case, 8, n_layers=2)
+            tag = "" if quant == 0 else "@int8"
+            res = check(f"kernel B{tag.replace('@', ' ')} group 1 B=8 16/16 pool<=8192 "
+                        f"staged 8 {name}", measure_kernel_b(qcase, timed))
+            if timed:
+                out[f"paged_attention_decode_staged{tag}@g1"] = res
+        del case
+    return out
+
+
+def moe_config(layers: int | None = None):
+    """Qwen1.5-MoE-A2.7B's published geometry (60 experts top-4, a shared
+    expert, capacity factor 2.0), cut to ``layers``."""
+    import dataclasses
+
+    from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config
+
+    cfg = Qwen2Config.qwen1_5_moe_a2_7b()
+    return cfg if layers is None else dataclasses.replace(cfg, num_layers=layers)
+
+
+def moe_tree(cfg, seed: int, dtype, fuse: bool = True, device: str = "cuda") -> dict:
+    """Random weights at ``cfg`` drawn on the card from a seeded
+    ``torch.Generator('cuda')``; fused (the serving layout) by default."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models.quant import fuse_projections
+    from githubrepostorag_tpu_torch.models.qwen2 import init_params
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    params = init_params(cfg, gen, device=device, dtype=dtype)
+    return fuse_projections(params, in_place=True) if fuse else params
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """The paged path's attention through the plain versions of kernels A
+    and B (the comparison path of the float32 engine check)."""
+    from githubrepostorag_tpu_torch.models import qwen2
+    from githubrepostorag_tpu_torch.ops.fused_decode import fused_window_attention_ref
+    from githubrepostorag_tpu_torch.ops.paged_decode import paged_attention_decode_staged_ref
+    from githubrepostorag_tpu_torch.serving import decode_burst
+
+    saved = qwen2.fused_paged_attention, decode_burst.paged_attention_decode_staged
+    qwen2.fused_paged_attention = fused_window_attention_ref
+    decode_burst.paged_attention_decode_staged = paged_attention_decode_staged_ref
+    try:
+        yield
+    finally:
+        qwen2.fused_paged_attention, decode_burst.paged_attention_decode_staged = saved
+
+
+def moe_f32_check(device: str = "cuda") -> dict:
+    """The A2.7B at its widths cut to 2 layers, float32 weights and pages
+    (kernels A's and B's f32 routes), TF32 off: ``forward_paged`` prefill
+    logits with the kernels against the plain path (``check_f32_logits``),
+    then an engine's greedy tokens with the kernels against the same engine
+    run through the kernels' plain versions, every row equal, A and B
+    launched in the first run and not in the second.  Routing is a
+    discrete choice: a token whose experts or kept assignments differ
+    between the two paths in some layer sat at a near tie (its router
+    inputs differ by the f32 summation order), so the logits check covers
+    the tokens routed alike, and the rerouted ones are counted (at most 1 %
+    of the tokens)."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models import moe
+    from githubrepostorag_tpu_torch.models.qwen2 import forward_paged
+    from githubrepostorag_tpu_torch.serving import Engine, SamplingParams
+    from githubrepostorag_tpu_torch.serving.kv_cache import make_page_pools, slot_mapping
+
+    cfg = moe_config(2)
+    params = moe_tree(cfg, SEED + 90, torch.float32, device=device)
+    dev = torch.device(device)
+    rng = np.random.default_rng(SEED + 91)
+    b, s, ps = 2, 512, 128
+    new = [512, 300]
+    ids = np.zeros((b, s), dtype=np.int32)
+    slots = np.full((b, s), -1, dtype=np.int32)
+    bt = np.asarray([[0, 1, 2, 3], [7, 6, 5, 4]], dtype=np.int32)
+    for i, n in enumerate(new):
+        ids[i, :n] = rng.integers(0, cfg.vocab_size, n)
+        slots[i] = slot_mapping(bt[i], 0, n, ps, s)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    pos = np.tile(np.arange(s, dtype=np.int32), (b, 1))
+    valid = torch.zeros((b, s), dtype=torch.bool, device=dev)
+    for i, n in enumerate(new):
+        valid[i, :n] = True
+    logits, routes = {}, {}
+    real_route = moe.route
+    for use_kernels in (True, False):
+        routes[use_kernels] = []
+
+        def recording(*args, _out=routes[use_kernels]):
+            top_p, top_i = real_route(*args)
+            _out.append(top_i)
+            return top_p, top_i
+
+        pools = make_page_pools(cfg, 8, ps, dtype=torch.float32, device=dev)
+        moe.route = recording
+        try:
+            out, _, _ = forward_paged(params, cfg, t(ids), t(pos), pools.k, pools.v, t(slots),
+                                      t(bt), t(np.zeros(b, np.int32)),
+                                      t(np.asarray(new, np.int32)), use_kernels=use_kernels)
+        finally:
+            moe.route = real_route
+        logits[use_kernels] = out[valid]
+        if not torch.isfinite(logits[use_kernels]).all():
+            raise RuntimeError("non-finite MoE logits")
+    alike = torch.ones(b * s, dtype=torch.bool, device=dev)
+    for ti_k, ti_p in zip(routes[True], routes[False]):
+        keep_k, keep_p = (moe.queue_slots(cfg, ti)[1].view(b * s, -1) for ti in (ti_k, ti_p))
+        alike &= (ti_k == ti_p).all(-1) & (keep_k == keep_p).all(-1)
+    alike = alike[valid.reshape(-1)]
+    rerouted = int((~alike).sum())
+    err = rel(logits[True], logits[False])
+    log(f"MoE f32 logits: {rerouted} of {alike.numel()} tokens rerouted between the paths; "
+        f"rel err over every token {err:.3g}")
+    if rerouted > 0.01 * alike.numel():
+        raise RuntimeError(f"{rerouted} of {alike.numel()} tokens routed differently with the "
+                           "kernels than on the plain path")
+    check_f32_logits("MoE A2.7B 2 layers forward_paged (tokens routed alike)",
+                     logits[True][alike], logits[False][alike])
+
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (600, 130, 300)]
+    sp = SamplingParams(temperature=0.0, max_tokens=16)
+    runs = {}
+    for name in ("kernels", "plain"):
+        engine = Engine(params, cfg, page_size=128, num_pages=64, max_num_seqs=4,
+                        prefill_chunk=512, decode_burst=8, max_seq_len=2048,
+                        kv_dtype=torch.float32, device=device)
+        with plain_attention() if name == "plain" else contextlib.nullcontext():
+            reset_launches()
+            res = engine.generate(prompts, sp)
+            torch.cuda.synchronize()
+            runs[name] = ([r.output_tokens for r in res], read_launches())
+        del engine
+    a, b_ = "fused_window_attention", "paged_attention_decode_staged"
+    (tok_k, n_k), (tok_p, n_p) = runs["kernels"], runs["plain"]
+    if n_k[a] <= 0 or n_k[b_] <= 0 or n_p[a] or n_p[b_]:
+        raise RuntimeError(f"MoE f32 engine launches: kernels run A {n_k[a]} B {n_k[b_]}, "
+                           f"plain run A {n_p[a]} B {n_p[b_]}")
+    diff = [i for i, (x, y) in enumerate(zip(tok_k, tok_p)) if x != y]
+    if diff or any(len(x) != 16 for x in tok_k):
+        raise RuntimeError(f"MoE f32 greedy rows {diff} differ between the kernels and the "
+                           "plain path")
+    out = {"logits_rel_err": err, "logits_rel_err_routed_alike": rel(logits[True][alike],
+                                                                      logits[False][alike]),
+           "tokens_rerouted": rerouted, "tokens": alike.numel(), "rows_identical": len(tok_k),
+           "tokens_each": len(tok_k[0]), "launches": {a: n_k[a], b_: n_k[b_]}}
+    log(f"MoE float32 (2 layers): {json.dumps(out)}")
+    del params, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+class MoeProbe:
+    """The MoE block's per-call (assignments, dropped) during the engine
+    phase's timed traffic (``MOE_DROP_STATS`` on between ``reset()`` and
+    ``read()``), and the profiler split of a decode batch (``after``)."""
+
+    def __init__(self, cfg):
+        from githubrepostorag_tpu_torch.models import moe
+
+        self.cfg, self.moe, self.calls = cfg, moe, []
+        self._record = moe._record_drops
+        self._env = None
+
+    def _recording(self, assignments, dropped) -> None:
+        self.calls.append((int(assignments), int(dropped)))
+        self._record(assignments, dropped)
+
+    def reset(self) -> None:
+        import os
+
+        self.calls = []
+        self._env = os.environ.get("MOE_DROP_STATS")
+        os.environ["MOE_DROP_STATS"] = "1"
+        self.moe._record_drops = self._recording
+
+    def read(self) -> dict:
+        import os
+
+        self.moe._record_drops = self._record
+        if self._env is None:
+            os.environ.pop("MOE_DROP_STATS", None)
+        else:
+            os.environ["MOE_DROP_STATS"] = self._env
+        decode_t = MOE_ROWS * self.cfg.num_experts_per_tok
+        out = {}
+        for phase, calls in (("prefill", [c for c in self.calls if c[0] != decode_t]),
+                             ("decode", [c for c in self.calls if c[0] == decode_t])):
+            offered, dropped = sum(c[0] for c in calls), sum(c[1] for c in calls)
+            out[phase] = {"layer_calls": len(calls), "assignments": offered, "dropped": dropped,
+                          "dropped_share": dropped / offered if offered else None}
+        return out
+
+    def after(self, engine, prompts, sp) -> dict:
+        return {"device_split": moe_profile_split(engine, prompts, sp)}
+
+
+def moe_profile_split(engine, prompts, sp) -> dict:
+    """Where an MoE decode batch's device time goes: a torch.profiler trace
+    (CPU ops and the card's kernels) of ``engine.generate(prompts, sp)``,
+    each op's own device time put in the innermost of three ranges opened
+    around the MoE block's parts (the router, the shared expert's
+    projections, the whole block): the experts' ``bmm``s, the router, the
+    dispatch / combine ops (the rest of the block), the shared expert;
+    outside the block the dense projections (``mm``: attention and the
+    logits), other ops; kernels A and B by name (no op launches them).
+    Busy is the sum of these (``profile_decode``'s kernel total for the
+    same batch should come out alike), idle one minus busy over the same
+    call's unprofiled wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from githubrepostorag_tpu_torch.models import moe, qwen2
+
+    def run():
+        res = engine.generate(prompts, sp)
+        torch.cuda.synchronize()
+        return res
+
+    run()
+    t0 = time.monotonic()
+    res = run()
+    wall_ms = (time.monotonic() - t0) * 1e3
+    tpot_ms = 1e3 * sorted(r.decode_time_s / (len(r.output_tokens) - 1)
+                           for r in res)[len(res) // 2]
+    real_mlp, real_route = qwen2.moe_mlp, moe.route
+
+    def traced_mlp(cfg, p, x, mm=moe.qmatmul):
+        def shared(a, w):
+            with record_function("moe.shared_expert"):
+                return mm(a, w)
+
+        with record_function("moe.block"):
+            return real_mlp(cfg, p, x, shared)
+
+    def traced_route(*args):
+        with record_function("moe.router"):
+            return real_route(*args)
+
+    qwen2.moe_mlp, moe.route = traced_mlp, traced_route
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run()
+    finally:
+        qwen2.moe_mlp, moe.route = real_mlp, real_route
+    kernels = [e for e in prof.key_averages() if "CUDA" in str(e.device_type)]
+    by_name = {"A": sum(e.self_device_time_total for e in kernels if kernel_of(e.key) == "A"),
+               "B": sum(e.self_device_time_total for e in kernels
+                        if any(n in e.key for n in B_KERNEL_NAMES))}
+    ranges = ("moe.router", "moe.shared_expert", "moe.block")
+    split = dict.fromkeys(("expert_bmm", "router", "dispatch_combine", "shared_expert",
+                           "dense_projections", "other_ops", "unattributed_launches"), 0.0)
+    for e in prof.events():
+        if "CUDA" in str(e.device_type) or not e.self_device_time_total:
+            continue
+        op, where, node = None, None, e
+        while node is not None:
+            if op is None and node.name.startswith("aten::"):
+                op = node.name
+            if where is None and node.name in ranges:
+                where = node.name
+            node = node.cpu_parent
+        t = e.self_device_time_total
+        if where == "moe.router":
+            split["router"] += t
+        elif where == "moe.shared_expert":
+            split["shared_expert"] += t
+        elif where == "moe.block":
+            split["expert_bmm" if op == "aten::bmm" else "dispatch_combine"] += t
+        elif op is None:
+            split["unattributed_launches"] += t
+        elif "mm" in op and "bmm" not in op:
+            split["dense_projections"] += t
+        else:
+            split["other_ops"] += t
+    # A and B launch through ctypes, outside every op: they count by name
+    busy_us = sum(split.values()) + by_name["A"] + by_name["B"]
+    out = {"rows": len(prompts), "new_tokens": sp.max_tokens, "wall_ms": wall_ms,
+           "tpot_ms_p50": tpot_ms,
+           "busy_ms": busy_us / 1e3, "idle_pct": 100 * (1 - busy_us / 1e3 / wall_ms),
+           "kernel_a_ms": by_name["A"] / 1e3, "kernel_b_ms": by_name["B"] / 1e3,
+           **{f"{k}_ms": v / 1e3 for k, v in split.items()}}
+    out["expert_bmm_share_of_busy"] = split["expert_bmm"] / busy_us if busy_us else None
+    log(f"MoE decode split: {json.dumps(out)}")
+    return out
+
+
+def moe_serve(layers: int) -> dict:
+    """The A2.7B at its published widths and ``layers`` deep, random bf16
+    weights drawn on the card, served by the engine phase (256 pages of
+    128, 8 rows, chunk 512; its traffic: a 5-request wave, a streamed
+    request on a cached prefix, 8 x 64 decode) with capacity factor 2.0 and
+    ``MOE_DROP_STATS`` on during the traffic: TTFT, TPOT, decode tok/s,
+    peak memory, the share of assignments dropped at prefill and at decode,
+    the decode batch's device split.  A and B launch once a layer per
+    prefill forward and per decode step: their counts must equal the MoE
+    block's layer calls of each kind in the same window."""
+    import torch
+
+    cfg = moe_config(layers)
+    t0 = time.monotonic()
+    params = moe_tree(cfg, SEED + 92, torch.bfloat16)
+    torch.cuda.synchronize()
+    n = sum(sum(f.numel() for f in (v if isinstance(v, tuple) else (v,)))
+            for v in [params["embed"], params["norm"], params["lm_head"],
+                      *params["layers"].values()])
+    log(f"Qwen1.5-MoE-A2.7B random bf16 weights, {layers} layers: {n / 1e9:.2f} B params, "
+        f"{torch.cuda.memory_allocated() / 1e9:.1f} GB on the card, in "
+        f"{time.monotonic() - t0:.1f} s")
+    a, b = "fused_window_attention", "paged_attention_decode_staged"
+    probe = MoeProbe(cfg)
+    # the probe's device split profiles the decode batch (profile_decode's
+    # kernel totals, idle share and TPOT are among its numbers)
+    stats = phase_engine(cfg, params, f"MoE A2.7B {layers} layers bf16", (a, b),
+                         ("packed_prefill_attention_seg", "int4_matmul", "w4a8_matmul",
+                          "paged_attention_decode"), profile=False, probe=probe)
+    drops = stats["probe"]
+    launches = stats["launches"]
+    if (launches[a] != drops["prefill"]["layer_calls"]
+            or launches[b] != drops["decode"]["layer_calls"]):
+        raise RuntimeError(f"MoE path: A launched {launches[a]} times for "
+                           f"{drops['prefill']['layer_calls']} prefill layer calls, B "
+                           f"{launches[b]} for {drops['decode']['layer_calls']} decode layer calls")
+    stats.update({"layers": layers, "params_b": n / 1e9,
+                  "prefill_forwards": launches[a] // layers,
+                  "decode_steps": launches[b] // layers})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return stats
+
+
+def moe_checkpoint_chat(layers: int = 2, device: str = "cuda") -> dict:
+    """A Qwen2-MoE checkpoint at the A2.7B's widths cut to ``layers``
+    (random bf16 weights, HF ``Qwen2MoeForCausalLM`` names, written by the
+    port's writer with a byte-level tokenizer) loaded as the model server
+    loads it (``load_qwen2`` with ``MOE_CAPACITY_FACTOR``), served by its
+    ``build_serving_engine`` behind ``OpenAIServer`` on localhost: one
+    ``POST /v1/chat/completions``, greedy, 16 tokens, through A and B."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    from pathlib import Path
+
+    import torch
+
+    from githubrepostorag_tpu_torch import config, kernels
+    from githubrepostorag_tpu_torch.models.hf_loader import load_qwen2
+    from githubrepostorag_tpu_torch.serving.__main__ import build_serving_engine
+    from githubrepostorag_tpu_torch.serving.openai_api import OpenAIServer
+    from githubrepostorag_tpu_torch.serving.tokenizer import make_tokenizer
+
+    cfg = moe_config(layers)
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="moe-ckpt-", dir=kernels.BUILD_DIR))
+    saved = {k: os.environ.get(k) for k in (*ENGINE_GEOMETRY, "MODEL_WEIGHTS_PATH")}
+    stats = {}
+    loop = thread = server = None
+    try:
+        t0 = time.monotonic()
+        params = moe_tree(cfg, SEED + 93, torch.bfloat16, fuse=False, device=device)
+        stats["checkpoint_gb"] = write_checkpoint(root, params, cfg) / 1e9
+        write_byte_tokenizer(root, cfg.vocab_size)
+        del params
+        torch.cuda.empty_cache()
+        stats["write_s"] = time.monotonic() - t0
+        os.environ.update({**ENGINE_GEOMETRY, "MODEL_WEIGHTS_PATH": str(root)})
+        s = config.reload_settings()
+        tok = make_tokenizer(s.model_weights_path)
+        t0 = time.monotonic()
+        loaded, lcfg = load_qwen2(s.model_weights_path, dtype=torch.bfloat16,
+                                  quantize=s.quantize_weights, fuse=True, device=device,
+                                  moe_capacity_factor=s.moe_capacity_factor)
+        stats["load_s"] = time.monotonic() - t0
+        if lcfg != cfg:
+            raise RuntimeError(f"loaded config {lcfg} differs from the written {cfg}")
+        aeng = build_serving_engine(s, loaded, lcfg, torch.device(device))
+        del loaded
+        server = OpenAIServer(aeng, tok, model_name=s.qwen_model)
+        loop = asyncio.new_event_loop()
+        thread = threading.Thread(target=loop.run_forever, name="moe-http", daemon=True)
+        thread.start()
+        port = asyncio.run_coroutine_threadsafe(server.start("127.0.0.1", 0), loop).result(600)
+        body = json.dumps({"messages": [{"role": "user", "content": "explain the repo layout"}],
+                           "max_tokens": 16, "temperature": 0}).encode()
+        reset_launches()
+        status, reply, (start, end) = _http(port, "POST", "/v1/chat/completions", body)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        a, b = "fused_window_attention", "paged_attention_decode_staged"
+        if (status != 200 or reply["usage"]["completion_tokens"] < 1
+                or reply["choices"][0]["finish_reason"] not in ("length", "stop")):
+            raise RuntimeError(f"MoE chat completion: {status} {reply}")
+        if launches[a] <= 0 or (reply["usage"]["completion_tokens"] > 1 and launches[b] <= 0):
+            raise RuntimeError(f"the MoE server path launched A {launches[a]}, B {launches[b]} "
+                               "times")
+        stats.update({"status": status, "latency_s": end - start,
+                      "prompt_tokens": reply["usage"]["prompt_tokens"],
+                      "completion_tokens": reply["usage"]["completion_tokens"],
+                      "finish_reason": reply["choices"][0]["finish_reason"],
+                      "capacity_factor": lcfg.capacity_factor,
+                      "launches": {a: launches[a], b: launches[b]}})
+    finally:
+        if server is not None:
+            asyncio.run_coroutine_threadsafe(server.stop(), loop).result(120)
+        if loop is not None:
+            loop.call_soon_threadsafe(loop.stop)
+            thread.join(30)
+            loop.close()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        config.reload_settings()
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"MoE checkpoint served over HTTP: {json.dumps(stats)}")
+    return stats
+
+
+def release_planes() -> None:
+    """Drop the port's process-wide observability registrations.  Every
+    AsyncEngine registers its ledger, SLO monitor, page observatory and
+    profiler there (the last one of a replica name stays), and a
+    registration keeps its engine, weights and pools alive after the phase
+    that built it."""
+    from githubrepostorag_tpu_torch.obs import continuous, hbm, slo, timeline
+
+    slo.reset_slo_plane()
+    hbm.reset_hbm_plane()
+    continuous.reset_profilers()
+    timeline.reset_fleet_events_provider()
+
+
+def phase_moe(layers: int | None = None, kernels: dict | None = None) -> dict:
+    """The Qwen2-MoE family on the card: kernels A and B at the A2.7B's
+    group-1 attention against their plain versions (``kernels``: the
+    kernel phase's results of them, else run here); float32 logits and
+    greedy tokens at 2 layers, kernels against the plain path; the A2.7B at
+    its published widths served by the engine, ``layers`` deep (its
+    published 24 by default); a 2-layer MoE checkpoint loaded and served
+    over HTTP by the model server's entry points."""
+    import torch
+
+    t0 = time.monotonic()
+    release_planes()  # one model's weights at a time: earlier engines go
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"moe phase: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated on the card "
+        "before its first tree")
+    checks = []
+
+    def check(label, res):
+        checks.append((label, res))
+        log(f"{label}: {json.dumps(res)}")
+        return res
+
+    if kernels is None:
+        kernels = moe_group1_cases(np.random.default_rng(SEED + 89), torch.device("cuda"), check)
+    bad = [label for label, r in checks if not r["limit_share"] <= 1.0]
+    if bad:
+        raise RuntimeError(f"kernels disagree with their plain versions at group 1: {bad}")
+    out = {"kernels": kernels}
+    out["f32"] = moe_f32_check()
+    layers = moe_config().num_layers if layers is None else layers
+    out["serve"] = moe_serve(layers)
+    out["http"] = moe_checkpoint_chat()
+    out["seconds"] = time.monotonic() - t0
+    log(f"moe phase: {out['seconds']:.1f} s ({layers} of "
+        f"{moe_config().num_layers} layers served)")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["kernels", "longctx", "int4", "retrieval", "rag",
                                            "ingest", "options", "split", "modes", "draft",
-                                           "fleet"],
+                                           "fleet", "moe"],
                         default=None,
                         help="kernels: the device, build and kernel phases only; longctx: "
                              "the device and build phases and the long-context decode "
@@ -6915,7 +7484,10 @@ def main() -> int:
                              "phases, kernel A at the draft's and the verify rungs' shapes "
                              "and the draft-model speculation phase; fleet: the device and "
                              "build phases and the fleet phase (router over dp:2, the "
-                             "disaggregated handoff, the controller's failover)")
+                             "disaggregated handoff, the controller's failover); moe: the "
+                             "device and build phases and the Qwen2-MoE phase (A and B at "
+                             "group 1, float32 checks, the A2.7B served at 24 layers, an MoE "
+                             "checkpoint over HTTP)")
     args = parser.parse_args()
 
     import torch
@@ -7010,6 +7582,14 @@ def main() -> int:
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                                  "count": device["count"]}}), flush=True)
         return 0
+    if args.only == "moe":
+        moe = phase_moe()
+        log(f"done in {time.monotonic() - t_all:.1f} s")
+        print(json.dumps({"moe": moe}))
+        print(device["card"])
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
+                                                 "count": device["count"]}}), flush=True)
+        return 0
     if args.only == "ingest":
         cfg, params = make_7b_params()
         ingest = phase_ingest(cfg, params)
@@ -7078,9 +7658,9 @@ def main() -> int:
     options["gemm_rows_differing_by_m"] = kres["gemm_rows"]
     runs["http"] = phase_http(cfg, params)
     runs["rag"], runs["split"] = rag_and_split(cfg, params, store.pop("index"), enc)
-    # the ingest, modes and draft phases at a quarter of the depth here, at
-    # the published widths, so the whole script ends well inside its time
-    # limit on a slow host; their --only runs keep all 28 layers
+    # the ingest, modes, draft and fleet phases at a quarter of the depth
+    # here, at the published widths, so the whole script ends well inside
+    # its time limit on a slow host; their --only runs keep all 28 layers
     cfg_q, params_q = at_depth(cfg, params, cfg.num_layers // 4)
     runs.update({
         "ingest": {"layers": cfg_q.num_layers, **phase_ingest(cfg_q, params_q, enc=enc)},
@@ -7102,10 +7682,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     draft = {"layers": cfg_q.num_layers, **phase_draft(cfg_q, params_q)}
-    del params_q
     gc.collect()
     torch.cuda.empty_cache()
-    fleet = phase_fleet(cfg, params)
+    fleet = {"layers": cfg_q.num_layers, **phase_fleet(cfg_q, params_q)}
+    del params_q
     gc.collect()
     torch.cuda.empty_cache()
     qparams = quantize_7b(params)
@@ -7115,6 +7695,11 @@ def main() -> int:
     phase_model(cfg, qparams, "7B int4")
     phase_decode_logits(cfg, qparams)
     runs["int4"] = phase_int4_engine(cfg, qparams)
+    del qparams  # one model's weights at a time: the MoE tree alone from here
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe = phase_moe(MOE_DEFAULT_LAYERS, kernels={k: r for k, r in kres.items()
+                                                 if k.endswith("@g1")})
 
     # each kernel's (and branch's) launches come from the run whose path it
     # belongs to; A and B carry their pool branches
@@ -7184,6 +7769,12 @@ def main() -> int:
                       **draft["runs"][run]["a_launches_by_head_dim"],
                       "by_window": draft["runs"][run]["a_launches_by_window"]}
                 for run in ("random", "random_floor0", "quoting", "partial")}
+        if name in (a, b):  # the Qwen2-MoE path's group-1 shapes, alone; its launches
+            entry["moe_group1"] = {
+                key.split("@")[1] if key.count("@") > 1 else "fp":
+                    {k: r[k] for k in keys + ("host_us",)}
+                for key, r in moe["kernels"].items() if key.split("@")[0] == name}
+            entry["launches_moe_path"] = moe["serve"]["launches"][name]
         if name in ("paged_attention_decode_staged", "paged_attention_decode"):
             # the split of the timed cases: 4 kv heads, 64 pages of 128 keys
             entry["plan"] = {f"B={bb}": _plan_decode(bb, 4, 64, 128, n_sm)._asdict()
@@ -7203,6 +7794,7 @@ def main() -> int:
     print(json.dumps({"modes": modes}))
     print(json.dumps({"draft": draft}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"moe": moe}))
     print(device["card"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],

@@ -65,7 +65,8 @@ def _build_llm(device: str | None = None):
         dev = resolve_device(device)
         tokenizer = make_tokenizer(s.model_weights_path)
         params, cfg = load_qwen2(s.model_weights_path, dtype=torch.bfloat16,
-                                 quantize=s.quantize_weights, fuse=True, device=dev)
+                                 quantize=s.quantize_weights, fuse=True, device=dev,
+                                 moe_capacity_factor=s.moe_capacity_factor)
         return inprocess_llm(s, params, cfg, tokenizer, dev)
     from githubrepostorag_tpu_torch.llm import get_llm
 

@@ -2,7 +2,8 @@
 port of the matching parts of ``githubrepostorag_tpu/config.py``.
 
 The fields are the ones the port reads: ``serving/__main__.py``
-(checkpoint, engine geometry and options), ``serving/openai_api.py``
+(checkpoint, engine geometry and options, the MoE expert capacity),
+``serving/openai_api.py``
 (the default priority class), ``serving/tokenizer.py`` (the tokenizer
 backend), the retrieval path: ``embedding.py`` (the encoder),
 ``store/factory.py`` (the store chain and its backends), ``retrieval/retrievers.py`` (the
@@ -206,6 +207,10 @@ class Settings:
     kv_migrate_burst: int = _int("KV_MIGRATE_BURST", 8)
     preempt: str = _env("PREEMPT", "auto")
     preempt_headroom_pages: int = _int("PREEMPT_HEADROOM_PAGES", 0)
+    # MoE expert capacity = ceil(K*T/E * factor); overflow assignments drop
+    # that expert's contribution (models/moe.py; MOE_DROP_STATS=1 counts
+    # them).  0 = exact no-drop dispatch, capacity T
+    moe_capacity_factor: float = _float("MOE_CAPACITY_FACTOR", 2.0)
 
     # draft-model speculation: the draft's checkpoint dir (SPEC_K,
     # SPEC_ITERS, SPEC_ACCEPT_FLOOR, SPEC_DEADLINE_MARGIN_S tune it)

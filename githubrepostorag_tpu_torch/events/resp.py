@@ -76,7 +76,10 @@ class RespConnection:
     async def command(self, *args: str | bytes | int | float):
         """Send one command and read one reply.  A connection-level failure
         mid-exchange tears the socket down before propagating, so the next
-        command reconnects instead of reading a misaligned stream."""
+        command reconnects instead of reading a misaligned stream; so does
+        a command cancelled between its write and its reply (a worker
+        cancels its cancel-flag poll when the job ends), whose reply would
+        otherwise answer the next command."""
         async with self._lock:
             if not self.connected:
                 await self.connect()
@@ -85,8 +88,15 @@ class RespConnection:
                 self._writer.write(_encode_command(*args))
                 await self._writer.drain()
                 return await self.read_reply()
+            except RespError:
+                raise  # a whole error reply: the stream stays aligned
             except (ConnectionError, OSError):
                 await self.close()
+                raise
+            except BaseException:
+                writer, self._reader, self._writer = self._writer, None, None
+                if writer is not None:
+                    writer.close()
                 raise
 
     async def send(self, *args: str | bytes | int | float) -> None:

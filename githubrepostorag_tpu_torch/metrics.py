@@ -16,7 +16,8 @@ the engine driver's own (running / waiting, TTFT, TPOT, decode tokens)
 and the observability planes' (compiles, stall, ledger, SLO, page
 observatory, profiler samples, timeline) are here too, and the fleet's
 (router decisions, lifecycle and role gauges, controller actions, the
-prefill / decode handoffs).  ``counter_value`` and ``histogram_stats``
+prefill / decode handoffs), and the MoE block's assignment and drop
+counts (``models/moe.py``, ``MOE_DROP_STATS=1``).  ``counter_value`` and ``histogram_stats``
 read the series back (tests, the health report, the chip script).
 """
 
@@ -616,6 +617,15 @@ DISAGG_TRANSFER_SECONDS = Counter(
     "Host wall time packing/unpacking handoff payloads per replica "
     "(the ledger charges the same time to its kv_transfer bucket)",
     ["replica"],
+)
+
+MOE_ASSIGNMENTS = Counter(
+    "rag_moe_expert_assignments_total",
+    "MoE router token->expert assignments offered (MOE_DROP_STATS=1)",
+)
+MOE_DROPPED = Counter(
+    "rag_moe_dropped_assignments_total",
+    "MoE assignments dropped by expert capacity (MOE_DROP_STATS=1)",
 )
 
 

@@ -9,7 +9,9 @@ dict of torch tensors, so both packages compute on identical weights.
 Quantized leaves (the JAX ``QuantizedLinear``, ``QuantizedLinear4`` and
 ``QuantizedEmbedding`` NamedTuples) become the port's NamedTuples of the
 same name: uint8 and int8 fields stay integer, and bf16 scales keep their
-bits.
+bits.  A Qwen2-MoE tree carries over the same way (the router, the
+[L, E, in, out] expert stacks with their per-expert scales, the shared
+expert); its MLP must match the config's ``num_experts``.
 
 ``encoder_params_from_jax`` does the same for the BERT encoder's tree
 (``models/encoder.py`` in both packages).
@@ -68,8 +70,16 @@ def params_from_jax(tree: dict, cfg: Qwen2Config, device=None, dtype=None) -> di
             f"embed shape {embed_shape} does not match the config "
             f"({cfg.vocab_size}, {cfg.hidden_size})"
         )
-    if params["layers"]["ln1"].shape[0] != cfg.num_layers:
+    layers = params["layers"]
+    if layers["ln1"].shape[0] != cfg.num_layers:
         raise ValueError("layer count does not match the config")
+    if ("router" in layers) != (cfg.num_experts > 0):
+        raise ValueError(f"the tree's MLP ({'MoE' if 'router' in layers else 'dense'}) does "
+                         f"not match the config (num_experts={cfg.num_experts})")
+    if "router" in layers and tuple(layers["router"].shape[1:]) != (cfg.hidden_size,
+                                                                     cfg.num_experts):
+        raise ValueError(f"router shape {tuple(layers['router'].shape)} does not match the "
+                         f"config ({cfg.hidden_size}, {cfg.num_experts})")
     return params
 
 

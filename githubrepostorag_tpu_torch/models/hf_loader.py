@@ -2,8 +2,9 @@
 ``githubrepostorag_tpu/models/hf_loader.py`` (``config_from_hf``,
 ``params_from_state_dict`` with its ``quantize`` option, the AutoAWQ
 repacker ``awq_params_from_state_dict``, and ``load_qwen2`` for a local
-checkpoint directory) for dense checkpoints.  Shards are read by the
-port's own safetensors reader (``models/safetensors_io.py``).
+checkpoint directory) for dense and Qwen2-MoE checkpoints (expert weights
+stack [L, E, in, out]; AWQ repacking is dense only, as in JAX).  Shards
+are read by the port's own safetensors reader (``models/safetensors_io.py``).
 
 HF stores linear weights [out, in]; the port stores [in, out] so the
 forward is ``x @ w``.  Per-layer tensors stack on a leading L axis.
@@ -32,12 +33,27 @@ from githubrepostorag_tpu_torch.models.safetensors_io import load_file
 logger = logging.getLogger(__name__)
 
 
-def config_from_hf(hf_cfg: dict) -> Qwen2Config:
-    """HF config dict -> Qwen2Config.  Qwen2-MoE checkpoints raise: the
-    sparse MLP is not ported yet."""
-    if hf_cfg.get("num_experts", 0):
-        raise NotImplementedError("Qwen2-MoE checkpoints are not supported by the torch port yet")
+def config_from_hf(hf_cfg: dict, moe_capacity_factor: float = 2.0) -> Qwen2Config:
+    """HF config dict -> Qwen2Config.  A Qwen2-MoE config (``num_experts``
+    > 0) brings the MoE fields; ``moe_capacity_factor`` is the caller's
+    (``MOE_CAPACITY_FACTOR`` through ``load_qwen2``), so parsing never
+    reads the environment.  Only uniformly sparse MoE checkpoints load."""
     num_heads = hf_cfg["num_attention_heads"]
+    moe: dict = {}
+    if hf_cfg.get("num_experts", 0):  # Qwen2MoeConfig (model_type qwen2_moe)
+        if hf_cfg.get("decoder_sparse_step", 1) != 1 or hf_cfg.get("mlp_only_layers"):
+            # stacked layer leaves need one block structure for every layer
+            raise ValueError(
+                "only uniformly-sparse Qwen2-MoE checkpoints are supported "
+                "(decoder_sparse_step=1, no mlp_only_layers)")
+        moe = dict(
+            num_experts=hf_cfg["num_experts"],
+            num_experts_per_tok=hf_cfg["num_experts_per_tok"],
+            moe_intermediate_size=hf_cfg["moe_intermediate_size"],
+            shared_expert_intermediate_size=hf_cfg["shared_expert_intermediate_size"],
+            norm_topk_prob=hf_cfg.get("norm_topk_prob", False),
+            capacity_factor=moe_capacity_factor,
+        )
     return Qwen2Config(
         vocab_size=hf_cfg["vocab_size"],
         hidden_size=hf_cfg["hidden_size"],
@@ -50,6 +66,7 @@ def config_from_hf(hf_cfg: dict) -> Qwen2Config:
         rms_norm_eps=hf_cfg.get("rms_norm_eps", 1e-6),
         tie_word_embeddings=hf_cfg.get("tie_word_embeddings", False),
         max_position_embeddings=hf_cfg.get("max_position_embeddings", 32768),
+        **moe,
     )
 
 
@@ -80,33 +97,50 @@ def params_from_state_dict(state_dict: dict, cfg: Qwen2Config, dtype=torch.float
         t = _tensor(t)
         return torch.empty(t.shape, dtype=dtype, device=dev).copy_(t)
 
-    def stack(fmt: str, transpose: bool = False) -> torch.Tensor:
-        rows = [_tensor(sd[fmt.format(i)]) for i in range(L)]
-        if transpose:
-            rows = [r.t() for r in rows]
-        out = torch.empty((L, *rows[0].shape), dtype=dtype, device=dev)
-        for i, r in enumerate(rows):
-            out[i].copy_(r)
+    def stack(fmt: str, transpose: bool = False, experts: int = 0) -> torch.Tensor:
+        # [L, ...], or [L, E, ...] from per-expert names "{layer}...{expert}"
+        keys = ([[fmt.format(i, e) for e in range(experts)] for i in range(L)] if experts
+                else [[fmt.format(i)] for i in range(L)])
+        first = _tensor(sd[keys[0][0]])
+        shape = first.t().shape if transpose else first.shape
+        out = torch.empty((L, *([experts] if experts else []), *shape), dtype=dtype, device=dev)
+        flat = out.view(-1, *shape)
+        for j, key in enumerate(k for row in keys for k in row):
+            r = _tensor(sd[key])
+            flat[j].copy_(r.t() if transpose else r)
         return out
 
-    params = {
-        "embed": put(sd["embed_tokens.weight"]),
-        "layers": {
-            "ln1": stack("layers.{}.input_layernorm.weight"),
-            "ln2": stack("layers.{}.post_attention_layernorm.weight"),
-            "wq": stack("layers.{}.self_attn.q_proj.weight", transpose=True),
-            "bq": stack("layers.{}.self_attn.q_proj.bias"),
-            "wk": stack("layers.{}.self_attn.k_proj.weight", transpose=True),
-            "bk": stack("layers.{}.self_attn.k_proj.bias"),
-            "wv": stack("layers.{}.self_attn.v_proj.weight", transpose=True),
-            "bv": stack("layers.{}.self_attn.v_proj.bias"),
-            "wo": stack("layers.{}.self_attn.o_proj.weight", transpose=True),
+    layers = {
+        "ln1": stack("layers.{}.input_layernorm.weight"),
+        "ln2": stack("layers.{}.post_attention_layernorm.weight"),
+        "wq": stack("layers.{}.self_attn.q_proj.weight", transpose=True),
+        "bq": stack("layers.{}.self_attn.q_proj.bias"),
+        "wk": stack("layers.{}.self_attn.k_proj.weight", transpose=True),
+        "bk": stack("layers.{}.self_attn.k_proj.bias"),
+        "wv": stack("layers.{}.self_attn.v_proj.weight", transpose=True),
+        "bv": stack("layers.{}.self_attn.v_proj.bias"),
+        "wo": stack("layers.{}.self_attn.o_proj.weight", transpose=True),
+    }
+    if cfg.num_experts > 0:  # Qwen2-MoE sparse MLP (models/moe.py keys)
+        E, mlp = cfg.num_experts, "layers.{}.mlp."
+        layers.update({
+            "router": stack(mlp + "gate.weight", transpose=True),
+            "e_wg": stack(mlp + "experts.{}.gate_proj.weight", transpose=True, experts=E),
+            "e_wu": stack(mlp + "experts.{}.up_proj.weight", transpose=True, experts=E),
+            "e_wd": stack(mlp + "experts.{}.down_proj.weight", transpose=True, experts=E),
+            "s_wg": stack(mlp + "shared_expert.gate_proj.weight", transpose=True),
+            "s_wu": stack(mlp + "shared_expert.up_proj.weight", transpose=True),
+            "s_wd": stack(mlp + "shared_expert.down_proj.weight", transpose=True),
+            "s_gate": stack(mlp + "shared_expert_gate.weight", transpose=True),
+        })
+    else:
+        layers.update({
             "wg": stack("layers.{}.mlp.gate_proj.weight", transpose=True),
             "wu": stack("layers.{}.mlp.up_proj.weight", transpose=True),
             "wd": stack("layers.{}.mlp.down_proj.weight", transpose=True),
-        },
-        "norm": put(sd["norm.weight"]),
-    }
+        })
+    params = {"embed": put(sd["embed_tokens.weight"]), "layers": layers,
+              "norm": put(sd["norm.weight"])}
     if not cfg.tie_word_embeddings:
         params["lm_head"] = put(_tensor(sd["lm_head.weight"]).t())
     if quantize:
@@ -115,7 +149,8 @@ def params_from_state_dict(state_dict: dict, cfg: Qwen2Config, dtype=torch.float
 
 
 def load_qwen2(checkpoint_dir: str | Path, dtype=torch.float32, quantize: bool | int = False,
-               fuse: bool = False, device=None) -> tuple[dict, Qwen2Config]:
+               fuse: bool = False, device=None,
+               moe_capacity_factor: float = 2.0) -> tuple[dict, Qwen2Config]:
     """Load ``config.json`` and every ``*.safetensors`` shard of a local
     checkpoint directory onto ``device``, one tensor at a time.
 
@@ -126,13 +161,14 @@ def load_qwen2(checkpoint_dir: str | Path, dtype=torch.float32, quantize: bool |
     ``awq_params_from_state_dict``, its codes unchanged; an int8 request
     is then ignored with a warning.  ``fuse`` returns the single-chip
     serving layout (``fuse_projections``), fused while the tree is the only
-    thing on the device."""
+    thing on the device.  ``moe_capacity_factor`` sets a Qwen2-MoE
+    checkpoint's expert capacity (``config_from_hf``)."""
     if quantize not in (False, True, 4, 8):
         raise ValueError(f"quantize must be False/True/8/4, got {quantize!r}")
     dev = resolve_device(device)
     root = Path(checkpoint_dir)
     hf_cfg = json.loads((root / "config.json").read_text())
-    cfg = config_from_hf(hf_cfg)
+    cfg = config_from_hf(hf_cfg, moe_capacity_factor=moe_capacity_factor)
     shards = sorted(root.glob("*.safetensors"))
     if not shards:
         raise FileNotFoundError(f"no *.safetensors shard in {root}")
@@ -208,6 +244,10 @@ def awq_params_from_state_dict(state_dict: dict, cfg: Qwen2Config, hf_cfg: dict,
     fp16 lm_head to per-channel int8, a quantized one repacks like the
     projections.  ``dtype`` sets the norms and biases, and with them the
     activation dtype: bf16 for serving."""
+    if cfg.num_experts > 0:
+        raise NotImplementedError(
+            "AWQ repacking covers dense Qwen2 checkpoints; AWQ MoE exports "
+            "are not supported (quantize a bf16 MoE checkpoint instead)")
     dev = resolve_device(device)
     qc = hf_cfg.get("quantization_config") or {}
     if qc.get("bits", 4) != 4 or str(qc.get("version", "gemm")).lower() != "gemm":

@@ -75,8 +75,9 @@ QUANTIZED_TYPES = (QuantizedLinear, QuantizedLinear4, QuantizedEmbedding)
 
 def _per_layer(fn, w: torch.Tensor):
     """``fn`` over a [in, out] leaf, or over each layer of a stacked
-    [L, in, out] leaf into preallocated stacked outputs (one layer's f32
-    transient at a time)."""
+    [L, .., in, out] leaf into preallocated stacked outputs (one layer's f32
+    transient at a time; an MoE expert stack [L, E, in, out] passes its
+    layer's [E, in, out] to ``fn``, which keeps leading axes)."""
     if w.dim() == 2:
         return fn(w)
     first = fn(w[0])
@@ -100,27 +101,28 @@ def _quantize_symmetric(w: torch.Tensor, dim: int) -> tuple[torch.Tensor, torch.
 
 def quantize_weight(w: torch.Tensor) -> QuantizedLinear:
     """Per-output-channel symmetric int8 of a [in, out] or stacked
-    [L, in, out] weight; scales are [out] / [L, out]."""
+    [L, .., in, out] weight; scales are [out] / [L, .., out] (per expert
+    and output channel for an expert stack)."""
     return _per_layer(lambda x: QuantizedLinear(*_quantize_symmetric(x, dim=-2)), w)
 
 
 def _quantize4(w: torch.Tensor, group_size: int) -> QuantizedLinear4:
-    in_dim, out = w.shape
+    *lead, in_dim, out = w.shape
     n_g, half = in_dim // group_size, group_size // 2
-    grouped = w.float().reshape(n_g, group_size, out)
-    mx = grouped.amax(dim=1, keepdim=True)
-    mn = grouped.amin(dim=1, keepdim=True)
+    grouped = w.float().reshape(*lead, n_g, group_size, out)
+    mx = grouped.amax(dim=-2, keepdim=True)
+    mn = grouped.amin(dim=-2, keepdim=True)
     scale = torch.clamp_min((mx - mn) / 15.0, 1e-8)
     # zs is bf16, not a nibble, so no [0, 15] clamp on the zero point
     q = torch.clamp(torch.round((grouped - mn) / scale), 0, 15).to(torch.uint8)
-    packed = (q[:, :half] | (q[:, half:] << 4)).reshape(in_dim // 2, out)
-    return QuantizedLinear4(q=packed, s=scale.squeeze(1).to(torch.bfloat16),
-                            zs=(-mn).squeeze(1).to(torch.bfloat16))
+    packed = (q[..., :half, :] | (q[..., half:, :] << 4)).reshape(*lead, in_dim // 2, out)
+    return QuantizedLinear4(q=packed, s=scale.squeeze(-2).to(torch.bfloat16),
+                            zs=(-mn).squeeze(-2).to(torch.bfloat16))
 
 
 def quantize_weight4(w: torch.Tensor, group_size: int = 64) -> QuantizedLinear4:
     """Group-wise asymmetric uint4 (AWQ-class) of a [in, out] or stacked
-    [L, in, out] weight; groups of ``group_size`` run along the input axis.
+    [L, .., in, out] weight; groups of ``group_size`` run along the input axis.
     64 is the default because every Qwen2 input dimension splits into whole
     64-row groups."""
     in_dim = w.shape[-2]
@@ -224,7 +226,8 @@ def fuse_projections(params: dict, in_place: bool = False) -> dict:
     """Single-chip serving layout: fuse wq|wk|wv -> wqkv (and their biases)
     and wg|wu -> wgu along the output axis, so each layer runs 4 projection
     matmuls instead of 7; the model block splits activations after the
-    matmul.  Plain and quantized leaves alike.  ``in_place=True`` pops each
+    matmul.  Plain and quantized leaves alike; MoE leaves pass through
+    untouched.  ``in_place=True`` pops each
     per-projection leaf from ``params["layers"]`` so a solely-owned tree
     never holds both layouts once the old leaves are released; the default
     copies the dicts and leaves a caller-shared tree as it was.
@@ -240,15 +243,19 @@ def fuse_projections(params: dict, in_place: bool = False) -> dict:
     return params
 
 
-_PROJECTIONS = ("wq", "wk", "wv", "wqkv", "wo", "wg", "wu", "wgu", "wd")
+# the MoE expert and shared-expert stacks too; the router and the [d, 1]
+# shared gate stay full precision (routing is the precision-sensitive part)
+_PROJECTIONS = ("wq", "wk", "wv", "wqkv", "wo", "wg", "wu", "wgu", "wd",
+                "e_wg", "e_wu", "e_wd", "s_wg", "s_wu", "s_wd")
 
 
 def quantize_qwen2_params(params: dict, embeddings: bool = True, bits: int = 8,
                           group_size: int = 64) -> dict:
-    """Quantize every linear projection of a dense Qwen2 tree (fused or
-    unfused), the lm_head when present and, by default, the embedding
-    table; norms and biases stay as they are.  ``bits=4`` takes the
-    group-wise uint4 scheme for projections; the embedding table is
+    """Quantize every linear projection of a Qwen2(-MoE) tree (fused or
+    unfused; expert stacks with per-expert scales), the lm_head when
+    present and, by default, the embedding table; norms, biases, the MoE
+    router and the shared-expert gate stay as they are.  ``bits=4`` takes
+    the group-wise uint4 scheme for projections; the embedding table is
     per-row int8 either way.  Stacked leaves quantize one layer at a time
     on their own device."""
     if bits not in (4, 8):
@@ -277,7 +284,13 @@ def init_params_quantized(cfg, generator: torch.Generator, device=None, bits: in
     ``device`` from ``generator`` (which must live there), with bf16 norms
     and biases.  Scales are constant per leaf (dequantized std about 0.02):
     for benches, whose speed does not depend on weight values, not for
-    checking a kernel's scale indexing."""
+    checking a kernel's scale indexing.  MoE configs raise, as in JAX: a
+    real MoE checkpoint quantizes through ``load_qwen2(..., quantize=...)``."""
+    if getattr(cfg, "num_experts", 0):
+        raise NotImplementedError(
+            "random quantized MoE init is not implemented (this helper exists "
+            "for dense-geometry benches); real MoE checkpoints quantize "
+            "through load_qwen2(..., quantize=True)")
     if bits not in (4, 8):
         raise ValueError(f"bits must be 4 or 8, got {bits}")
     dev = resolve_device(device)

@@ -2,7 +2,9 @@
 
 Architecture (HF ``Qwen2ForCausalLM``): token embedding, N blocks of
 [RMSNorm -> GQA attention with QKV bias + RoPE -> residual, RMSNorm ->
-SwiGLU MLP -> residual], final RMSNorm, (optionally tied) LM head.
+SwiGLU MLP -> residual], final RMSNorm, (optionally tied) LM head.  A
+config with ``num_experts`` > 0 (HF ``Qwen2MoeForCausalLM``) swaps every
+layer's MLP for the sparse expert block of ``models/moe.py``.
 
 Parameters are a plain dict with the JAX package's layout: per-layer leaves
 stacked on a leading L axis (``params["layers"]["wq"]`` is [L, d, n_q*hd]),
@@ -24,8 +26,10 @@ from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from githubrepostorag_tpu_torch.device import resolve_device
+from githubrepostorag_tpu_torch.models.moe import init_moe_layer_params, moe_mlp
 from githubrepostorag_tpu_torch.models.quant import (
     QuantizedEmbedding,
     QuantizedLinear,
@@ -56,8 +60,18 @@ class Qwen2Config:
     rms_norm_eps: float = 1e-6
     tie_word_embeddings: bool = True
     max_position_embeddings: int = 32768
+    # ---- MoE (Qwen2-MoE family: Qwen1.5-MoE-A2.7B / Qwen2-57B-A14B) ----
+    # num_experts 0 = dense; > 0 switches every layer's MLP to the sparse
+    # block (router top-k experts + always-on shared expert, models/moe.py)
+    num_experts: int = 0
+    num_experts_per_tok: int = 0
+    moe_intermediate_size: int = 0
+    shared_expert_intermediate_size: int = 0
+    norm_topk_prob: bool = False
+    # expert capacity = ceil(K*T/E * factor); 0.0 = exact no-drop dispatch
+    capacity_factor: float = 0.0
 
-    # ---- presets (HF config.json values; MoE presets are not ported) ----
+    # ---- presets (HF config.json values) ----
 
     @classmethod
     def tiny(cls) -> "Qwen2Config":
@@ -66,6 +80,30 @@ class Qwen2Config:
             vocab_size=512, hidden_size=64, intermediate_size=128, num_layers=2,
             num_heads=4, num_kv_heads=2, head_dim=16, rope_theta=10_000.0,
             tie_word_embeddings=True, max_position_embeddings=512,
+        )
+
+    @classmethod
+    def tiny_moe(cls) -> "Qwen2Config":
+        """Test-scale MoE: 4 experts top-2 + shared expert."""
+        return cls(
+            vocab_size=512, hidden_size=64, intermediate_size=128,
+            num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+            rope_theta=10_000.0, tie_word_embeddings=True,
+            max_position_embeddings=512,
+            num_experts=4, num_experts_per_tok=2, moe_intermediate_size=48,
+            shared_expert_intermediate_size=96, norm_topk_prob=True,
+        )
+
+    @classmethod
+    def qwen1_5_moe_a2_7b(cls) -> "Qwen2Config":
+        """Qwen/Qwen1.5-MoE-A2.7B geometry (60 experts top-4 + shared)."""
+        return cls(
+            vocab_size=151936, hidden_size=2048, intermediate_size=5632,
+            num_layers=24, num_heads=16, num_kv_heads=16, head_dim=128,
+            tie_word_embeddings=False,
+            num_experts=60, num_experts_per_tok=4, moe_intermediate_size=1408,
+            shared_expert_intermediate_size=5632, norm_topk_prob=False,
+            capacity_factor=2.0,
         )
 
     @classmethod
@@ -116,10 +154,14 @@ def init_params(cfg: Qwen2Config, generator: torch.Generator, device=None,
             "wk": norm(L, d, nkv * hd), "bk": zeros(L, nkv * hd),
             "wv": norm(L, d, nkv * hd), "bv": zeros(L, nkv * hd),
             "wo": norm(L, nq * hd, d),
-            "wg": norm(L, d, inter), "wu": norm(L, d, inter), "wd": norm(L, inter, d),
         },
         "norm": ones(d),
     }
+    if cfg.num_experts > 0:
+        params["layers"].update(init_moe_layer_params(cfg, generator, dev, dtype))
+    else:
+        params["layers"].update({"wg": norm(L, d, inter), "wu": norm(L, d, inter),
+                                 "wd": norm(L, inter, d)})
     if not cfg.tie_word_embeddings:
         params["lm_head"] = norm(d, cfg.vocab_size)
     return params
@@ -158,6 +200,8 @@ def _block(cfg: Qwen2Config, h, p, cos, sin, attend, mm=qmatmul):
     h = h + mm(attn.reshape(b, s, nq * hd), p["wo"])
 
     hn = rms_norm(h, p["ln2"], cfg.rms_norm_eps)
+    if "router" in p:  # sparse MoE MLP (Qwen2-MoE family, models/moe.py)
+        return h + moe_mlp(cfg, p, hn, mm)
     if "wgu" in p:
         g, u = torch.chunk(mm(hn, p["wgu"]), 2, dim=-1)
     else:
@@ -245,6 +289,35 @@ def forward(params: dict, cfg: Qwen2Config, input_ids, positions, cache_k=None,
     h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
     logits = _logits(params, h, kernel=use_kernels)
     return logits, ((cache_k, cache_v) if use_cache else None)
+
+
+def forward_with_attend(params: dict, cfg: Qwen2Config, input_ids: torch.Tensor,
+                        positions: torch.Tensor, attend_fn=None, remat: bool = False):
+    """Cache-free forward with a pluggable attention implementation ->
+    logits [B, S, V] float32.
+
+    ``attend_fn(q, k, v) -> out`` defaults to causal dense attention.
+    ``remat`` recomputes each layer in backward (``torch.utils.checkpoint``)
+    instead of keeping its activations, so training holds one layer's at a
+    time; it acts only while autograd records."""
+    if attend_fn is None:
+        def attend_fn(q, k, v):
+            return dense_attention(q, k, v, causal=True, q_offset=0)
+
+    h = embedding_lookup(params["embed"], input_ids, _embed_dtype(params))
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+
+    def body(h, p):
+        return _block(cfg, h, p, cos, sin, attend_fn)
+
+    for li in range(cfg.num_layers):
+        p = layer_params(params["layers"], li)
+        if remat and torch.is_grad_enabled():
+            h = torch.utils.checkpoint.checkpoint(body, h, p, use_reentrant=False)
+        else:
+            h = body(h, p)
+    h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
+    return _logits(params, h)
 
 
 def forward_paged(

@@ -1,8 +1,10 @@
 """Model server: ``python -m githubrepostorag_tpu_torch.serving``; port of
 ``githubrepostorag_tpu/serving/__main__.py`` for one NVIDIA GPU.
 
-Loads a local HuggingFace Qwen2 checkpoint (``MODEL_WEIGHTS_PATH``: a
-``config.json``, ``*.safetensors`` shards and the tokenizer files), builds
+Loads a local HuggingFace Qwen2 or Qwen2-MoE checkpoint
+(``MODEL_WEIGHTS_PATH``: a ``config.json``, ``*.safetensors`` shards and
+the tokenizer files; ``MOE_CAPACITY_FACTOR`` sets an MoE model's expert
+capacity, ``MOE_DROP_STATS=1`` counts its dropped assignments), builds
 the paged engine from the settings (``config.py``: ``MAX_NUM_SEQS``,
 ``KV_NUM_PAGES``, ``KV_PAGE_SIZE``, ``PREFILL_CHUNK``, ``CONTEXT_WINDOW``,
 ``PREFILL_TOKEN_BUDGET``, ``KV_QUANT``, ``QUANTIZE_WEIGHTS``, ...), warms it
@@ -117,7 +119,8 @@ def load_draft(s: Settings, device) -> tuple[dict | None, object | None]:
     from githubrepostorag_tpu_torch.models.hf_loader import load_qwen2
 
     logger.info("loading draft model from %s", s.spec_draft_model)
-    return load_qwen2(s.spec_draft_model, dtype=torch.bfloat16, device=device)
+    return load_qwen2(s.spec_draft_model, dtype=torch.bfloat16, device=device,
+                      moe_capacity_factor=s.moe_capacity_factor)
 
 
 def build_engine(s: Settings, params: dict, cfg, device, draft=None) -> Engine:
@@ -235,7 +238,8 @@ async def serve(host: str, port: int, device: str | None = None) -> None:
     logger.info("loading weights from %s onto %s%s", s.model_weights_path, dev,
                 f" (int{s.quantize_weights} weight-only)" if s.quantize_weights else "")
     params, cfg = load_qwen2(s.model_weights_path, dtype=torch.bfloat16,
-                             quantize=s.quantize_weights, fuse=True, device=dev)
+                             quantize=s.quantize_weights, fuse=True, device=dev,
+                             moe_capacity_factor=s.moe_capacity_factor)
     engine = build_serving_engine(s, params, cfg, dev, dp)
     del params
     server = OpenAIServer(engine, tokenizer, model_name=s.qwen_model)

@@ -397,6 +397,8 @@ class AsyncEngine:
         def on_token(rid: str, token_id: int) -> None:
             self._emit(rid, StreamEvent(type="token", token_id=token_id))
 
+        # the class the engine stamps, so the SLO plane observes the same
+        priority = priority or getattr(self.engine, "default_priority", "interactive")
         self._queues[rid] = q
         self._priority[rid] = priority
         if self.driver_error is not None:  # it died before the queue was there to fail

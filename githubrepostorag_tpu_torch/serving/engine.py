@@ -20,7 +20,8 @@ ragged last chunk runs kernel A at a narrower window.  Unlike the JAX
 engine, a narrow wave keeps at least ``prefill_chunk`` padded tokens
 (more rows, padding: ``prefill_row_floor``), so its projections run GEMMs
 of a row count the default engine also runs, and every row's prefill, and
-its greedy tokens, are the same at every width.  Prefill priority (``prefill_priority``): a step
+its greedy tokens, are the same at every width; an MoE tree keeps JAX's
+rows instead (its expert capacity counts padded tokens).  Prefill priority (``prefill_priority``): a step
 whose prefill chunk ran while prompts are still admitting runs no decode
 burst; once no chunk can run, decode runs (which also frees pages).
 ``layer_unroll`` is kept as an attribute and changes nothing: the port
@@ -358,7 +359,10 @@ class Engine:
         # algorithm by shape: on an H100 it splits K of the 18944 -> 3584
         # down projection at 256 rows or fewer, and every row then differs
         # in its last bits.  0 turns the floor off (to measure its cost).
-        self.prefill_row_floor = prefill_chunk
+        # An MoE tree dispatches JAX's [bucket(n), w] rows: its expert
+        # capacity counts every dispatched token, padding rows included, so
+        # padded rows would change which assignments drop.
+        self.prefill_row_floor = 0 if cfg.num_experts else prefill_chunk
         if prefill_token_budget is not None and prefill_token_budget < 1:
             raise ValueError("prefill_token_budget must be >= 1 when set")
         self.prefill_token_budget = prefill_token_budget

@@ -73,6 +73,8 @@ ENVIRONMENTS = {
               "DISAGG_PREFILL_REPLICAS": "2", "DISAGG_TRANSFER_BURST": "8"},
     "fleet_bad_numbers": {"FLEET_SPARES": "one", "CTRL_TICK_S": "fast",
                           "ROUTE_DIGEST_INTERVAL_S": ""},
+    "moe": {"MOE_CAPACITY_FACTOR": "1.25"},
+    "moe_bad_factor": {"MOE_CAPACITY_FACTOR": "wide"},
 }
 
 
@@ -99,15 +101,29 @@ def test_env_names_found():
 # package's is a TPU's figure); the variable and its parser stay the same
 PORT_DEFAULTS = {"chip_peak_tflops": 989.0}
 
+# JAX settings the port has no field for yet, each with its reason
+PENDING = {
+    # the sequence-parallel prefill threshold comes with the sp layer
+    # (ROADMAP.md queue 1 item 8.3)
+    "sp_prefill_threshold", "sp_prefill_threshold_set",
+    # read by nothing in the JAX package
+    "dtype", "min_source_nodes",
+}
+
 
 @pytest.mark.parametrize("name", list(ENVIRONMENTS))
 def test_fields_equal_jax(env, name):
+    """Every port field equals the JAX field of its name, and every JAX
+    field exists in the port but the ``PENDING`` ones."""
     port, jax_side = env(ENVIRONMENTS[name])
     for f in dataclasses.fields(port):
         if f.name in PORT_DEFAULTS:
             assert getattr(port, f.name) == PORT_DEFAULTS[f.name], f.name
             continue
         assert getattr(port, f.name) == getattr(jax_side, f.name), f.name
+    port_fields = {f.name for f in dataclasses.fields(port)}
+    jax_fields = {f.name for f in dataclasses.fields(jax_side)}
+    assert jax_fields - port_fields == PENDING
     assert port.scope_tables == jax_side.scope_tables
     assert config.get_settings() is port
 

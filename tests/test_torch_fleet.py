@@ -706,6 +706,58 @@ async def test_stats_never_wait_on_a_wedged_driver(sides, monkeypatch):
     assert slowest < 0.4
 
 
+async def test_a_request_routed_to_a_dead_unfenced_replica_fails_fast_where_jax_waits(
+        sides, monkeypatch):
+    """A divergence by design (ROADMAP queue 3 item 21): FAULTS kills r0's
+    driver at its first iteration, and the router still sends the next
+    request to r0 (active, unfenced, the lighter replica).  The port's
+    ``AsyncEngine.stream`` raises at once ("engine driver is dead"); the
+    JAX fleet queues the request on the dead driver, and its caller waits
+    until the controller (``CTRL=on``) fences r0 and the fence's error
+    frame ends the request.  Every wait here is bounded at 2 s; both fleets
+    and controllers stop in a ``finally``."""
+    import githubrepostorag_tpu.serving.controller as j_controller
+    from githubrepostorag_tpu_torch.serving import controller as t_controller
+
+    controllers = {"jax": j_controller, "port": t_controller}
+    set_env(monkeypatch, FAULTS="fleet.step.r0:error@window=1:", CTRL_TICK_S="0.05",
+            CTRL_HYSTERESIS_TICKS="2", CTRL_COOLDOWN_S="0.1", CTRL_LIVENESS_TIMEOUT_S="30")
+
+    async def run(side):
+        multi = fleet(side)
+        picks = record_picks(multi)
+        ctrl = controllers[side.name].FleetController(multi)
+        try:
+            await multi.start()
+            for _ in range(100):
+                if not multi._by_id["r0"].driver_alive():
+                    break
+                await asyncio.sleep(0.02)
+            dead = not multi._by_id["r0"].driver_alive()
+            task = asyncio.ensure_future(multi.generate(prompts(1)[0], greedy(side, 4)))
+            await asyncio.wait([task], timeout=0.3)
+            early = None
+            if task.done():
+                exc = task.exception()
+                early = (type(exc).__name__, str(exc).split(":")[0]) if exc else "result"
+            await ctrl.start()
+            late = None
+            if not task.done():
+                res = await asyncio.wait_for(task, timeout=2.0)
+                late = (res.finish_reason, res.error)
+            return dead, picks, early, late, multi._by_id["r0"].lifecycle
+        finally:
+            ctrl.stop()
+            await multi.stop()
+
+    out = await on_both(sides, run)
+    assert out["port"][:2] == out["jax"][:2] == (True, ["r0"])
+    assert out["port"][2] == ("RuntimeError", "engine driver is dead")
+    assert out["jax"][2] is None
+    assert out["jax"][3] == ("error", "replica r0 fenced by fleet controller")
+    assert out["jax"][4] in ("draining", "drained")
+
+
 async def test_fleet_lifecycle_endpoints_as_jax(sides):
     """POST /debug/fleet/drain and /activate over a socket, /debug/fleet
     between, on both servers; and a single engine's 404."""

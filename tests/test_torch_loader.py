@@ -4,12 +4,13 @@
 directions, for every dtype Qwen2 and AutoAWQ checkpoints use, and its
 refusal of malformed files; ``load_qwen2`` on tiny checkpoints written here
 (a dense one in two shards, one written by each writer, and an AutoAWQ
-one) against ``params_from_jax`` of the JAX package's ``load_qwen2``, for
-``quantize`` False, 8 and 4 and ``fuse`` True and False: the trees must be
-equal, bit for bit."""
+one, and a Qwen2-MoE one) against ``params_from_jax`` of the JAX package's
+``load_qwen2``, for ``quantize`` False, 8 and 4 and ``fuse`` True and
+False: the trees must be equal, bit for bit."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import logging
 import struct
@@ -232,3 +233,72 @@ def test_load_qwen2_awq_matches_jax(tmp_path, caplog, quantize):
     assert type(params["layers"]["wgu"]).__name__ == "QuantizedLinear4"
     _assert_tree_equal(params, params_from_jax(jp, cfg, device="cpu"))
     assert ("ignoring the int8 quantize request" in caplog.text) == (quantize == 8)
+
+
+@pytest.fixture(scope="module")
+def moe_checkpoint(tmp_path_factory):
+    """A tiny Qwen2-MoE checkpoint in HF layout (``Qwen2MoeForCausalLM``'s
+    names), float32, untied lm_head, 4 experts top-2 of width 64 (so the
+    int4 loader's group 64 divides every input dimension)."""
+    cfg = dataclasses.replace(Qwen2Config.tiny_moe(), moe_intermediate_size=64,
+                              shared_expert_intermediate_size=128, tie_word_embeddings=False)
+    rng = np.random.default_rng(6)
+    h, e_ff, s_ff = cfg.hidden_size, cfg.moe_intermediate_size, cfg.shared_expert_intermediate_size
+    q_out, kv_out = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    shapes = {"model.embed_tokens.weight": (cfg.vocab_size, h), "model.norm.weight": (h,),
+              "lm_head.weight": (cfg.vocab_size, h)}
+    for i in range(cfg.num_layers):
+        p = f"model.layers.{i}."
+        shapes.update({
+            p + "self_attn.q_proj.weight": (q_out, h), p + "self_attn.q_proj.bias": (q_out,),
+            p + "self_attn.k_proj.weight": (kv_out, h), p + "self_attn.k_proj.bias": (kv_out,),
+            p + "self_attn.v_proj.weight": (kv_out, h), p + "self_attn.v_proj.bias": (kv_out,),
+            p + "self_attn.o_proj.weight": (h, q_out), p + "input_layernorm.weight": (h,),
+            p + "post_attention_layernorm.weight": (h,), p + "mlp.gate.weight": (4, h),
+            p + "mlp.shared_expert.gate_proj.weight": (s_ff, h),
+            p + "mlp.shared_expert.up_proj.weight": (s_ff, h),
+            p + "mlp.shared_expert.down_proj.weight": (h, s_ff),
+            p + "mlp.shared_expert_gate.weight": (1, h)})
+        for e in range(cfg.num_experts):
+            shapes.update({p + f"mlp.experts.{e}.gate_proj.weight": (e_ff, h),
+                           p + f"mlp.experts.{e}.up_proj.weight": (e_ff, h),
+                           p + f"mlp.experts.{e}.down_proj.weight": (h, e_ff)})
+    tensors = {k: (rng.standard_normal(s) * 0.05).astype(np.float32) for k, s in shapes.items()}
+    root = tmp_path_factory.mktemp("moe")
+    save_file({k: torch.from_numpy(v) for k, v in tensors.items()}, root / "model.safetensors")
+    (root / "config.json").write_text(_config_json(
+        cfg, model_type="qwen2_moe", tie_word_embeddings=False, num_experts=4,
+        num_experts_per_tok=2, moe_intermediate_size=e_ff, shared_expert_intermediate_size=s_ff,
+        norm_topk_prob=True, decoder_sparse_step=1, mlp_only_layers=[]))
+    return root
+
+
+@pytest.mark.parametrize("quantize", [False, 8, 4])
+def test_load_qwen2_moe_matches_jax(moe_checkpoint, quantize):
+    """A Qwen2-MoE checkpoint loads as JAX's does, bit for bit: experts
+    stacked [L, E, in, out] (quantized per expert), the router and shared
+    gate full precision, the capacity factor from the caller."""
+    jp, jcfg = j_load_qwen2(str(moe_checkpoint), dtype=np.float32, quantize=quantize,
+                            moe_capacity_factor=1.5, fuse=True)
+    params, cfg = load_qwen2(moe_checkpoint, dtype=torch.float32, quantize=quantize, fuse=True,
+                             device="cpu", moe_capacity_factor=1.5)
+    assert cfg == Qwen2Config(**{f: getattr(jcfg, f) for f in cfg.__dataclass_fields__})
+    assert cfg.num_experts == 4 and cfg.capacity_factor == 1.5
+    _assert_tree_equal(params, params_from_jax(jp, cfg, device="cpu"))
+    assert "wgu" not in params["layers"] and "wqkv" in params["layers"]
+    assert isinstance(params["layers"]["e_wg"], tuple) == bool(quantize)
+    assert not isinstance(params["layers"]["router"], tuple)
+
+
+def test_awq_moe_checkpoint_refused_as_jax(moe_checkpoint, tmp_path):
+    """AWQ repacking covers dense checkpoints only, on both sides."""
+    import shutil
+
+    shutil.copy(moe_checkpoint / "model.safetensors", tmp_path / "model.safetensors")
+    hf = json.loads((moe_checkpoint / "config.json").read_text())
+    hf["quantization_config"] = {"quant_method": "awq", "bits": 4, "version": "gemm"}
+    (tmp_path / "config.json").write_text(json.dumps(hf))
+    with pytest.raises(NotImplementedError, match="AWQ MoE"):
+        load_qwen2(tmp_path, device="cpu")
+    with pytest.raises(NotImplementedError, match="AWQ MoE"):
+        j_load_qwen2(str(tmp_path))

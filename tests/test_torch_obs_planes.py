@@ -641,3 +641,69 @@ def test_driver_wires_the_planes_and_pushes_class_pressure(planes):
     occ, attr = ae.page_obs.occupancy_integral(now), ae.page_obs.attributed_page_seconds(now)
     assert occ > 0 and abs(occ - attr) <= 0.01 * occ
     assert ae.continuous.payload()["captured"] == ae.steps_total
+
+
+def test_unlabelled_request_counts_against_the_engines_default_class_as_jax(planes):
+    """A request with no class is stamped with the engine's default class,
+    and the SLO plane observes that class (ROADMAP queue 3 item 20): under
+    ``default_priority="batch"`` both drivers observe ``['batch']`` for an
+    unlabelled ``generate``, and ``/debug/slo``'s per-class event counts
+    are equal."""
+    import asyncio
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from githubrepostorag_tpu.models.qwen2 import init_params as j_init
+    from githubrepostorag_tpu.serving import Engine as JEngine, SamplingParams as JSamplingParams
+    from githubrepostorag_tpu.serving.async_engine import AsyncEngine as JAsyncEngine
+    from githubrepostorag_tpu_torch.models.convert import params_from_jax
+    from githubrepostorag_tpu_torch.serving import AsyncEngine, Engine, SamplingParams
+
+    planes(SLO_WINDOWS="1,5")
+    jcfg, cfg = JConfig.tiny(), Qwen2Config.tiny()
+    jp = j_init(jcfg, jax.random.PRNGKey(0))
+    geom = dict(max_num_seqs=2, num_pages=32, page_size=4, max_seq_len=64,
+                default_priority="batch")
+    sides = {
+        "jax": (JAsyncEngine, lambda: JEngine(jp, jcfg, kv_dtype=jnp.float32, **geom),
+                JSamplingParams),
+        "port": (AsyncEngine, lambda: Engine(
+            params_from_jax(jax.tree.map(np.asarray, jp), cfg, device="cpu"), cfg,
+            kv_dtype=torch.float32, device="cpu", **geom), SamplingParams),
+    }
+
+    def run(name):
+        cls, engine, sp = sides[name]
+
+        async def go():
+            ae = cls(engine(), replica="r0")
+            seen = []
+            observe = ae.slo.observe
+
+            def record(klass, **kw):
+                seen.append(klass)
+                return observe(klass, **kw)
+
+            ae.slo.observe = record
+            try:
+                await asyncio.wait_for(ae.generate([3, 4, 5, 6], sp(max_tokens=1,
+                                                                    temperature=0.0)), 60)
+                for _ in range(100):  # the driver observes as it emits the final event
+                    if seen:
+                        break
+                    await asyncio.sleep(0.02)
+                plane = SIDES[name].slo.get_slo_plane().slo_payload()
+                counts = {(r["objective"], r["klass"]): r["events"]
+                          for rep in plane["replicas"] for r in rep["objectives"]}
+                return seen, counts
+            finally:
+                await ae.stop()
+
+        return asyncio.run(go())
+
+    out = {name: run(name) for name in sides}
+    assert out["port"][0] == out["jax"][0] == ["batch"]
+    assert out["port"][1] == out["jax"][1]
+    assert {k for k, _ in out["port"][1]} and {c for _, c in out["port"][1]} == {"batch"}

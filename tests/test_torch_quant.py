@@ -43,7 +43,7 @@ def _assert_same_leaf(t_leaf, j_leaf):
         np.testing.assert_array_equal(_np(t_f), _np(j_f))
 
 
-@pytest.mark.parametrize("shape", [(64, 48), (3, 64, 48)])
+@pytest.mark.parametrize("shape", [(64, 48), (3, 64, 48), (2, 3, 64, 48)])
 def test_quantizers_bit_exact(shape):
     rng = np.random.default_rng(0)
     w = rng.normal(0, 0.02, shape).astype(np.float32)
@@ -264,3 +264,12 @@ def test_params_nbytes_int4_below_int8_and_init_params_quantized():
     jp = jq.init_params_quantized(dataclasses.replace(JConfig.tiny(), tie_word_embeddings=False),
                                   bits=4, group_size=G)
     assert tq.params_nbytes(p4) == jq.params_nbytes(jp)
+
+
+def test_init_params_quantized_refuses_moe_as_jax():
+    """The random quantized init is for dense benches; an MoE config raises
+    on both sides, naming the loader that quantizes real MoE checkpoints."""
+    with pytest.raises(NotImplementedError, match="load_qwen2"):
+        tq.init_params_quantized(Qwen2Config.tiny_moe(), torch.Generator())
+    with pytest.raises(NotImplementedError, match="load_qwen2"):
+        jq.init_params_quantized(JConfig.tiny_moe())

@@ -15,6 +15,7 @@ shows where the JAX classes leave one open."""
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import os
 import signal
@@ -191,6 +192,41 @@ async def test_double_close_and_a_command_after_the_peer_dropped_match_jax():
     assert port == jax_side
     assert port == [False, ("ConnectionError", "redis connection closed"), False, "OK", True,
                     (False, 2)]
+
+
+async def test_a_command_cancelled_before_its_reply_leaves_no_stray_reply():
+    """A divergence by design (ROADMAP queue 3 item 22): a command cancelled
+    after its write and before its reply (a worker cancels its cancel-flag
+    poll when the job ends) leaves that reply in the socket.  The JAX
+    connection hands it to the next command -- a cancel flag's "1" then
+    answers another job's poll, and that job ends cancelled; the port's
+    drops the socket, and the next command reconnects and gets its own."""
+    async def run(url, server):
+        got = {}
+        for side, mod in (("jax", j_resp), ("port", p_resp)):
+            conn = mod.RespConnection(url)
+            try:
+                await conn.command("SET", "job:a:cancel", "1")
+                written, read = asyncio.Event(), conn.read_reply
+
+                async def held_read():
+                    written.set()
+                    await asyncio.Event().wait()  # the reply is never read
+
+                conn.read_reply = held_read
+                poll = asyncio.create_task(conn.command("GET", "job:a:cancel"))
+                await asyncio.wait_for(written.wait(), BOUND_S)
+                conn.read_reply = read
+                poll.cancel()
+                with contextlib.suppress(asyncio.CancelledError):
+                    await poll
+                got[side] = await asyncio.wait_for(conn.command("GET", "job:b:cancel"),
+                                                   BOUND_S)
+            finally:
+                await conn.close()
+        assert got == {"jax": "1", "port": None}
+
+    await _with_server(run)
 
 
 # ------------------------------------------------- over miniredis: the port

@@ -49,7 +49,10 @@ def draft_checkpoint(tmp_path_factory) -> Path:
     return _write_checkpoint(tmp_path_factory.mktemp("draft"), seed=1, layers=1)
 
 
-def _write_checkpoint(root: Path, seed: int, layers: int = 2) -> Path:
+def _write_checkpoint(root: Path, seed: int, layers: int = 2, experts: int = 0) -> Path:
+    """A tiny checkpoint with a trained byte-level BPE tokenizer: a dense
+    Qwen2, or with ``experts`` a Qwen2-MoE (top-2 of ``experts`` of width
+    64, a shared expert of 128)."""
     impl = pytest.importorskip("tokenizers.implementations")
     bpe = impl.ByteLevelBPETokenizer()
     bpe.train_from_iterator(CORPUS * 4, vocab_size=600, min_frequency=1,
@@ -63,12 +66,20 @@ def _write_checkpoint(root: Path, seed: int, layers: int = 2) -> Path:
              "model.norm.weight": torch.ones(h)}
     for i in range(layers):
         p = f"model.layers.{i}"
+        mlp = ((("mlp.gate.weight", (experts, h)), ("mlp.shared_expert_gate.weight", (1, h)))
+               + tuple((f"mlp.{part}.{name}.weight", shape)
+                       for part, width in [("shared_expert", 128)]
+                       + [(f"experts.{e}", 64) for e in range(experts)]
+                       for name, shape in (("gate_proj", (width, h)), ("up_proj", (width, h)),
+                                           ("down_proj", (h, width))))
+               if experts else
+               (("mlp.gate_proj.weight", (inter, h)), ("mlp.up_proj.weight", (inter, h)),
+                ("mlp.down_proj.weight", (h, inter))))
         for name, shape in (("self_attn.q_proj.weight", (heads * hd, h)),
                             ("self_attn.k_proj.weight", (kv_heads * hd, h)),
                             ("self_attn.v_proj.weight", (kv_heads * hd, h)),
                             ("self_attn.o_proj.weight", (h, heads * hd)),
-                            ("mlp.gate_proj.weight", (inter, h)), ("mlp.up_proj.weight", (inter, h)),
-                            ("mlp.down_proj.weight", (h, inter)),
+                            *mlp,
                             ("self_attn.q_proj.bias", (heads * hd,)),
                             ("self_attn.k_proj.bias", (kv_heads * hd,)),
                             ("self_attn.v_proj.bias", (kv_heads * hd,))):
@@ -80,7 +91,10 @@ def _write_checkpoint(root: Path, seed: int, layers: int = 2) -> Path:
         "model_type": "qwen2", "vocab_size": vocab, "hidden_size": h, "intermediate_size": inter,
         "num_hidden_layers": layers, "num_attention_heads": heads,
         "num_key_value_heads": kv_heads, "rope_theta": 10000.0, "rms_norm_eps": 1e-6,
-        "tie_word_embeddings": True, "max_position_embeddings": 512}))
+        "tie_word_embeddings": True, "max_position_embeddings": 512,
+        **({"model_type": "qwen2_moe", "num_experts": experts, "num_experts_per_tok": 2,
+            "moe_intermediate_size": 64, "shared_expert_intermediate_size": 128,
+            "norm_topk_prob": False} if experts else {})}))
     return root
 
 
@@ -92,6 +106,14 @@ def _free_port() -> int:
 
 def test_server_serves_a_chat_from_a_checkpoint(checkpoint):
     _serve_a_chat(checkpoint, {})
+
+
+def test_server_serves_a_chat_from_an_moe_checkpoint(tmp_path):
+    """A Qwen2-MoE checkpoint loads and serves through the same entry
+    point, its expert capacity from MOE_CAPACITY_FACTOR and its drops
+    counted under MOE_DROP_STATS."""
+    moe_ckpt = _write_checkpoint(tmp_path, seed=2, experts=4)
+    _serve_a_chat(moe_ckpt, {"MOE_CAPACITY_FACTOR": "1.0", "MOE_DROP_STATS": "1"})
 
 
 def test_server_serves_a_chat_in_the_speculative_and_host_tier_modes(checkpoint):
