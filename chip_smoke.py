@@ -14,6 +14,7 @@
     python3 chip_smoke.py --only draft     # device, build, A at the draft's shapes, draft speculation
     python3 chip_smoke.py --only fleet     # device, build, the fleet (router, disagg, controller)
     python3 chip_smoke.py --only moe       # device, build, the Qwen2-MoE family (A2.7B)
+    python3 chip_smoke.py --only train     # device, training (Qwen2-0.5B, float32)
 
 Phases, each raising on failure:
 
@@ -300,10 +301,28 @@ Phases, each raising on failure:
               2-layer MoE checkpoint written, loaded and served over HTTP
               by the model server's build_serving_engine (one chat
               completion).  Prints {"moe": ...}.
-8. summary -- whether transformers, prometheus_client, pydantic, psutil and
+8. train   -- with the MoE tree freed: the training path, which reaches
+              none of the kernels (dense attention, or the ring over sp,
+              and the AdamW update are torch ops).  At 2 layers of
+              Qwen2-0.5B's widths in float32: one make_train_step step on
+              the card against the same step on the CPU (IEEE float32 on
+              both: loss, every gradient, the updated parameters), then
+              the same step inside a one-rank NCCL world started by
+              maybe_initialize_distributed from a localhost
+              JAX_COORDINATOR_ADDRESS (every collective of the step over
+              NCCL): its loss bit for bit the group-free step's.  Then
+              Qwen2-0.5B at its widths and 24 layers, float32 parameters
+              from the seed, remat on, one fixed batch of 8 x 512 tokens:
+              2 warm-up and 10 timed steps (the loss finite and falling),
+              step ms p50, tokens/s, peak memory, the step's share of the
+              card's float32 peak, a traced step's device time (GEMMs, the
+              largest kernels); the trained parameters saved with
+              save_checkpoint and restored onto themselves bit for bit
+              (seconds, GB/s).  Prints {"train": ...}.
+9. summary -- whether transformers, prometheus_client, pydantic, psutil and
               requests import here, the retrieval, rag, engine-options,
-              ingest, split, modes, draft, fleet and moe numbers, the card's name and power
-              limit, the kernel list (A and B with their group-1 times and
+              ingest, split, modes, draft, fleet, moe and train numbers, the card's
+              name and power limit, the kernel list (A and B with their group-1 times and
               MoE-path launches), then the result line.
 
 There is no CPU fallback: without a card the script exits non-zero.
@@ -7461,11 +7480,290 @@ def phase_moe(layers: int | None = None, kernels: dict | None = None) -> dict:
     return out
 
 
+# ------------------------------------------------------------- training --
+
+# float32 rate of one H100 SXM outside the tensor cores (NVIDIA data
+# sheet, dense, at 700 W): the train step runs IEEE float32 (no TF32)
+PEAK_F32_FLOPS = 66.9e12
+# the card's step against the CPU's (2 layers, IEEE float32 on both): the
+# same arithmetic summed in other orders (cuBLAS, the CPU's GEMMs)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4  # of each leaf's largest |gradient|
+# parameters after one AdamW(1e-4) update: within TRAIN_PARAM_ATOL plus,
+# element by element, lr / eps times the gradients' difference (Adam's
+# first update is lr g / (|g| + eps), steep where |g| is near eps)
+TRAIN_PARAM_ATOL = 1e-6
+TRAIN_LR, TRAIN_EPS = 1e-4, 1e-8
+TRAIN_CHECK_LAYERS = 2
+
+
+def sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def train_flops(cfg, rows: int, seq: int) -> float:
+    """Model FLOPs of one train step with remat: 6 N (N every matmul
+    weight, the tied embedding as the logits matrix), the layers'
+    recomputed forward (2 N of the layers), and causal attention's QK and
+    PV over S/2 keys on average, forward, recompute and backward (4 x)."""
+    d, hd, inter = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    layer = d * nq * hd * 2 + d * nkv * hd * 2 + 3 * d * inter
+    n_layers = cfg.num_layers * layer
+    n = n_layers + d * cfg.vocab_size
+    attn = cfg.num_layers * 4 * nq * hd * (seq / 2)  # QK and PV, 2 FLOPs a MAC
+    return rows * seq * (6 * n + 2 * n_layers + 4 * attn)
+
+
+def train_batch(cfg, rows: int, seq: int, device, seed: int) -> dict:
+    """A fixed seeded batch: next-token targets, every position counted."""
+    import torch
+
+    ids = torch.randint(0, cfg.vocab_size, (rows, seq), generator=torch.Generator().manual_seed(seed))
+    return {"input_ids": ids.to(device), "targets": torch.roll(ids, -1, 1).to(device),
+            "mask": torch.ones_like(ids).to(device)}
+
+
+def one_step(cfg, params: dict, batch: dict, mesh=None) -> tuple:
+    """The loss, the gradients and the parameters after one AdamW step, from
+    a copy of ``params`` (on their device)."""
+    from githubrepostorag_tpu_torch.parallel.sharding import tree_map
+    from githubrepostorag_tpu_torch.training import make_train_step, value_and_grad
+    from githubrepostorag_tpu_torch.training.step import leaves
+
+    params = tree_map(lambda t: t.clone(), params)
+    loss, grads = value_and_grad(params, cfg, mesh, batch)
+    step, opt = make_train_step(cfg, mesh)
+    params, _, _ = step(params, opt(leaves(params)), batch)
+    return loss, grads, params
+
+
+def compare_steps(a: tuple, b: tuple) -> dict:
+    """Step ``a`` against step ``b`` (the reference): the loss's relative
+    error, each gradient's error over its leaf's max |g|, the parameters'
+    error beside their limit (module constants); raises past any limit."""
+    from githubrepostorag_tpu_torch.training.step import leaves
+
+    (la, ga, pa), (lb, gb, pb) = a, b
+    out = {"loss": float(lb), "loss_rel_err": abs(float(la) - float(lb)) / abs(float(lb)),
+           "grad_err_share": 0.0, "param_max_abs_err": 0.0, "params_over_atol": 0}
+    for x, y, p, q in zip(leaves(ga), leaves(gb), leaves(pa), leaves(pb)):
+        x, y, p, q = (t.detach().float().cpu() for t in (x, y, p, q))
+        gdiff = (x - y).abs()
+        out["grad_err_share"] = max(out["grad_err_share"],
+                                    float(gdiff.max() / (TRAIN_GRAD_RTOL * y.abs().max())))
+        pdiff = (p - q).abs()
+        if not bool((pdiff <= TRAIN_PARAM_ATOL + TRAIN_LR / TRAIN_EPS * gdiff).all()):
+            raise RuntimeError(f"parameters after the step disagree: {float(pdiff.max())}")
+        out["param_max_abs_err"] = max(out["param_max_abs_err"], float(pdiff.max()))
+        out["params_over_atol"] += int((pdiff > TRAIN_PARAM_ATOL).sum())
+    if not (out["loss_rel_err"] <= TRAIN_LOSS_RTOL and out["grad_err_share"] <= 1.0):
+        raise RuntimeError(f"the step disagrees: {json.dumps(out)}")
+    return out
+
+
+def train_checks(cfg, device) -> dict:
+    """At 2 layers of the model's widths, float32: one step on ``device``
+    against the same step on the CPU (IEEE float32 on both), then the same
+    step inside a one-rank process group (NCCL on the card) against the
+    group-free one (the loss bit for bit; the gradients and parameters
+    within the card-vs-CPU limits, and whether they are bit for bit too):
+    the path that runs the step's collectives runs on the device."""
+    import dataclasses
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from githubrepostorag_tpu_torch.device import ieee_float32
+    from githubrepostorag_tpu_torch.models.qwen2 import init_params
+    from githubrepostorag_tpu_torch.parallel import MeshPlan, make_mesh, maybe_initialize_distributed
+    from githubrepostorag_tpu_torch.parallel.sharding import tree_map
+    from githubrepostorag_tpu_torch.training.step import leaves
+
+    dev = torch.device(device)
+    small = dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS)
+    host = init_params(small, torch.Generator().manual_seed(SEED + 101), "cpu")
+    batch = train_batch(small, 2, 64, "cpu", SEED + 102)
+    params = tree_map(lambda t: t.to(dev), host)
+    dbatch = {k: v.to(dev) for k, v in batch.items()}
+    out = {"layers": TRAIN_CHECK_LAYERS, "tokens": 2 * 64}
+    t0 = time.monotonic()
+    with ieee_float32(dev):
+        on_dev = one_step(small, params, dbatch)
+    on_cpu = one_step(small, host, batch)
+    out["card_vs_cpu"] = compare_steps(on_dev, on_cpu)
+    out["card_vs_cpu"]["seconds"] = time.monotonic() - t0
+    log(f"train: 2-layer step on {dev.type} against the CPU: {json.dumps(out['card_vs_cpu'])}")
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    env = {"JAX_COORDINATOR_ADDRESS": f"localhost:{port}", "JAX_NUM_PROCESSES": "1",
+           "JAX_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    t0 = time.monotonic()
+    try:
+        if not maybe_initialize_distributed(device=dev):
+            raise RuntimeError("maybe_initialize_distributed did not start the world")
+        mesh = make_mesh(MeshPlan())
+        backends = {a: dist.get_backend(g) for a, g in mesh.groups.items()}
+        with ieee_float32(dev):
+            grouped = one_step(small, params, dbatch, mesh)
+        same = torch.equal(grouped[0], on_dev[0])
+        out["one_rank_group"] = {
+            "backend": dist.get_backend(), "groups": backends, "loss": float(grouped[0]),
+            "loss_bit_equal": same,
+            "grads_and_params_bit_equal": all(
+                torch.equal(x, y) for x, y in zip(leaves(grouped[1]) + leaves(grouped[2]),
+                                                  leaves(on_dev[1]) + leaves(on_dev[2]))),
+            **compare_steps(grouped, on_dev), "seconds": time.monotonic() - t0}
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    log(f"train: the step in a one-rank world: {json.dumps(out['one_rank_group'])}")
+    if not same or set(backends) != {"dp", "pp", "tp", "sp", "ep"}:
+        raise RuntimeError("the loss inside a one-rank process group differs from the "
+                           "group-free step's")
+    return out
+
+
+def train_full(cfg, device, rows: int = 8, seq: int = 512, warmup: int = 2,
+               timed: int = 10) -> tuple:
+    """``make_train_step`` on ``MeshPlan()`` (remat on) at the model's widths
+    and depth, float32 parameters from a seeded generator on ``device``, one
+    fixed seeded batch: ``warmup`` then ``timed`` steps (each to a host
+    sync).  Returns (the trained params, the numbers)."""
+    import torch
+
+    from githubrepostorag_tpu_torch.parallel import MeshPlan, make_mesh
+    from githubrepostorag_tpu_torch.training import adamw, init_train_state, make_train_step
+    from githubrepostorag_tpu_torch.training.step import leaves
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 100)
+    mesh = make_mesh(MeshPlan())
+    state = init_train_state(cfg, mesh, gen, adamw(1e-4), device=dev)
+    params, opt_state = state.params, state.opt_state
+    n_params = sum(t.numel() for t in leaves(params))
+    batch = train_batch(cfg, rows, seq, dev, SEED + 102)
+    step, _ = make_train_step(cfg, mesh, remat=True)
+    losses, secs = [], []
+    for _ in range(warmup + timed):
+        sync(dev)
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, batch)
+        losses.append(float(loss))  # a host sync
+        secs.append(time.perf_counter() - t0)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise RuntimeError(f"training did not lower a finite loss: {losses}")
+    profile = None
+    if dev.type == "cuda":  # two more steps, the second traced: device time by kernel
+        total, _ = trace_calls(lambda: step(params, opt_state, batch), 1)
+        busy = sum(total.values()) / 1e3
+        gemm = sum(t for k, t in total.items() if "gemm" in k.lower()) / 1e3
+        top = sorted(total.items(), key=lambda kv: -kv[1])[:8]
+        profile = {"busy_ms": busy, "gemm_ms": gemm,
+                   "top_kernels_ms": {k: t / 1e3 for k, t in top}}
+    ms = sorted(s * 1e3 for s in secs[warmup:])
+    p50 = ms[len(ms) // 2] if len(ms) % 2 else (ms[len(ms) // 2 - 1] + ms[len(ms) // 2]) / 2
+    flops = train_flops(cfg, rows, seq)
+    out = {"layers": cfg.num_layers, "params": n_params, "rows": rows, "seq": seq,
+           "precision": "float32, IEEE (allow_tf32 off)", "remat": True,
+           "losses": losses, "step_ms": ms, "step_ms_p50": p50,
+           "first_step_ms": secs[0] * 1e3, "tokens_per_s": rows * seq / (p50 / 1e3),
+           "tflop_per_step": flops / 1e12,
+           "f32_peak_share": flops / (p50 / 1e3) / PEAK_F32_FLOPS, "profile": profile}
+    if dev.type == "cuda":
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del opt_state
+    return params, out
+
+
+def train_checkpoint(params: dict) -> dict:
+    """The trained parameters saved with ``save_checkpoint`` into a temp dir
+    under _build/, restored onto themselves as the template; every leaf bit
+    for bit."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from githubrepostorag_tpu_torch import kernels
+    from githubrepostorag_tpu_torch.training import load_checkpoint, save_checkpoint
+    from githubrepostorag_tpu_torch.training.step import leaves
+
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="train-ckpt-", dir=kernels.BUILD_DIR))
+    dev = leaves(params)[0].device
+    try:
+        nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+        sync(dev)
+        t0 = time.monotonic()
+        save_checkpoint(str(root / "ckpt"), params)
+        save_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        restored = load_checkpoint(str(root / "ckpt"), template=params)
+        sync(dev)
+        load_s = time.monotonic() - t0
+        exact = all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+                    for a, b in zip(leaves(restored), leaves(params)))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"gb": nbytes / 1e9, "save_s": save_s, "save_gb_per_s": nbytes / 1e9 / save_s,
+           "load_s": load_s, "load_gb_per_s": nbytes / 1e9 / load_s, "bit_exact": exact}
+    if not exact:
+        raise RuntimeError("the checkpoint did not restore the parameters bit for bit")
+    return out
+
+
+def phase_train(device: str = "cuda", cfg=None, card: str | None = None, rows: int = 8,
+                seq: int = 512) -> dict:
+    """Training on the card: Qwen2-0.5B (``cfg``) at its widths and depth in
+    float32 through ``make_train_step`` on ``MeshPlan()``, checked against
+    the CPU and inside a one-rank NCCL world at 2 layers, its parameters
+    round-tripped through a checkpoint."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models.qwen2 import Qwen2Config
+
+    t0 = time.monotonic()
+    cfg = cfg or Qwen2Config.qwen2_0_5b()
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"card": card, "checks": train_checks(cfg, device)}
+    params, out["train"] = train_full(cfg, device, rows, seq)
+    log(f"train: {json.dumps(out['train'])}")
+    out["checkpoint"] = train_checkpoint(params)
+    log(f"train: checkpoint {json.dumps(out['checkpoint'])}")
+    del params
+    gc.collect()
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t0
+    log(f"train phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["kernels", "longctx", "int4", "retrieval", "rag",
                                            "ingest", "options", "split", "modes", "draft",
-                                           "fleet", "moe"],
+                                           "fleet", "moe", "train"],
                         default=None,
                         help="kernels: the device, build and kernel phases only; longctx: "
                              "the device and build phases and the long-context decode "
@@ -7487,7 +7785,8 @@ def main() -> int:
                              "disaggregated handoff, the controller's failover); moe: the "
                              "device and build phases and the Qwen2-MoE phase (A and B at "
                              "group 1, float32 checks, the A2.7B served at 24 layers, an MoE "
-                             "checkpoint over HTTP)")
+                             "checkpoint over HTTP); train: the device phase and the training "
+                             "phase (Qwen2-0.5B in float32, its checks and its checkpoint)")
     args = parser.parse_args()
 
     import torch
@@ -7511,6 +7810,14 @@ def main() -> int:
         log(f"done in {time.monotonic() - t_all:.1f} s")
         print(json.dumps({"packages": packages}))
         print(json.dumps({"retrieval": retrieval}), flush=True)
+        return 0
+    if args.only == "train":
+        train = phase_train(card=device["card"])
+        log(f"done in {time.monotonic() - t_all:.1f} s")
+        print(json.dumps({"train": train}))
+        print(device["card"])
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
+                                                 "count": device["count"]}}), flush=True)
         return 0
     phase_build()
     if args.only == "rag":
@@ -7700,6 +8007,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     moe = phase_moe(MOE_DEFAULT_LAYERS, kernels={k: r for k, r in kres.items()
                                                  if k.endswith("@g1")})
+    release_planes()
+    train = phase_train(card=device["card"])
 
     # each kernel's (and branch's) launches come from the run whose path it
     # belongs to; A and B carry their pool branches
@@ -7795,6 +8104,7 @@ def main() -> int:
     print(json.dumps({"draft": draft}))
     print(json.dumps({"fleet": fleet}))
     print(json.dumps({"moe": moe}))
+    print(json.dumps({"train": train}))
     print(device["card"])
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],

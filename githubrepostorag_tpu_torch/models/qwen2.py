@@ -45,6 +45,12 @@ from githubrepostorag_tpu_torch.ops.norms import rms_norm
 from githubrepostorag_tpu_torch.ops.packed_prefill import packed_prefill_attention
 from githubrepostorag_tpu_torch.ops.paged_attention import paged_attention_ref
 from githubrepostorag_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from githubrepostorag_tpu_torch.parallel.collectives import (
+    copy_to_axis,
+    gather_from_axis,
+    reduce_from_axis,
+)
+from githubrepostorag_tpu_torch.parallel.ring_attention import kv_group
 
 
 @dataclass(frozen=True)
@@ -174,39 +180,71 @@ def layer_params(layers: dict, li: int) -> dict:
             for name, leaf in layers.items()}
 
 
-def _block(cfg: Qwen2Config, h, p, cos, sin, attend, mm=qmatmul):
+def _block(cfg: Qwen2Config, h, p, cos, sin, attend, mm=qmatmul, mesh=None):
     """One transformer block.  ``attend(q, k, v) -> attn_out`` commits this
     step's K/V into whatever cache the caller uses and returns the
     attention output, so the dense and paged paths share this body.
     ``mm(x, w)`` runs every projection (``qmatmul`` with the caller's int4
-    route)."""
+    route).
+
+    ``mesh``: the leaves are this rank's Megatron slices over its tp axis
+    (``parallel/sharding.py``; the head counts come from the sliced
+    weights).  The input of a column-parallel projection is copied into the
+    axis and the output of a row-parallel one summed over it, the
+    collectives GSPMD inserts for JAX; replicated K/V under a query shard
+    give this rank its queries' K/V heads (``kv_group``)."""
     b, s, _ = h.shape
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    tp = _tp_group(mesh)
 
     hn = rms_norm(h, p["ln1"], cfg.rms_norm_eps)
     if "wqkv" in p:  # fused single-chip serving layout
         q, k, v = torch.split(mm(hn, p["wqkv"]) + p["bqkv"],
                               [nq * hd, nkv * hd, nkv * hd], dim=-1)
     else:
-        q = mm(hn, p["wq"]) + p["bq"]
-        k = mm(hn, p["wk"]) + p["bk"]
-        v = mm(hn, p["wv"]) + p["bv"]
-    q = q.reshape(b, s, nq, hd)
-    k = k.reshape(b, s, nkv, hd)
-    v = v.reshape(b, s, nkv, hd)
+        q_col = tp is not None and _out_features(p["wq"]) < nq * hd
+        kv_col = tp is not None and _out_features(p["wk"]) < nkv * hd
+        hq = copy_to_axis(hn, tp) if q_col else hn
+        hk = hq if kv_col else hn
+        q = mm(hq, p["wq"]) + p["bq"]
+        k = mm(hk, p["wk"]) + p["bk"]
+        v = mm(hk, p["wv"]) + p["bv"]
+    nq_loc, nkv_loc = q.shape[-1] // hd, k.shape[-1] // hd
+    q = q.reshape(b, s, nq_loc, hd)
+    k = k.reshape(b, s, nkv_loc, hd)
+    v = v.reshape(b, s, nkv_loc, hd)
     q, k = apply_rope(q, k, cos, sin)
+    if tp is not None and nq_loc < nq and nkv_loc == nkv:
+        # replicated K/V read by a query shard: the copy makes backward sum
+        # the ranks' gradients of the heads each one kept
+        k = kv_group(copy_to_axis(k, tp), mesh, nq, nkv)
+        v = kv_group(copy_to_axis(v, tp), mesh, nq, nkv)
 
     attn = attend(q, k, v)
-    h = h + mm(attn.reshape(b, s, nq * hd), p["wo"])
+    o = mm(attn.reshape(b, s, nq_loc * hd), p["wo"])
+    h = h + (reduce_from_axis(o, tp) if nq_loc < nq else o)
 
     hn = rms_norm(h, p["ln2"], cfg.rms_norm_eps)
     if "router" in p:  # sparse MoE MLP (Qwen2-MoE family, models/moe.py)
         return h + moe_mlp(cfg, p, hn, mm)
     if "wgu" in p:
         g, u = torch.chunk(mm(hn, p["wgu"]), 2, dim=-1)
-    else:
-        g, u = mm(hn, p["wg"]), mm(hn, p["wu"])
-    return h + mm(F.silu(g) * u, p["wd"])
+        return h + mm(F.silu(g) * u, p["wd"])
+    mlp_col = tp is not None and _out_features(p["wg"]) < cfg.intermediate_size
+    hm = copy_to_axis(hn, tp) if mlp_col else hn
+    g, u = mm(hm, p["wg"]), mm(hm, p["wu"])
+    o = mm(F.silu(g) * u, p["wd"])
+    return h + (reduce_from_axis(o, tp) if mlp_col else o)
+
+
+def _out_features(w) -> int:
+    """Output width of a plain or quantized [.., in, out] projection."""
+    return (w.q if isinstance(w, tuple) else w).shape[-1]
+
+
+def _tp_group(mesh):
+    """The tp process group when ``mesh`` splits the model over tp > 1."""
+    return mesh.group("tp") if mesh is not None and mesh.shape["tp"] > 1 else None
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -292,23 +330,46 @@ def forward(params: dict, cfg: Qwen2Config, input_ids, positions, cache_k=None,
 
 
 def forward_with_attend(params: dict, cfg: Qwen2Config, input_ids: torch.Tensor,
-                        positions: torch.Tensor, attend_fn=None, remat: bool = False):
+                        positions: torch.Tensor, attend_fn=None, remat: bool = False,
+                        mesh=None):
     """Cache-free forward with a pluggable attention implementation ->
     logits [B, S, V] float32.
 
-    ``attend_fn(q, k, v) -> out`` defaults to causal dense attention.
-    ``remat`` recomputes each layer in backward (``torch.utils.checkpoint``)
-    instead of keeping its activations, so training holds one layer's at a
-    time; it acts only while autograd records."""
+    ``attend_fn(q, k, v) -> out`` defaults to causal dense attention; the
+    training path passes ``parallel.make_ring_attend(...)`` so the sequence
+    axis can live sharded over ``sp``.  ``remat`` recomputes each layer in
+    backward (``torch.utils.checkpoint``) instead of keeping its
+    activations, so training holds one layer's at a time; it acts only
+    while autograd records, and the recompute runs the layer's
+    collectives again, on every rank in the same order.
+
+    ``mesh`` (``parallel.mesh.Mesh``): ``params`` are this rank's slices
+    (``parallel.sharding.shard_params``); over tp the embedding and the
+    logits are vocab-parallel (a rank's rows, then a sum; its logit
+    columns, then a gather) and every block runs Megatron's pair of
+    collectives.  The returned logits are whole on every tp rank."""
+    if mesh is not None and mesh.shape["ep"] > 1 and cfg.num_experts > 0:
+        raise NotImplementedError("experts over ep need the all-to-all of ROADMAP.md "
+                                  "queue 1 item 8.3")
     if attend_fn is None:
         def attend_fn(q, k, v):
             return dense_attention(q, k, v, causal=True, q_offset=0)
 
-    h = embedding_lookup(params["embed"], input_ids, _embed_dtype(params))
+    tp = _tp_group(mesh)
+    embed = params["embed"]
+    rows = (embed.q if isinstance(embed, QuantizedEmbedding) else embed).shape[0]
+    vocab_split = tp is not None and rows < cfg.vocab_size
+    if vocab_split:  # this rank's vocab rows; ids outside them give zero rows
+        local = input_ids.long() - mesh.coords["tp"] * rows
+        inside = (local >= 0) & (local < rows)
+        h = embedding_lookup(embed, local.clamp(0, rows - 1), _embed_dtype(params))
+        h = reduce_from_axis(h.masked_fill(~inside[..., None], 0), tp)
+    else:
+        h = embedding_lookup(embed, input_ids, _embed_dtype(params))
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
     def body(h, p):
-        return _block(cfg, h, p, cos, sin, attend_fn)
+        return _block(cfg, h, p, cos, sin, attend_fn, mesh=mesh)
 
     for li in range(cfg.num_layers):
         p = layer_params(params["layers"], li)
@@ -317,6 +378,10 @@ def forward_with_attend(params: dict, cfg: Qwen2Config, input_ids: torch.Tensor,
         else:
             h = body(h, p)
     h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
+    if "lm_head" in params:
+        vocab_split = tp is not None and _out_features(params["lm_head"]) < cfg.vocab_size
+    if vocab_split:  # this rank's logit columns, gathered
+        return gather_from_axis(_logits(params, copy_to_axis(h, tp)), tp, dim=-1)
     return _logits(params, h)
 
 

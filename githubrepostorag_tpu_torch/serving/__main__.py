@@ -60,32 +60,13 @@ import torch
 
 from githubrepostorag_tpu_torch.config import Settings, get_settings
 from githubrepostorag_tpu_torch.device import resolve_device
+from githubrepostorag_tpu_torch.parallel.mesh import plan_from_string
 from githubrepostorag_tpu_torch.serving.engine import Engine
 
 logger = logging.getLogger("githubrepostorag_tpu_torch.serving")
 
-# MESH_SHAPE's axes, as the JAX package's plan_from_string reads them
-AXIS_NAMES = ("dp", "pp", "tp", "sp", "ep")
-
 _SPEC_EXCLUSIVE = ("SPEC_DRAFT_MODEL and SPEC_NGRAM_K are mutually exclusive: "
                    "a serving pod runs one speculation strategy")
-
-
-def mesh_axes(spec: str) -> dict[str, int]:
-    """``MESH_SHAPE``'s axis sizes ("dp:2,tp:4"; axes left out are 1),
-    with the JAX parser's errors."""
-    axes: dict[str, int] = {}
-    for part in spec.replace(" ", "").split(","):
-        if not part:
-            continue
-        name, _, size = part.partition(":")
-        if name not in AXIS_NAMES or not size.isdigit() or int(size) < 1:
-            raise ValueError(f"bad MESH_SHAPE entry {part!r}: want axis:size with axis in "
-                             f"{AXIS_NAMES}")
-        if name in axes:  # "tp:4,tp:2" is a typo, not a request for tp=2
-            raise ValueError(f"bad MESH_SHAPE: axis {name!r} given twice")
-        axes[name] = int(size)
-    return {name: axes.get(name, 1) for name in AXIS_NAMES}
 
 
 def check_served(s: Settings) -> int:
@@ -93,7 +74,7 @@ def check_served(s: Settings) -> int:
     settings the port's server cannot serve, or that contradict each
     other."""
     try:
-        axes = mesh_axes(s.mesh_shape)
+        axes = plan_from_string(s.mesh_shape).shape()
     except ValueError as exc:
         raise SystemExit(str(exc)) from None
     others = {name: n for name, n in axes.items() if name != "dp" and n > 1}
