@@ -15,6 +15,7 @@
     python3 chip_smoke.py --only fleet     # device, build, the fleet (router, disagg, controller)
     python3 chip_smoke.py --only moe       # device, build, the Qwen2-MoE family (A2.7B)
     python3 chip_smoke.py --only train     # device, training (Qwen2-0.5B, float32)
+    python3 chip_smoke.py --only mesh      # device, build, serving over a mesh (one rank)
 
 Phases, each raising on failure:
 
@@ -274,6 +275,31 @@ Phases, each raising on failure:
               the watchdog 0 across the activation, the failover on
               /debug/fleet, the fence on /debug/timeline.  Prints
               {"fleet": ...}.
+   mesh    -- after the fleet phase, on the bf16 7B tree: serving over
+              a tp / sp / ep mesh as one tp rank sees it.  (a) Each kernel
+              at the shapes one rank of a tp group launches, against its
+              plain version, timed with its bound and library time: A
+              (B=4, S=512, contexts to 4096; fp and int8 pages) and B (B=8,
+              pools to 8192, 8 staged; fp and int8) at 14/2 (tp 2) and 7/1
+              (tp 4) heads, C at 7/1 (T=2048), E (M=8) and D (M=4096) on
+              wgu at N = 37888/4 and wd at K = 18944/4, group 64.  (b) A
+              one-rank NCCL world (localhost JAX_COORDINATOR_ADDRESS) and
+              Engine(mesh=make_mesh(MeshPlan())) over the unfused tree,
+              so every collective of the mesh path is issued: float32 at
+              2 layers, greedy tokens equal the mesh-less engine's; bf16 at
+              7 of 28 layers in the whole script (28 under --only mesh),
+              TTFT and TPOT p50 beside the mesh-less engine's, A and B
+              launching on the mesh run; the same traffic on the mesh
+              with prefill_token_budget=2048 (C and B launch) and with
+              int4 weights (D and E on the rank's slices).  (c) The ring prefill at sp = 1
+              in that world, called directly (the engine routes the ring
+              only at sp > 1): prompts of 3000 and 1000 tokens in one
+              4096-token pass (ring_prefill_packed) and the 3000 alone
+              (ring_prefill); float32 at 2 layers: first tokens equal the
+              chunked path's (kernel A) and pages within 1e-5 of its
+              pages; bf16: 32 decode tokens a row through kernel B over
+              the ring-written pages, and the ring pass's ms beside
+              chunked prefill's for the same tokens.  Prints {"mesh": ...}.
 6. int4    -- the same 7B tree quantized to group-wise int4 (group 64) on
               the card, layer by layer; the model checks again (prefill
               logits through kernel D, decode logits through kernel E),
@@ -398,13 +424,21 @@ def device_us(fn, iters: int = 20, tries: int = 5) -> dict:
     come back short (kernel records of whole calls missing, seen on this
     card's machine): a trace counts only if it holds records and every
     kernel name's launch count is a whole multiple of ``iters``; else it is
-    taken again, up to ``tries`` times, and then the function raises."""
+    taken again, up to ``tries`` times.  When every trace came back short
+    (one whole-script run lost the same two calls' records in five traces
+    of kernel C), a name's time a call is its mean time a record times its
+    records a call, as ``call_device_us`` reads a trace; a trace with no
+    record raises."""
     for attempt in range(tries):
         total, count = trace_calls(fn, iters)
         if total and all(c >= iters and c % iters == 0 for c in count.values()):
             return {k: t / iters for k, t in total.items()}
         log(f"device_us: trace {attempt + 1} of {tries} incomplete, launches {count}")
-    raise RuntimeError(f"the profiler lost kernel records in {tries} traces: {count}")
+    if not total:
+        raise RuntimeError(f"the profiler recorded no device activity in {tries} traces")
+    log("device_us: every trace short; the time a call is the mean a record times the "
+        "records a call")
+    return {k: total[k] / count[k] * max(1, round(count[k] / iters)) for k in total}
 
 
 def trace_calls(fn, iters: int) -> tuple[dict, dict]:
@@ -7231,13 +7265,13 @@ def moe_profile_split(engine, prompts, sp) -> dict:
                            for r in res)[len(res) // 2]
     real_mlp, real_route = qwen2.moe_mlp, moe.route
 
-    def traced_mlp(cfg, p, x, mm=moe.qmatmul):
+    def traced_mlp(cfg, p, x, mm=moe.qmatmul, mesh=None):
         def shared(a, w):
             with record_function("moe.shared_expert"):
                 return mm(a, w)
 
         with record_function("moe.block"):
-            return real_mlp(cfg, p, x, shared)
+            return real_mlp(cfg, p, x, shared, mesh=mesh)
 
     def traced_route(*args):
         with record_function("moe.router"):
@@ -7573,15 +7607,13 @@ def train_checks(cfg, device) -> dict:
     within the card-vs-CPU limits, and whether they are bit for bit too):
     the path that runs the step's collectives runs on the device."""
     import dataclasses
-    import os
-    import socket
 
     import torch
     import torch.distributed as dist
 
     from githubrepostorag_tpu_torch.device import ieee_float32
     from githubrepostorag_tpu_torch.models.qwen2 import init_params
-    from githubrepostorag_tpu_torch.parallel import MeshPlan, make_mesh, maybe_initialize_distributed
+    from githubrepostorag_tpu_torch.parallel import MeshPlan, make_mesh
     from githubrepostorag_tpu_torch.parallel.sharding import tree_map
     from githubrepostorag_tpu_torch.training.step import leaves
 
@@ -7600,17 +7632,9 @@ def train_checks(cfg, device) -> dict:
     out["card_vs_cpu"]["seconds"] = time.monotonic() - t0
     log(f"train: 2-layer step on {dev.type} against the CPU: {json.dumps(out['card_vs_cpu'])}")
 
-    with socket.socket() as probe:
-        probe.bind(("127.0.0.1", 0))
-        port = probe.getsockname()[1]
-    env = {"JAX_COORDINATOR_ADDRESS": f"localhost:{port}", "JAX_NUM_PROCESSES": "1",
-           "JAX_PROCESS_ID": "0"}
-    saved = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
     t0 = time.monotonic()
+    saved = one_rank_world(device)
     try:
-        if not maybe_initialize_distributed(device=dev):
-            raise RuntimeError("maybe_initialize_distributed did not start the world")
         mesh = make_mesh(MeshPlan())
         backends = {a: dist.get_backend(g) for a, g in mesh.groups.items()}
         with ieee_float32(dev):
@@ -7624,13 +7648,7 @@ def train_checks(cfg, device) -> dict:
                                                   leaves(on_dev[1]) + leaves(on_dev[2]))),
             **compare_steps(grouped, on_dev), "seconds": time.monotonic() - t0}
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
-        for k, v in saved.items():
-            if v is None:
-                os.environ.pop(k, None)
-            else:
-                os.environ[k] = v
+        leave_world(saved)
     log(f"train: the step in a one-rank world: {json.dumps(out['one_rank_group'])}")
     if not same or set(backends) != {"dp", "pp", "tp", "sp", "ep"}:
         raise RuntimeError("the loss inside a one-rank process group differs from the "
@@ -7759,11 +7777,503 @@ def phase_train(device: str = "cuda", cfg=None, card: str | None = None, rows: i
     return out
 
 
+# ------------------------------------------------------------------ mesh --
+
+MESH_LAYERS = 7  # the mesh phase's bf16 depth in the whole script (28 under --only mesh)
+# the float32 ring pages at 7B widths against the chunked path's: within
+# RING_PAGE_TOL + RING_PAGE_TOL |ref|.  JAX's CPU tests hold 1e-5 at tiny
+# widths; here the chunked path against itself at another chunk width
+# parts by 3.4e-5 at layer 1 (two float32 summation orders of the
+# 18944-wide MLP), the ring by 3.5e-5, and the ring's pages rounded to
+# bf16 (the control each run checks) by far more than the limit
+RING_PAGE_TOL = 1e-4
+MESH_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
+def unfused_views(cfg, params: dict) -> dict:
+    """The tree in the unfused layout a mesh engine takes, each projection
+    a view of the fused leaves (no copy)."""
+    layers = dict(params["layers"])
+    dq, dkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    wqkv, bqkv, wgu = layers.pop("wqkv"), layers.pop("bqkv"), layers.pop("wgu")
+    inter = cfg.intermediate_size
+    layers.update(wq=wqkv[..., :dq], wk=wqkv[..., dq:dq + dkv], wv=wqkv[..., dq + dkv:],
+                  bq=bqkv[..., :dq], bk=bqkv[..., dq:dq + dkv], bv=bqkv[..., dq + dkv:],
+                  wg=wgu[..., :inter], wu=wgu[..., inter:])
+    return {**params, "layers": layers}
+
+
+def mesh_kernel_cases(rng) -> dict:
+    """Every kernel at the shapes one tp rank launches at Qwen2-7B's widths,
+    against its plain version, timed (bf16) with its bound and library time:
+    A and B at 14/2 (tp 2) and 7/1 (tp 4) heads, fp and int8 pages; C at
+    7/1; E and D on a tp 4 rank's slices of wgu and wd, group 64."""
+    import torch
+
+    dev = torch.device("cuda")
+    out, checks = {}, []
+
+    def keep(key, res):
+        checks.append((key, res))
+        log(f"mesh kernel {key}: {json.dumps(res)}")
+        out[key] = {k: res[k] for k in MESH_KEYS + ("limit_share",) if k in res}
+        if "plan" in res:
+            out[key]["plan"] = res["plan"]
+
+    for tp, (n_q, n_kv) in ((2, (14, 2)), (4, (7, 1))):
+        a = kernel_a_case(rng, dev, 4, 512, n_q, n_kv, 128, 128, cached=[0, 1024, 2560, 3584],
+                          new=[512, 512, 300, 512])
+        keep(f"fused_window_attention@tp{tp}", measure_kernel_a(a, True))
+        keep(f"fused_window_attention@int8@tp{tp}", measure_kernel_a(quantized_case(a, 8), True))
+        del a
+        pool = rng.integers(1, 8193, size=8)
+        pool[0] = 8192
+        b = kernel_b_case(rng, dev, 8, n_q, n_kv, 128, 128, pool.tolist(), n_steps=8,
+                          staged_len=8)
+        keep(f"paged_attention_decode_staged@tp{tp}", measure_kernel_b(b, True))
+        b = quantized_case(dict(b, k=b["k"][-1:], v=b["v"][-1:], layer=0), 8, n_layers=28)
+        keep(f"paged_attention_decode_staged@int8@tp{tp}", measure_kernel_b(b, True))
+        del b
+        torch.cuda.empty_cache()
+    c = kernel_c_case(rng, dev, 7, 1, 128, 128, cached=[0, 1024, 2500, 0, 3000],
+                      new=[512, 512, 300, 500, 100], tq=512, budget=2048, dtype=torch.bfloat16)
+    keep("packed_prefill_attention_seg@tp4", measure_kernel_c(c, True))
+    del c
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.integers(1 << 30)))
+    for name, (k, n) in (("wgu", (3584, 37888 // 4)), ("wd", (18944 // 4, 3584))):
+        w, _ = int4_case(gen, k, n)
+        x = torch.randn((8, k), generator=gen, device="cuda").bfloat16()
+        keep(f"w4a8_matmul@{name}@tp4", measure_w4a8(x, w, w, torch.bfloat16, True))
+        x = torch.randn((4096, k), generator=gen, device="cuda").bfloat16()
+        keep(f"int4_matmul@{name}@tp4", measure_int4(x, w, w, torch.bfloat16, True))
+        del w, x
+        torch.cuda.empty_cache()
+    bad = [key for key, r in checks if not r["limit_share"] <= 1.0]
+    if bad:
+        raise RuntimeError(f"rank-shard kernels disagree with their plain versions: {bad}")
+    return out
+
+
+def one_rank_world(device: str = "cuda"):
+    """Join a one-rank world from a localhost JAX_COORDINATOR_ADDRESS (NCCL
+    on the card); returns the environment to restore."""
+    import os
+    import socket
+
+    from githubrepostorag_tpu_torch.parallel import maybe_initialize_distributed
+
+    with socket.socket() as probe:
+        probe.bind(("127.0.0.1", 0))
+        port = probe.getsockname()[1]
+    env = {"JAX_COORDINATOR_ADDRESS": f"localhost:{port}", "JAX_NUM_PROCESSES": "1",
+           "JAX_PROCESS_ID": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    if not maybe_initialize_distributed(device=device):
+        raise RuntimeError("maybe_initialize_distributed did not start the world")
+    return saved
+
+
+def leave_world(saved: dict) -> None:
+    import os
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    for k, v in saved.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+
+
+@contextlib.contextmanager
+def counting_collectives():
+    """Counts of ``torch.distributed.all_reduce`` and ``all_gather`` calls
+    (the collectives ``parallel/collectives.py`` issues) while the block
+    runs."""
+    import torch.distributed as dist
+
+    counts = {"all_reduce": 0, "all_gather": 0}
+    saved = {name: getattr(dist, name) for name in counts}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for name in counts:
+        setattr(dist, name, counted(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(dist, name, fn)
+
+
+@contextlib.contextmanager
+def tp_collectives_at_tp1():
+    """While the block runs, the model issues its tp collectives on a tp
+    group of one rank too (``models/qwen2._tp_group`` / ``_tp_split``
+    swapped for the rule a tp slice takes), so a one-rank world carries
+    them over its backend; the serving path issues none at tp 1, as JAX's
+    GSPMD inserts none."""
+    from githubrepostorag_tpu_torch.models import qwen2
+
+    saved = qwen2._tp_group, qwen2._tp_split
+    qwen2._tp_group = lambda mesh: mesh.group("tp") if mesh is not None else None
+    qwen2._tp_split = lambda mesh, local, full: qwen2._tp_group(mesh) is not None
+    try:
+        yield
+    finally:
+        qwen2._tp_group, qwen2._tp_split = saved
+
+
+def collective_host_us(mesh, device: str = "cuda", n: int = 200) -> dict:
+    """Host µs a call of each tp collective on the one-rank world's tp
+    group, over a decode step's [8, 3584] bf16 rows, idle and after ten
+    matmuls of queued device work each (the device drains at the end)."""
+    import torch
+    import torch.distributed as dist
+
+    from githubrepostorag_tpu_torch.parallel.collectives import gather_from_axis, reduce_from_axis
+
+    group = mesh.group("tp")
+    x = torch.randn(8, 3584, dtype=torch.bfloat16, device=device)
+    w = torch.randn(3584, 3584, dtype=torch.bfloat16, device=device)
+    calls = {"all_reduce": lambda: dist.all_reduce(x, group=group),
+             "reduce_from_axis": lambda: reduce_from_axis(x, group),
+             "gather_from_axis": lambda: gather_from_axis(x, group)}
+    out = {}
+    for name, fn in calls.items():
+        for busy in (False, True):
+            def step():
+                if busy:
+                    for _ in range(10):
+                        x @ w
+                fn()
+            for _ in range(10):
+                step()
+            sync(device)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step()
+            out[name + ("_busy" if busy else "")] = (time.perf_counter() - t0) / n * 1e6
+            sync(device)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        for _ in range(10):
+            x @ w
+    out["ten_matmuls"] = (time.perf_counter() - t0) / n * 1e6
+    sync(device)
+    return out
+
+
+def mesh_engine_runs(cfg, params, mesh, layers: int, device: str = "cuda") -> dict:
+    """The mesh path against the mesh-less engine: float32 at 2 layers (every
+    greedy token equal, with every tp collective of the path issued through
+    the world's backend at size 1, ``tp_collectives_at_tp1``), then bf16
+    at ``layers``: TTFT and TPOT p50 of the same traffic through each, in
+    turns (mesh-less, mesh, mesh with the size-1 tp collectives, packed and
+    int4 on the mesh, mesh, mesh-less), each run's kernels pinned."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models.quant import quantize_qwen2_params
+    from githubrepostorag_tpu_torch.serving.engine import Engine
+    from githubrepostorag_tpu_torch.serving.sampling_params import SamplingParams
+
+    rng = np.random.default_rng(SEED + 181)
+    geometry = dict(max_num_seqs=8, num_pages=320, page_size=128, max_seq_len=4096,
+                    prefill_chunk=512, decode_burst=8, device=device)
+    out = {}
+    c2, p2 = at_depth(cfg, params, 2)
+    p32 = upcast(p2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (300, 700, 1100, 64)]
+    sp = SamplingParams(max_tokens=16, temperature=0.0, stop_token_ids=())
+    want = [r.output_tokens for r in Engine(p32, c2, kv_dtype=torch.float32, **geometry)
+            .generate(prompts, sp)]
+    with tp_collectives_at_tp1(), counting_collectives() as issued:
+        got = [r.output_tokens for r in Engine(unfused_views(c2, p32), c2, mesh=mesh,
+                                               kv_dtype=torch.float32, **geometry)
+               .generate(prompts, sp)]
+    out["f32_2_layers"] = {"tokens": sum(map(len, got)), "equal": got == want,
+                           "collectives": dict(issued)}
+    del p32
+    gc.collect()
+    torch.cuda.empty_cache()
+    if got != want:
+        raise RuntimeError("the one-rank mesh engine's float32 tokens differ from the "
+                           "mesh-less engine's")
+    if not all(issued.values()):
+        raise RuntimeError(f"the one-rank mesh engine issued {dict(issued)}: the tp "
+                           "collectives of the path (the embedding's and the row-parallel "
+                           "sums, the logits' gather) must reach the world's backend")
+
+    cq, pq = at_depth(cfg, params, layers)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in rng.integers(600, 1400, size=10)]
+    prompts, warm = prompts[:8], prompts[8:]
+    sp = SamplingParams(max_tokens=48, temperature=0.0, stop_token_ids=())
+    unfused = unfused_views(cq, pq)
+    a, b, c = ("fused_window_attention", "paged_attention_decode_staged",
+               "packed_prefill_attention_seg")
+    runs = (("meshless", lambda: Engine(pq, cq, **geometry), (a, b)),
+            ("mesh", lambda: Engine(unfused, cq, mesh=mesh, **geometry), (a, b)),
+            # the same with the tp collectives a tp slice issues, at size 1
+            ("mesh_tp1_collectives", lambda: Engine(unfused, cq, mesh=mesh, **geometry), (a, b)),
+            # the packed and int4 paths on the mesh: C; D and E on the slices
+            ("mesh_packed", lambda: Engine(unfused, cq, mesh=mesh, prefill_token_budget=2048,
+                                           **geometry), (c, b)),
+            ("mesh_int4", lambda: Engine(quantize_qwen2_params(unfused, bits=4, group_size=GROUP),
+                                         cq, mesh=mesh, **geometry),
+             (a, b, "int4_matmul", "w4a8_matmul")),
+            # in turns: mesh-less, mesh, ..., mesh, mesh-less
+            ("mesh_2", lambda: Engine(unfused, cq, mesh=mesh, **geometry), (a, b)),
+            ("meshless_2", lambda: Engine(pq, cq, **geometry), (a, b)))
+    for label, build, required in runs:
+        collectives = (tp_collectives_at_tp1() if label == "mesh_tp1_collectives"
+                       else contextlib.nullcontext())
+        with collectives:
+            eng = build()
+            eng.generate(warm, sp)  # kernel plans, cuBLAS handles
+            sync(device)
+            reset_launches()
+            t0 = time.monotonic()
+            res = eng.generate(prompts, sp)
+            sync(device)
+        launches = read_launches()
+        ttft = [r.ttft_s * 1e3 for r in res]
+        tpot = [r.decode_time_s * 1e3 / (len(r.output_tokens) - 1) for r in res]
+        out[label] = {"layers": layers, "requests": len(res), "wall_s": time.monotonic() - t0,
+                      "ttft_ms_p50": percentile(ttft, 50), "tpot_ms_p50": percentile(tpot, 50),
+                      "launches": {k: launches[k] for k in launch_counters()}}
+        log(f"mesh engine {label}: {json.dumps(out[label])}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        if device == "cuda" and not all(out[label]["launches"][k] for k in required):
+            raise RuntimeError(f"the {label} run launched {out[label]['launches']}: "
+                               f"{required} must launch")
+    return out
+
+
+def chunked_prefill(params, cfg, prompts, k_pages, v_pages, bt, chunk: int = 512):
+    """The chunked path's prefill of ``prompts`` (every row's next chunk in
+    one forward_paged call: kernel A) into the pools at block tables ``bt``;
+    returns each row's first-token logits [R, V]."""
+    import torch
+
+    from githubrepostorag_tpu_torch.models.qwen2 import forward_paged
+    from githubrepostorag_tpu_torch.serving.kv_cache import slot_mapping
+
+    dev = k_pages.device
+    r, logits = len(prompts), [None] * len(prompts)
+    for start in range(0, max(map(len, prompts)), chunk):
+        ids = np.zeros((r, chunk), dtype=np.int32)
+        pos = np.zeros((r, chunk), dtype=np.int32)
+        slots = np.full((r, chunk), -1, dtype=np.int32)
+        new = np.zeros((r,), dtype=np.int32)
+        for i, p in enumerate(prompts):
+            n = max(0, min(chunk, len(p) - start))
+            ids[i, :n] = p[start:start + n]
+            pos[i] = np.arange(start, start + chunk)
+            slots[i] = slot_mapping(bt[i], start, n, k_pages.shape[3], chunk)
+            new[i] = n
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        last = t(np.maximum(new - 1, 0))
+        out = forward_paged(params, cfg, t(ids), t(pos), k_pages, v_pages, t(slots),
+                            t(bt.astype(np.int32)), t(np.full((r,), start, dtype=np.int32)),
+                            t(new), logits_at=last)[0]
+        for i, p in enumerate(prompts):
+            if start < len(p) <= start + chunk:
+                logits[i] = out[i, 0]
+    return torch.stack(logits)
+
+
+def ring_vs_chunked(cfg, params, mesh, layers: int, device: str = "cuda") -> dict:
+    """The ring prefill at sp = 1 against chunked prefill: prompts of 3000
+    and 1000 tokens in one 4096-token packed pass and the 3000 alone in a
+    one-sequence pass; float32 at 2 layers: first tokens equal, and pages
+    within ``RING_PAGE_TOL`` + ``RING_PAGE_TOL`` |ref| of the chunked
+    path's, a limit the same pages rounded to bf16 must fail (the control);
+    the chunked path at 1024-token chunks and JAX's 1e-5 + 1e-5 |ref| are
+    logged beside it.  bf16 at ``layers``: the ring pass's ms beside
+    chunked prefill's for the same tokens, then 32 decode tokens a row
+    through kernel B over the ring-written pages."""
+    import torch
+
+    from githubrepostorag_tpu_torch.ops.packed_prefill import ring_segment_layout
+    from githubrepostorag_tpu_torch.ops.paged_decode import paged_attention_decode_staged
+    from githubrepostorag_tpu_torch.serving.decode_burst import decode_burst
+    from githubrepostorag_tpu_torch.serving.kv_cache import (
+        make_page_pools, packed_slot_mapping, slot_mapping)
+    from githubrepostorag_tpu_torch.serving.long_prefill import ring_prefill, ring_prefill_packed
+
+    rng = np.random.default_rng(SEED + 182)
+    dev = torch.device(device)
+    ps, width, lens = 128, 4096, (3000, 1000)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    need = [-(-n // ps) + 1 for n in lens]  # a page of room for decode
+    bt = np.zeros((2, 33), dtype=np.int32)
+    bt[0, :need[0]] = np.arange(need[0])
+    bt[1, :need[1]] = np.arange(need[0], need[0] + need[1])
+    num_pages = sum(need)
+    seg, pos, logits_at, starts = ring_segment_layout(list(lens), width, 2)
+    ids = np.zeros((1, width), dtype=np.int32)
+    slots = np.full((width,), -1, dtype=np.int32)
+    for i, (p, off) in enumerate(zip(prompts, starts)):
+        ids[0, off:off + len(p)] = p
+        packed_slot_mapping(bt[i], 0, len(p), ps, slots, int(off))
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    one_ids = np.zeros((1, width), dtype=np.int32)
+    one_ids[0, :lens[0]] = prompts[0]
+    one_slots = slot_mapping(bt[0], 0, lens[0], ps, width)[None]
+
+    def pools(c, dtype):
+        pp = make_page_pools(c, num_pages, ps, dtype=dtype, device=dev)
+        return pp.k, pp.v
+
+    def packed(p, c, kp, vp):
+        return ring_prefill_packed(p, c, t(ids), t(pos[None]), kp, vp, t(slots[None]),
+                                   t(seg[None]), t(logits_at), mesh)[0][:, 0]
+
+    out = {}
+    c2, p2 = at_depth(cfg, params, 2)
+    p32 = unfused_views(c2, upcast(p2))
+    kc, vc = pools(c2, torch.float32)
+    first = chunked_prefill(p32, c2, prompts, kc, vc, bt).argmax(-1)
+    # the chunked path against itself at another chunk width (GEMMs of
+    # other row counts): float32's own spread between two summation orders
+    kw, vw = pools(c2, torch.float32)
+    wide_first = chunked_prefill(p32, c2, prompts, kw, vw, bt, chunk=1024).argmax(-1)
+    kr, vr = pools(c2, torch.float32)
+    ring_first = packed(p32, c2, kr, vr).argmax(-1)
+    k1, v1 = pools(c2, torch.float32)
+    one = ring_prefill(p32, c2, t(one_ids), t(np.arange(width, dtype=np.int32)[None]), k1, v1,
+                       t(one_slots), t(np.asarray([lens[0] - 1], dtype=np.int32)), mesh)[0]
+
+    def diffs(k, v, pages):
+        """Per layer: max |pages - chunked pages|, and the share of the
+        limit ``RING_PAGE_TOL`` (1 + |ref|) and of JAX's 1e-5 (1 + |ref|)
+        the worst element uses."""
+        out = []
+        for li in range(c2.num_layers):
+            d, share = 0.0, 0.0
+            for a, b in ((k, kc), (v, vc)):
+                e = (a[li, :, pages].float() - b[li, :, pages]).abs()
+                d = max(d, e.max().item())
+                share = max(share, (e / (1 + b[li, :, pages].abs())).max().item())
+            out.append({"max_diff": d, "limit_share": share / RING_PAGE_TOL,
+                        "jax_limit_share": share / 1e-5})
+        return out
+
+    real, row0 = slice(0, num_pages), slice(0, need[0])
+    res = {"first_tokens": first.tolist(), "ring_first_tokens": ring_first.tolist(),
+           "chunk1024_first_tokens": wide_first.tolist(),
+           "one_seq_first_token": int(one[0, 0].argmax()),
+           "ring": diffs(kr, vr, real), "one_seq": diffs(k1, v1, row0),
+           "chunk1024": diffs(kw, vw, real),
+           "control_bf16_ring": diffs(kr.to(torch.bfloat16), vr.to(torch.bfloat16), real)}
+    out["f32_2_layers"] = res
+    log(f"mesh ring vs chunked f32: {json.dumps(res)}")
+
+    def near(rows):
+        return all(r["limit_share"] <= 1.0 for r in rows)
+
+    if near(res["control_bf16_ring"]):
+        raise RuntimeError("the ring's page limit passes bf16-rounded pages: it cannot tell "
+                           "a float32 commit from a bf16 one")
+    if (ring_first.tolist() != first.tolist() or wide_first.tolist() != first.tolist()
+            or int(one[0, 0].argmax()) != int(first[0]) or not near(res["ring"])
+            or not near(res["one_seq"])):
+        raise RuntimeError("the ring prefill at sp = 1 disagrees with the chunked path")
+    del p32, kc, vc, kw, vw, kr, vr, k1, v1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cq, pq = at_depth(cfg, params, layers)
+    pu = unfused_views(cq, pq)
+    kp, vp = pools(cq, torch.bfloat16)
+    kc, vc = pools(cq, torch.bfloat16)
+    packed(pu, cq, kp, vp)  # warm
+    chunked_prefill(pu, cq, prompts, kc, vc, bt)
+    ring_ms = time_ms(lambda: packed(pu, cq, kp, vp), 3, warmup=0) if dev.type == "cuda" else 0
+    chunk_ms = (time_ms(lambda: chunked_prefill(pu, cq, prompts, kc, vc, bt), 3, warmup=0)
+                if dev.type == "cuda" else 0)
+    first = packed(pu, cq, kp, vp).argmax(-1).to(torch.int32)
+    b = 2
+    vocab = cq.vocab_size
+    presence = torch.zeros((b, vocab + 1), dtype=torch.bool, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    ones, zeros = torch.ones(b, device=dev), torch.zeros(b, dtype=torch.int32, device=dev)
+    last, lens_d = first, t(np.asarray(lens, dtype=np.int32))
+    limits = t((np.asarray(need) * ps - 1).astype(np.int32))
+    bt_d = t(bt)
+    active = torch.ones(b, dtype=torch.bool, device=dev)
+    before = paged_attention_decode_staged.launches
+    decoded = []
+    for _ in range(4):  # four bursts of 8, as the engine's default
+        toks, _, _, _, presence, lens_d = decode_burst(
+            pu, cq, last, lens_d, kp, vp, presence, active, limits, bt_d, gen, ones * 0.0,
+            ones, zeros, ones, n_steps=8, filter_sampling=False, mesh=mesh)
+        decoded.append(toks)
+        last = toks[:, -1]
+    decoded = torch.cat(decoded, dim=1)
+    sync(dev)
+    b_launches = paged_attention_decode_staged.launches - before
+    out["bf16"] = {"layers": layers, "tokens": sum(lens), "ring_ms": ring_ms,
+                   "chunked_ms": chunk_ms, "decode_tokens_per_row": decoded.shape[1],
+                   "decode_b_launches": b_launches}
+    log(f"mesh ring vs chunked bf16: {json.dumps(out['bf16'])}")
+    if (decoded.shape[1] != 32 or not bool(((decoded >= 0) & (decoded < vocab)).all())
+            or b_launches != (32 * layers if dev.type == "cuda" else 0)):
+        raise RuntimeError(f"decode over the ring-written pages: {decoded.shape[1]} tokens, "
+                           f"{b_launches} kernel B launches")
+    return out
+
+
+def phase_mesh(cfg, params, layers: int = MESH_LAYERS) -> dict:
+    """Serving over a tp / sp / ep mesh, as one rank sees it on the card
+    (the module docstring's ``mesh`` entry)."""
+    import torch
+
+    from githubrepostorag_tpu_torch.parallel import MeshPlan, make_mesh
+
+    t0 = time.monotonic()
+    release_planes()  # earlier phases' engines stay registered, and on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"kernels": mesh_kernel_cases(np.random.default_rng(SEED + 180))}
+    log(f"mesh: rank-shard kernels in {time.monotonic() - t0:.1f} s")
+    saved = one_rank_world()
+    try:
+        import torch.distributed as dist
+
+        mesh = make_mesh(MeshPlan())
+        out["world"] = {"backend": dist.get_backend(), "groups": sorted(mesh.groups)}
+        out["collective_host_us"] = collective_host_us(mesh)
+        log(f"mesh: size-1 tp collectives, host us a call: "
+            f"{json.dumps(out['collective_host_us'])}")
+        out["engine"] = mesh_engine_runs(cfg, params, mesh, layers)
+        out["ring"] = ring_vs_chunked(cfg, params, mesh, layers)
+    finally:
+        leave_world(saved)
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t0
+    log(f"mesh phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only", choices=["kernels", "longctx", "int4", "retrieval", "rag",
                                            "ingest", "options", "split", "modes", "draft",
-                                           "fleet", "moe", "train"],
+                                           "fleet", "moe", "train", "mesh"],
                         default=None,
                         help="kernels: the device, build and kernel phases only; longctx: "
                              "the device and build phases and the long-context decode "
@@ -7786,7 +8296,10 @@ def main() -> int:
                              "device and build phases and the Qwen2-MoE phase (A and B at "
                              "group 1, float32 checks, the A2.7B served at 24 layers, an MoE "
                              "checkpoint over HTTP); train: the device phase and the training "
-                             "phase (Qwen2-0.5B in float32, its checks and its checkpoint)")
+                             "phase (Qwen2-0.5B in float32, its checks and its checkpoint); "
+                             "mesh: the device and build phases and the mesh phase (the "
+                             "kernels at a tp rank's shapes, a one-rank NCCL world through "
+                             "the mesh engine at 28 layers, the ring prefill at sp 1)")
     args = parser.parse_args()
 
     import torch
@@ -7876,6 +8389,15 @@ def main() -> int:
         log(f"done in {time.monotonic() - t_all:.1f} s")
         print(json.dumps({"kernel_a_draft_shapes": shapes}))
         print(json.dumps({"draft": draft}))
+        print(device["card"])
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
+                                                 "count": device["count"]}}), flush=True)
+        return 0
+    if args.only == "mesh":
+        cfg, params = make_7b_params()
+        mesh = phase_mesh(cfg, params, layers=cfg.num_layers)
+        log(f"done in {time.monotonic() - t_all:.1f} s")
+        print(json.dumps({"mesh": mesh}))
         print(device["card"])
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device["kind"],
                                                  "count": device["count"]}}), flush=True)
@@ -7995,6 +8517,7 @@ def main() -> int:
     del params_q
     gc.collect()
     torch.cuda.empty_cache()
+    mesh = phase_mesh(cfg, params)
     qparams = quantize_7b(params)
     del params  # the bf16 tree and engines are gone before the int4 phases
     gc.collect()
@@ -8084,6 +8607,14 @@ def main() -> int:
                     {k: r[k] for k in keys + ("host_us",)}
                 for key, r in moe["kernels"].items() if key.split("@")[0] == name}
             entry["launches_moe_path"] = moe["serve"]["launches"][name]
+        if name in (a, b, c, "int4_matmul", "w4a8_matmul"):
+            # one tp rank's shapes (the mesh phase), and launches on the
+            # one-rank mesh engine's run (its bf16 path runs A and B only)
+            entry["rank_shard"] = {key.split("@", 1)[1]: r for key, r in mesh["kernels"].items()
+                                   if key.split("@")[0] == name}
+            entry["launches_mesh_path"] = {
+                run: mesh["engine"][run]["launches"][name]
+                for run in ("mesh", "mesh_packed", "mesh_int4")}
         if name in ("paged_attention_decode_staged", "paged_attention_decode"):
             # the split of the timed cases: 4 kv heads, 64 pages of 128 keys
             entry["plan"] = {f"B={bb}": _plan_decode(bb, 4, 64, 128, n_sm)._asdict()
@@ -8103,6 +8634,7 @@ def main() -> int:
     print(json.dumps({"modes": modes}))
     print(json.dumps({"draft": draft}))
     print(json.dumps({"fleet": fleet}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"moe": moe}))
     print(json.dumps({"train": train}))
     print(device["card"])

@@ -15,15 +15,12 @@ URL of the split deployment, the worker pod's metrics port),
 the log format, the step profiler's ring, the SLO objectives and burn
 rates, the ledger's window and MFU denominator, the timeline), ``ingest/`` (GitHub, branch and collection, DEV_MODE,
 the Pushgateway, ``EXTENSION_TO_LANGUAGE``) and the fleet (``MESH_SHAPE``'s
-dp replicas, the router's ``ROUTE_*``, ``FLEET_SPARES``, the controller's
-``CTRL_*``, the prefill / decode split's ``DISAGG_*``).  Each reads the same environment variable, with the same
-default and parser, as the JAX package's field of the same name, so a pod
-spec carries over unchanged.  The settings of modes the port does not run
-yet (the sequence-parallel ring, mesh axes other than dp) are kept: setting one reaches ``Engine``,
-which refuses it, or ``__main__``, which exits naming the roadmap item
-that brings it.  ``SP_PREFILL_THRESHOLD``
-means nothing on one card (the JAX server resolves it to off there) and
-comes with the sequence-parallel layer.
+axes, the router's ``ROUTE_*``, ``FLEET_SPARES``, the controller's
+``CTRL_*``, the prefill / decode split's ``DISAGG_*``), and the
+sequence-parallel ring (``SP_PREFILL_THRESHOLD``, ``SP_RING_*``).  Each
+reads the same environment variable, with the same default and parser, as
+the JAX package's field of the same name, so a pod spec carries over
+unchanged.
 """
 
 from __future__ import annotations
@@ -189,11 +186,21 @@ class Settings:
     # the class headroom reservations and preemption act for
     priority_protected_class: str = _env("PRIORITY_PROTECTED_CLASS", "interactive")
 
-    # --- engine modes; Engine refuses the sequence-parallel ring's tuning
-    # (SP_RING_*) away from its default ---
+    # --- engine modes ---
     prefill_widths: int = _int("PREFILL_WIDTHS", 1)
     prefill_priority: bool = _bool("PREFILL_PRIORITY", False)
+    # prompts at least this long prefill sequence-parallel over the mesh's
+    # sp axis (serving/long_prefill.py).  An explicit 0 disables; unset, the
+    # server derives a threshold whenever sp > 1
+    # (serving/engine.derive_sp_prefill_threshold), so whether the variable
+    # is set rides sp_prefill_threshold_set
+    sp_prefill_threshold: int = _int("SP_PREFILL_THRESHOLD", 0)
+    sp_prefill_threshold_set: bool = field(
+        default_factory=lambda: os.environ.get("SP_PREFILL_THRESHOLD") is not None)
+    # segment-packed ring prefill (one ring pass carries every waiting long
+    # prompt that fits); off = one sequence a pass
     sp_ring_pack: bool = _bool("SP_RING_PACK", True)
+    # ring widths kept in the ladder, widest down; 0 = the whole ladder
     sp_ring_buckets: int = _int("SP_RING_BUCKETS", 0)
     spec_ngram_k: int = _int("SPEC_NGRAM_K", 0)
     spec_burst_iters: int = _int("SPEC_BURST_ITERS", 0)

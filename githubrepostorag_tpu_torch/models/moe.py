@@ -19,6 +19,16 @@ outputs are gathered back and weighted by the router probabilities
 rounded to the compute dtype (the JAX ``combine.astype(cdt)``).  No host
 sync happens unless ``MOE_DROP_STATS`` is on, so the decode burst runs a
 whole burst without one.
+
+Experts over ``ep`` (``moe_mlp(mesh=)``): a rank holds ``E / ep`` experts
+(``parallel/sharding.py``), the router is replicated.  Routing and the
+queue places run over every token and every expert, so capacity drops are
+those of one device; the rank runs only its experts' ``[E / ep, C, d]``
+slots, and the float32 combine is summed over ep before its one rounding,
+then the shared expert is added once.  In backward the input's and the
+router's gradients are summed over ep (``copy_to_axis``), so a train step
+over ep holds whole gradients of every replicated leaf.  JAX gets the same
+exchange from GSPMD over its one-hot dispatch einsums.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ import torch.nn.functional as F
 from githubrepostorag_tpu_torch.config import _env_bool
 from githubrepostorag_tpu_torch.device import resolve_device
 from githubrepostorag_tpu_torch.models.quant import dequant_weight, qmatmul
+from githubrepostorag_tpu_torch.parallel.collectives import copy_to_axis, reduce_from_axis
 
 # Host-side routing-drop accumulator: MOE_DROP_STATS=1 adds (assignments,
 # dropped) of every MoE layer call here and to the Prometheus counters.
@@ -86,19 +97,28 @@ def queue_slots(cfg, top_i: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return slot, slot < capacity(cfg, T)
 
 
-def moe_mlp(cfg, p: dict, x: torch.Tensor, mm=qmatmul) -> torch.Tensor:
+def moe_mlp(cfg, p: dict, x: torch.Tensor, mm=qmatmul, mesh=None) -> torch.Tensor:
     """Sparse MoE MLP over normed hidden states ``x`` [B, S, d].
 
     ``p`` keys (one layer's): ``router`` [d, E]; ``e_wg`` / ``e_wu`` [E, d,
     ff_e], ``e_wd`` [E, ff_e, d] (plain, or int8 / int4 with per-expert
     scales); ``s_wg`` / ``s_wu`` [d, ff_s], ``s_wd`` [ff_s, d]; ``s_gate``
     [d, 1].  ``mm(x, w)`` runs the shared expert's projections (``qmatmul``
-    with the caller's int4 route)."""
+    with the caller's int4 route).  ``mesh``: the expert stacks hold this
+    rank's ``E / ep`` experts (module docstring)."""
     b, s, d = x.shape
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     T = b * s
     xf = x.reshape(T, d)
-    top_p, top_i = route(cfg, xf, p["router"])
+    # this rank's experts [e0, e0 + E_loc): all of them off a mesh
+    w_gate = p["e_wg"]
+    E_loc = (w_gate.q if isinstance(w_gate, tuple) else w_gate).shape[0]
+    ep = mesh.group("ep") if mesh is not None and E_loc < E else None
+    e0 = mesh.coords["ep"] * E_loc if ep is not None else 0
+    # every rank routes every token; backward sums over ep the input's and
+    # the router's gradients, each rank's from its own experts
+    xe, router = copy_to_axis(xf, ep), copy_to_axis(p["router"], ep)
+    top_p, top_i = route(cfg, xe, router)
 
     C = capacity(cfg, T)
     e_flat = top_i.reshape(T * K)
@@ -106,22 +126,25 @@ def moe_mlp(cfg, p: dict, x: torch.Tensor, mm=qmatmul) -> torch.Tensor:
     if cfg.capacity_factor > 0 and _drop_stats_enabled():
         _record_drops(T * K, (~keep).sum().item())
 
-    # the expert batch [E, C, d]: kept rows at e * C + slot, dropped ones in
-    # the spare row E * C
+    keep = keep & (e_flat >= e0) & (e_flat < e0 + E_loc)
+
+    # the expert batch [E_loc, C, d]: kept rows at e * C + slot, dropped
+    # ones (and other ranks' assignments) in the spare row E_loc * C
     cdt = x.dtype
-    dest = torch.where(keep, e_flat * C + slot.long(), E * C)
-    xs = torch.zeros((E * C + 1, d), dtype=cdt, device=x.device)
-    xs.index_copy_(0, dest, xf.repeat_interleave(K, dim=0))
-    xs = xs[:-1].view(E, C, d)
+    dest = torch.where(keep, (e_flat - e0) * C + slot.long(), E_loc * C)
+    xs = torch.zeros((E_loc * C + 1, d), dtype=cdt, device=x.device)
+    xs.index_copy_(0, dest, xe.repeat_interleave(K, dim=0))
+    xs = xs[:-1].view(E_loc, C, d)
     h1 = torch.bmm(xs, dequant_weight(p["e_wg"], cdt))
     h2 = torch.bmm(xs, dequant_weight(p["e_wu"], cdt))
-    ys = torch.bmm(F.silu(h1) * h2, dequant_weight(p["e_wd"], cdt)).view(E * C, d)
+    ys = torch.bmm(F.silu(h1) * h2, dequant_weight(p["e_wd"], cdt)).view(E_loc * C, d)
 
     # combine: each kept assignment's output times its probability rounded
-    # to the compute dtype, products and sum in float32, rounded once; a
-    # dropped one reads row 0 at weight 0
+    # to the compute dtype, products and sum in float32 (over ep too),
+    # rounded once; a dropped one reads row 0 at weight 0
     w = torch.where(keep, top_p.reshape(T * K), 0.0).to(cdt).float()
-    y = (ys[torch.where(keep, dest, 0)].float() * w[:, None]).view(T, K, d).sum(dim=1).to(cdt)
+    y = (ys[torch.where(keep, dest, 0)].float() * w[:, None]).view(T, K, d).sum(dim=1)
+    y = reduce_from_axis(y, ep).to(cdt)
 
     # the always-on shared expert under its sigmoid gate
     sh = F.silu(mm(xf, p["s_wg"])) * mm(xf, p["s_wu"])

@@ -192,18 +192,20 @@ def _block(cfg: Qwen2Config, h, p, cos, sin, attend, mm=qmatmul, mesh=None):
     weights).  The input of a column-parallel projection is copied into the
     axis and the output of a row-parallel one summed over it, the
     collectives GSPMD inserts for JAX; replicated K/V under a query shard
-    give this rank its queries' K/V heads (``kv_group``)."""
+    give this rank its queries' K/V heads (``kv_group``).  An MoE layer's
+    experts split over ep (``moe_mlp``)."""
     b, s, _ = h.shape
     nq, nkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     tp = _tp_group(mesh)
 
     hn = rms_norm(h, p["ln1"], cfg.rms_norm_eps)
+    q_col = False
     if "wqkv" in p:  # fused single-chip serving layout
         q, k, v = torch.split(mm(hn, p["wqkv"]) + p["bqkv"],
                               [nq * hd, nkv * hd, nkv * hd], dim=-1)
     else:
-        q_col = tp is not None and _out_features(p["wq"]) < nq * hd
-        kv_col = tp is not None and _out_features(p["wk"]) < nkv * hd
+        q_col = _tp_split(mesh, _out_features(p["wq"]), nq * hd)
+        kv_col = _tp_split(mesh, _out_features(p["wk"]), nkv * hd)
         hq = copy_to_axis(hn, tp) if q_col else hn
         hk = hq if kv_col else hn
         q = mm(hq, p["wq"]) + p["bq"]
@@ -222,15 +224,15 @@ def _block(cfg: Qwen2Config, h, p, cos, sin, attend, mm=qmatmul, mesh=None):
 
     attn = attend(q, k, v)
     o = mm(attn.reshape(b, s, nq_loc * hd), p["wo"])
-    h = h + (reduce_from_axis(o, tp) if nq_loc < nq else o)
+    h = h + (reduce_from_axis(o, tp) if q_col else o)
 
     hn = rms_norm(h, p["ln2"], cfg.rms_norm_eps)
     if "router" in p:  # sparse MoE MLP (Qwen2-MoE family, models/moe.py)
-        return h + moe_mlp(cfg, p, hn, mm)
+        return h + moe_mlp(cfg, p, hn, mm, mesh=mesh)
     if "wgu" in p:
         g, u = torch.chunk(mm(hn, p["wgu"]), 2, dim=-1)
         return h + mm(F.silu(g) * u, p["wd"])
-    mlp_col = tp is not None and _out_features(p["wg"]) < cfg.intermediate_size
+    mlp_col = _tp_split(mesh, _out_features(p["wg"]), cfg.intermediate_size)
     hm = copy_to_axis(hn, tp) if mlp_col else hn
     g, u = mm(hm, p["wg"]), mm(hm, p["wu"])
     o = mm(F.silu(g) * u, p["wd"])
@@ -243,8 +245,50 @@ def _out_features(w) -> int:
 
 
 def _tp_group(mesh):
-    """The tp process group when ``mesh`` splits the model over tp > 1."""
+    """The tp process group when ``mesh`` splits the model over tp > 1: at
+    tp 1 no collective is issued, as JAX's GSPMD inserts none there (a
+    size-1 NCCL all-reduce still costs host time on every layer)."""
     return mesh.group("tp") if mesh is not None and mesh.shape["tp"] > 1 else None
+
+
+def _tp_split(mesh, local: int, full: int) -> bool:
+    """Whether a leaf ``local`` wide of ``full`` is this rank's tp slice,
+    so its matmul takes Megatron's collectives (the one rule of ``_block``,
+    ``_embed`` and ``_mesh_logits``)."""
+    return _tp_group(mesh) is not None and local < full
+
+
+def _embed(params: dict, cfg: Qwen2Config, input_ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """The embedding of ``input_ids``.  On a mesh whose tp splits the table
+    it is vocab-parallel: a rank looks up its rows (ids outside them give
+    zero rows) and the ranks' rows are summed over tp."""
+    tp = _tp_group(mesh)
+    embed = params["embed"]
+    rows = (embed.q if isinstance(embed, QuantizedEmbedding) else embed).shape[0]
+    if not _tp_split(mesh, rows, cfg.vocab_size):
+        return embedding_lookup(embed, input_ids, _embed_dtype(params))
+    local = input_ids.long() - mesh.coords["tp"] * rows
+    inside = (local >= 0) & (local < rows)
+    h = embedding_lookup(embed, local.clamp(0, rows - 1), _embed_dtype(params))
+    return reduce_from_axis(h.masked_fill(~inside[..., None], 0), tp)
+
+
+def _mesh_logits(params: dict, cfg: Qwen2Config, h: torch.Tensor, mesh=None,
+                 w4a8: bool | None = None, kernel: bool = True) -> torch.Tensor:
+    """``_logits`` on a mesh: when tp splits the head (the untied lm_head's
+    columns, or the tied table's rows) a rank projects its vocab slice and
+    the slices are gathered, so the logits come back whole on every tp
+    rank."""
+    tp = _tp_group(mesh)
+    head = params.get("lm_head", params["embed"])
+    if "lm_head" in params:
+        width = _out_features(head)
+    else:
+        width = (head.q if isinstance(head, QuantizedEmbedding) else head).shape[0]
+    if not _tp_split(mesh, width, cfg.vocab_size):
+        return _logits(params, h, w4a8=w4a8, kernel=kernel)
+    return gather_from_axis(_logits(params, copy_to_axis(h, tp), w4a8=w4a8, kernel=kernel),
+                            tp, dim=-1)
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -347,25 +391,13 @@ def forward_with_attend(params: dict, cfg: Qwen2Config, input_ids: torch.Tensor,
     (``parallel.sharding.shard_params``); over tp the embedding and the
     logits are vocab-parallel (a rank's rows, then a sum; its logit
     columns, then a gather) and every block runs Megatron's pair of
-    collectives.  The returned logits are whole on every tp rank."""
-    if mesh is not None and mesh.shape["ep"] > 1 and cfg.num_experts > 0:
-        raise NotImplementedError("experts over ep need the all-to-all of ROADMAP.md "
-                                  "queue 1 item 8.3")
+    collectives; an MoE tree's experts split over ep (``moe_mlp``).  The
+    returned logits are whole on every tp rank."""
     if attend_fn is None:
         def attend_fn(q, k, v):
             return dense_attention(q, k, v, causal=True, q_offset=0)
 
-    tp = _tp_group(mesh)
-    embed = params["embed"]
-    rows = (embed.q if isinstance(embed, QuantizedEmbedding) else embed).shape[0]
-    vocab_split = tp is not None and rows < cfg.vocab_size
-    if vocab_split:  # this rank's vocab rows; ids outside them give zero rows
-        local = input_ids.long() - mesh.coords["tp"] * rows
-        inside = (local >= 0) & (local < rows)
-        h = embedding_lookup(embed, local.clamp(0, rows - 1), _embed_dtype(params))
-        h = reduce_from_axis(h.masked_fill(~inside[..., None], 0), tp)
-    else:
-        h = embedding_lookup(embed, input_ids, _embed_dtype(params))
+    h = _embed(params, cfg, input_ids, mesh)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
 
     def body(h, p):
@@ -378,11 +410,7 @@ def forward_with_attend(params: dict, cfg: Qwen2Config, input_ids: torch.Tensor,
         else:
             h = body(h, p)
     h = rms_norm(h, params["norm"], cfg.rms_norm_eps)
-    if "lm_head" in params:
-        vocab_split = tp is not None and _out_features(params["lm_head"]) < cfg.vocab_size
-    if vocab_split:  # this rank's logit columns, gathered
-        return gather_from_axis(_logits(params, copy_to_axis(h, tp)), tp, dim=-1)
-    return _logits(params, h)
+    return _mesh_logits(params, cfg, h, mesh)
 
 
 def forward_paged(
@@ -400,6 +428,7 @@ def forward_paged(
     logits_at: torch.Tensor | None = None,  # [B] per-row chunk index
     k_scales: torch.Tensor | None = None,  # [L, n_kv, P] f32 per-page scales
     v_scales: torch.Tensor | None = None,  # of int8 / int4 pools, in place
+    mesh=None,
 ):
     """Prefill-chunk step over the paged KV cache (the JAX
     ``forward_paged`` and its unjitted body ``forward_paged_impl`` in one:
@@ -418,17 +447,24 @@ def forward_paged(
     decode-sized chunk.  ``logits_at`` projects logits at one chunk
     position per row ([B, 1, V]) instead of every position.  Returns
     (logits float32, k_pages, v_pages), and k_scales, v_scales after them
-    when quantized, as the JAX function does."""
+    when quantized, as the JAX function does.
+
+    ``mesh``: ``params`` are this rank's slices and the pools hold its
+    ``n_kv / tp`` heads (``kv_cache.make_page_pools(mesh=)``); the embedding
+    and the logits are vocab-parallel, every block runs Megatron's pair of
+    collectives, and attention runs on this rank's heads with no collective
+    (the JAX ``shard_map`` island).  The logits come back whole on every tp
+    rank."""
     attn_fn = fused_paged_attention if use_kernels else paged_attention_ref
 
     def attend_layer(q, kp, vp, ks, vs):
         return attn_fn(q, kp, vp, block_tables, cached_lens, new_lens, ks, vs)
 
     h = _paged_layers(params, cfg, input_ids, positions, k_pages, v_pages, slot_mapping,
-                      k_scales, v_scales, attend_layer, use_kernels)
+                      k_scales, v_scales, attend_layer, use_kernels, mesh)
     if logits_at is not None:
         h = h[torch.arange(h.shape[0], device=h.device), logits_at.long()][:, None, :]
-    logits = _logits(params, h, w4a8=False, kernel=use_kernels)
+    logits = _mesh_logits(params, cfg, h, mesh, w4a8=False, kernel=use_kernels)
     if k_scales is not None:
         return logits, k_pages, v_pages, k_scales, v_scales
     return logits, k_pages, v_pages
@@ -451,6 +487,7 @@ def forward_paged_packed(
     use_kernels: bool = True,
     k_scales: torch.Tensor | None = None,
     v_scales: torch.Tensor | None = None,
+    mesh=None,
 ):
     """Token-budget packed prefill step over the paged KV cache: one flat
     [1, budget] buffer holds every prefilling row's next chunk back to
@@ -459,8 +496,9 @@ def forward_paged_packed(
     ``ops/packed_prefill.packed_prefill_attention`` (kernel C over
     full-precision pools, kernel A over quantized ones, with
     ``use_kernels``).  int4 projections pin ``w4a8=False`` as
-    ``forward_paged`` does.  Returns (logits [R, 1, V] float32 at each
-    segment's ``logits_at``, k_pages, v_pages[, k_scales, v_scales])."""
+    ``forward_paged`` does; ``mesh`` as there.  Returns (logits [R, 1, V]
+    float32 at each segment's ``logits_at``, k_pages, v_pages[, k_scales,
+    v_scales])."""
     seg_flat = seg_ids.reshape(-1).to(torch.int32)
     pos_flat = positions.reshape(-1).to(torch.int32)
 
@@ -470,29 +508,30 @@ def forward_paged_packed(
             use_kernels=use_kernels, k_scales=ks, v_scales=vs)[None]
 
     h = _paged_layers(params, cfg, input_ids, positions, k_pages, v_pages, slot_mapping,
-                      k_scales, v_scales, attend_layer, use_kernels)
+                      k_scales, v_scales, attend_layer, use_kernels, mesh)
     h = h[0, logits_at.long()][:, None, :]  # [R, 1, d]
-    logits = _logits(params, h, w4a8=False, kernel=use_kernels)
+    logits = _mesh_logits(params, cfg, h, mesh, w4a8=False, kernel=use_kernels)
     if k_scales is not None:
         return logits, k_pages, v_pages, k_scales, v_scales
     return logits, k_pages, v_pages
 
 
 def _paged_layers(params, cfg, input_ids, positions, k_pages, v_pages, slot_mapping,
-                  k_scales, v_scales, attend_layer, use_kernels):
+                  k_scales, v_scales, attend_layer, use_kernels, mesh=None):
     """The layer loop shared by ``forward_paged`` and ``forward_paged_packed``:
     each layer commits its new K/V (and, for quantized pools, their page
     scales) in place with ``commit_paged``, then ``attend_layer(q, kp, vp,
-    ks, vs)`` runs attention over the layer's pools.  Returns the final
-    normed hidden states."""
+    ks, vs)`` runs attention over the layer's pools.  On a mesh the K/V
+    heads are this rank's, as are its pools'.  Returns the final normed
+    hidden states."""
     from githubrepostorag_tpu_torch.serving.kv_cache import commit_paged
 
     mm = functools.partial(qmatmul, w4a8=False, kernel=use_kernels)
-    nkv, hd = cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     page_size = k_pages.shape[3]
     quant = k_scales is not None
 
-    h = embedding_lookup(params["embed"], input_ids, _embed_dtype(params))
+    h = _embed(params, cfg, input_ids, mesh)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     flat_slots = slot_mapping.reshape(-1)
 
@@ -502,10 +541,11 @@ def _paged_layers(params, cfg, input_ids, positions, k_pages, v_pages, slot_mapp
         ks, vs = (k_scales[li], v_scales[li]) if quant else (None, None)
 
         def attend(q, k, v):
+            nkv = k.shape[2]
             commit_paged(kp, k.reshape(-1, nkv, hd).transpose(0, 1), flat_slots, page_size, ks)
             commit_paged(vp, v.reshape(-1, nkv, hd).transpose(0, 1), flat_slots, page_size, vs)
             return attend_layer(q, kp, vp, ks, vs)
 
-        h = _block(cfg, h, p, cos, sin, attend, mm)
+        h = _block(cfg, h, p, cos, sin, attend, mm, mesh=mesh)
 
     return rms_norm(h, params["norm"], cfg.rms_norm_eps)

@@ -25,10 +25,14 @@ pools to kernel C (``packed_prefill_attention_seg``, the hand-written Hopper
 kernel ``csrc/packed_prefill.cu``: kernel A's bodies and plan,
 ``fused_decode._plan_window``), and with ``use_kernels=False`` to
 ``packed_prefill_attention_ref``, the XLA path of the JAX function.
+
+``ring_segment_layout`` lays out the segment-packed ring buffer of the
+sequence-parallel prefill (``serving/long_prefill.ring_prefill_packed``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from githubrepostorag_tpu_torch import kernels
@@ -161,3 +165,33 @@ def packed_prefill_attention(q, k_pages, v_pages, block_tables, cached_lens, new
                                       k_scales=k_scales, v_scales=v_scales)
     return packed_prefill_attention_seg(q, k_pages, v_pages, block_tables, cached_lens,
                                         new_lens, seg_ids, positions, tq=tq)
+
+
+def ring_segment_layout(lens: list[int], width: int, rb: int):
+    """Host layout of a segment-packed ring buffer: whole prompts back to
+    back from position 0 (a ring pass has no cached prefix, so a token's
+    index within its segment is its RoPE position).  Returns numpy arrays:
+
+      seg       [width] int32 owning segment per token; ``rb`` (the fixed
+                segment-row count) marks padding
+      positions [width] int32, restarting at 0 per segment
+      logits_at [rb]    int32 each segment's last-token index into the
+                buffer; rows past len(lens) point at 0 (ignored)
+      starts    [len(lens)] int32 each segment's first-token offset
+
+    The engine's packed ring dispatch and its tests share it."""
+    if sum(lens) > width or len(lens) > rb:
+        raise ValueError(f"{len(lens)} segments of {sum(lens)} tokens do not fit a "
+                         f"[{width}] ring buffer of {rb} segment rows")
+    seg = np.full((width,), rb, dtype=np.int32)
+    positions = np.zeros((width,), dtype=np.int32)
+    logits_at = np.zeros((rb,), dtype=np.int32)
+    starts = np.zeros((len(lens),), dtype=np.int32)
+    off = 0
+    for i, n in enumerate(lens):
+        seg[off: off + n] = i
+        positions[off: off + n] = np.arange(n)
+        logits_at[i] = off + n - 1
+        starts[i] = off
+        off += n
+    return seg, positions, logits_at, starts

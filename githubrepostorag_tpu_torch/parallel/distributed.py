@@ -41,11 +41,12 @@ def maybe_initialize_distributed(device=None, *, timeout_s: float = DEFAULT_TIME
     """Join the multi-process world when configured; no-op otherwise.
 
     Returns True when this process is part of a world.  Safe to call from
-    every entry point: initialisation happens at most once per process.
+    every entry point: initialisation happens once while the world is up
+    (after ``destroy_process_group`` a later call starts a new one).
     ``device`` picks the backend (None means the card, as everywhere in
     the port); it is read only once the environment opts in."""
     global _initialized, _timeout
-    if _initialized:
+    if _initialized and dist.is_initialized():
         return True
 
     coordinator = os.environ.get("JAX_COORDINATOR_ADDRESS")

@@ -40,19 +40,34 @@ self-healing ``FleetController`` (``CTRL_SNAPSHOT_DIR`` set: a spare
 restores the latest index snapshot into the store before it activates).
 ``POST /debug/fleet/drain`` and ``/activate`` act on the fleet.  Every
 replica launches onto the card's default stream (``multi_engine.py``).
-A ``tp``, ``sp``, ``ep`` or ``pp`` axis above 1 exits with a message
-naming the ROADMAP.md item that brings it, and the engine refuses the
-sequence-parallel ring's tuning (``SP_RING_*``) away from its default.
+
+``MESH_SHAPE`` with ``tp``, ``sp`` or ``ep`` axes (or, unset, inside a
+world of several ranks: ``plan_for_devices(world, role="serve")``'s tp)
+serves one model over a ``torch.distributed`` world, one process a card,
+launched with JAX's environment contract (``JAX_COORDINATOR_ADDRESS``,
+``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``; ``parallel/distributed.py``).
+Every rank loads the checkpoint unfused and keeps its slices
+(``Engine(mesh=)``); ``SP_PREFILL_THRESHOLD`` (derived when unset,
+``engine.derive_sp_prefill_threshold``) routes long prompts to the ring
+prefill over sp.  Rank 0 serves HTTP and runs ``AsyncEngine`` as the
+lockstep leader; the other ranks follow it (``serving/spmd.py``) and exit
+when it stops.  ``pp``, ``ep`` over a dense checkpoint, ``dp`` beside
+another axis and the engine modes a mesh does not serve yet (ROADMAP queue
+1 item 8.6) exit with a message.
 
     MESH_SHAPE=dp:2 python -m githubrepostorag_tpu_torch.serving --port 8000
     MESH_SHAPE=dp:3 FLEET_SPARES=1 CTRL=on python -m githubrepostorag_tpu_torch.serving
     MESH_SHAPE=dp:2 DISAGG=on KV_TIER=on python -m githubrepostorag_tpu_torch.serving
+    # one process a card, ranks 0 and 1:
+    MESH_SHAPE=tp:2 JAX_COORDINATOR_ADDRESS=127.0.0.1:29500 JAX_NUM_PROCESSES=2 \
+        JAX_PROCESS_ID=0 python -m githubrepostorag_tpu_torch.serving --port 8000
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
 import logging
 import signal
 
@@ -60,8 +75,8 @@ import torch
 
 from githubrepostorag_tpu_torch.config import Settings, get_settings
 from githubrepostorag_tpu_torch.device import resolve_device
-from githubrepostorag_tpu_torch.parallel.mesh import plan_from_string
-from githubrepostorag_tpu_torch.serving.engine import Engine
+from githubrepostorag_tpu_torch.parallel.mesh import MeshPlan, plan_for_devices, plan_from_string
+from githubrepostorag_tpu_torch.serving.engine import Engine, derive_sp_prefill_threshold
 
 logger = logging.getLogger("githubrepostorag_tpu_torch.serving")
 
@@ -69,23 +84,47 @@ _SPEC_EXCLUSIVE = ("SPEC_DRAFT_MODEL and SPEC_NGRAM_K are mutually exclusive: "
                    "a serving pod runs one speculation strategy")
 
 
-def check_served(s: Settings) -> int:
-    """The number of dp replicas to serve; exits with a message for
-    settings the port's server cannot serve, or that contradict each
-    other."""
-    try:
-        axes = plan_from_string(s.mesh_shape).shape()
-    except ValueError as exc:
-        raise SystemExit(str(exc)) from None
-    others = {name: n for name, n in axes.items() if name != "dp" and n > 1}
-    if others:
-        raise SystemExit(
-            f"MESH_SHAPE is set with {others}, but the torch port serves dp replicas only "
-            "yet; ROADMAP.md queue 1 item 8 (parallel layers: tp / sp / ep / pp meshes) "
-            "brings them")
+def check_served(s: Settings, world: int | None = 1) -> MeshPlan:
+    """The mesh plan to serve over a world of ``world`` ranks: ``MESH_SHAPE``,
+    or, unset, ``plan_for_devices(world, role="serve")``'s tp (the JAX
+    server's rule; the heads are checked once the config is read).  Exits
+    with a message for settings the server cannot serve, or that contradict
+    each other; ``world`` None checks only what fails on any world."""
     if s.spec_draft_model and s.spec_ngram_k:
         raise SystemExit(_SPEC_EXCLUSIVE)
-    return axes["dp"]
+    if not s.mesh_shape:
+        return MeshPlan(tp=plan_for_devices(world or 1, role="serve").tp)
+    try:
+        plan = plan_from_string(s.mesh_shape)
+    except ValueError as exc:
+        raise SystemExit(str(exc)) from None
+    if plan.pp > 1:
+        raise SystemExit(f"MESH_SHAPE={s.mesh_shape!r}: serving supports tp/sp/ep/dp axes — "
+                         "pp is a training-side axis (training/pipeline.py)")
+    spread = plan.n_devices // plan.dp
+    if plan.dp > 1 and spread > 1:
+        raise SystemExit(f"MESH_SHAPE={s.mesh_shape!r}: dp replicas of a tp / sp / ep mesh "
+                         "are ROADMAP.md queue 1 item 8.6; serve dp or the other axes")
+    if world is not None and spread > 1 and spread != world:
+        raise SystemExit(f"MESH_SHAPE={s.mesh_shape!r} needs {spread} ranks, the world has "
+                         f"{world}: start one process a card with JAX_COORDINATOR_ADDRESS, "
+                         "JAX_NUM_PROCESSES and JAX_PROCESS_ID")
+    return plan
+
+
+def check_model(s: Settings, plan: MeshPlan, cfg) -> MeshPlan:
+    """The plan against the checkpoint's config: ep needs experts (JAX's
+    message); an unset MESH_SHAPE's tp shrinks until it divides both head
+    counts, as ``plan_for_devices`` would with them."""
+    if plan.ep > 1 and cfg.num_experts == 0:
+        raise SystemExit(
+            f"MESH_SHAPE={s.mesh_shape!r}: ep shards the expert stacks of an MoE "
+            f"checkpoint, but {s.model_weights_path} is a dense model (num_experts=0) — "
+            "ep chips would replicate its work; use tp/sp instead")
+    if not s.mesh_shape:
+        return MeshPlan(tp=plan_for_devices(plan.tp, num_heads=cfg.num_heads,
+                                            num_kv_heads=cfg.num_kv_heads, role="serve").tp)
+    return plan
 
 
 def load_draft(s: Settings, device) -> tuple[dict | None, object | None]:
@@ -104,13 +143,19 @@ def load_draft(s: Settings, device) -> tuple[dict | None, object | None]:
                       moe_capacity_factor=s.moe_capacity_factor)
 
 
-def build_engine(s: Settings, params: dict, cfg, device, draft=None) -> Engine:
+def build_engine(s: Settings, params: dict, cfg, device, draft=None, mesh=None) -> Engine:
     """The engine the settings describe (the JAX server's keywords, so a
     mode the port does not run is refused by ``Engine``), with the draft
     model of ``SPEC_DRAFT_MODEL``: ``draft`` (params, config) when the
     caller loaded it, else loaded here.  ``params`` is shared, never
-    copied: a fused tree passes through ``Engine``'s fusing as it is."""
+    copied: a fused tree passes through ``Engine``'s fusing as it is.  On
+    a ``mesh`` (this rank's) the tree is the whole unfused one, which the
+    engine slices, and the sp threshold is derived from the settings."""
     draft_params, draft_cfg = draft if draft is not None else load_draft(s, device)
+    sp_threshold = derive_sp_prefill_threshold(
+        sp=mesh.shape["sp"] if mesh is not None else 1, explicit=s.sp_prefill_threshold,
+        env_set=s.sp_prefill_threshold_set, prefill_chunk=s.prefill_chunk,
+        max_seq_len=s.context_window)
     return Engine(
         params, cfg,
         max_num_seqs=s.max_num_seqs,
@@ -126,6 +171,8 @@ def build_engine(s: Settings, params: dict, cfg, device, draft=None) -> Engine:
         kv_host_pool_pages=s.kv_host_pool_pages,
         kv_migrate_burst=s.kv_migrate_burst,
         prefill_priority=s.prefill_priority,
+        mesh=mesh,
+        sp_prefill_threshold=sp_threshold,
         sp_ring_pack=s.sp_ring_pack,
         sp_ring_buckets=s.sp_ring_buckets,
         spec_ngram_k=s.spec_ngram_k,
@@ -168,7 +215,7 @@ def build_serving_engine(s: Settings, params: dict, cfg, device, dp: int = 1):
         draft_params = fuse_projections(draft_params, in_place=True)
     # the replicas share the weights' device (one tree, no copies): a fleet
     # across cards needs a tree on each, which comes with ROADMAP queue 1
-    # item 8
+    # item 8.5
     engines = []
     for i, dev in enumerate(dp_devices(dp, [device])):
         logger.info("building and warming up engine replica %d/%d on %s", i + 1, dp, dev)
@@ -203,15 +250,28 @@ def build_controller(s: Settings, fleet):
 
 
 async def serve(host: str, port: int, device: str | None = None) -> None:
-    from githubrepostorag_tpu_torch.models.hf_loader import load_qwen2
+    from githubrepostorag_tpu_torch.models.hf_loader import config_from_hf, load_qwen2
+    from githubrepostorag_tpu_torch.parallel import make_mesh, maybe_initialize_distributed
     from githubrepostorag_tpu_torch.serving.openai_api import OpenAIServer
     from githubrepostorag_tpu_torch.serving.tokenizer import make_tokenizer
 
     s = get_settings()
-    dp = check_served(s)
+    check_served(s, None)  # settings that fail on any world, before joining one
+    dev = resolve_device(device)
+    world = torch.distributed.get_world_size() if maybe_initialize_distributed(dev) else 1
+    plan = check_served(s, world)
     if not s.model_weights_path:
         raise SystemExit("model server requires MODEL_WEIGHTS_PATH (a local HF checkpoint dir)")
-    dev = resolve_device(device)
+    with open(f"{s.model_weights_path}/config.json") as fh:
+        plan = check_model(s, plan, config_from_hf(json.load(fh), s.moe_capacity_factor))
+    spread = plan.n_devices > plan.dp
+    mesh = None
+    if spread:
+        from githubrepostorag_tpu_torch.serving import spmd
+
+        mesh = make_mesh(plan)
+        control = spmd.control_group()
+        rank = torch.distributed.get_rank()
     # tokenizer first: a broken tokenizer config must fail fast, not after
     # the weights load
     tokenizer = make_tokenizer(s.model_weights_path)
@@ -219,10 +279,24 @@ async def serve(host: str, port: int, device: str | None = None) -> None:
     logger.info("loading weights from %s onto %s%s", s.model_weights_path, dev,
                 f" (int{s.quantize_weights} weight-only)" if s.quantize_weights else "")
     params, cfg = load_qwen2(s.model_weights_path, dtype=torch.bfloat16,
-                             quantize=s.quantize_weights, fuse=True, device=dev,
+                             quantize=s.quantize_weights, fuse=not spread, device=dev,
                              moe_capacity_factor=s.moe_capacity_factor)
-    engine = build_serving_engine(s, params, cfg, dev, dp)
-    del params
+    if spread:
+        engine = build_engine(s, params, cfg, dev, mesh=mesh)
+        del params
+        logger.info("rank %d of mesh %s: warming up", rank, plan.shape())
+        engine.warmup()
+        if rank != 0:
+            steps = spmd.follow(engine, control)
+            logger.info("rank %d: rank 0 stopped after %d steps", rank, steps)
+            return
+        from githubrepostorag_tpu_torch.serving.async_engine import AsyncEngine
+
+        engine = AsyncEngine(engine)
+        engine.lockstep = leader = spmd.Leader(control)
+    else:
+        engine = build_serving_engine(s, params, cfg, dev, plan.dp)
+        del params
     server = OpenAIServer(engine, tokenizer, model_name=s.qwen_model)
     bound = await server.start(host=host, port=port)
     controller = build_controller(s, engine)
@@ -233,15 +307,29 @@ async def serve(host: str, port: int, device: str | None = None) -> None:
     loop = asyncio.get_running_loop()
     for sig in (signal.SIGTERM, signal.SIGINT):
         loop.add_signal_handler(sig, stop.set)
-    logger.info("model server up on %s:%d (device %s, %d replica%s)", host, bound, dev, dp,
-                "" if dp == 1 else "s")
+    logger.info("model server up on %s:%d (device %s, %s)", host, bound, dev,
+                f"mesh {plan.shape()}" if spread else
+                f"{plan.dp} replica{'' if plan.dp == 1 else 's'}")
+    failed = None
     try:
-        await stop.wait()  # serve until the pod is stopped
+        while not stop.is_set():
+            # a mesh whose driver died (a peer raised) takes the world down
+            if spread and engine.driver_error is not None:
+                failed = engine.driver_error
+                break
+            try:
+                await asyncio.wait_for(stop.wait(), timeout=0.5)
+            except asyncio.TimeoutError:
+                pass
     finally:
         if controller is not None:
             controller.stop()
         await server.stop()
+        if spread:
+            leader.close()
         logger.info("model server stopped")
+    if failed is not None:
+        raise SystemExit(f"the mesh's engine driver failed: {failed}")
 
 
 def main(argv: list[str] | None = None) -> int:

@@ -52,9 +52,17 @@ controller's actuators.  ``on_admit`` fires when the request enters the
 inbox; until the driver applies it, ``load()`` counts it as submitted, so
 the router's view of a replica never drops or doubles a request.
 
-``stats()`` returns the JAX version's key set and values; the
-sequence-parallel keys read 0, as the JAX version gives them on one chip.
-It reads the engine's counters without a lock, each read atomic under the
+A request of no stated class whose prompt would take the ring prefill
+(``Engine.is_longctx``) is put in the ``longctx`` class, as in JAX.
+
+On a mesh, rank 0's driver is the leader of ``serving/spmd.py``'s
+lockstep: before each step it hands the leader what it applied since the
+last one (admissions and cancellations, the class pressure) with
+its clock reading, which the step's deadlines are read against, and the
+other ranks apply the same and step with it.
+
+``stats()`` returns the JAX version's key set and values, the
+sequence-parallel counters from the engine.  It reads the engine's counters without a lock, each read atomic under the
 interpreter lock, so a row may mix two steps' values but never waits: a
 wedged driver's row stays live where the JAX version's bounded wait
 (``CTRL_STATS_TIMEOUT_S``) serves a stale one.
@@ -85,6 +93,7 @@ from githubrepostorag_tpu_torch.resilience.faults import InjectedFault, fire_syn
 from githubrepostorag_tpu_torch.serving.engine import Engine, GenerationResult
 from githubrepostorag_tpu_torch.serving.routing import ReplicaDigest
 from githubrepostorag_tpu_torch.serving.sampling_params import SamplingParams
+from githubrepostorag_tpu_torch.serving.spmd import apply_op
 
 logger = logging.getLogger(__name__)
 
@@ -100,9 +109,9 @@ class AsyncEngine:
     def __init__(self, engine: Engine, replica: str = "r0") -> None:
         self.engine = engine  # driven by the driver thread
         self.replica = replica  # the metrics' and the planes' replica label
-        # (request id, operation, is an admission) the driver applies
-        # before its next step
-        self._inbox: deque[tuple[str, Callable[[], None], bool]] = deque()
+        # (request id, operation as data for spmd.apply_op, is an
+        # admission) the driver applies before its next step
+        self._inbox: deque[tuple[str, tuple, bool]] = deque()
         # held by the driver over each iteration (module docstring)
         self._lock = threading.Lock()
         # admissions in the inbox; with the engine's queues under
@@ -153,6 +162,10 @@ class AsyncEngine:
         self.step_seconds_total = 0.0
         self.obs_seconds_total = 0.0
         self.steps_total = 0
+        # a mesh's leader (serving/spmd.Leader): what each step applied,
+        # sent to the other ranks before the step runs
+        self.lockstep = None
+        self._applied: list[tuple] = []
 
     def _pool_view(self) -> dict:
         """Advisory allocator snapshot for the page observatory's payload:
@@ -215,15 +228,24 @@ class AsyncEngine:
                 self._apply_inbox()
                 step_start = time.monotonic()
                 try:
+                    pressure = None
                     if step_start >= pressure_next:
                         # burn-rate states feed the engine's preemption
                         # trigger and headroom doubling
-                        eng.set_class_pressure(self.slo.class_states())
+                        pressure = self.slo.class_states()
+                        eng.set_class_pressure(pressure)
                         pressure_next = time.monotonic() + 0.25
                     has_work = eng.has_work()
                     finished = []
                     waited = 0.0
-                    if has_work:
+                    if self.lockstep is not None:
+                        # the other ranks apply the same and step with us
+                        step_start = time.monotonic()
+                        applied, self._applied = self._applied, []
+                        self.lockstep.publish(applied, pressure, step_start, has_work)
+                        if has_work:
+                            finished = eng.step(now=step_start)
+                    elif has_work:
                         lock, waited = self._take_step_lock()
                         try:
                             step_start = time.monotonic()
@@ -316,24 +338,32 @@ class AsyncEngine:
         self.digest.publish(resident, host, time.monotonic() - t0)
 
     def _apply_inbox(self) -> None:
-        """Run the queued submissions and cancellations in order; one that
-        raises ends its own request with an error, not the driver."""
+        """Run the queued submissions and cancellations in order
+        (``spmd.apply_op``, which a lockstep's followers run on the same
+        data); one that raises ends its own request with an error, not the
+        driver.  Under a lockstep leader each applied operation is also kept
+        for the other ranks."""
         while self._inbox:
             rid, op, admits = self._inbox.popleft()
+            if self.lockstep is not None:
+                self._applied.append(op)
             try:
                 if admits:
                     with self._admit_lock:
                         self._unapplied -= 1
-                        op()
+                        apply_op(self.engine, op, on_token=self._on_token)
                 else:
-                    op()
+                    apply_op(self.engine, op)
             except Exception as exc:  # noqa: BLE001 - one bad request must not stop serving
                 logger.exception("engine rejected %s", rid)
                 res = GenerationResult(request_id=rid, prompt_tokens=[], output_tokens=[],
                                        finish_reason="error", error=repr(exc))
                 self._emit(rid, StreamEvent(type="final", result=res))
 
-    def _submit(self, rid: str, op: Callable[[], None], admits: bool = False) -> None:
+    def _on_token(self, rid: str, token_id: int) -> None:
+        self._emit(rid, StreamEvent(type="token", token_id=token_id))
+
+    def _submit(self, rid: str, op: tuple, admits: bool = False) -> None:
         if admits:
             with self._admit_lock:
                 self._unapplied += 1
@@ -394,9 +424,11 @@ class AsyncEngine:
         q: asyncio.Queue[StreamEvent] = asyncio.Queue()
         rid = request_id or f"req-{uuid.uuid4().hex}"
 
-        def on_token(rid: str, token_id: int) -> None:
-            self._emit(rid, StreamEvent(type="token", token_id=token_id))
-
+        if priority is None:
+            is_longctx = getattr(self.engine, "is_longctx", None)
+            if callable(is_longctx) and is_longctx(len(prompt_ids)):
+                # a ring-bound request counts against the longctx class
+                priority = "longctx"
         # the class the engine stamps, so the SLO plane observes the same
         priority = priority or getattr(self.engine, "default_priority", "interactive")
         self._queues[rid] = q
@@ -404,9 +436,8 @@ class AsyncEngine:
         if self.driver_error is not None:  # it died before the queue was there to fail
             self._queues.pop(rid, None)
             raise RuntimeError(f"engine driver is dead: {self.driver_error}")
-        self._submit(rid, lambda: self.engine.add_request(
-            prompt_ids, sampling, on_token=on_token, request_id=rid, deadline_s=deadline_s,
-            priority=priority), admits=True)
+        self._submit(rid, ("add", list(prompt_ids), sampling, rid, deadline_s, priority),
+                     admits=True)
         if on_admit is not None:
             on_admit(rid)
         done = False
@@ -423,7 +454,7 @@ class AsyncEngine:
             if not done:
                 # the consumer left first (its task was cancelled or it
                 # closed the stream): end the row so its pages come back
-                self._submit(rid, lambda: self.engine.cancel(rid))
+                self._submit(rid, ("cancel", rid))
 
     async def generate(
         self,
@@ -440,7 +471,7 @@ class AsyncEngine:
         raise RuntimeError("stream ended without a final event")  # pragma: no cover
 
     async def cancel(self, request_id: str) -> None:
-        self._submit(request_id, lambda: self.engine.cancel(request_id))
+        self._submit(request_id, ("cancel", request_id))
 
     async def export_kv_pages(self, hashes: list[bytes]) -> list[tuple[bytes, object]]:
         """Pack the KV payloads of ``hashes`` for a peer replica, off the
@@ -476,10 +507,9 @@ class AsyncEngine:
             "free_pages": alloc.free_count,
             "total_pages": alloc.num_pages,
             "prefix_cache_hit_tokens": getattr(alloc, "hit_tokens", 0),
-            # sequence-parallel prefill needs a mesh (ROADMAP queue 1 item 8)
-            "sp_prefills": 0,
-            "sp_ring_segments": 0,
-            "sp_ring_tokens": 0,
+            "sp_prefills": eng.sp_prefills,
+            "sp_ring_segments": eng.sp_ring_segments,
+            "sp_ring_tokens": eng.sp_ring_tokens,
             "spec_proposed": eng.spec_proposed,
             "spec_accepted": eng.spec_accepted,
             "spec_acceptance_rate": eng.spec_accepted / max(1, eng.spec_proposed),

@@ -29,6 +29,15 @@ layer's quantized leaves are views (``layer_params``), which the kernel
 reads in place: the JAX package's ``Layered4`` / ``_split_q4`` (a stacked
 weight plus a layer index, so its scan never slices a copy) have no
 counterpart here.
+
+On a mesh (``mesh=``) the weights are this rank's slices and the pools hold
+its ``n_kv / tp`` heads: kernel B runs on this rank's heads and pools with
+no collective inside (the JAX ``_staged_attend_tp`` island), the blocks run
+Megatron's pair of collectives, and the vocab-parallel logits are gathered
+whole on every rank, so each rank samples the same tokens from the same
+generator.  int4 projections run kernels D / E on the rank's slices, where
+JAX takes its partitionable XLA formulation (an opaque ``pallas_call`` has
+no partitioning rule); the route is judged on the slice's shapes.
 """
 
 from __future__ import annotations
@@ -38,11 +47,11 @@ import torch
 from githubrepostorag_tpu_torch.models.qwen2 import (
     Qwen2Config,
     _block,
+    _embed,
     _embed_dtype,
-    _logits,
+    _mesh_logits,
     layer_params,
 )
-from githubrepostorag_tpu_torch.models.quant import embedding_lookup
 from githubrepostorag_tpu_torch.ops.attention import dense_attention
 from githubrepostorag_tpu_torch.ops.paged_attention import gather_kv
 from githubrepostorag_tpu_torch.ops.paged_decode import paged_attention_decode_staged
@@ -72,6 +81,7 @@ def decode_burst(
     # top_k <= 0), so sampling takes the sort-free path
     k_scales: torch.Tensor | None = None,  # [L, n_kv, P] f32 per-page scales of
     v_scales: torch.Tensor | None = None,  # int8 / int4 pools, updated in place
+    mesh=None,  # this rank's slices and pools (module docstring)
 ):
     """Returns (tokens [B, n_steps] int32, valid [B, n_steps] bool, k_pages,
     v_pages, presence, seq_lens), and k_scales, v_scales after them when
@@ -80,7 +90,7 @@ def decode_burst(
     past the vocab are never read or written here (the engine keeps one
     extra column as its drop sentinel)."""
     b = last_tokens.shape[0]
-    L, n_kv, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    L, n_kv, hd = cfg.num_layers, k_pages.shape[1], cfg.head_dim
     page_size = k_pages.shape[3]
     dev = last_tokens.device
     rows = torch.arange(b, device=dev)
@@ -104,8 +114,7 @@ def decode_burst(
         act = act & (lens < row_limits)
         # last may carry the -1 inactive sentinel (packed tokens chained
         # across bursts): clamp so inactive rows look up a real embedding
-        h = embedding_lookup(params["embed"], torch.clamp(last, min=0)[:, None],
-                             _embed_dtype(params))
+        h = _embed(params, cfg, torch.clamp(last, min=0)[:, None], mesh)
         cos, sin = rope_cos_sin(lens[:, None], hd, cfg.rope_theta)
 
         for li in range(L):
@@ -122,8 +131,8 @@ def decode_burst(
                     q, k_pages, v_pages, block_tables, start_lens,
                     staged_k[li], staged_v[li], step + 1, li, k_scales, v_scales)
 
-            h = _block(cfg, h, p, cos, sin, attend)
-        logits = _logits(params, h)[:, 0]
+            h = _block(cfg, h, p, cos, sin, attend, mesh=mesh)
+        logits = _mesh_logits(params, cfg, h, mesh)[:, 0]
 
         pres = presence[:, :vocab]
         if filter_sampling:

@@ -67,8 +67,20 @@ acceptance falls under ``spec_accept_floor`` or its deadline comes within
 ``spec_deadline_margin_s``; a batch with any other row decodes plainly
 that step.
 
-Still refused at construction: sequence-parallel ring prefill and meshes
-(ROADMAP queue 1 item 8).
+Meshes (``mesh``: a ``parallel.mesh.Mesh`` from ``make_mesh``, one rank
+of a ``torch.distributed`` world): every rank builds the same engine over
+its own slices (``parallel/sharding.py``; the tree stays unfused) and its
+``n_kv / tp`` heads of the pools, and takes the same host decisions in the
+same order, so every forward's collectives meet (``serving/spmd.py`` keeps
+a server's ranks in lockstep).  tp runs kernels A, B, C, D and E on the
+rank's heads and slices with Megatron's collectives around them; an MoE
+tree's experts split over ep; the logits come back whole on every rank, so
+each samples the same tokens from the same seed.  Prompts of at least
+``sp_prefill_threshold`` tokens, on a mesh with sp > 1, prefill in one
+ring pass over sp (``serving/long_prefill.py``): segment-packed by default
+(``sp_ring_pack``), at a width from ``sp_ring_bucket_ladder``.  On a mesh
+with an axis above 1 the speculative modes, the fused step, the host tier
+and preemption are still refused (ROADMAP queue 1 item 8.6).
 """
 
 from __future__ import annotations
@@ -89,6 +101,7 @@ from githubrepostorag_tpu_torch.models.qwen2 import (
     forward_paged_packed,
 )
 from githubrepostorag_tpu_torch.models.quant import QUANTIZED_TYPES, fuse_projections
+from githubrepostorag_tpu_torch.ops.packed_prefill import ring_segment_layout
 from githubrepostorag_tpu_torch.ops.page_migration import (
     gather_pages,
     migrate_buckets,
@@ -99,6 +112,7 @@ from githubrepostorag_tpu_torch.ops.sampling import sample_tokens
 from githubrepostorag_tpu_torch.serving.decode_burst import decode_burst
 from githubrepostorag_tpu_torch.serving.draft_spec import draft_spec_burst
 from githubrepostorag_tpu_torch.serving.fused_step import fused_step_burst
+from githubrepostorag_tpu_torch.serving.long_prefill import ring_prefill, ring_prefill_packed
 from githubrepostorag_tpu_torch.serving.kv_cache import (
     OutOfPages,
     PageAllocator,
@@ -129,17 +143,49 @@ def _bucket(n: int, cap: int, minimum: int = 16) -> int:
     return min(b, cap)
 
 
-# JAX Engine options whose modes are not ported (sequence-parallel ring
-# prefill, meshes), with the value that means "off" (for a mode's tuning
-# keyword, its JAX default).  Passing any other value raises at
-# construction, so the port is stricter than the JAX engine, which ignores
-# a mode's tuning while the mode is off.
-_UNPORTED_OPTIONS = {
-    "mesh": None,
-    "sp_prefill_threshold": None,
-    "sp_ring_pack": True,
-    "sp_ring_buckets": 0,
-}
+def derive_sp_prefill_threshold(*, sp: int, explicit: int, env_set: bool, prefill_chunk: int,
+                                max_seq_len: int) -> int | None:
+    """The ring-prefill routing threshold of an engine build, as the JAX
+    server resolves it: None (off) without an sp axis; an explicit value
+    wins (0 turns the ring off); unset, 4 prefill chunks (a prompt that
+    would take 4 chunked passes amortizes the ring's rotations), clamped
+    into [sp, max_seq_len // 2]."""
+    if sp <= 1:
+        return None
+    if env_set:
+        return explicit if explicit > 0 else None
+    return max(sp, min(4 * prefill_chunk, max_seq_len // 2))
+
+
+def _local_slices(params: dict, cfg: Qwen2Config, mesh) -> dict:
+    """This rank's slices of a whole tree (``parallel/sharding.py``); a
+    replicated leaf is kept as it is, not copied."""
+    from githubrepostorag_tpu_torch.parallel.sharding import (
+        qwen2_param_specs,
+        shard_tensor,
+        tree_map,
+    )
+
+    if "wqkv" in params["layers"] or "wgu" in params["layers"]:
+        raise ValueError("an engine on a mesh takes the unfused tree (load_qwen2(fuse=False)): "
+                         "fused projections cannot be cut into Megatron slices")
+    specs = qwen2_param_specs(cfg, mesh, params)
+    tp = mesh.shape["tp"]
+    if tp > 1:
+        # int4 q is nibble-packed within each group: a row-parallel slice is
+        # a run of whole input rows only when tp divides the group count
+        # (JAX's GSPMD pads such a cut instead)
+        for name, leaf in params["layers"].items():
+            spec = specs["layers"][name]
+            if isinstance(leaf, tuple) and hasattr(leaf, "zs") and spec.q[-2] == "tp":
+                groups = leaf.s.shape[-2]
+                if groups % tp:
+                    raise ValueError(
+                        f"int4 projection {name!r} has {groups} groups of input rows, which "
+                        f"tp={tp} does not divide: a row-parallel slice would cut a group "
+                        "(ROADMAP queue 3 item 23); use a smaller tp or another group size")
+    return tree_map(lambda x, spec: x if all(a is None for a in spec)
+                    else shard_tensor(x, mesh, spec), params, specs)
 
 
 @dataclass
@@ -242,6 +288,14 @@ class Engine:
         kv_migrate_burst: int = 8,  # pages per migration dispatch
         prefill_priority: bool = False,  # no decode burst on a step whose
         # prefill chunk ran while prompts are still admitting
+        mesh=None,  # parallel.mesh.Mesh: this rank's place in a tp / sp / ep
+        # mesh (module docstring); None: one device, fused projections
+        sp_prefill_threshold: int | None = None,  # prompts this long prefill
+        # in one ring pass over the mesh's sp axis (serving/long_prefill.py)
+        sp_ring_pack: bool = True,  # one ring pass carries every waiting long
+        # prompt that fits (ring_prefill_packed); False: one prompt a pass
+        sp_ring_buckets: int = 0,  # ring widths kept in the ladder, widest
+        # down (0: every power of two from the threshold to max_seq_len)
         spec_ngram_k: int = 0,  # > 0: n-gram speculation with drafts of up
         # to k tokens instead of decode bursts
         spec_burst_iters: int = 0,  # > 0 (with spec_ngram_k): this many
@@ -270,7 +324,6 @@ class Engine:
         protected_priority: str = "interactive",  # the class headroom and
         # preemption act for; its requests are never victims
         device: str | torch.device | None = None,
-        **unported,
     ) -> None:
         # the JAX engine's checks on mode combinations, with its errors
         if spec_burst_iters > 0 and spec_ngram_k <= 0:
@@ -314,29 +367,29 @@ class Engine:
             raise ValueError(
                 "preempt='on' requires the KV host tier (kv_tier) — resume rides the "
                 "claim/fault-in machinery, so parked victims need a tier to survive in")
-        for name, value in unported.items():
-            if name not in _UNPORTED_OPTIONS:
-                raise TypeError(f"Engine() got an unexpected keyword argument {name!r}")
-            default = _UNPORTED_OPTIONS[name]
-            if not (value is default or value == default):
-                raise NotImplementedError(
-                    f"Engine option {name}={value!r} selects or tunes a mode the torch "
-                    f"port does not run yet (leave it at {default!r}); it serves every "
-                    "Engine mode but sequence-parallel ring prefill and meshes: padded or "
-                    "packed (prefill_token_budget) chunked prefill, bf16/f32 or int8/int4 "
-                    "(kv_quant) KV pages, bf16/f32, int8 or int4 weights, prefix caching, "
-                    "pipelined decode bursts, n-gram speculation (spec_ngram_k, "
-                    "spec_burst_iters, fused_step), draft-model speculation (draft_params, "
-                    "draft_cfg, spec_k, spec_iters, spec_accept_floor, "
-                    "spec_deadline_margin_s), the host KV tier (kv_tier, "
-                    "kv_host_pool_pages, kv_migrate_burst) and preempt-to-host (preempt, "
-                    "preempt_headroom_pages, protected_priority)"
-                )
+        self.mesh = mesh
+        spread = mesh is not None and any(n > 1 for n in mesh.shape.values())
+        if spread:
+            _check_mesh(mesh, cfg, {
+                "n-gram speculation (spec_ngram_k)": spec_ngram_k > 0,
+                "draft-model speculation (draft_params)": draft_params is not None,
+                "the fused step (fused_step)": fused_step,
+                "the host KV tier (kv_tier)": kv_tier_on,
+                "preempt-to-host (preempt)": kv_tier_on and preempt != "off",
+            })
         self.device = resolve_device(device)
         _check_params(params, self.device)
-        # single-chip serving layout: 4 projection matmuls per layer, not 7
-        # (quantized leaves fuse too)
-        self.params = fuse_projections(params)
+        if mesh is not None:
+            # this rank's slices; projections stay unfused, as in JAX
+            self.params = _local_slices(params, cfg, mesh)
+            lonely = [a for a, n in mesh.shape.items() if n > 1 and mesh.group(a) is None]
+            if lonely:
+                raise ValueError(f"the mesh has no process group for {lonely}: build it "
+                                 "with make_mesh inside a torch.distributed world")
+        else:
+            # single-chip serving layout: 4 projection matmuls per layer,
+            # not 7 (quantized leaves fuse too)
+            self.params = fuse_projections(params)
         self.cfg = cfg
         self.max_num_seqs = max_num_seqs
         self.page_size = page_size
@@ -380,7 +433,7 @@ class Engine:
         # 0 off, 8 int8, 4 nibble-packed int4
         self.kv_quant = quant_bits(kv_quant)
         pools = make_page_pools(cfg, num_pages, page_size, dtype=kv_dtype, device=self.device,
-                                quant=self.kv_quant)
+                                quant=self.kv_quant, mesh=mesh)
         self._k_pages, self._v_pages = pools.k, pools.v
         self._k_scales, self._v_scales = pools.ks, pools.vs
         self.prefix_caching = prefix_caching
@@ -408,6 +461,28 @@ class Engine:
         self.kv_pages_exported = 0
         self.kv_pages_imported = 0
         self.transfer_seconds_total = 0.0
+
+        # sequence-parallel ring prefill over the mesh's sp axis
+        self.sp_prefill_threshold = sp_prefill_threshold
+        self._sp = mesh.shape["sp"] if mesh is not None else 1
+        self.sp_prefills = 0  # stats: ring passes dispatched
+        self.sp_ring_pack = sp_ring_pack
+        self.sp_ring_bucket_count = max(0, sp_ring_buckets)
+        # the packed ring pass's fixed segment-row count: every segment is at
+        # least the threshold long, so the widest pass bounds how many pack
+        thr = max(sp_prefill_threshold or 1, 1)
+        sp1 = max(1, self._sp)
+        cap = -(-_bucket(max_seq_len, max_seq_len, minimum=sp1) // sp1) * sp1
+        self.sp_ring_segs = _bucket(max(1, min(max_num_seqs, cap // thr)), max_num_seqs,
+                                    minimum=1)
+        self.sp_ring_segments = 0  # stats: prompts packed into ring passes
+        self.sp_ring_tokens = 0  # stats: real tokens through ring passes
+        self.sp_ring_padding = 0  # stats: unused ring-buffer slots
+        if self._sp > 1 and sp_prefill_threshold is not None:
+            logger.info("sp prefill: threshold=%d tokens over sp=%d (%s, ladder %s)",
+                        sp_prefill_threshold, self._sp,
+                        "segment-packed" if sp_ring_pack else "one sequence per pass",
+                        self.sp_ring_bucket_ladder())
 
         self.spec_ngram_k = spec_ngram_k
         self.spec_burst_iters = spec_burst_iters
@@ -631,17 +706,19 @@ class Engine:
 
     # --------------------------------------------------------- scheduling --
 
-    def step(self) -> list[GenerationResult]:
+    def step(self, now: float | None = None) -> list[GenerationResult]:
         """One engine iteration: admit + prefill one chunk AND decode every
         running row, both dispatched with no host sync in between.  Returns
-        the requests finished this step."""
+        the requests finished this step.  ``now`` (``time.monotonic()``
+        when None) is the clock the deadlines are read against: the ranks
+        of a mesh step with rank 0's reading (``serving/spmd.py``)."""
         finished: list[GenerationResult] = []
         for req in self._rejected:
             res = self._result(req, "error")
             res.error = req.error
             finished.append(res)
         self._rejected.clear()
-        self._reap_expired()
+        self._reap_expired(time.monotonic() if now is None else now)
         self._reap_cancelled(finished)
         self._reap_parked(finished)
         if self._kv_tier_on:
@@ -696,10 +773,9 @@ class Engine:
             self._drain_chain(finished)
         return finished
 
-    def _reap_expired(self) -> None:
+    def _reap_expired(self, now: float) -> None:
         """Mark past-deadline requests cancelled so the reap below frees
         their pages this step."""
-        now = time.monotonic()
         for req in itertools.chain(self._waiting, self._row_req.values(), self._parked):
             if req.deadline_ts is not None and not req.cancelled and now >= req.deadline_ts:
                 req.cancelled = True
@@ -1107,11 +1183,12 @@ class Engine:
     def _head_need_hashes(self, req: _Request) -> tuple[int, list[bytes]]:
         """Total page need for ``req`` and the chain hashes of the prefix
         pages its admission may share (capped so at least one prompt token
-        still runs through prefill)."""
+        still runs through prefill).  A ring-bound prompt shares none: the
+        ring runs from position 0 (it still registers its pages)."""
         need = pages_needed(
             min(len(req.prompt) + req.sampling.max_tokens, self.max_seq_len), self.page_size)
         hashes: list[bytes] = []
-        if self.prefix_caching:
+        if self.prefix_caching and not self._sp_eligible(req):
             if not req.page_hashes:
                 req.page_hashes = page_hashes(req.prompt, self.page_size)
             shareable = min(len(req.page_hashes), (len(req.prompt) - 1) // self.page_size)
@@ -1230,8 +1307,153 @@ class Engine:
         prefilling = [r for r in self._row_req.values() if r.state == "prefilling"]
         if not prefilling:
             return False
-        self._prefill_batch(prefilling, finished)
+        long_reqs = [r for r in prefilling if self._sp_eligible(r) and r.prefill_pos == 0]
+        if long_reqs:
+            if self.sp_ring_pack:
+                # every waiting long prompt that fits shares one pass; the
+                # rest keep their rows and ride the next step's pass
+                self._sp_prefill_packed(long_reqs, finished)
+            else:
+                for req in long_reqs:
+                    self._sp_prefill(req, finished)
+            # served or not, a ring-bound row never takes a chunk: once a
+            # chunk advanced it, it could not restart the ring from 0
+            for req in long_reqs:
+                prefilling.remove(req)
+        if prefilling:
+            self._prefill_batch(prefilling, finished)
         return True
+
+    # ------------------------------------------------- sequence parallel --
+
+    def is_longctx(self, prompt_len: int) -> bool:
+        """Would a prompt of this length take the ring-prefill path?  The
+        async driver puts such requests in the ``longctx`` SLO class by the
+        same predicate the scheduler routes by."""
+        return (self.sp_prefill_threshold is not None and not self._draft_enabled
+                and self._sp > 1 and prompt_len >= self.sp_prefill_threshold)
+
+    def _sp_eligible(self, req: _Request) -> bool:
+        """Long prompts prefill in one ring pass; never under draft-model
+        speculation, whose draft pools the ring would leave without the
+        prompt."""
+        return self.is_longctx(len(req.prompt))
+
+    def sp_ring_bucket_ladder(self) -> list[int]:
+        """The ring widths a pass can dispatch at: powers of two from the
+        threshold's bucket up to bucketed ``max_seq_len``, each rounded up to
+        a multiple of sp; ``sp_ring_buckets`` > 0 keeps that many from the
+        widest down.  ``warmup`` runs every entry and ``_ring_width`` picks
+        from the same list."""
+        if self.sp_prefill_threshold is None or self._sp <= 1:
+            return []
+        floor = max(self.sp_prefill_threshold, self._sp, 1)
+        w = 1
+        while w < floor:
+            w *= 2
+        out: list[int] = []
+        cap = _bucket(self.max_seq_len, self.max_seq_len, minimum=self._sp)
+        while True:
+            out.append(-(-min(w, cap) // self._sp) * self._sp)
+            if w >= cap:
+                break
+            w *= 2
+        out = list(dict.fromkeys(out))
+        if self.sp_ring_pack and self.sp_ring_bucket_count > 0:
+            out = out[-self.sp_ring_bucket_count:]
+        return out
+
+    def _ring_width(self, total: int) -> int:
+        """The packed ring width for ``total`` real tokens: the smallest
+        ladder entry covering it."""
+        ladder = self.sp_ring_bucket_ladder()
+        for w in ladder:
+            if w >= total:
+                return w
+        return ladder[-1]
+
+    def _ring_pass(self, fn, ids, pos, slots, *args) -> torch.Tensor:
+        """Run ``ring_prefill`` or ``ring_prefill_packed`` over the engine's
+        pools (updated in place) and return the logits."""
+        self.step_dispatches_total += 1
+        self.sp_prefills += 1
+        self.dispatch_shapes.add(("ring", ids.shape[1]))
+        t = self._tensor
+        logits, *_ = fn(self.params, self.cfg, t(ids), t(pos), self._k_pages, self._v_pages,
+                        t(slots[None]), *(t(a) for a in args), self.mesh,
+                        k_scales=self._k_scales, v_scales=self._v_scales)
+        return logits
+
+    def _sp_prefill(self, req: _Request, finished: list[GenerationResult]) -> None:
+        """One whole prompt in one ring pass (``long_prefill.ring_prefill``):
+        every position's K/V goes to the row's pages, the first token
+        samples from the last position's logits and joins the decode batch
+        as a chunked completion's does."""
+        others_running = any(r.state == "running" for r in self._row_req.values())
+        n = len(req.prompt)
+        width = _bucket(n, self.max_seq_len, minimum=self._sp)
+        width = -(-width // self._sp) * self._sp
+        ids = np.zeros((1, width), dtype=np.int32)
+        ids[0, :n] = req.prompt
+        pos = np.arange(width, dtype=np.int32)[None]
+        slots = slot_mapping(self._block_tables[req.row], 0, n, self.page_size, width)
+        logits = self._ring_pass(ring_prefill, ids, pos, slots,
+                                 np.asarray([n - 1], dtype=np.int32))
+        self._finish_ring([req], 1, logits, others_running, finished)
+
+    def _sp_prefill_packed(self, reqs: list[_Request], finished: list[GenerationResult]) -> None:
+        """Segment-packed ring pass: waiting long prompts back to back in a
+        [1, width] buffer with per-token segment ids
+        (``long_prefill.ring_prefill_packed``), front-packed in admission
+        order up to the widest ladder width or the fixed segment-row count
+        (first come, first served: packing stops at the first prompt that
+        does not fit).  First tokens sample at each segment's last position
+        in one call."""
+        others_running = any(r.state == "running" for r in self._row_req.values())
+        cap = self.sp_ring_bucket_ladder()[-1]
+        rb = self.sp_ring_segs
+        packed: list[_Request] = []
+        total = 0
+        for req in reqs:
+            n = len(req.prompt)
+            if packed and (len(packed) >= rb or total + n > cap):
+                break
+            packed.append(req)
+            total += n
+        width = self._ring_width(total)
+        seg, pos, logits_at, starts = ring_segment_layout([len(r.prompt) for r in packed],
+                                                          width, rb)
+        ids = np.zeros((1, width), dtype=np.int32)
+        slots = np.full((width,), -1, dtype=np.int32)
+        for req, off in zip(packed, starts):
+            n = len(req.prompt)
+            ids[0, off: off + n] = req.prompt
+            packed_slot_mapping(self._block_tables[req.row], 0, n, self.page_size, slots,
+                                int(off))
+        self.sp_ring_segments += len(packed)
+        self.sp_ring_tokens += total
+        self.sp_ring_padding += width - total
+        logits = self._ring_pass(ring_prefill_packed, ids, pos[None], slots, seg[None],
+                                 logits_at)
+        self._finish_ring(packed, rb, logits, others_running, finished)
+
+    def _finish_ring(self, reqs: list[_Request], rb: int, logits: torch.Tensor,
+                     others_running: bool, finished: list[GenerationResult]) -> None:
+        """A ring pass's bookkeeping, through the chunked path's: the whole
+        prompts into the presence mask (one [rb, longest] call), each
+        request's prefill complete and its full pages registered, first
+        tokens sampled (committed now or queued for the next burst)."""
+        longest = max(len(r.prompt) for r in reqs)
+        ids = np.zeros((rb, longest), dtype=np.int32)
+        lens = np.zeros((rb,), dtype=np.int32)
+        row_idx = np.zeros((rb,), dtype=np.int32)
+        for i, req in enumerate(reqs):
+            ids[i, : len(req.prompt)] = req.prompt
+            lens[i] = len(req.prompt)
+            row_idx[i] = req.row
+        self._finish_prefill_wave([(req, len(req.prompt)) for req in reqs], rb, row_idx,
+                                  self._tensor(ids), self._tensor(lens), logits,
+                                  others_running, finished)
 
     # ------------------------------------------------------------ compute --
 
@@ -1312,7 +1534,7 @@ class Engine:
         engine's pools (and their scales when quantized), which update in
         place; returns the logits."""
         out = fn(self.params, self.cfg, ids, pos, self._k_pages, self._v_pages, *args,
-                 k_scales=self._k_scales, v_scales=self._v_scales, **kwargs)
+                 k_scales=self._k_scales, v_scales=self._v_scales, mesh=self.mesh, **kwargs)
         return out[0]
 
     def _finish_prefill_wave(self, granted: list[tuple[_Request, int]], rb: int,
@@ -1518,7 +1740,7 @@ class Engine:
             self._tensor(self._block_tables), self._gen,
             self._temp_d, self._top_p_d, self._top_k_d, self._rep_pen_d,
             n_steps=n_steps, filter_sampling=filt,
-            k_scales=self._k_scales, v_scales=self._v_scales,
+            k_scales=self._k_scales, v_scales=self._v_scales, mesh=self.mesh,
         )
         prev = self._chain
         self._chain = {"last": toks[:, -1], "lens": out_lens, "pending": toks,
@@ -1984,7 +2206,8 @@ class Engine:
         each (row bucket x dispatch width) -- packed: each segment bucket --,
         a greedy and a sampled decode burst (in a spec mode, the spec paths
         instead); under draft-model speculation the plain-decode fallback
-        and every (k rung x row bucket) of the draft burst; then each
+        and every (k rung x row bucket) of the draft burst; one prompt at each
+        ring width of ``sp_ring_bucket_ladder`` on an sp mesh; then each
         fused-step variant and each migration burst size when those modes
         are on.  It leaves the engine state clean.  Each wave's prompt holds
         another token, so no wave resumes from an earlier one's cached
@@ -2002,11 +2225,16 @@ class Engine:
         def tok() -> int:
             return 2 + wave % max(2, self.cfg.vocab_size - 2)
 
+        ring = self.sp_prefill_threshold is not None and self._sp > 1
+
         def long_len(nb: int, cap: int) -> int:
-            # one long prompt and nb - 1 short ones that fit the pool together
+            # one long prompt and nb - 1 short ones that fit the pool
+            # together, below the ring's threshold: these waves warm the
+            # chunked shapes, the ring's are warmed by width below
             short_pages = pages_needed(3 + sp.max_tokens, self.page_size)
             budget = (self._allocator.num_pages - (nb - 1) * short_pages) * self.page_size
-            return min(cap, self.max_seq_len - 3, budget - sp.max_tokens)
+            n = min(cap, self.max_seq_len - 3, budget - sp.max_tokens)
+            return min(n, self.sp_prefill_threshold - 1) if ring else n
 
         if self.prefill_token_budget is not None:
             for nb in self.packed_prefill_buckets():
@@ -2029,6 +2257,12 @@ class Engine:
                 self.generate([[tok()] * plen] + [[tok()] * 3] * (nb - 1), sp)
         wave += 1
         self.generate([[tok()] * 3], SamplingParams(max_tokens=2, temperature=0.7, top_p=0.9))
+        # one prompt a ring width: the packed pass's per-segment arrays are
+        # always sp_ring_segs rows, so one segment warms each width
+        for width in self.sp_ring_bucket_ladder() if ring else []:
+            n = min(width, self.max_seq_len - 2)
+            if n >= self.sp_prefill_threshold:
+                self.generate([[1] * n], sp)
         if self._draft_enabled:
             # the plain-decode fallback (the greedy waves above rode the
             # draft burst), then the whole ladder with an all-False active,
@@ -2141,6 +2375,30 @@ class Engine:
             for res in self.step():
                 done[res.request_id] = res
         return [done[rid] for rid in order]
+
+
+def _check_mesh(mesh, cfg: Qwen2Config, modes: dict[str, bool]) -> None:
+    """Refuse what a mesh engine does not serve yet, before anything is
+    built: dp and pp axes, the modes of ROADMAP queue 1 item 8.6, a tp that
+    splits a head (JAX's check and message)."""
+    if mesh.shape["pp"] > 1:
+        raise NotImplementedError("an engine mesh takes tp / sp / ep axes: pp is a training "
+                                  "axis (ROADMAP queue 1 item 8.4)")
+    if mesh.shape["dp"] > 1:
+        raise NotImplementedError("dp x tp fleets are ROADMAP queue 1 item 8.6; dp alone is "
+                                  "served as engine replicas (serving/multi_engine.py)")
+    refused = [name for name, on in modes.items() if on]
+    if refused:
+        raise NotImplementedError(
+            f"{', '.join(refused)} on a mesh: ROADMAP queue 1 item 8.6 brings the engine "
+            "modes to tp / sp / ep meshes; a mesh engine serves the default mode, "
+            "int8 / int4 pages and weights, and packed prefill")
+    tp = mesh.shape["tp"]
+    if tp > 1 and (cfg.num_kv_heads % tp or cfg.num_heads % tp):
+        raise ValueError(
+            f"tp={tp} must divide num_heads={cfg.num_heads} and "
+            f"num_kv_heads={cfg.num_kv_heads}; use plan_for_devices("
+            "..., num_heads=..., num_kv_heads=..., role='serve')")
 
 
 def _check_params(params: dict, device: torch.device) -> None:

@@ -62,14 +62,22 @@ def quant_bits(quant) -> int:
 
 
 def make_page_pools(cfg, num_pages: int, page_size: int, dtype=torch.bfloat16,
-                    device=None, quant=0) -> PagePools:
+                    device=None, quant=0, mesh=None) -> PagePools:
     """Zeroed pools on ``device``: ``num_pages`` pages for the allocator
     plus the drop page.  ``quant`` 0 gives bf16 or f32 pools of ``dtype``;
     8 gives int8 pools, 4 uint8 nibble planes of half the head width, both
-    with zeroed per-page scales."""
+    with zeroed per-page scales.  On a ``mesh`` whose tp splits the KV heads
+    the pools, and their scales, hold this rank's ``n_kv / tp`` heads (the
+    JAX engine's pools sharded over their kv-head axis)."""
     dev = resolve_device(device)
     bits = quant_bits(quant)
-    shape = (cfg.num_layers, cfg.num_kv_heads, num_pages + 1, page_size, cfg.head_dim)
+    n_kv = cfg.num_kv_heads
+    tp = mesh.shape["tp"] if mesh is not None else 1
+    if tp > 1:
+        if n_kv % tp:
+            raise ValueError(f"tp={tp} does not divide num_kv_heads={n_kv}")
+        n_kv //= tp
+    shape = (cfg.num_layers, n_kv, num_pages + 1, page_size, cfg.head_dim)
     if bits:
         if bits == 4 and cfg.head_dim % 2:
             raise ValueError("int4 KV pages need an even head_dim")

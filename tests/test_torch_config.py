@@ -103,9 +103,6 @@ PORT_DEFAULTS = {"chip_peak_tflops": 989.0}
 
 # JAX settings the port has no field for yet, each with its reason
 PENDING = {
-    # the sequence-parallel prefill threshold comes with the sp layer
-    # (ROADMAP.md queue 1 item 8.3)
-    "sp_prefill_threshold", "sp_prefill_threshold_set",
     # read by nothing in the JAX package
     "dtype", "min_source_nodes",
 }

@@ -259,15 +259,22 @@ def test_engine_defaults_to_the_card(weights):
 
 
 @pytest.mark.parametrize("option", [
-    {"sp_ring_buckets": 2}, {"sp_ring_pack": False}, {"sp_prefill_threshold": 64},
-    {"mesh": object()},
-    # a mode's tuning away from its JAX default is refused like the mode
-    {"sp_prefill_threshold": 0}, {"sp_ring_buckets": 1, "sp_ring_pack": False},
+    {"spec_ngram_k": 4}, {"spec_ngram_k": 4, "spec_burst_iters": 2},
+    {"kv_tier": "on"}, {"kv_host_pool_pages": 16, "preempt": "on"},
+    {"draft_params": "draft"},
+    {"spec_ngram_k": 4, "spec_burst_iters": 2, "fused_step": True, "prefill_token_budget": 48},
 ])
 def test_engine_rejects_unported_modes(weights, option):
+    """The engine modes a tp / sp / ep mesh does not serve yet are refused
+    at construction, naming ROADMAP queue 1 item 8.6 (a mesh layout needs
+    no world for that: the refusal comes before anything is built)."""
+    from githubrepostorag_tpu_torch.parallel import Mesh, MeshPlan
+
     _, cfg, _, tp = weights
-    with pytest.raises(NotImplementedError):
-        _torch_engine(cfg, tp, **option)
+    if option.get("draft_params") == "draft":
+        option = {"draft_params": tp, "draft_cfg": cfg}
+    with pytest.raises(NotImplementedError, match="item 8.6"):
+        _torch_engine(cfg, tp, mesh=Mesh(MeshPlan(tp=2)), **option)
 
 
 @pytest.mark.parametrize("option, bad", [
@@ -403,16 +410,17 @@ def test_async_engine_stats_key_set_matches_jax(weights):
 
 
 def test_engine_takes_the_servers_tuning_keywords(weights):
-    """The JAX server passes its modes' tuning keywords whatever the mode:
-    at their JAX defaults they are accepted, and refused otherwise
-    (``test_engine_rejects_unported_modes``), with a message naming the
-    value to leave them at."""
+    """The JAX server passes its modes' tuning keywords whatever the mode,
+    and the engine takes them."""
     _, cfg, _, tp = weights
     _torch_engine(cfg, tp, kv_migrate_burst=8, sp_ring_pack=True, sp_ring_buckets=0, spec_k=4,
                   spec_iters=4, spec_accept_floor=0.35, spec_deadline_margin_s=0.25,
                   protected_priority="interactive")
-    with pytest.raises(NotImplementedError, match=r"sp_ring_buckets=2 .*leave it at 0"):
-        _torch_engine(cfg, tp, sp_ring_buckets=2)
+    # the ring's tuning is taken at any value, as in JAX; without an sp axis
+    # no prompt is ring-bound and the ladder is empty
+    eng = _torch_engine(cfg, tp, sp_ring_buckets=2, sp_ring_pack=False, sp_prefill_threshold=64)
+    assert (eng.sp_ring_bucket_count, eng.sp_ring_pack) == (2, False)
+    assert not eng.is_longctx(100) and eng.sp_ring_bucket_ladder() == []
     # the draft controller's tuning is taken at any value (the mode is ported)
     _torch_engine(cfg, tp, spec_k=8, spec_iters=2, spec_accept_floor=0.5,
                   spec_deadline_margin_s=1.0)

@@ -201,11 +201,11 @@ def _serve_a_chat(checkpoint, extra: dict, messages=None, max_tokens: int = 6):
 @pytest.mark.parametrize("env,message", [
     ({}, "requires MODEL_WEIGHTS_PATH"),
     ({"MODEL_WEIGHTS_PATH": "/nonexistent", "MESH_SHAPE": "tp:2"},
-     "MESH_SHAPE is set.*queue 1 item 8 "),
+     "MESH_SHAPE='tp:2' needs 2 ranks, the world has 1"),
     ({"MODEL_WEIGHTS_PATH": "/nonexistent", "SPEC_DRAFT_MODEL": "/draft", "SPEC_NGRAM_K": "4"},
      "SPEC_DRAFT_MODEL and SPEC_NGRAM_K are mutually exclusive"),
     ({"MODEL_WEIGHTS_PATH": "/nonexistent", "MESH_SHAPE": "dp:2,sp:2"},
-     "MESH_SHAPE is set.*'sp': 2.*queue 1 item 8 "),
+     "dp replicas of a tp / sp / ep mesh are ROADMAP.md queue 1 item 8.6"),
     ({"MODEL_WEIGHTS_PATH": "/nonexistent", "MESH_SHAPE": "dp:two"}, "bad MESH_SHAPE entry"),
     ({"MODEL_WEIGHTS_PATH": "/nonexistent", "MESH_SHAPE": "dp:2,dp:3"},
      "axis 'dp' given twice"),
